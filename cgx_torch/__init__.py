@@ -1,0 +1,36 @@
+"""cgx_torch: the PyTorch and CUDA port of cgx, for an NVIDIA H100.
+
+It sits beside ``cgx`` (the JAX package, which stays the reference) and
+never imports it or JAX. Entry points run on ``"cuda"`` unless the
+caller passes ``device="cpu"``. The hand-written CUDA kernels build with
+``nvcc`` on their first CUDA call, never at import (``cgx_torch._build``).
+"""
+
+from cgx_torch.config import DEFAULT_TOLERANCE, NEARZERO, SolveConfig
+from cgx_torch.mats.containers import (
+    COOMatrix,
+    CSRMatrix,
+    DenseMatrix,
+    DIAMatrix,
+    ELLMatrix,
+)
+from cgx_torch.mats.generators import (
+    lap2d_aniso,
+    lap2d_fd,
+    lap2d_reference,
+    lap3d_fd,
+    poisson2d_var,
+    poisson3d_var,
+    source_term,
+)
+from cgx_torch.solver.api import solve
+from cgx_torch.solver.cg import CGResult, cg_solve
+from cgx_torch.solver.fast import dia_cg_solve_pallas
+from cgx_torch.solver.operators import (
+    DenseOperator,
+    DiaOperator,
+    as_operator,
+    operator_from_numpy,
+)
+
+__version__ = "0.1.0"

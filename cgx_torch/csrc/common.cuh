@@ -1,0 +1,77 @@
+// Shared launch shape and deterministic reductions for the cgx_torch kernels.
+//
+// A TPU grid runs its steps in order, so the Pallas kernels could carry a dot
+// product across grid steps in SMEM. CUDA blocks run concurrently and in no
+// order. Here each block reduces its share with warp shuffles, writes one
+// partial, and the last block to finish (found with an integer ticket) sums the
+// partials in index order. No float atomics: the combine order is fixed by the
+// launch shape alone, so a dot, and every alpha and beta that depends on it, is
+// the same on every run.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace cgx {
+
+constexpr int kThreads = 256;     // threads per block
+constexpr int kMaxBlocks = 1024;  // grid-stride loops cover any n with at most this many blocks
+
+inline int grid_for(long long n) {
+  long long blocks = (n + kThreads - 1) / kThreads;
+  if (blocks < 1) blocks = 1;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  return static_cast<int>(blocks);
+}
+
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  return v;  // lane 0 holds the warp's sum
+}
+
+// Sum of v over the block, in a fixed order; the result is valid in thread 0.
+// Every thread of the block must call it.
+template <typename T>
+__device__ T block_sum(T v) {
+  __shared__ T warp_part[kThreads / 32];
+  __syncthreads();  // an earlier call may still be reading warp_part
+  v = warp_sum(v);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) warp_part[warp] = v;
+  __syncthreads();
+  T s = T(0);
+  if (warp == 0) {
+    s = lane < kThreads / 32 ? warp_part[lane] : T(0);
+    s = warp_sum(s);
+  }
+  return s;
+}
+
+// Writes this block's partial, and lets the last block to arrive sum all
+// partials in index order into *out. *ticket must be 0 at launch; the last
+// block sets it back to 0. block_total is read from thread 0 only.
+template <typename T>
+__device__ void grid_sum(T block_total, T* partials, unsigned int* ticket, T* out) {
+  __shared__ bool is_last;
+  if (threadIdx.x == 0) {
+    partials[blockIdx.x] = block_total;
+    __threadfence();  // the partial is visible before the ticket is taken
+    const unsigned int arrived = atomicAdd(ticket, 1u);
+    is_last = arrived == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  const volatile T* parts = partials;  // written by other SMs: bypass L1
+  T v = T(0);
+  for (int i = threadIdx.x; i < static_cast<int>(gridDim.x); i += blockDim.x) v += parts[i];
+  v = block_sum(v);
+  if (threadIdx.x == 0) {
+    *out = v;
+    *ticket = 0u;
+  }
+}
+
+}  // namespace cgx

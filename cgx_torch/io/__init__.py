@@ -1,0 +1,1 @@
+"""cgx_torch.io (see the package docstring)."""

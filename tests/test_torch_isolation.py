@@ -1,0 +1,69 @@
+"""cgx_torch stands alone: it imports neither JAX nor cgx, builds no
+kernel at import, and runs its solver loops at full float32."""
+
+import pathlib
+import re
+import subprocess
+import sys
+import types
+
+import numpy as np
+import torch
+
+import cgx_torch
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+# an import statement that names jax or the cgx package (cgx_torch is fine)
+FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|cgx)(\s|\.|,|$)", re.M)
+
+
+def test_import_pulls_in_neither_jax_nor_cgx():
+    code = ("import cgx_torch, sys; "
+            "assert 'jax' not in sys.modules and 'cgx' not in sys.modules, "
+            "sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'cgx'))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_sources_import_neither_jax_nor_cgx():
+    files = sorted((ROOT / "cgx_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    offenders = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
+                 for f in files for m in FORBIDDEN.finditer(f.read_text())]
+    assert not offenders, offenders
+
+
+def test_import_builds_no_kernel():
+    code = ("import cgx_torch, cgx_torch.ops.dia_spmv, cgx_torch.ops.axpy, sys; "
+            "assert not cgx_torch._build.load.cache_info().currsize; "
+            "assert 'ctypes' not in sys.modules or not cgx_torch._build.load.cache_info().hits")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def _flag_recorder(seen):
+    def matvec(v):
+        seen.append((torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision()))
+        return 2.0 * v
+    return matvec
+
+
+def test_solver_loops_run_at_full_float32():
+    """Inside the loop TF32 is off and matmul precision is "highest",
+    whatever the caller set; the caller's settings come back after."""
+    old = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("medium")  # TF32 on
+    try:
+        assert torch.backends.cuda.matmul.allow_tf32
+        for solve in (cgx_torch.cg_solve, cgx_torch.solve):
+            seen = []
+            op = types.SimpleNamespace(matvec=_flag_recorder(seen))  # an operator, for solve
+            res = solve(op, np.ones(8, np.float32), device="cpu")
+            assert bool(res.converged) and seen
+            assert all(s == (False, "highest") for s in seen), seen
+            assert torch.backends.cuda.matmul.allow_tf32
+            assert torch.get_float32_matmul_precision() == "medium"
+    finally:
+        torch.set_float32_matmul_precision(old)
