@@ -23,13 +23,19 @@ from cgx_torch.mats.generators import (
     poisson3d_var,
     source_term,
 )
+from cgx_torch.ops.matvec import dense_matvec, dense_matvec_dot
 from cgx_torch.solver.api import solve
 from cgx_torch.solver.cg import CGResult, cg_solve
 from cgx_torch.solver.fast import dia_cg_solve_pallas
 from cgx_torch.solver.operators import (
+    CsrOperator,
     DenseOperator,
     DiaOperator,
+    EllOperator,
+    PallasDenseOperator,
     as_operator,
+    densify_on_device,
+    operator_from_cgx,
     operator_from_numpy,
 )
 

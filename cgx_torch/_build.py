@@ -51,6 +51,10 @@ _SIGNATURES = {
         "cgx_fused_update_rs": (_p, _p, _p, _p, _p, _p, _p, _p, _n, _p, _p, _n, _p),
         "cgx_fused_axpby": (_p, _p, _p, _p, _p, _n, _p),
     },
+    "matvec": {
+        "cgx_dense_matvec": (_p, _p, _p, _n, _n, _n, _p),
+        "cgx_dense_matvec_dot": (_p, _p, _p, _p, _p, _p, _p, _n, _n, _n, _n, _p),
+    },
 }
 
 

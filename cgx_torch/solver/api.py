@@ -54,8 +54,9 @@ def solve(
 ) -> CGResult:
     """Solve ``A x = b`` on one device with the configuration's path.
 
-    ``mat`` is a host container (``DIAMatrix``, ``DenseMatrix``), an
-    ndarray, a 2-D tensor or a port operator; tensors must already be
+    ``mat`` is a host container (``DIAMatrix``, ``DenseMatrix``,
+    ``ELLMatrix``, ``CSRMatrix``, ``COOMatrix``), a scipy.sparse matrix,
+    an ndarray, a 2-D tensor or a port operator; tensors must already be
     on ``device``."""
     cfg = config or SolveConfig()
     method = cfg.method if method is None else method

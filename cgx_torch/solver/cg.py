@@ -133,7 +133,7 @@ def _as_matvec(a, dev: torch.device) -> Callable:
     if isinstance(a, torch.Tensor) and a.dim() == 2:
         a = DenseOperator(a)
     if hasattr(a, "matvec"):
-        for name in ("bands", "a"):
+        for name in ("bands", "a", "values"):
             if isinstance(getattr(a, name, None), torch.Tensor):
                 check_device(getattr(a, name), dev, f"the operator's {name}")
         return a.matvec

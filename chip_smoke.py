@@ -22,29 +22,58 @@ Phases, one JSON object per line each:
    use_pallas=True, twice (bitwise equal), its kernel launch counts,
    and the plain fp32 loop on the same problem;
 6. profile: device time by kernel and the card's idle share over 256
-   iterations of the main path, from torch.profiler.
+   iterations of the main path, from torch.profiler;
+7. dense kernels: dense_matvec and dense_matvec_dot, float32 and
+   float64, on lap2d_fd(100) densified (N = 10,000, tiles 1024 x 128,
+   the CLI's mapping of the reference's "1024 16") and on
+   lap2d_reference(16384) densified (N = 16,384, the default 256 x 512),
+   against their plain versions, with torch.mv as the yardstick;
+8. CLI, CUDA grammar: the reference's own run, lap2D_5pt_n100.mtx 1024
+   16 true, in fp64 through the dense kernel, twice (bitwise equal),
+   held to the lap2d_fd(100) goldens and the reference's gates;
+9. CLI, MPI grammar: 16384 --pallas, dense fp64 through the kernel,
+   against the plain fp64 dense loop;
+10. CLI, fp32: the CUDA grammar with --precision fp32 against the plain
+    fp32 loop.
 
-Then a "kernels" line for the four kernels, and, last, the contract
-line {"ok": true, "device": {...}}. Any failed check raises, so the
-script exits non-zero and prints no result. It needs a CUDA device and
-imports neither JAX nor cgx.
+The CLI phases call cgx_torch.cli.main.run, the body of the CLI's main,
+in this process. Then a "kernels" line for the six kernels, and, last,
+the contract line {"ok": true, "device": {...}}. Any failed check
+raises, so the script exits non-zero and prints no result. It needs a
+CUDA device and imports neither JAX nor cgx.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from cgx_torch import SolveConfig, _build, as_operator, cg_solve, dia_cg_solve_pallas, solve
-from cgx_torch.mats.generators import lap2d_fd, lap2d_reference, source_term
-from cgx_torch.ops import axpy, dia_spmv
+from cgx_torch import (
+    DenseOperator,
+    SolveConfig,
+    _build,
+    as_operator,
+    cg_solve,
+    densify_on_device,
+    dia_cg_solve_pallas,
+    solve,
+)
+from cgx_torch.cli import main as cli
+from cgx_torch.mats.generators import lap2d_fd, lap2d_fd_coo_lower, lap2d_reference, source_term
+from cgx_torch.ops import axpy, dia_spmv, matvec
+from cgx_torch.ops._util import f32_exact
 
 SEED = 0
 DEV = "cuda"  # every tensor of the run lives here
@@ -87,13 +116,25 @@ KERNELS = {
     "dia_matvec_dot": ("cgx_torch/csrc/dia_spmv.cu", "cgx/ops/dia_spmv.py:431"),
     "fused_update_rs": ("cgx_torch/csrc/axpy.cu", "cgx/ops/axpy.py:68"),
     "fused_axpby": ("cgx_torch/csrc/axpy.cu", "cgx/ops/axpy.py:118"),
+    "dense_matvec": ("cgx_torch/csrc/matvec.cu", "cgx/ops/matvec.py:88"),
+    "dense_matvec_dot": ("cgx_torch/csrc/matvec.cu", "cgx/ops/matvec.py:163"),
 }
 WRAPPERS = {
     "dia_matvec": dia_spmv.dia_matvec,
     "dia_matvec_dot": dia_spmv.dia_matvec_dot,
     "fused_update_rs": axpy.fused_update_rs,
     "fused_axpby": axpy.fused_axpby,
+    "dense_matvec": matvec.dense_matvec,
+    "dense_matvec_dot": matvec.dense_matvec_dot,
 }
+# (problem, host matrix, (block_rows, block_cols)) of the dense kernel phase
+DENSE_PROBLEMS = [
+    ("lap2d_fd(100)", lambda: lap2d_fd(100), (1024, 128)),  # the CLI's "1024 16"
+    ("lap2d_reference(16384)", lambda: lap2d_reference(16384), (256, 512)),  # the defaults
+]
+MPI_N = 16384  # the reference's largest MPI size (the 16384 key of plots.ipynb's ALPHAS)
+STEP = re.compile(r"\[STEP (\d+)\] residual = ([0-9.e+-]+), \|\|x\|\| = ([0-9.e+-]+), "
+                  r"\|\|Ax - b\|\|/\|\|b\|\| = ([0-9.e+-]+|nan)")
 
 
 def sync() -> None:
@@ -219,6 +260,15 @@ def kernel_cases(spec, problem: str, dia, dtype) -> dict:
         "dia_matvec_dot": lambda out: (x, out[0]),
         "fused_update_rs": lambda out: (out[1], out[1]),
     }
+    return measure_cases(spec, problem, dtype, n, cases, dot_terms)
+
+
+def measure_cases(spec, problem: str, dtype, n: int, cases: dict, dot_terms: dict) -> dict:
+    """Each case's kernel against its plain version, then the times of
+    the kernel, the plain version and the library call; returns
+    {kernel: record} and emits one line per kernel. ``cases`` maps a
+    kernel to (kernel call, plain call, library call or None, words,
+    flops)."""
     records = {}
     for name, (kern, plain, lib, words, flops) in cases.items():
         got, ref = kern(), plain()
@@ -260,6 +310,47 @@ def phase_kernels(spec) -> dict:
             recs = kernel_cases(spec, problem, dia, dtype)
             if problem.startswith("lap2d_fd") and dtype == torch.float32:
                 main_records = recs  # the main path's shapes and dtype
+            sync()
+    return main_records
+
+
+def dense_kernel_cases(spec, problem: str, dia, dtype, tiles) -> dict:
+    """The dense kernels against their plain versions on ``dia``
+    densified on the card, with the given tiles."""
+    a = densify_on_device(as_operator(dia, dtype, device=DEV)).a
+    n = a.shape[0]
+    br, bc = tiles
+    x = torch.as_tensor(np.random.default_rng(SEED).standard_normal(n), dtype=dtype, device=DEV)
+
+    def library():  # cuBLAS gemv at full float32: a yardstick the port never calls
+        with f32_exact():
+            return torch.mv(a, x)
+
+    cases = {
+        "dense_matvec": (lambda: matvec.dense_matvec(a, x, block_rows=br, block_cols=bc),
+                         lambda: matvec.dense_matvec_ref(a, x, block_rows=br, block_cols=bc),
+                         library, n * n + 2 * n, 2 * n * n),
+        "dense_matvec_dot": (lambda: matvec.dense_matvec_dot(a, x, block_rows=br, block_cols=bc),
+                             lambda: matvec.dense_matvec_dot_ref(a, x, block_rows=br,
+                                                                 block_cols=bc),
+                             None, n * n + 2 * n + 1, 2 * n * n + 2 * n),
+    }
+    dot_terms = {"dense_matvec_dot": lambda out: (x, out[0])}
+    records = measure_cases(spec, f"{problem} dense {br}x{bc}", dtype, n, cases, dot_terms)
+    del a
+    return records
+
+
+def phase_dense_kernels(spec) -> dict:
+    """Returns the records at the reference run's shape and dtype:
+    lap2d_fd(100), 1024 x 128 tiles, float64."""
+    main_records = {}
+    for problem, make, tiles in DENSE_PROBLEMS:
+        dia = make()
+        for dtype in (torch.float32, torch.float64):
+            recs = dense_kernel_cases(spec, problem, dia, dtype, tiles)
+            if problem == "lap2d_fd(100)" and dtype == torch.float64:
+                main_records = recs
             sync()
     return main_records
 
@@ -386,12 +477,133 @@ def phase_profile(op, b_dev) -> None:
           "idle_share": 1 - busy_us / wall_us})
 
 
+def cli_run(argv):
+    """One in-process CLI run with every launch count set to 0 just
+    before it: returns (Run, its stdout, the launch counts just after)."""
+    for w in WRAPPERS.values():
+        w.launches = 0
+    sync()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        run = cli.run(argv)
+    launches = {name: w.launches for name, w in WRAPPERS.items()}
+    check(run.rc == 0, f"cli {argv}: exit code {run.rc}")
+    m = STEP.search(buf.getvalue())
+    check(m is not None, f"cli {argv}: no [STEP k] line in {buf.getvalue()!r}")
+    return run, m, launches
+
+
+def cli_record(spec, phase: str, run, m, launches, n: int, dtype) -> dict:
+    """The numbers every CLI record gives. An iteration's bound: A read
+    once, plus the 14 vector words of the reference recurrence."""
+    item = torch.finfo(dtype).bits // 8
+    body = launches["dense_matvec"] - 1  # less the start residual's mat-vec
+    return {"phase": phase, "n": n, "dtype": str(dtype), "k": int(m.group(1)),
+            "step_line": m.group(0), "csv_row": run.csv_row, "seconds": run.seconds,
+            "body_iterations": body, "us_per_iter": run.seconds / body * 1e6,
+            "bound_us_per_iter": (n * n + 14 * n) * item / spec["hbm_bytes_per_s"] * 1e6,
+            "launches": launches, "converged": bool(run.result.converged),
+            "true_rel": float(m.group(4))}
+
+
+def phase_cli_reference(spec, tmp: Path) -> dict:
+    """The reference's run, CUDA grammar, fp64: converged, the golden
+    count window and residual prefix of lap2d_fd(100), the DEBUG gate,
+    the CSV row, the kernel on every iteration, and bitwise repeatable."""
+    mtx = tmp / "lap2D_5pt_n100.mtx"
+    lap2d_fd_coo_lower(100).write(mtx, comment=" 2D 5-point Laplacian, 100x100 grid")
+    out = tmp / "CUDA_T.txt"
+    argv = [str(mtx), "1024", "16", "true", str(out), "--history", "8"]
+    run, m, launches = cli_run(argv)
+    run2, m2, _ = cli_run(argv)
+    n = run.op.shape[0]
+    rec = cli_record(spec, "cli_cuda_grammar", run, m, launches, n, torch.float64)
+    k = rec["k"]
+    hist = run.result.history.cpu().numpy()
+    gold = GOLDEN_PREFIX["lap2d_fd(100)"]
+    rec["prefix_rel_err"] = float(np.max(np.abs(hist - gold) / np.abs(gold)))
+    rec["tiles"] = [run.op.block_rows, run.op.block_cols]
+    rec["bitwise_repeat"] = int(m2.group(1)) == k and torch.equal(
+        run.result.x.view(torch.int64), run2.result.x.view(torch.int64))
+    rec["seconds_repeat"] = run2.seconds
+    emit(rec)
+    lo, hi = GOLDEN_K["lap2d_fd(100)"]
+    row = out.read_text().splitlines()[0].split(",")
+    check(rec["converged"] and lo <= k <= hi, f"reference run: k={k} not in [{lo}, {hi}]")
+    check(rec["prefix_rel_err"] <= 1e-10, f"reference run: prefix off by {rec['prefix_rel_err']}")
+    check(rec["true_rel"] < 1e-11, f"reference run: true relative residual {rec['true_rel']}")
+    check(row[:2] == ["1024", "16"] and float(row[2]) > 0, f"reference run: CSV row {row}")
+    check(type(run.op).__name__ == "PallasDenseOperator" and rec["tiles"] == [1024, 128],
+          f"reference run: operator {run.op!r:.80}")
+    check(launches["dense_matvec"] >= k + 1, f"reference run missed the kernel: {launches}")
+    check(rec["bitwise_repeat"], "two reference runs differ")
+    return launches
+
+
+def phase_cli_mpi(spec, tmp: Path) -> None:
+    """MPI grammar, N = 16,384 dense fp64 through the kernel, against
+    the plain fp64 dense loop (torch.matmul) on the same matrix."""
+    out = tmp / "strong.txt"
+    run, m, launches = cli_run([str(MPI_N), str(out), "--pallas"])
+    rec = cli_record(spec, "cli_mpi_grammar", run, m, launches, MPI_N, torch.float64)
+    b = torch.as_tensor(source_term(MPI_N), dtype=torch.float64, device=DEV)
+    sync()
+    t0 = time.perf_counter()
+    plain = cg_solve(DenseOperator(run.op.a), b, device=DEV)
+    k_plain = int(plain.iterations)
+    rec.update(k_plain=k_plain, plain_seconds=time.perf_counter() - t0,
+               tiles=[run.op.block_rows, run.op.block_cols])
+    emit(rec)
+    row = out.read_text().splitlines()[0].split(",")
+    k = rec["k"]
+    check(rec["converged"] and rec["true_rel"] < 1e-11,
+          f"MPI run: converged={rec['converged']}, true relative residual {rec['true_rel']}")
+    check(abs(k - k_plain) <= 0.01 * k_plain, f"MPI run: k={k} vs plain k={k_plain}")
+    check(row[:2] == [str(MPI_N), "1"] and float(row[2]) > 0, f"MPI run: CSV row {row}")
+    check(launches["dense_matvec"] >= k + 1, f"MPI run missed the kernel: {launches}")
+
+
+def phase_cli_fp32(spec, tmp: Path) -> None:
+    """The CUDA grammar in fp32 (fp32 dots) against the plain fp32 loop:
+    the main path's fp32 gates, k within 2% and true residuals within 2x."""
+    mtx = tmp / "lap2D_5pt_n100.mtx"  # written by phase_cli_reference
+    dia = lap2d_fd(100)
+    b = source_term(dia.shape[0])
+    tol = 1e-5 * float(np.linalg.norm(b))
+    argv = [str(mtx), "1024", "16", "true", str(tmp / "fp32.txt"), "--precision", "fp32",
+            "--tol", repr(tol)]
+    run, m, launches = cli_run(argv)
+    rec = cli_record(spec, "cli_fp32", run, m, launches, dia.shape[0], torch.float32)
+    sync()
+    t0 = time.perf_counter()
+    plain = cg_solve(DenseOperator(run.op.a), torch.as_tensor(b, dtype=torch.float32, device=DEV),
+                     tol=tol, device=DEV)
+    k_plain = int(plain.iterations)
+    rel_plain = true_rel(dia, plain.x.cpu().numpy(), b)
+    rec.update(tol=tol, k_plain=k_plain, plain_seconds=time.perf_counter() - t0,
+               true_rel=true_rel(dia, run.result.x.cpu().numpy(), b), true_rel_plain=rel_plain,
+               x_finite=bool(torch.isfinite(run.result.x).all()))
+    emit(rec)
+    k, rel = rec["k"], rec["true_rel"]
+    check(rec["converged"] and rec["x_finite"], "fp32 run did not converge to a finite x")
+    check(abs(k - k_plain) <= 0.02 * k_plain, f"fp32 run: k={k} vs plain k={k_plain}")
+    check(max(rel, rel_plain) <= 2 * min(rel, rel_plain),
+          f"fp32 run: true residuals {rel} and {rel_plain} differ by more than 2x")
+    check(launches["dense_matvec"] >= k + 1, f"fp32 run missed the kernel: {launches}")
+
+
 def main() -> int:
     spec = phase_device()
     phase_build()
     records = phase_kernels(spec)
     phase_goldens()
     launches = phase_main(spec)
+    records.update(phase_dense_kernels(spec))
+    with tempfile.TemporaryDirectory() as tmp:
+        launches.update({name: n for name, n in phase_cli_reference(spec, Path(tmp)).items()
+                         if name.startswith("dense_")})
+        phase_cli_mpi(spec, Path(tmp))
+        phase_cli_fp32(spec, Path(tmp))
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         rec = records[name]

@@ -8,6 +8,7 @@ import sys
 import types
 
 import numpy as np
+import pytest
 import torch
 
 import cgx_torch
@@ -21,6 +22,17 @@ def test_import_pulls_in_neither_jax_nor_cgx():
     code = ("import cgx_torch, sys; "
             "assert 'jax' not in sys.modules and 'cgx' not in sys.modules, "
             "sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'cgx'))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("module", ["cgx_torch.cli.main", "cgx_torch.ops.matvec"])
+def test_module_import_pulls_in_neither_jax_nor_cgx_nor_a_build(module):
+    code = (f"import {module}, sys, cgx_torch; "
+            "assert 'jax' not in sys.modules and 'cgx' not in sys.modules, "
+            "sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'cgx')); "
+            "assert not cgx_torch._build.load.cache_info().currsize")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr

@@ -11,7 +11,7 @@ import torch
 
 import cgx_torch
 from cgx_torch.mats.generators import lap2d_fd, lap2d_reference, source_term
-from cgx_torch.ops import axpy, dia_spmv
+from cgx_torch.ops import axpy, dia_spmv, matvec
 
 
 @pytest.fixture
@@ -139,6 +139,76 @@ def test_cuda_fast_loop_golden_and_repeatable(cuda):
     assert torch.equal(first.x.view(torch.int64), again.x.view(torch.int64))
     x = first.x.cpu().numpy()
     assert np.linalg.norm(dia.mat_vec(x) - b) / np.linalg.norm(b) < 1e-11
+
+
+def _dense_case(shape, dtype, device, seed=0):
+    g = np.random.default_rng(seed)
+    a = torch.as_tensor(g.standard_normal(shape), dtype=dtype, device=device)
+    x = torch.as_tensor(g.standard_normal(shape[1]), dtype=dtype, device=device)
+    return a, x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape,tiles", [((129, 257), (64, 128)), ((3000, 2999), (1024, 128)),
+                                         ((777, 500), (64, 96)), ((40, 70), (1, 1))])
+def test_cuda_dense_kernels_match_plain(cuda, dtype, shape, tiles):
+    """The dense kernels against their plain versions on ragged shapes:
+    the sums are grouped alike, so only the order inside a tile differs."""
+    a, x = _dense_case(shape, dtype, cuda)
+    br, bc = tiles
+    y = matvec.dense_matvec(a, x, block_rows=br, block_cols=bc)
+    y2, d = matvec.dense_matvec_dot(a, x, block_rows=br, block_cols=bc)
+    want_y, want_d = matvec.dense_matvec_dot_ref(a, x, block_rows=br, block_cols=bc)
+    torch.cuda.synchronize()
+    rtol = 1e-5 if dtype == torch.float32 else 1e-12
+    scale = float(want_y.abs().max())
+    assert float((y - want_y).abs().max()) <= rtol * scale
+    assert torch.equal(y, y2)
+    m = min(shape)
+    dot_scale = float((x[:m] * want_y[:m]).abs().sum())
+    assert abs(float(d) - float(want_d)) <= rtol * dot_scale
+
+
+@pytest.mark.cuda
+def test_cuda_dense_is_deterministic_and_full_float32(cuda):
+    """Repeated dots are bitwise equal; and under a caller's TF32 setting
+    both the kernel and its plain version stay at full float32 (TF32
+    would be ~1e-3 off)."""
+    a, x = _dense_case((2048, 2048), torch.float32, cuda)
+    first = matvec.dense_matvec_dot(a, x, block_rows=256, block_cols=512)
+    for _ in range(5):
+        again = matvec.dense_matvec_dot(a, x, block_rows=256, block_cols=512)
+        assert torch.equal(again[0], first[0]) and torch.equal(again[1], first[1])
+    exact = (a.double() @ x.double())
+    old = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("medium")
+    try:
+        for y in (matvec.dense_matvec(a, x), matvec.dense_matvec_ref(a, x)):
+            assert float((y.double() - exact).abs().max()) <= 1e-5 * float(exact.abs().max())
+    finally:
+        torch.set_float32_matmul_precision(old)
+
+
+@pytest.mark.cuda
+def test_cuda_cli_reference_run_small(cuda, tmp_path, capsys):
+    """The CUDA grammar through the dense kernel on a small .mtx: the
+    same k as on the CPU, and the kernel launched every iteration."""
+    from cgx_torch.cli import main as cli
+    from cgx_torch.mats.generators import lap2d_fd_coo_lower
+
+    mtx = tmp_path / "lap12.mtx"
+    lap2d_fd_coo_lower(12).write(mtx)
+    argv = [str(mtx), "1024", "16", "true", str(tmp_path / "o.txt"), "--tol", "1e-6"]
+    before = matvec.dense_matvec.launches
+    gpu = cli.run(argv)
+    launched = matvec.dense_matvec.launches - before
+    cpu = cli.run(argv + ["--device", "cpu"])
+    assert gpu.result.x.is_cuda and int(gpu.result.iterations) == int(cpu.result.iterations)
+    assert launched >= int(gpu.result.iterations) + 1
+    # only the summation orders differ (fp64 dots and tiles)
+    scale = float(cpu.result.x.abs().max())
+    assert float((gpu.result.x.cpu() - cpu.result.x).abs().max()) <= 1e-8 * scale
 
 
 @pytest.mark.cuda
