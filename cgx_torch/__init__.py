@@ -23,6 +23,7 @@ from cgx_torch.mats.generators import (
     poisson3d_var,
     source_term,
 )
+from cgx_torch.ops.cg_kernel import dia_cg_solve_vmem
 from cgx_torch.ops.matvec import dense_matvec, dense_matvec_dot
 from cgx_torch.solver.api import solve
 from cgx_torch.solver.cg import CGResult, cg_solve
@@ -38,5 +39,6 @@ from cgx_torch.solver.operators import (
     operator_from_cgx,
     operator_from_numpy,
 )
+from cgx_torch.solver.refine import RefineResult, iterative_refinement, refine_fixed_sweeps
 
 __version__ = "0.1.0"

@@ -41,6 +41,8 @@ _p = ctypes.c_void_p
 _n = ctypes.c_longlong
 _offs = ctypes.POINTER(ctypes.c_longlong)
 _i = ctypes.c_int
+_d = ctypes.c_double
+_i_out = ctypes.POINTER(ctypes.c_int)
 # C signature of each entry point (both _f32 and _f64), by source.
 _SIGNATURES = {
     "dia_spmv": {
@@ -54,6 +56,10 @@ _SIGNATURES = {
     "matvec": {
         "cgx_dense_matvec": (_p, _p, _p, _n, _n, _n, _p),
         "cgx_dense_matvec_dot": (_p, _p, _p, _p, _p, _p, _p, _n, _n, _n, _n, _p),
+    },
+    "cg_kernel": {
+        "cgx_dia_cg_chunk": (_p, _p, _p, _p, _p, _p, _p, _n, _p, _p, _n, _offs, _i, _i,
+                             _d, _d, _d, _i, _i, _i_out, _p),
     },
 }
 

@@ -20,6 +20,16 @@ from typing import Optional
 
 NEARZERO: float = 1.0e-14
 DEFAULT_TOLERANCE: float = 1.0e-10
+# The port's counterpart of cgx's VMEM_BUDGET_BYTES (a TPU number, not
+# copied): banded fp32 use_pallas solves, and the fp32 inner solves of
+# precision="mixed", run the whole-solve kernel (cgx_torch.ops.cg_kernel)
+# while cgx_torch.ops.cg_kernel.resident_state_bytes is at most this.
+# Set by chip_smoke.py's crossover sweep on an NVIDIA H100 80GB HBM3 at a
+# 700.00 W power limit: the whole-solve kernel beat the three-kernel loop
+# at every size swept, N = 250,000 to 4,000,000 (5 bands, fp32: 208 against
+# 670 us an iteration at 4e6), so the budget is the state of the largest,
+# N = 4,000,000 without the preconditioner. Sizes above it stay unmeasured.
+RESIDENT_BUDGET_BYTES: int = 144_024_640
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,17 +41,23 @@ class SolveConfig:
     nearzero: float = NEARZERO
     # Residual-history trace length (0 disables the trace buffer).
     history: int = 0
-    # "fp64" or "fp32" (dots accumulate in fp64). "bf16", "mixed"
-    # (ROADMAP A9) and "tw" (A12) are not ported yet.
+    # "fp64", "fp32" (dots accumulate in fp64) or "mixed" (fp64
+    # refinement sweeps around fp32 inner solves; tolerance relative to
+    # ||b||). "bf16" (ROADMAP A6) and "tw" (A12) are not ported yet.
     precision: str = "fp64"
-    # Banded fp32 problems run the three-kernel loop of
-    # cgx_torch.solver.fast (see cgx_torch.solver.api.solve).
+    # Banded fp32 problems run the whole-solve kernel within
+    # RESIDENT_BUDGET_BYTES, the three-kernel loop of cgx_torch.solver.fast
+    # above it (see cgx_torch.solver.api.solve).
     use_pallas: bool = False
-    # The fields below select paths that are not ported yet; they keep
-    # cgx's defaults so that a cgx configuration reads the same.
+    # The fields below select paths that are not ported yet, but for
+    # precond; they keep cgx's defaults so that a cgx configuration reads
+    # the same.
     large_banded: str = "stream"  # B4 / B6
     method: str = "reference"  # others: A7, A11
-    precond: Optional[str] = None  # A7, A10; B5/B6 with use_pallas
+    # None, "jacobi" or "neumann" (with use_pallas: the whole-solve
+    # kernel's in-kernel Neumann PCG); "block_jacobi", "chebyshev" (A7)
+    # and "mg" (A10) are not ported yet.
+    precond: Optional[str] = None
     precond_block_size: Optional[int] = None
     mg_smoother: str = "richardson"
     mg_cycle_precision: str = "fp64"

@@ -21,29 +21,9 @@
 // most kMaxDiags). The dot accumulates in the data type, as the TPU kernel did,
 // and its cross-block combine is deterministic (common.cuh).
 #include "common.cuh"
+#include "dia_row.cuh"
 
 namespace cgx {
-
-constexpr int kMaxDiags = 16;
-
-struct Offsets {
-  long long off[kMaxDiags];
-  int ndiag;
-};
-
-template <typename T>
-__device__ __forceinline__ T dia_row(const T* __restrict__ bands, const T* __restrict__ x,
-                                     long long n, const Offsets& o, long long i) {
-  T acc = T(0);
-#pragma unroll
-  for (int d = 0; d < kMaxDiags; ++d) {  // static indices keep o in the parameter bank
-    if (d < o.ndiag) {
-      const long long j = i + o.off[d];
-      if (j >= 0 && j < n) acc += bands[d * n + i] * x[j];
-    }
-  }
-  return acc;
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -70,13 +50,6 @@ dia_matvec_dot_kernel(const T* __restrict__ bands, const T* __restrict__ x, T* _
     part += x[i] * yi;
   }
   grid_sum(block_sum(part), partials, ticket, dot);
-}
-
-static bool make_offsets(const long long* offsets, int ndiag, Offsets* o) {
-  if (ndiag < 1 || ndiag > kMaxDiags) return false;
-  for (int d = 0; d < kMaxDiags; ++d) o->off[d] = d < ndiag ? offsets[d] : 0;
-  o->ndiag = ndiag;
-  return true;
 }
 
 template <typename T>

@@ -4,14 +4,26 @@ device and one right-hand side).
     import cgx_torch
     res = cgx_torch.solve(matrix, b)                       # fp64 reference CG
     res = cgx_torch.solve(matrix, b, cgx_torch.SolveConfig(
-        precision="fp32", use_pallas=True))                # three-kernel loop
+        precision="fp32", use_pallas=True))                # whole-solve kernel
+    res = cgx_torch.solve(matrix, b, cgx_torch.SolveConfig(
+        precision="mixed"))                                # fp64 refinement sweeps
 
-Dispatch:
+Dispatch (cgx api.py:322-403):
 - host containers, ndarrays and 2-D tensors become their natural
   operator (:func:`cgx_torch.solver.operators.as_operator`);
-- ``use_pallas`` + banded + fp32 + no x0 runs the three-kernel loop
-  (:func:`cgx_torch.solver.fast.dia_cg_solve_pallas`);
-- everything else that is ported runs the plain reference loop;
+- ``use_pallas`` + banded + fp32 + ``precond in (None, "neumann")`` + no
+  x0 runs the whole-solve kernel (:func:`cgx_torch.ops.cg_kernel.
+  dia_cg_solve_vmem`, ``layout="2d"``) while its state fits
+  :data:`cgx_torch.config.RESIDENT_BUDGET_BYTES`; above it, no
+  preconditioner runs the three-kernel loop
+  (:func:`cgx_torch.solver.fast.dia_cg_solve_pallas`, standing in for
+  the streaming kernel B4) and ``"neumann"`` raises (B6). cgx's fallback
+  when a TPU compile service refuses the kernel is not ported: a failed
+  launch raises;
+- ``precision="mixed"`` runs fp64 refinement around fp32 inner solves
+  (:mod:`cgx_torch.solver.refine`);
+- everything else that is ported runs the plain reference loop, with
+  the configured preconditioner;
 - what is not ported yet raises ``NotImplementedError`` naming its
   ROADMAP item, rather than running some other path.
 """
@@ -23,22 +35,80 @@ from typing import Optional
 import numpy as np
 import torch
 
+from cgx_torch import config as settings
 from cgx_torch.config import SolveConfig
+from cgx_torch.mats.containers import DIAMatrix
 from cgx_torch.ops._util import resolve_device
+from cgx_torch.ops.cg_kernel import dia_cg_solve_vmem, resident_state_bytes
 from cgx_torch.solver.cg import CGResult, as_vector, cg_solve
 from cgx_torch.solver.fast import dia_cg_solve_pallas
 from cgx_torch.solver.operators import DiaOperator, as_operator
+from cgx_torch.solver.precond import jacobi, neumann_banded
+from cgx_torch.solver.refine import iterative_refinement, refine_fixed_sweeps
 
 _DTYPES = {"fp64": torch.float64, "fp32": torch.float32}
 _UNPORTED_PRECISION = {
     "bf16": "bf16 storage (ROADMAP A6, with B4)",
-    "mixed": "mixed-precision refinement (ROADMAP A9)",
     "tw": "triple-word refinement (ROADMAP A12)",
+}
+_UNPORTED_PRECOND = {
+    "block_jacobi": "A7",
+    "chebyshev": "A7",
+    "mg": "A10",
 }
 
 
 def _unported(what: str):
     return NotImplementedError(f"{what} is not ported to cgx_torch yet")
+
+
+def _build_precond(cfg: SolveConfig, op):
+    """The configured preconditioner's ``apply`` (cgx api.py:39-79)."""
+    if cfg.precond is None:
+        return None
+    if cfg.precond == "jacobi":
+        return jacobi(op.diagonal())
+    if cfg.precond == "neumann":
+        if not isinstance(op, DiaOperator):
+            raise ValueError("precond='neumann' needs a banded operator")
+        return neumann_banded(op.bands, op.offsets, sweeps=2)
+    if cfg.precond in _UNPORTED_PRECOND:
+        raise _unported(f"precond={cfg.precond!r} (ROADMAP {_UNPORTED_PRECOND[cfg.precond]})")
+    raise ValueError(f"unknown precond {cfg.precond!r}")
+
+
+def _solve_mixed(mat, b, cfg: SolveConfig, method: str, dev: torch.device) -> CGResult:
+    """precision="mixed" (cgx api.py:406-468): fp32 inner solves and fp64
+    refinement sweeps on a banded operator. ``cfg.tolerance`` is relative
+    to ||b|| here, and ``cfg.maxiter`` caps each inner solve."""
+    if method != "reference" or cfg.precond is not None:
+        raise ValueError(
+            "precision='mixed' runs the reference recurrence without an outer preconditioner "
+            "(the fp32 inner solve is the acceleration)")
+    if isinstance(mat, DIAMatrix):
+        op64 = as_operator(mat, torch.float64, device=dev)
+    elif isinstance(mat, DiaOperator):
+        op64 = DiaOperator(mat.bands.to(torch.float64), tuple(mat.offsets))
+    else:
+        raise TypeError(f"precision='mixed' needs a banded operator, got {type(mat)}")
+    b64 = as_vector(b, dev, "b", torch.float64)
+    n, ndiag = b64.shape[0], op64.bands.shape[0]
+    if resident_state_bytes(ndiag, n, 4, 4, precond=True) <= settings.RESIDENT_BUDGET_BYTES:
+        res = refine_fixed_sweeps(op64, b64, rtol=cfg.tolerance, inner_maxiter=cfg.maxiter,
+                                  layout="2d", device=dev)
+    else:
+        res = iterative_refinement(op64, b64, tol=0.0, rtol=cfg.tolerance,
+                                   inner_maxiter=cfg.maxiter, use_pallas=dev.type == "cuda",
+                                   device=dev)
+    return CGResult(
+        x=res.x,
+        iterations=torch.tensor(res.outer_iterations, dtype=torch.int32, device=dev),
+        residual_norm=res.residual_norm,
+        converged=res.converged,
+        rsold=res.residual_norm ** 2,
+        history=torch.zeros((0,), dtype=torch.float64, device=dev),
+        breakdown=torch.zeros((), dtype=torch.bool, device=dev),
+    )
 
 
 def solve(
@@ -63,28 +133,41 @@ def solve(
     dev = resolve_device(device)
     if (n_devices is not None and n_devices > 1) or mesh is not None:
         raise _unported("sharded solves (n_devices / mesh, ROADMAP A14)")
+    if x0 is not None and cfg.precision == "mixed":
+        raise ValueError("precision='mixed' manages its own inner starts; x0 is not supported")
     if np.ndim(b) == 2:
         raise _unported("multi-RHS solves of a 2-D b (ROADMAP A11)")
+    if cfg.precision == "mixed":
+        return _solve_mixed(mat, b, cfg, method, dev)
     if cfg.precision in _UNPORTED_PRECISION:
         raise _unported(f"precision={cfg.precision!r}: {_UNPORTED_PRECISION[cfg.precision]}")
     if cfg.precision not in _DTYPES:
         raise ValueError(f"unknown precision {cfg.precision!r}")
     if method != "reference":
         raise _unported(f"method={method!r} (ROADMAP A7, A11)")
-    if cfg.precond is not None:
-        item = "B5/B6" if cfg.use_pallas and cfg.precond == "neumann" else "A7/A10"
-        raise _unported(f"precond={cfg.precond!r} (ROADMAP {item})")
     dtype = _DTYPES[cfg.precision]
 
     op = mat if hasattr(mat, "matvec") else as_operator(mat, dtype=dtype, device=dev)
     b_dev = as_vector(b, dev, "b", dtype)
-    maxiter = b_dev.shape[0] if cfg.maxiter is None else cfg.maxiter
+    n = b_dev.shape[0]
+    maxiter = n if cfg.maxiter is None else cfg.maxiter
 
-    if cfg.use_pallas and isinstance(op, DiaOperator) and cfg.precision != "fp64" and x0 is None:
-        # cgx routes here by on-chip budget to the whole-solve kernel
-        # (B5) or the streaming kernel (B4), api.py:329-381. Until those
-        # kernels are ported, every banded fp32 use_pallas solve runs the
-        # three-kernel loop; the budget routing arrives with them.
+    if (cfg.use_pallas and isinstance(op, DiaOperator) and cfg.precision != "fp64"
+            and cfg.precond in (None, "neumann") and x0 is None):  # the kernels start from 0
+        neumann = cfg.precond == "neumann"
+        state = resident_state_bytes(op.bands.shape[0], n, op.bands.element_size(),
+                                     b_dev.element_size(), precond=neumann)
+        if state <= settings.RESIDENT_BUDGET_BYTES:
+            # whole-solve kernel; its in-kernel PCG is neumann_banded(sweeps=2)
+            return dia_cg_solve_vmem(
+                op, b_dev, tol=cfg.tolerance, maxiter=maxiter, nearzero=cfg.nearzero,
+                precond=neumann, layout="2d", device=dev,
+            )
+        if neumann:
+            raise _unported(
+                "precond='neumann' with use_pallas above the resident budget: the streaming "
+                "Neumann-PCG kernel (ROADMAP B6)")
+        # above the budget cgx streams (B4); the three-kernel loop stands in
         return dia_cg_solve_pallas(
             op, b_dev, tol=cfg.tolerance, maxiter=maxiter, nearzero=cfg.nearzero,
             history=cfg.history, device=dev,
@@ -94,5 +177,6 @@ def solve(
         tol=cfg.tolerance, maxiter=maxiter, nearzero=cfg.nearzero, history=cfg.history,
         # fp32 vectors with fp64 dots, as cgx does whenever x64 is on
         dot_precision=torch.float64 if dtype != torch.float64 else None,
+        precond=_build_precond(cfg, op),
         device=dev,
     )

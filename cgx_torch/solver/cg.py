@@ -16,7 +16,9 @@ The reference recurrence, in the order of the reference solver (MPI
 
 ``k`` is the 0-based index of the converging iteration (or maxiter),
 and on convergence ``p``, ``rsold`` and ``k`` are not updated
-(break-before-update), as in cgx.
+(break-before-update), as in cgx. With a preconditioner (cgx
+cg.py:93-131) ``z = M^-1 r`` takes the place of ``r`` in ``p`` and in
+``rsold = <r, z>``; the stopping test stays on ``sqrt(<r, r>)``.
 
 No host sync per iteration: every scalar (alpha, beta, rsold, k,
 converged, breakdown) stays on the device as a 0-d tensor, and the host
@@ -66,22 +68,26 @@ def run_recurrence(
     nearzero: torch.Tensor,
     maxiter: int,
     history: int,
+    precond: Optional[Callable] = None,
 ) -> CGResult:
     """The reference recurrence from ``x`` with residual ``r`` and
-    ``rr0 = <r, r>`` (``p = r``), through three callables:
+    ``rr0 = <r, r>``, through three callables:
 
     - ``mv_dot(p) -> (Ap, <p, Ap>)``;
     - ``update(x, p, r, Ap, alpha) -> (x + alpha p, r - alpha Ap, <r', r'>)``;
     - ``axpby(p, r, a, b) -> a p + b r``, called with ``(beta, 1)``, or
-      with ``(1, 0)`` to keep ``p``.
+      with ``(1, 0)`` to keep ``p``;
 
+    and ``precond(r) -> (z, <r, z>)``, or None for ``z = r`` (then
+    ``p = r`` and ``rsold = rr0``, the unpreconditioned recurrence).
     Scalars are 0-d tensors; ``tol`` has the dtype of the dots."""
     dtype, dev = x.dtype, x.device
     one = torch.ones((), dtype=dtype, device=dev)
     zero = torch.zeros((), dtype=dtype, device=dev)
     trash = torch.full((), history, dtype=torch.int32, device=dev)
     k = torch.zeros((), dtype=torch.int32, device=dev)
-    p, rsold, rsnew = r, rr0, rr0
+    p, rsold = (r, rr0) if precond is None else precond(r)
+    rsnew = rr0
     # a zero start residual would make alpha 0/0 (see cgx cg.py:139-144)
     converged = (torch.sqrt(rr0) < tol) | (rr0 == 0)
     breakdown = torch.zeros((), dtype=torch.bool, device=dev)
@@ -102,9 +108,10 @@ def run_recurrence(
                 hist.index_put_((slot.long().reshape(1),), res.reshape(1))
             conv = res < tol
             keep = ~active | conv
-            beta = (rr / rsold).to(dtype)
-            p = axpby(p, r, torch.where(keep, one, beta), torch.where(keep, zero, one))
-            rsold = torch.where(keep, rsold, rr)
+            new_dir, rs = (r, rr) if precond is None else precond(r)
+            beta = (rs / rsold).to(dtype)
+            p = axpby(p, new_dir, torch.where(keep, one, beta), torch.where(keep, zero, one))
+            rsold = torch.where(keep, rsold, rs)
             k = torch.where(keep, k, k + 1)
             rsnew = torch.where(active, rr, rsnew)
             converged = converged | conv
@@ -152,6 +159,7 @@ def cg_solve(
     nearzero: float = NEARZERO,
     history: int = 0,
     dot_precision: Optional[torch.dtype] = None,
+    precond: Optional[Callable] = None,
     device="cuda",
 ) -> CGResult:
     """Solve ``A x = b`` by the reference CG recurrence, in plain torch.
@@ -167,6 +175,8 @@ def cg_solve(
       history: length of the residual trace.
       dot_precision: dtype the dots accumulate in (e.g. fp64 for fp32
         vectors); default the vectors' dtype.
+      precond: ``r -> M^-1 r`` (see :mod:`cgx_torch.solver.precond`), or
+        None.
       device: where the solve runs; ``"cuda"`` unless ``"cpu"`` is asked.
     """
     dev = resolve_device(device)
@@ -189,11 +199,16 @@ def cg_solve(
     def axpby(p, r, a_, b_):
         return r * b_ + p * a_  # r + beta p, as cgx's new_dir + beta * p
 
+    def apply_precond(r):
+        z = precond(r)
+        return z, dot(r, z)
+
     with f32_exact():
         r = b - mv(x0)
         return run_recurrence(
             x0, r, dot(r, r),
             mv_dot=mv_dot, update=update, axpby=axpby,
+            precond=None if precond is None else apply_precond,
             tol=torch.tensor(tol, dtype=acc, device=dev),
             nearzero=torch.tensor(nearzero, dtype=b.dtype, device=dev),
             maxiter=b.shape[0] if maxiter is None else int(maxiter),

@@ -34,10 +34,28 @@ Phases, one JSON object per line each:
 9. CLI, MPI grammar: 16384 --pallas, dense fp64 through the kernel,
    against the plain fp64 dense loop;
 10. CLI, fp32: the CUDA grammar with --precision fp32 against the plain
-    fp32 loop.
+    fp32 loop;
+11. resident kernel: the whole-solve chunk kernel against its plain
+    version from one seeded state on the bands of lap2d_fd(1000)
+    (N = 1,000,000), float32 and float64: one iteration, and one
+    64-iteration chunk; then, in float32, with and without the Neumann
+    preconditioner, its ms per iteration in both layouts against the HBM
+    bound, the plain version's and the peak device memory;
+12. resident goldens: dia_cg_solve_vmem in float64 on lap2d_fd(100) and
+    lap2d_reference(10000) at tol 1e-10, twice each;
+13. resident path: cgx_torch.solve(lap2d_fd(g)) for g = 1000 and 1414
+    (N = 1,000,000 and 1,999,396) in fp32 with use_pallas=True, without
+    and with precond="neumann", twice each, against the plain fp32 (P)CG
+    loop and beside the three-kernel loop, with its launch counts; and
+    one direct call with layout="1d";
+14. crossover: the whole-solve kernel against the three-kernel loop in
+    us per iteration at N = 250,000, 1e6, 2e6 and 4e6, which sets
+    cgx_torch.config.RESIDENT_BUDGET_BYTES;
+15. mixed: cgx_torch.solve(lap2d_fd(1000)) with precision="mixed" at a
+    relative tolerance of 1e-11, beside the plain fp64 loop.
 
 The CLI phases call cgx_torch.cli.main.run, the body of the CLI's main,
-in this process. Then a "kernels" line for the six kernels, and, last,
+in this process. Then a "kernels" line for the eight kernels, and, last,
 the contract line {"ok": true, "device": {...}}. Any failed check
 raises, so the script exits non-zero and prints no result. It needs a
 CUDA device and imports neither JAX nor cgx.
@@ -66,14 +84,17 @@ from cgx_torch import (
     _build,
     as_operator,
     cg_solve,
+    config,
     densify_on_device,
     dia_cg_solve_pallas,
+    dia_cg_solve_vmem,
     solve,
 )
 from cgx_torch.cli import main as cli
 from cgx_torch.mats.generators import lap2d_fd, lap2d_fd_coo_lower, lap2d_reference, source_term
-from cgx_torch.ops import axpy, dia_spmv, matvec
+from cgx_torch.ops import axpy, cg_kernel, dia_spmv, matvec
 from cgx_torch.ops._util import f32_exact
+from cgx_torch.solver.precond import neumann_banded
 
 SEED = 0
 DEV = "cuda"  # every tensor of the run lives here
@@ -86,6 +107,19 @@ PROFILE_ITERS = 256  # main-path iterations under torch.profiler
 # FMA contraction in the kernels is the only expected difference.
 VEC_RTOL = {torch.float32: 1e-6, torch.float64: 1e-14}
 DOT_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+# A 64-iteration chunk of the whole-solve kernel against its plain version, relative
+# to max|ref|: the float64 dots run in another order (the kernel's blocks against
+# torch.sum), so a float64 alpha or beta may differ in its last bit, and a float32 one
+# at a near-tie, and the difference compounds over the iterations. At N = 1,000,000
+# the float32 vectors came out bitwise equal and the float64 ones within 1.8e-14; an
+# earlier build with float32 dots, whose alpha and beta flipped often, moved them by
+# 9.4e-6 and 3.1e-14 (H100, 700 W). The bounds leave 10x and 30x over the latter.
+CHUNK_RTOL = {torch.float32: 1e-4, torch.float64: 1e-12}
+RESIDENT_GRID = 1000  # lap2d_fd(1000): N = 1,000,000, BASELINE.json config 2
+RESIDENT_GRIDS = (1000, 1414)  # N = 1,000,000 and 1,999,396 (cgx/config.py:33-35)
+CHUNK = 64  # iterations per launch of dia_cg_solve_vmem's default
+CROSSOVER_GRIDS = (500, 1000, 1414, 2000)  # N = 250,000 .. 4,000,000
+CROSSOVER_ITERS = 512
 
 # (name substring, HBM bytes/s, float32 FLOP/s, float64 FLOP/s) from
 # NVIDIA's data sheets, dense, without tensor cores; first match wins.
@@ -118,7 +152,11 @@ KERNELS = {
     "fused_axpby": ("cgx_torch/csrc/axpy.cu", "cgx/ops/axpy.py:118"),
     "dense_matvec": ("cgx_torch/csrc/matvec.cu", "cgx/ops/matvec.py:88"),
     "dense_matvec_dot": ("cgx_torch/csrc/matvec.cu", "cgx/ops/matvec.py:163"),
+    "dia_cg_vmem": ("cgx_torch/csrc/cg_kernel.cu", "cgx/ops/cg_kernel.py:245"),
+    "dia_cg_vmem2d": ("cgx_torch/csrc/cg_kernel.cu", "cgx/ops/cg_kernel.py:479"),
 }
+# the whole-solve kernel's two cgx sites, by the layout its wrapper counts
+RESIDENT_SITES = {"dia_cg_vmem": "1d", "dia_cg_vmem2d": "2d"}
 WRAPPERS = {
     "dia_matvec": dia_spmv.dia_matvec,
     "dia_matvec_dot": dia_spmv.dia_matvec_dot,
@@ -137,6 +175,19 @@ STEP = re.compile(r"\[STEP (\d+)\] residual = ([0-9.e+-]+), \|\|x\|\| = ([0-9.e+
                   r"\|\|Ax - b\|\|/\|\|b\|\| = ([0-9.e+-]+|nan)")
 
 
+def reset_launches() -> None:
+    for w in WRAPPERS.values():
+        w.launches = 0
+    cg_kernel.dia_cg_chunk.launches = {layout: 0 for layout in cg_kernel.LAYOUTS}
+
+
+def read_launches() -> dict:
+    counts = {name: w.launches for name, w in WRAPPERS.items()}
+    for name, layout in RESIDENT_SITES.items():
+        counts[name] = cg_kernel.dia_cg_chunk.launches[layout]
+    return counts
+
+
 def sync() -> None:
     if DEV == "cuda":
         torch.cuda.synchronize()
@@ -152,24 +203,24 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def time_ms(fn) -> float:
+def time_ms(fn, reps: int = REPS, burst: int = BURST) -> float:
     """Milliseconds of one call of ``fn`` on the card: the median over
-    REPS samples, after WARMUP calls, of CUDA-event time over a run of
-    BURST back-to-back calls, divided by BURST. The burst lets the host
-    enqueue ahead of the card, so the figure is device time and not the
-    host's launch latency."""
+    ``reps`` samples, after WARMUP calls, of CUDA-event time over a run of
+    ``burst`` back-to-back calls, divided by ``burst``. The burst lets the
+    host enqueue ahead of the card, so the figure is device time and not
+    the host's launch latency."""
     for _ in range(WARMUP):
         fn()
     times = []
-    for _ in range(REPS):
+    for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(BURST):
+        for _ in range(burst):
             fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end) / BURST)
+        times.append(start.elapsed_time(end) / burst)
     return statistics.median(times)
 
 
@@ -393,14 +444,13 @@ def phase_main(spec) -> dict:
 
     runs = []
     for _ in range(2):
-        for w in WRAPPERS.values():
-            w.launches = 0
+        reset_launches()
         sync()
         t0 = time.perf_counter()
         res = solve(op, b_dev, cfg, device=DEV)
         k = int(res.iterations)  # waits for the solve
         seconds = time.perf_counter() - t0
-        runs.append((res, k, seconds, {name: w.launches for name, w in WRAPPERS.items()}))
+        runs.append((res, k, seconds, read_launches()))
     (res, k, seconds, launches), (res2, k2, _, _) = runs
     check(bool(res.converged), "main path did not converge")
     bitwise = k == k2 and torch.equal(res.x.view(torch.int32), res2.x.view(torch.int32))
@@ -408,6 +458,8 @@ def phase_main(spec) -> dict:
     check(launches["dia_matvec_dot"] >= k + 1 and launches["fused_update_rs"] >= k
           and launches["fused_axpby"] >= k and launches["dia_matvec"] >= 1,
           f"main path missed a kernel: {launches} at k={k}")
+    check(launches["dia_cg_vmem"] == launches["dia_cg_vmem2d"] == 0,
+          f"N = {n} is above the resident budget, yet the whole-solve kernel ran: {launches}")
     body_calls = launches["dia_matvec_dot"]
 
     sync()
@@ -480,13 +532,12 @@ def phase_profile(op, b_dev) -> None:
 def cli_run(argv):
     """One in-process CLI run with every launch count set to 0 just
     before it: returns (Run, its stdout, the launch counts just after)."""
-    for w in WRAPPERS.values():
-        w.launches = 0
+    reset_launches()
     sync()
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         run = cli.run(argv)
-    launches = {name: w.launches for name, w in WRAPPERS.items()}
+    launches = read_launches()
     check(run.rc == 0, f"cli {argv}: exit code {run.rc}")
     m = STEP.search(buf.getvalue())
     check(m is not None, f"cli {argv}: no [STEP k] line in {buf.getvalue()!r}")
@@ -592,6 +643,290 @@ def phase_cli_fp32(spec, tmp: Path) -> None:
     check(launches["dense_matvec"] >= k + 1, f"fp32 run missed the kernel: {launches}")
 
 
+def resident_words(ndiag: int, n: int, precond: bool) -> int:
+    """Words an iteration of the whole-solve kernel must move: the bands
+    once, p, x and r in and out; the preconditioner adds a band pass and
+    c out and back (csrc/cg_kernel.cu)."""
+    return (2 * ndiag + 8) * n if precond else (ndiag + 6) * n
+
+
+def seeded_state(dia, dtype):
+    """Bands and a seeded (p, x, r, scal) on the card, rsold = <r, r>."""
+    n = dia.shape[0]
+    bands = torch.as_tensor(dia.bands, dtype=dtype, device=DEV)
+    rng = np.random.default_rng(SEED)
+    p, x, r = (torch.as_tensor(rng.standard_normal(n), dtype=dtype, device=DEV) for _ in range(3))
+    zero = torch.zeros((), dtype=torch.float64, device=DEV)
+    return bands, [p, x, r, torch.stack([torch.sum(r.double() ** 2), zero, zero, zero])]
+
+
+def chunk_call(fn, bands, state, offsets, chunk, precond, **kw):
+    """One call of the chunk kernel or its plain version on ``state``
+    (advanced in place; its scalars replaced), tol 0 so no iteration
+    freezes."""
+    state[3] = fn(bands, *state, offsets=offsets, tol=0.0, nearzero=1e-14, maxiter=10**9,
+                  chunk=chunk, precond=precond, **kw)
+
+
+def phase_resident_kernel(spec) -> dict:
+    """The whole-solve chunk kernel against its plain version from one
+    seeded state, then its time against the bound, in float32. Returns
+    the records of the kernels line for its two sites."""
+    dia = lap2d_fd(RESIDENT_GRID)
+    n, ndiag, offsets = dia.shape[0], len(dia.offsets), tuple(dia.offsets)
+    main_err = None
+    for dtype in (torch.float32, torch.float64):
+        bands, state = seeded_state(dia, dtype)
+        for precond in (False, True):
+            for chunk, rtol in ((1, VEC_RTOL[dtype]), (CHUNK, CHUNK_RTOL[dtype])):
+                got, ref = [t.clone() for t in state], [t.clone() for t in state]
+                chunk_call(cg_kernel.dia_cg_chunk, bands, got, offsets, chunk, precond)
+                chunk_call(cg_kernel.dia_cg_chunk_ref, bands, ref, offsets, chunk, precond)
+                sync()
+                max_abs = max(float((g - f).abs().max()) for g, f in zip(got[:3], ref[:3]))
+                vec_rel = max(rel_err(g, f, f.abs().max()) for g, f in zip(got[:3], ref[:3]))
+                rsold_rel = rel_err(got[3][0], ref[3][0], ref[3][0].abs())
+                dot_tol = DOT_RTOL[dtype] if chunk == 1 else rtol
+                emit({"phase": "resident_kernel_check", "problem": f"lap2d_fd({RESIDENT_GRID})",
+                      "dtype": str(dtype), "precond": precond, "iterations": chunk,
+                      "max_abs_err": max_abs, "vec_rel_err": vec_rel, "rsold_rel_err": rsold_rel,
+                      "vec_rtol": rtol, "rsold_rtol": dot_tol, "grid": cg_kernel.dia_cg_chunk.grid,
+                      "scalars": got[3].tolist(), "plain_scalars": ref[3].tolist()})
+                check(vec_rel <= rtol and rsold_rel <= dot_tol,
+                      f"chunk kernel {dtype} precond={precond} x{chunk}: vectors {vec_rel}, "
+                      f"rsold {rsold_rel}")
+                check(torch.equal(got[3][1:], ref[3][1:]),
+                      f"chunk kernel {dtype} precond={precond} x{chunk}: converged, k, breakdown "
+                      f"{got[3][1:].tolist()} against {ref[3][1:].tolist()}")
+                if dtype == torch.float32 and chunk == 1 and not precond:
+                    main_err = max_abs
+        del bands, state
+        sync()
+
+    records = {}
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    for precond in (False, True):
+        base = torch.cuda.memory_allocated()
+        bands, state = seeded_state(dia, torch.float32)
+        torch.cuda.reset_peak_memory_stats()
+        ms = {layout: time_ms(lambda: chunk_call(cg_kernel.dia_cg_chunk, bands, state, offsets,
+                                                 CHUNK, precond, layout=layout), reps=10, burst=2)
+              for layout in cg_kernel.LAYOUTS}
+        peak = torch.cuda.max_memory_allocated() - base
+        plain_ms = time_ms(lambda: chunk_call(cg_kernel.dia_cg_chunk_ref, bands, state, offsets,
+                                              CHUNK, precond), reps=3, burst=1)
+        words = resident_words(ndiag, n, precond)
+        bound_iter, bound_by = bound_ms(spec, torch.float32, words, (2 * ndiag + 10) * n)
+        state_bytes = cg_kernel.resident_state_bytes(ndiag, n, 4, 4, precond=precond)
+        rec = {"phase": "resident_kernel", "problem": f"lap2d_fd({RESIDENT_GRID})", "n": n,
+               "dtype": "float32", "precond": precond, "chunk": CHUNK,
+               "grid": cg_kernel.dia_cg_chunk.grid,
+               "ms_per_iter": {layout: t / CHUNK for layout, t in ms.items()},
+               "bound_ms_per_iter": bound_iter, "bound_by": bound_by,
+               "bound_share": {layout: bound_iter * CHUNK / t for layout, t in ms.items()},
+               "plain_ms_per_iter": plain_ms / CHUNK, "max_memory_allocated": peak,
+               "resident_state_bytes": state_bytes, "l2_bytes": l2}
+        if max(rec["bound_share"].values()) > 1:
+            rec["why_above_bound"] = (
+                f"the {state_bytes / 1e6:.1f} MB state fits the card's {l2 / 1e6:.1f} MB L2, "
+                "so bands and vectors come back from L2, not from HBM as the bound assumes")
+        emit(rec)
+        if not precond:
+            for name, layout in RESIDENT_SITES.items():
+                records[name] = {"max_abs_err": main_err, "ms": ms[layout], "plain_ms": plain_ms,
+                                 "bound_ms": bound_iter * CHUNK, "bound_by": bound_by,
+                                 "library_ms": None}  # no one PyTorch call runs a CG chunk
+        del bands, state
+        sync()
+    return records
+
+
+def phase_resident_goldens() -> None:
+    """The fp64 goldens through the whole-solve kernel, twice each."""
+    for problem, dia in (("lap2d_fd(100)", lap2d_fd(100)),
+                         ("lap2d_reference(10000)", lap2d_reference(10000))):
+        b = source_term(dia.shape[0])
+        op = as_operator(dia, torch.float64, device=DEV)
+        b_dev = torch.as_tensor(b, dtype=torch.float64, device=DEV)
+        runs = []
+        for _ in range(2):
+            sync()
+            t0 = time.perf_counter()
+            res = dia_cg_solve_vmem(op, b_dev, tol=1e-10, layout="2d", device=DEV)
+            runs.append((res, int(res.iterations), time.perf_counter() - t0))
+        (res, k, seconds), (res2, k2, _) = runs
+        rel = true_rel(dia, res.x.cpu().numpy(), b)
+        bitwise = k == k2 and torch.equal(res.x.view(torch.int64), res2.x.view(torch.int64))
+        lo, hi = GOLDEN_K[problem]
+        emit({"phase": "resident_golden", "problem": problem, "dtype": "float64", "k": k,
+              "true_rel": rel, "bitwise_repeat": bitwise, "seconds": seconds,
+              "grid": cg_kernel.dia_cg_chunk.grid})
+        check(bool(res.converged) and lo <= k <= hi, f"resident {problem}: k={k} not in [{lo}, {hi}]")
+        check(rel < 1e-11, f"resident {problem}: true relative residual {rel}")
+        check(bitwise, f"resident {problem}: two runs differ")
+
+
+def rel64_on_card(dia, b: np.ndarray):
+    """x -> ||A x - b|| / ||b|| in fp64 on the card, through the plain mat-vec."""
+    bands64 = torch.as_tensor(dia.bands, dtype=torch.float64, device=DEV)
+    b64 = torch.as_tensor(b, dtype=torch.float64, device=DEV)
+
+    def rel(x):
+        r = dia_spmv.dia_matvec_ref(bands64, x.double(), offsets=tuple(dia.offsets)) - b64
+        return float(torch.linalg.norm(r) / torch.linalg.norm(b64))
+    return rel
+
+
+def timed(fn):
+    """(result, its iteration count, seconds to the result on the host)."""
+    sync()
+    t0 = time.perf_counter()
+    res = fn()
+    k = int(res.iterations)  # waits for the solve
+    return res, k, time.perf_counter() - t0
+
+
+def phase_resident_path(spec) -> dict:
+    """cgx_torch.solve through the whole-solve kernel at N = 1e6 and 2e6,
+    fp32, without and with the Neumann preconditioner; returns the launch
+    counts of the first (N = 1e6, no preconditioner) with the direct
+    layout="1d" call's count of site 9."""
+    counts = None
+    for g in RESIDENT_GRIDS:
+        dia = lap2d_fd(g)
+        n, ndiag = dia.shape[0], len(dia.offsets)
+        b = source_term(n)
+        tol = 1e-5 * float(np.linalg.norm(b))
+        op = as_operator(dia, torch.float32, device=DEV)
+        b_dev = torch.as_tensor(b, dtype=torch.float32, device=DEV)
+        rel64 = rel64_on_card(dia, b)
+        for precond in (None, "neumann"):
+            cfg = SolveConfig(precision="fp32", use_pallas=True, tolerance=tol, precond=precond)
+            runs = []
+            for _ in range(2):
+                reset_launches()
+                res, k, seconds = timed(lambda: solve(op, b_dev, cfg, device=DEV))
+                runs.append((res, k, seconds, read_launches()))
+            (res, k, seconds, launches), (res2, k2, seconds2, _) = runs
+            bitwise = k == k2 and torch.equal(res.x.view(torch.int32), res2.x.view(torch.int32))
+            # the plain fp32 (P)CG loop as solve runs it without use_pallas: fp32 vectors,
+            # fp64 dots (the kernel's dots are correctly rounded fp32, csrc/cg_kernel.cu)
+            pc = None if precond is None else neumann_banded(op.bands, op.offsets, sweeps=2)
+            plain, k_plain, plain_seconds = timed(lambda: cg_solve(
+                op, b_dev, tol=tol, precond=pc, dot_precision=torch.float64, device=DEV))
+            rel, rel_plain = rel64(res.x), rel64(plain.x)
+            words = resident_words(ndiag, n, precond is not None)
+            rec = {"phase": "resident_path", "problem": f"lap2d_fd({g})", "n": n,
+                   "dtype": "float32", "precond": precond, "tol": tol, "k": k,
+                   "converged": bool(res.converged), "bitwise_repeat": bitwise,
+                   "seconds": seconds, "seconds_repeat": seconds2,
+                   "us_per_iter": seconds / (k + 1) * 1e6,
+                   "bound_us_per_iter": words * 4 / spec["hbm_bytes_per_s"] * 1e6,
+                   "launches": launches, "grid": cg_kernel.dia_cg_chunk.grid,
+                   "k_plain": k_plain, "plain_seconds": plain_seconds,
+                   "plain_us_per_iter": plain_seconds / (k_plain + 1) * 1e6,
+                   "true_rel": rel, "true_rel_plain": rel_plain,
+                   "x_finite": bool(torch.isfinite(res.x).all())}
+            if precond is None:  # the three-kernel loop on the same problem
+                reset_launches()
+                loop, k_loop, loop_seconds = timed(lambda: dia_cg_solve_pallas(
+                    op, b_dev, tol=tol, maxiter=n, device=DEV))
+                body = read_launches()["dia_matvec_dot"]
+                rec.update(k_loop=k_loop, loop_seconds=loop_seconds,
+                           loop_us_per_iter=loop_seconds / body * 1e6)
+            emit(rec)
+            chunks = -(-(k + 1) // CHUNK)
+            check(rec["converged"] and rec["x_finite"] and res.x.shape == (n,),
+                  f"resident path {g} {precond}: did not converge to a finite x")
+            check(launches["dia_cg_vmem2d"] >= chunks and launches["dia_cg_vmem"] == 0
+                  and launches["dia_matvec_dot"] == launches["fused_update_rs"]
+                  == launches["fused_axpby"] == 0,
+                  f"resident path {g} {precond} left the whole-solve kernel: {launches} at k={k}")
+            check(bitwise, f"resident path {g} {precond}: two runs differ")
+            check(abs(k - k_plain) <= 0.02 * k_plain,
+                  f"resident path {g} {precond}: k={k} vs plain k={k_plain}")
+            check(max(rel, rel_plain) <= 2 * min(rel, rel_plain),
+                  f"resident path {g} {precond}: true residuals {rel} and {rel_plain}")
+            if counts is None:
+                counts = launches
+                x_2d = res.x
+        if g == RESIDENT_GRIDS[0]:  # site 9: the same kernel through layout="1d"
+            reset_launches()
+            res1, k1, seconds1 = timed(lambda: dia_cg_solve_vmem(op, b_dev, tol=tol, layout="1d",
+                                                                 device=DEV))
+            one_d = read_launches()["dia_cg_vmem"]
+            same = torch.equal(res1.x.view(torch.int32), x_2d.view(torch.int32))
+            emit({"phase": "resident_1d", "problem": f"lap2d_fd({g})", "k": k1,
+                  "seconds": seconds1, "launches": one_d, "bitwise_equal_to_2d": same})
+            check(one_d >= -(-(k1 + 1) // CHUNK) and same,
+                  f"layout='1d': {one_d} launches, bitwise equal to 2d: {same}")
+            counts["dia_cg_vmem"] = one_d
+        del op, b_dev
+        sync()
+    return counts
+
+
+def phase_crossover(spec) -> None:
+    """The whole-solve kernel against the three-kernel loop, fp32, a fixed
+    CROSSOVER_ITERS iterations at tol 0, in turns (B5, loop, loop, B5)
+    after a warm-up of each; the budget is the largest state at which the
+    kernel still wins."""
+    winners = []
+    for g in CROSSOVER_GRIDS:
+        dia = lap2d_fd(g)
+        n, ndiag = dia.shape[0], len(dia.offsets)
+        op = as_operator(dia, torch.float32, device=DEV)
+        b_dev = torch.as_tensor(source_term(n), dtype=torch.float32, device=DEV)
+        runs = {"resident": lambda: dia_cg_solve_vmem(op, b_dev, tol=0.0, maxiter=CROSSOVER_ITERS,
+                                                      layout="2d", device=DEV),
+                "three_kernel": lambda: dia_cg_solve_pallas(op, b_dev, tol=0.0,
+                                                            maxiter=CROSSOVER_ITERS, device=DEV)}
+        seconds = {name: [] for name in runs}
+        for name in ("resident", "three_kernel", "resident", "three_kernel", "three_kernel",
+                     "resident"):
+            res, k, s = timed(runs[name])
+            check(k == CROSSOVER_ITERS, f"crossover {name} at N = {n}: k = {k}")
+            seconds[name].append(s)
+        us = {name: min(s[1:]) / CROSSOVER_ITERS * 1e6 for name, s in seconds.items()}
+        state = cg_kernel.resident_state_bytes(ndiag, n, 4, 4)
+        emit({"phase": "crossover", "problem": f"lap2d_fd({g})", "n": n, "state_bytes": state,
+              "us_per_iter": us, "seconds": seconds,
+              "bound_us_per_iter": resident_words(ndiag, n, False) * 4
+              / spec["hbm_bytes_per_s"] * 1e6})
+        if us["resident"] < us["three_kernel"]:
+            winners.append(state)
+        del op, b_dev
+        sync()
+    emit({"phase": "crossover_budget", "largest_winning_state_bytes": max(winners, default=None),
+          "configured_budget_bytes": config.RESIDENT_BUDGET_BYTES})
+
+
+def phase_mixed(spec) -> None:
+    """precision="mixed" on lap2d_fd(1000) at rtol 1e-11, beside the
+    plain fp64 loop to the same relative tolerance."""
+    dia = lap2d_fd(RESIDENT_GRID)
+    n = dia.shape[0]
+    b = source_term(n)
+    op64 = as_operator(dia, torch.float64, device=DEV)
+    b64 = torch.as_tensor(b, dtype=torch.float64, device=DEV)
+    rel64 = rel64_on_card(dia, b)
+    reset_launches()
+    res, sweeps, seconds = timed(lambda: solve(op64, b64, SolveConfig(precision="mixed",
+                                                                      tolerance=1e-11),
+                                               device=DEV))
+    launches = read_launches()
+    plain, k_plain, plain_seconds = timed(lambda: cg_solve(
+        op64, b64, tol=1e-11 * float(np.linalg.norm(b)), device=DEV))
+    rel, rel_plain = rel64(res.x), rel64(plain.x)
+    emit({"phase": "mixed", "problem": f"lap2d_fd({RESIDENT_GRID})", "n": n, "rtol": 1e-11,
+          "sweeps": sweeps, "converged": bool(res.converged), "true_rel": rel,
+          "seconds": seconds, "launches": launches, "k_plain_fp64": k_plain,
+          "plain_seconds": plain_seconds, "true_rel_plain": rel_plain})
+    check(bool(res.converged) and rel < 1e-11 and sweeps <= 4,
+          f"mixed: converged={bool(res.converged)}, true relative residual {rel}, {sweeps} sweeps")
+    check(launches["dia_cg_vmem2d"] >= sweeps, f"mixed: inner solves missed the kernel: {launches}")
+
+
 def main() -> int:
     spec = phase_device()
     phase_build()
@@ -604,6 +939,12 @@ def main() -> int:
                          if name.startswith("dense_")})
         phase_cli_mpi(spec, Path(tmp))
         phase_cli_fp32(spec, Path(tmp))
+    records.update(phase_resident_kernel(spec))
+    phase_resident_goldens()
+    launches.update({name: n for name, n in phase_resident_path(spec).items()
+                     if name in RESIDENT_SITES})
+    phase_crossover(spec)
+    phase_mixed(spec)
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         rec = records[name]

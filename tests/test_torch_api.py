@@ -8,8 +8,11 @@ import torch
 
 import cgx
 import cgx_torch
-from cgx_torch import SolveConfig
-from cgx_torch.ops import axpy, dia_spmv
+from cgx_torch import SolveConfig, config
+from cgx_torch.ops import axpy, cg_kernel, dia_spmv
+
+THREE_KERNEL = [dia_spmv.dia_matvec, dia_spmv.dia_matvec_dot, axpy.fused_update_rs,
+                axpy.fused_axpby]
 
 
 @pytest.fixture
@@ -43,38 +46,91 @@ def test_pallas_route_matches_cgx_and_plain(problem):
     assert abs(int(res.iterations) - int(plain.iterations)) <= 1
 
 
+def _counts():
+    return [w.launches for w in THREE_KERNEL], dict(cg_kernel.dia_cg_chunk.launches)
+
+
 def test_pallas_route_goes_through_the_kernels(problem):
+    """Within the resident budget a banded fp32 use_pallas solve runs the
+    whole-solve kernel (layout 2d, a launch per 64 iterations) and none of
+    the three-kernel loop's."""
     dia, b = problem
-    wrappers = [dia_spmv.dia_matvec, dia_spmv.dia_matvec_dot, axpy.fused_update_rs,
-                axpy.fused_axpby]
     cfg = SolveConfig(precision="fp32", tolerance=1e-4 * np.linalg.norm(b), use_pallas=True)
-    before = [w.launches for w in wrappers]
+    loop, chunks = _counts()
     res = cgx_torch.solve(dia, b, cfg, device="cpu")
-    moved = [w.launches - c for w, c in zip(wrappers, before)]
-    assert moved[0] == 1 and min(moved[1:]) >= int(res.iterations) + 1
+    assert _counts()[0] == loop
+    assert cg_kernel.dia_cg_chunk.launches["2d"] - chunks["2d"] == -(-(int(res.iterations) + 1)
+                                                                      // 64)
+    assert cg_kernel.dia_cg_chunk.launches["1d"] == chunks["1d"]
     # fp64, x0 and dense operators keep to the reference loop
-    before = [w.launches for w in wrappers]
+    before = _counts()
     cgx_torch.solve(dia, b, SolveConfig(use_pallas=True), device="cpu")
     cgx_torch.solve(dia, b, SolveConfig(precision="fp32", use_pallas=True,
                                         tolerance=cfg.tolerance), x0=np.zeros(256), device="cpu")
     cgx_torch.solve(dia.to_dense(), b, cfg, device="cpu")
-    assert [w.launches for w in wrappers] == before
+    assert _counts() == before
+
+
+def test_pallas_route_above_the_budget(problem, monkeypatch):
+    """Above the resident budget: no preconditioner runs the three-kernel
+    loop (standing in for B4); "neumann" raises naming B6."""
+    dia, b = problem
+    tol = 1e-4 * np.linalg.norm(b)
+    monkeypatch.setattr(config, "RESIDENT_BUDGET_BYTES", 1000)
+    loop, chunks = _counts()
+    res = cgx_torch.solve(dia, b, SolveConfig(precision="fp32", tolerance=tol, use_pallas=True),
+                          device="cpu")
+    moved = [c - c0 for c, c0 in zip(_counts()[0], loop)]
+    assert moved[0] == 1 and min(moved[1:]) >= int(res.iterations) + 1
+    assert _counts()[1] == chunks
+    with pytest.raises(NotImplementedError, match="B6"):
+        cgx_torch.solve(dia, b, SolveConfig(precision="fp32", tolerance=tol, use_pallas=True,
+                                            precond="neumann"), device="cpu")
+
+
+def test_neumann_pallas_route_matches_cgx(problem):
+    """use_pallas + neumann: the kernel's in-kernel PCG, within one
+    iteration of cgx's (interpreted) and of the plain fp32 PCG solve."""
+    dia, b = problem
+    tol = 1e-4 * np.linalg.norm(b)
+    kw = dict(precision="fp32", tolerance=tol, precond="neumann")
+    before = cg_kernel.dia_cg_chunk.launches["2d"]
+    res = cgx_torch.solve(dia, b, SolveConfig(use_pallas=True, **kw), device="cpu")
+    assert cg_kernel.dia_cg_chunk.launches["2d"] > before and bool(res.converged)
+    want = cgx.solve(cgx.lap2d_reference(256), b, cgx.SolveConfig(use_pallas=True, **kw))
+    plain = cgx_torch.solve(dia, b, SolveConfig(**kw), device="cpu")
+    assert abs(int(res.iterations) - int(want.iterations)) <= 1
+    assert abs(int(res.iterations) - int(plain.iterations)) <= 1
+
+
+@pytest.mark.parametrize("precond", ["jacobi", "neumann"])
+@pytest.mark.parametrize("precision", ["fp64", "fp32"])
+def test_precond_without_pallas_matches_cgx(problem, precond, precision):
+    dia, b = problem
+    cfg = dict(precision=precision, tolerance=1e-6 * np.linalg.norm(b), precond=precond)
+    want = cgx.solve(cgx.lap2d_reference(256), b, cgx.SolveConfig(**cfg))
+    got = cgx_torch.solve(dia, b, SolveConfig(**cfg), device="cpu")
+    assert bool(got.converged)
+    assert abs(int(got.iterations) - int(want.iterations)) <= 1
+    rtol = 1e-8 if precision == "fp64" else 1e-3
+    np.testing.assert_allclose(got.x.numpy(), np.asarray(want.x), rtol=rtol,
+                               atol=rtol * np.abs(np.asarray(want.x)).max())
 
 
 @pytest.mark.parametrize(
     "cfg,kwargs",
     [
         (SolveConfig(precision="bf16"), {}),
-        (SolveConfig(precision="mixed"), {}),
         (SolveConfig(precision="tw"), {}),
         (SolveConfig(method="pipelined"), {}),
-        (SolveConfig(precond="jacobi"), {}),
-        (SolveConfig(precision="fp32", use_pallas=True, precond="neumann"), {}),
+        (SolveConfig(precond="block_jacobi"), {}),
+        (SolveConfig(precond="chebyshev"), {}),
+        (SolveConfig(precond="mg"), {}),
         (SolveConfig(), {"n_devices": 4}),
         (SolveConfig(), {"mesh": object()}),
         (SolveConfig(), {"method": "sstep"}),
     ],
-    ids=["bf16", "mixed", "tw", "pipelined", "jacobi", "neumann-pallas", "n_devices", "mesh",
+    ids=["bf16", "tw", "pipelined", "block_jacobi", "chebyshev", "mg", "n_devices", "mesh",
          "sstep"],
 )
 def test_unported_configs_raise(problem, cfg, kwargs):
@@ -104,8 +160,12 @@ def test_default_device_needs_cuda(problem):
         pytest.skip("this machine has a CUDA device")
     dia, b = problem
     for call in (lambda: cgx_torch.solve(dia, b),
+                 lambda: cgx_torch.solve(dia, b, SolveConfig(precision="mixed")),
                  lambda: cgx_torch.cg_solve(torch.eye(4), np.ones(4)),
                  lambda: cgx_torch.dia_cg_solve_pallas(None, np.ones(4)),
+                 lambda: cgx_torch.dia_cg_solve_vmem(None, np.ones(4)),
+                 lambda: cgx_torch.refine_fixed_sweeps(None, np.ones(4)),
+                 lambda: cgx_torch.iterative_refinement(None, np.ones(4)),
                  lambda: cgx_torch.operator_from_numpy(np.eye(4))):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()

@@ -165,3 +165,64 @@ def test_warm_start_matches_cgx():
     got = cgx_torch.cg_solve(_op(dia), b, torch.as_tensor(x0), tol=1e-8, device="cpu")
     assert int(got.iterations) == int(want.iterations)
     np.testing.assert_allclose(got.x.numpy(), np.asarray(want.x), rtol=1e-9)
+
+
+def _cgx_precond(kind, dia):
+    from cgx.solver.precond import jacobi, neumann_banded
+
+    op = cgx.DiaOperator.from_host(dia)
+    if kind == "jacobi":
+        return jacobi(op.diagonal())
+    return neumann_banded(op.bands, op.offsets, sweeps=2)
+
+
+def _port_precond(kind, op):
+    from cgx_torch.solver.precond import jacobi, neumann_banded
+
+    if kind == "jacobi":
+        return jacobi(op.diagonal())
+    return neumann_banded(op.bands, op.offsets, sweeps=2)
+
+
+@pytest.mark.parametrize("kind", ["jacobi", "neumann"])
+def test_precond_matches_cgx(kind):
+    """cg_solve(precond=...) against cgx's: the count, the solution, and
+    rsold = <r, z> (not <r, r>) on a variable-coefficient problem, where
+    Jacobi is not a uniform scaling."""
+    from cgx.mats.generators import poisson2d_var
+
+    coeff = np.exp(np.random.default_rng(3).uniform(-2.0, 2.0, (24, 24)))
+    dia = poisson2d_var(24, coeff)
+    b = source_term(dia.shape[0])
+    want = cgx.cg_solve(cgx.DiaOperator.from_host(dia), jnp.asarray(b), tol=1e-8,
+                        precond=_cgx_precond(kind, dia))
+    op = _op(dia)
+    got = cgx_torch.cg_solve(op, b, tol=1e-8, precond=_port_precond(kind, op), device="cpu")
+    plain = cgx_torch.cg_solve(op, b, tol=1e-8, device="cpu")
+    assert bool(got.converged) and int(got.iterations) == int(want.iterations)
+    assert kind == "jacobi" or int(got.iterations) < int(plain.iterations)
+    np.testing.assert_allclose(got.x.numpy(), np.asarray(want.x), rtol=1e-9,
+                               atol=1e-9 * np.abs(np.asarray(want.x)).max())
+    assert float(got.rsold) == pytest.approx(float(want.rsold), rel=1e-6)
+    assert float(got.residual_norm) == pytest.approx(float(want.residual_norm), rel=1e-6)
+
+
+def test_identity_precond_is_the_unpreconditioned_loop_bit_for_bit():
+    """With M = I the preconditioned recurrence performs exactly the
+    operations of the plain one, so precond=None and precond=identity give
+    the same bits (cgx precond.py:4-6); a zero RHS is pre-converged under a
+    preconditioner too."""
+    dia = lap2d_fd(16)
+    b = source_term(256)
+    plain = cgx_torch.cg_solve(_op(dia), b, tol=1e-6, history=64, device="cpu")
+    ident = cgx_torch.cg_solve(_op(dia), b, tol=1e-6, history=64, precond=lambda r: r,
+                               device="cpu")
+    for field in plain._fields:
+        a, c = getattr(plain, field), getattr(ident, field)
+        if a.is_floating_point():
+            assert torch.equal(a.view(torch.int64), c.view(torch.int64)), field
+        else:
+            assert torch.equal(a, c), field
+    zero = cgx_torch.cg_solve(_op(dia), np.zeros(256), precond=_port_precond("neumann", _op(dia)),
+                              device="cpu")
+    assert bool(zero.converged) and int(zero.iterations) == 0 and float(zero.residual_norm) == 0.0

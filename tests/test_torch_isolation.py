@@ -27,7 +27,8 @@ def test_import_pulls_in_neither_jax_nor_cgx():
     assert out.returncode == 0, out.stderr
 
 
-@pytest.mark.parametrize("module", ["cgx_torch.cli.main", "cgx_torch.ops.matvec"])
+@pytest.mark.parametrize("module", ["cgx_torch.cli.main", "cgx_torch.ops.matvec",
+                                    "cgx_torch.ops.cg_kernel", "cgx_torch.solver.refine"])
 def test_module_import_pulls_in_neither_jax_nor_cgx_nor_a_build(module):
     code = (f"import {module}, sys, cgx_torch; "
             "assert 'jax' not in sys.modules and 'cgx' not in sys.modules, "

@@ -11,7 +11,7 @@ import torch
 
 import cgx_torch
 from cgx_torch.mats.generators import lap2d_fd, lap2d_reference, source_term
-from cgx_torch.ops import axpy, dia_spmv, matvec
+from cgx_torch.ops import axpy, cg_kernel, dia_spmv, matvec
 
 
 @pytest.fixture
@@ -219,3 +219,82 @@ def test_cuda_inputs_must_share_the_device(cuda):
         cgx_torch.dia_cg_solve_pallas(op, torch.ones(64, dtype=torch.float64), device=cuda)
     with pytest.raises(ValueError):
         dia_spmv.dia_matvec(op.bands, torch.ones(64, dtype=torch.float64), offsets=op.offsets)
+
+
+def _chunk_state(dia, dtype, device, seed=0):
+    g = np.random.default_rng(seed)
+    n = dia.shape[0]
+    bands = torch.as_tensor(dia.bands, dtype=dtype, device=device)
+    p, x, r = (torch.as_tensor(g.standard_normal(n), dtype=dtype, device=device) for _ in range(3))
+    scal = torch.tensor([float((r.double() ** 2).sum()), 0.0, 0.0, 0.0], dtype=torch.float64,
+                        device=device)
+    return bands, [p, x, r, scal]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precond", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("g", [30, 700])  # a grid of one block, and of many
+def test_cuda_chunk_kernel_matches_plain(cuda, g, dtype, precond):
+    """One iteration and a 64-iteration chunk of the whole-solve kernel
+    against its plain version: vectors within 1e-6/1e-14 after one (the
+    float64 dots run in another order) and 1e-4/1e-12 after 64."""
+    dia = lap2d_fd(g)
+    bands, state = _chunk_state(dia, dtype, cuda)
+    for chunk, rtol in ((1, 1e-6 if dtype == torch.float32 else 1e-14),
+                        (64, 1e-4 if dtype == torch.float32 else 1e-12)):
+        got, ref = [t.clone() for t in state], [t.clone() for t in state]
+        kw = dict(offsets=dia.offsets, tol=0.0, nearzero=1e-14, maxiter=10**6, chunk=chunk,
+                  precond=precond)
+        s_got = cg_kernel.dia_cg_chunk(bands, *got, **kw)
+        s_ref = cg_kernel.dia_cg_chunk_ref(bands, *ref, **kw)
+        torch.cuda.synchronize()
+        for a, w in zip(got[:3], ref[:3]):
+            assert float((a - w).abs().max()) <= rtol * float(w.abs().max())
+        assert torch.equal(s_got[1:], s_ref[1:])
+        assert abs(float(s_got[0] - s_ref[0])) <= rtol * abs(float(s_ref[0]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precond", [False, True])
+def test_cuda_resident_solves_repeat_bitwise(cuda, precond):
+    """Two solves through the whole-solve kernel are bitwise equal, and the
+    fp32 count is the plain fp32 loop's (fp64 dots, the kernel's arithmetic)."""
+    from cgx_torch.solver.precond import neumann_banded
+
+    dia = lap2d_fd(300)
+    b = source_term(dia.shape[0])
+    tol = 1e-5 * float(np.linalg.norm(b))
+    op = cgx_torch.as_operator(dia, torch.float32, device=cuda)
+    bt = torch.as_tensor(b, dtype=torch.float32, device=cuda)
+    first, again = (cgx_torch.dia_cg_solve_vmem(op, bt, tol=tol, precond=precond, layout="2d",
+                                                device=cuda) for _ in range(2))
+    assert bool(first.converged) and int(again.iterations) == int(first.iterations)
+    assert torch.equal(first.x.view(torch.int32), again.x.view(torch.int32))
+    pc = neumann_banded(op.bands, op.offsets, sweeps=2) if precond else None
+    plain = cgx_torch.cg_solve(op, bt, tol=tol, precond=pc, dot_precision=torch.float64,
+                               device=cuda)
+    assert abs(int(first.iterations) - int(plain.iterations)) <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("maxiter", [50, 64, 70, 200])
+def test_cuda_resident_maxiter_mid_chunk(cuda, maxiter):
+    dia = lap2d_reference(512)
+    op = cgx_torch.as_operator(dia, torch.float32, device=cuda)
+    b = torch.as_tensor(source_term(512), dtype=torch.float32, device=cuda)
+    before = cg_kernel.dia_cg_chunk.launches["1d"]
+    res = cgx_torch.dia_cg_solve_vmem(op, b, tol=0.0, maxiter=maxiter, chunk=64, device=cuda)
+    assert int(res.iterations) == maxiter and not bool(res.converged)
+    assert cg_kernel.dia_cg_chunk.launches["1d"] - before == -(-maxiter // 64)
+
+
+@pytest.mark.cuda
+def test_cuda_resident_fp64_golden(cuda):
+    dia = lap2d_fd(100)
+    b = source_term(dia.shape[0])
+    op = cgx_torch.as_operator(dia, torch.float64, device=cuda)
+    res = cgx_torch.dia_cg_solve_vmem(op, b, tol=1e-10, layout="2d", device=cuda)
+    assert bool(res.converged) and 485 <= int(res.iterations) <= 491
+    x = res.x.cpu().numpy()
+    assert np.linalg.norm(dia.mat_vec(x) - b) / np.linalg.norm(b) < 1e-11
