@@ -24,10 +24,12 @@ from cgx_torch.mats.generators import (
     source_term,
 )
 from cgx_torch.ops.cg_kernel import dia_cg_solve_vmem
+from cgx_torch.ops.cg_stream import dia_cg_solve_stream, dia_cg_solve_stream_pcg
 from cgx_torch.ops.matvec import dense_matvec, dense_matvec_dot
 from cgx_torch.solver.api import solve
 from cgx_torch.solver.cg import CGResult, cg_solve
 from cgx_torch.solver.fast import dia_cg_solve_pallas
+from cgx_torch.solver.pipelined import pipelined_cg_solve
 from cgx_torch.solver.operators import (
     CsrOperator,
     DenseOperator,

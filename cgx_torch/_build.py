@@ -61,7 +61,14 @@ _SIGNATURES = {
         "cgx_dia_cg_chunk": (_p, _p, _p, _p, _p, _p, _p, _n, _p, _p, _n, _offs, _i, _i,
                              _d, _d, _d, _i, _i, _i_out, _p),
     },
+    "cg_stream": {
+        "cgx_cg_stream": (_p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _n, _p, _p, _n, _offs,
+                          _i, _i, _d, _d, _d, _i, _i_out, _p),
+    },
 }
+# Entries that also take bfloat16 bands under float32 vectors, bound with
+# this suffix (cgx_torch.ops._util.BF16_BANDS_SUFFIX).
+_BF16_BANDS = ("cgx_dia_cg_chunk", "cgx_cg_stream")
 
 
 def _nvcc() -> str:
@@ -126,7 +133,7 @@ def load() -> types.SimpleNamespace:
     for s, entries in _SIGNATURES.items():
         cdll = ctypes.CDLL(libs[s])
         for name, argtypes in entries.items():
-            for suffix in ("_f32", "_f64"):
+            for suffix in ("_f32", "_f64") + (("_f32_bf16b",) if name in _BF16_BANDS else ()):
                 fn = getattr(cdll, name + suffix)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int

@@ -23,13 +23,17 @@ DEFAULT_TOLERANCE: float = 1.0e-10
 # The port's counterpart of cgx's VMEM_BUDGET_BYTES (a TPU number, not
 # copied): banded fp32 use_pallas solves, and the fp32 inner solves of
 # precision="mixed", run the whole-solve kernel (cgx_torch.ops.cg_kernel)
-# while cgx_torch.ops.cg_kernel.resident_state_bytes is at most this.
-# Set by chip_smoke.py's crossover sweep on an NVIDIA H100 80GB HBM3 at a
-# 700.00 W power limit: the whole-solve kernel beat the three-kernel loop
-# at every size swept, N = 250,000 to 4,000,000 (5 bands, fp32: 208 against
-# 670 us an iteration at 4e6), so the budget is the state of the largest,
-# N = 4,000,000 without the preconditioner. Sizes above it stay unmeasured.
-RESIDENT_BUDGET_BYTES: int = 144_024_640
+# while cgx_torch.ops.cg_kernel.resident_state_bytes is at most this, and
+# the streaming kernels (cgx_torch.ops.cg_stream) above it. Set by
+# chip_smoke.py's crossover sweep on an NVIDIA H100 80GB HBM3 at a 700.00 W
+# power limit (5 bands, fp32, us an iteration): the whole-solve kernel beat
+# the streaming kernel with bf16 bands at N = 250,000 and 1e6 (16.9 against
+# 24.2, 40.8 against 43.3) and lost at 1,999,396 and 4e6 (95.4 against 77.9,
+# 196.2 against 129.8), so the budget is the largest state at which it still
+# won, that of N = 1,000,000 with the preconditioner (whose state is the
+# larger). With the Neumann preconditioner the whole-solve kernel also won
+# above it, against the streaming PCG as it then stood (PERF.md).
+RESIDENT_BUDGET_BYTES: int = 40_024_640
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,14 +50,18 @@ class SolveConfig:
     # ||b||). "bf16" (ROADMAP A6) and "tw" (A12) are not ported yet.
     precision: str = "fp64"
     # Banded fp32 problems run the whole-solve kernel within
-    # RESIDENT_BUDGET_BYTES, the three-kernel loop of cgx_torch.solver.fast
-    # above it (see cgx_torch.solver.api.solve).
+    # RESIDENT_BUDGET_BYTES, and above it the path large_banded names
+    # (see cgx_torch.solver.api.solve).
     use_pallas: bool = False
-    # The fields below select paths that are not ported yet, but for
-    # precond; they keep cgx's defaults so that a cgx configuration reads
-    # the same.
-    large_banded: str = "stream"  # B4 / B6
-    method: str = "reference"  # others: A7, A11
+    # Above the budget: "stream" (the streaming kernels B4, or B6 with
+    # precond="neumann") or "xla" (the plain loop, with the configured
+    # preconditioner).
+    large_banded: str = "stream"
+    # "reference" or "pipelined" (Chronopoulos-Gear); the others (A7,
+    # A11) are not ported yet. The fields below select paths that are not
+    # ported yet, but for precond; they keep cgx's defaults so that a cgx
+    # configuration reads the same.
+    method: str = "reference"
     # None, "jacobi" or "neumann" (with use_pallas: the whole-solve
     # kernel's in-kernel Neumann PCG); "block_jacobi", "chebyshev" (A7)
     # and "mg" (A10) are not ported yet.

@@ -7,7 +7,11 @@
 //   _dia_cg_vmem2d  (_chunk_kernel2d, pallas_call at cg_kernel.py:479)
 // The two compute the same function; the second only tiles the vectors as
 // (rows, cols) planes for the TPU's (8, 128) registers and Mosaic's tiling. On
-// Hopper one kernel over flat vectors serves both.
+// Hopper one kernel over flat vectors serves both. As in cgx, the bands may be
+// stored in bfloat16 under float vectors (entry cgx_dia_cg_chunk_f32_bf16b, the
+// refinement's inner solve): each band value is widened to float as it is loaded
+// (dia_row.cuh), which halves the bands' share of the traffic; the float and
+// double entries compute what they did before, bit for bit.
 //
 // Per iteration, with the scalars [rsold, converged, k, breakdown] carried in
 // registers, in double, and identical in every block:
@@ -70,9 +74,9 @@ namespace cgx {
 
 namespace cg = cooperative_groups;
 
-template <typename T>
+template <typename T, typename B>
 struct ChunkArgs {
-  const T* bands;  // (ndiag, n)
+  const B* bands;  // (ndiag, n), in the vectors' type or bfloat16
   T* p;            // read with a halo in (a), rewritten in (c)
   T* x;
   T* r;
@@ -105,8 +109,8 @@ __device__ double ordered_total(const double* parts) {
   return total;
 }
 
-template <typename T, bool kPrecond>
-__global__ void __launch_bounds__(kThreads, 4) dia_cg_chunk_kernel(ChunkArgs<T> a) {
+template <typename T, typename B, bool kPrecond>
+__global__ void __launch_bounds__(kThreads, 4) dia_cg_chunk_kernel(ChunkArgs<T, B> a) {
   cg::grid_group grid = cg::this_grid();
   double* part_pap = a.partials;
   double* part_rr = a.partials + gridDim.x;
@@ -114,7 +118,7 @@ __global__ void __launch_bounds__(kThreads, 4) dia_cg_chunk_kernel(ChunkArgs<T> 
   const long long lo = static_cast<long long>(blockIdx.x) * a.rows;
   const long long hi = lo + a.rows < a.n ? lo + a.rows : a.n;
   const long long first = lo + threadIdx.x;
-  const T* diag = a.bands + a.d0 * a.n;
+  const B* diag = a.bands + a.d0 * a.n;
 
   double rsold = a.scal_in[0], conv = a.scal_in[1], k = a.scal_in[2], brk = a.scal_in[3];
   for (int it = 0; it < a.chunk; ++it) {
@@ -142,7 +146,7 @@ __global__ void __launch_bounds__(kThreads, 4) dia_cg_chunk_kernel(ChunkArgs<T> 
       a.x[i] = a.x[i] + alpha * pi;
       a.r[i] = ri;
       part += static_cast<double>(ri) * ri;
-      if (kPrecond) a.c[i] = (T(1) / diag[i]) * ri;
+      if (kPrecond) a.c[i] = (T(1) / widen(diag[i])) * ri;
     }
     part = block_sum(part);
     if (threadIdx.x == 0) part_rr[blockIdx.x] = part;
@@ -151,7 +155,7 @@ __global__ void __launch_bounds__(kThreads, 4) dia_cg_chunk_kernel(ChunkArgs<T> 
     if (kPrecond) {  // z = 2c - D^-1 A c and <r, z>; Ap is spent, its slot takes z
       part = 0.0;
       for (long long i = first; i < hi; i += kThreads) {
-        const T zi = T(2) * a.c[i] - (T(1) / diag[i]) * dia_row(a.bands, a.c, a.n, a.o, i);
+        const T zi = T(2) * a.c[i] - (T(1) / widen(diag[i])) * dia_row(a.bands, a.c, a.n, a.o, i);
         a.ap[i] = zi;
         part += static_cast<double>(a.r[i]) * zi;
       }
@@ -183,13 +187,13 @@ __global__ void __launch_bounds__(kThreads, 4) dia_cg_chunk_kernel(ChunkArgs<T> 
   }
 }
 
-template <typename T, bool kPrecond>
+template <typename T, typename B, bool kPrecond>
 static int launch_chunk(const void* bands, void* p, void* x, void* r, void* ap, void* c,
                         void* partials, long long partials_len, const void* scal_in,
                         void* scal_out, long long n, const long long* offsets, int ndiag, int d0,
                         double tol, double nearzero, double maxiter, int chunk, int* grid_out,
                         void* stream) {
-  ChunkArgs<T> a;
+  ChunkArgs<T, B> a;
   if (n < 0 || chunk < 0 || !make_offsets(offsets, ndiag, &a.o) || (kPrecond && (d0 < 0 || d0 >= ndiag)))
     return static_cast<int>(cudaErrorInvalidValue);
   // The grid is no larger than the blocks that fit at once, as a cooperative launch needs.
@@ -197,15 +201,15 @@ static int launch_chunk(const void* bands, void* p, void* x, void* r, void* ap, 
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, dia_cg_chunk_kernel<T, kPrecond>,
-                                                        kThreads, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, dia_cg_chunk_kernel<T, B, kPrecond>, kThreads, 0);
   if (err != cudaSuccess) return static_cast<int>(err);
   long long g = static_cast<long long>(per_sm) * sms;
   const long long need = (n + kThreads - 1) / kThreads;
   if (need < g) g = need;
   if (partials_len / 3 < g) g = partials_len / 3;
   if (g < 1) g = 1;
-  a.bands = static_cast<const T*>(bands);
+  a.bands = static_cast<const B*>(bands);
   a.p = static_cast<T*>(p);
   a.x = static_cast<T*>(x);
   a.r = static_cast<T*>(r);
@@ -224,24 +228,24 @@ static int launch_chunk(const void* bands, void* p, void* x, void* r, void* ap, 
   *grid_out = static_cast<int>(g);
   void* args[] = {&a};
   // a launch the card refuses (cudaErrorCooperativeLaunchTooLarge, ...) returns its code
-  err = cudaLaunchCooperativeKernel((const void*)dia_cg_chunk_kernel<T, kPrecond>,
+  err = cudaLaunchCooperativeKernel((const void*)dia_cg_chunk_kernel<T, B, kPrecond>,
                                     dim3(static_cast<unsigned int>(g)), dim3(kThreads), args, 0,
                                     static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, typename B>
 static int launch_chunk_any(const void* bands, void* p, void* x, void* r, void* ap, void* c,
                             void* partials, long long partials_len, const void* scal_in,
                             void* scal_out, long long n, const long long* offsets, int ndiag,
                             int d0, double tol, double nearzero, double maxiter, int chunk,
                             int precond, int* grid_out, void* stream) {
   if (precond)
-    return launch_chunk<T, true>(bands, p, x, r, ap, c, partials, partials_len, scal_in, scal_out,
-                                 n, offsets, ndiag, d0, tol, nearzero, maxiter, chunk, grid_out,
-                                 stream);
-  return launch_chunk<T, false>(bands, p, x, r, ap, c, partials, partials_len, scal_in, scal_out,
+    return launch_chunk<T, B, true>(bands, p, x, r, ap, c, partials, partials_len, scal_in,
+                                    scal_out, n, offsets, ndiag, d0, tol, nearzero, maxiter, chunk,
+                                    grid_out, stream);
+  return launch_chunk<T, B, false>(bands, p, x, r, ap, c, partials, partials_len, scal_in, scal_out,
                                 n, offsets, ndiag, d0, tol, nearzero, maxiter, chunk, grid_out,
                                 stream);
 }
@@ -255,7 +259,7 @@ int cgx_dia_cg_chunk_f32(const void* bands, void* p, void* x, void* r, void* ap,
                          void* scal_out, long long n, const long long* offsets, int ndiag, int d0,
                          double tol, double nearzero, double maxiter, int chunk, int precond,
                          int* grid_out, void* stream) {
-  return cgx::launch_chunk_any<float>(bands, p, x, r, ap, c, partials, partials_len, scal_in,
+  return cgx::launch_chunk_any<float, float>(bands, p, x, r, ap, c, partials, partials_len, scal_in,
                                       scal_out, n, offsets, ndiag, d0, tol, nearzero, maxiter,
                                       chunk, precond, grid_out, stream);
 }
@@ -265,9 +269,20 @@ int cgx_dia_cg_chunk_f64(const void* bands, void* p, void* x, void* r, void* ap,
                          void* scal_out, long long n, const long long* offsets, int ndiag, int d0,
                          double tol, double nearzero, double maxiter, int chunk, int precond,
                          int* grid_out, void* stream) {
-  return cgx::launch_chunk_any<double>(bands, p, x, r, ap, c, partials, partials_len, scal_in,
-                                       scal_out, n, offsets, ndiag, d0, tol, nearzero, maxiter,
-                                       chunk, precond, grid_out, stream);
+  return cgx::launch_chunk_any<double, double>(bands, p, x, r, ap, c, partials, partials_len,
+                                               scal_in, scal_out, n, offsets, ndiag, d0, tol,
+                                               nearzero, maxiter, chunk, precond, grid_out, stream);
+}
+
+int cgx_dia_cg_chunk_f32_bf16b(const void* bands, void* p, void* x, void* r, void* ap, void* c,
+                               void* partials, long long partials_len, const void* scal_in,
+                               void* scal_out, long long n, const long long* offsets, int ndiag,
+                               int d0, double tol, double nearzero, double maxiter, int chunk,
+                               int precond, int* grid_out, void* stream) {
+  return cgx::launch_chunk_any<float, __nv_bfloat16>(bands, p, x, r, ap, c, partials, partials_len,
+                                                     scal_in, scal_out, n, offsets, ndiag, d0, tol,
+                                                     nearzero, maxiter, chunk, precond, grid_out,
+                                                     stream);
 }
 
 }  // extern "C"

@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import contextlib
+from typing import Optional
 
 import torch
 
@@ -31,6 +32,43 @@ def check_device(t: torch.Tensor, dev: torch.device, name: str) -> None:
 
 
 KERNEL_DTYPES = {torch.float32: "_f32", torch.float64: "_f64"}
+# entries whose bands are stored in bfloat16 under float32 vectors
+BF16_BANDS_SUFFIX = "_f32_bf16b"
+
+
+def band_storage(vec_dtype: torch.dtype, bands_dtype) -> Optional[torch.dtype]:
+    """The narrower band dtype a kernel is asked to stream (None for the
+    vectors' own): bfloat16 under float32 vectors is ported; anything
+    else raises."""
+    if bands_dtype is None or bands_dtype == vec_dtype:
+        return None
+    if bands_dtype == torch.bfloat16 and vec_dtype == torch.float32:
+        return torch.bfloat16
+    raise NotImplementedError(
+        f"bands_dtype={bands_dtype} under {vec_dtype} vectors is not ported to cgx_torch yet: "
+        "the kernels take bfloat16 bands under float32 vectors only (ROADMAP A6)")
+
+
+def round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def pow2_rhs_scale(b: torch.Tensor, x0: Optional[torch.Tensor] = None):
+    """Exact power-of-2 ``(down, up)`` pair that brings ``max|b|`` (and
+    ``max|x0|``) into [0.5, 1): ``down = 2**-e``, ``up = 2**e`` from the
+    ``frexp`` exponent ``e``, as 0-d tensors of ``b``'s dtype on its
+    device; ``(1, 1)`` for a zero ``b``. Scaling by a power of two
+    commutes with rounding (absent over- and underflow), so a scaled
+    solve scaled back is bitwise the unscaled one for a well-scaled
+    ``b``, while ``<r, r>`` of a huge ``b`` stays inside float32's range
+    (counterpart of ``cgx/ops/_util.py:pow2_rhs_scale``)."""
+    amax = torch.max(torch.abs(b)) if b.numel() else torch.zeros((), dtype=b.dtype,
+                                                                 device=b.device)
+    if x0 is not None:
+        amax = torch.maximum(amax, torch.max(torch.abs(x0)))
+    _, e = torch.frexp(amax)  # amax = m * 2**e, m in [0.5, 1)
+    one = torch.ones((), dtype=b.dtype, device=b.device)
+    return torch.ldexp(one, -e), torch.ldexp(one, e)
 
 
 def check_operands(fn: str, vectors: dict, scalars: dict = None) -> None:
@@ -63,13 +101,14 @@ def check_operands(fn: str, vectors: dict, scalars: dict = None) -> None:
             raise ValueError(f"{fn}: {name} must hold one element, has {t.numel()}")
 
 
-def launch(entry: str, like: torch.Tensor, *args) -> None:
-    """Call the C entry point ``entry`` of ``like``'s dtype on the
-    current stream of ``like``'s CUDA device; raise if it reports an
-    error. Builds the kernels on first use."""
+def launch(entry: str, like: torch.Tensor, *args, suffix: Optional[str] = None) -> None:
+    """Call the C entry point ``entry`` of ``like``'s dtype (or of the
+    given ``suffix``, e.g. :data:`BF16_BANDS_SUFFIX`) on the current
+    stream of ``like``'s CUDA device; raise if it reports an error.
+    Builds the kernels on first use."""
     from cgx_torch import _build
 
-    fn = getattr(_build.load(), entry + KERNEL_DTYPES[like.dtype])
+    fn = getattr(_build.load(), entry + (suffix or KERNEL_DTYPES[like.dtype]))
     with torch.cuda.device(like.device):
         rc = fn(*args, torch.cuda.current_stream(like.device).cuda_stream)
     if rc != 0:

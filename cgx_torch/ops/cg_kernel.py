@@ -31,7 +31,14 @@ import torch
 
 from cgx_torch._build import PARTIALS
 from cgx_torch.config import DEFAULT_TOLERANCE, NEARZERO
-from cgx_torch.ops._util import check_operands, launch, resolve_device
+from cgx_torch.ops._util import (
+    BF16_BANDS_SUFFIX,
+    KERNEL_DTYPES,
+    band_storage,
+    check_operands,
+    launch,
+    resolve_device,
+)
 from cgx_torch.ops.dia_spmv import _check, _offsets_arg, dia_matvec, dia_matvec_ref
 from cgx_torch.solver.cg import CGResult, as_vector
 
@@ -89,8 +96,10 @@ def dia_cg_chunk_ref(
     converging. Advances p, x and r in place; returns the new
     ``[rsold, converged, k, breakdown]`` (float64). Dots and scalars are
     float64; alpha and beta round to the data's dtype where they scale
-    vectors, as in the kernel and in ``cg_solve(dot_precision=float64)``."""
+    vectors, as in the kernel and in ``cg_solve(dot_precision=float64)``.
+    bfloat16 bands widen exactly to the vectors' dtype, as in the kernel."""
     offsets = tuple(int(o) for o in offsets)
+    bands = bands.to(x.dtype)
 
     def s(v, dtype=torch.float64):
         return torch.tensor(v, dtype=dtype, device=x.device)
@@ -149,8 +158,10 @@ def dia_cg_chunk(
     kernel. Advances p, x and r in place and returns the new packed
     scalars ``[rsold, converged, k, breakdown]`` (a float64 (4,) tensor).
     ``layout`` names the cgx site the call stands for and picks the
-    launch counter; the kernel is the same."""
-    offsets = _check("dia_cg_chunk", bands, x, offsets)
+    launch counter (``launches_bf16`` counts those with bfloat16 bands
+    again); the kernel is the same. ``bands`` are in the vectors'
+    dtype, or bfloat16 under float32 vectors."""
+    offsets = _check("dia_cg_chunk", bands, x, offsets, bf16_bands=True)
     check_operands("dia_cg_chunk", {"p": p, "x": x, "r": r})
     if layout not in LAYOUTS:
         raise ValueError(f"unknown layout {layout!r}")
@@ -172,13 +183,17 @@ def dia_cg_chunk(
                scal.data_ptr(), out.data_ptr(), x.shape[0], _offsets_arg(offsets), len(offsets),
                d0, float(tol), float(torch.tensor(nearzero, dtype=x.dtype)), float(maxiter),
                int(chunk), int(precond),
-               ctypes.byref(grid))
+               ctypes.byref(grid), suffix=(BF16_BANDS_SUFFIX if bands.dtype == torch.bfloat16
+                                           else KERNEL_DTYPES[x.dtype]))
         dia_cg_chunk.grid = grid.value
     dia_cg_chunk.launches[layout] += 1
+    if bands.dtype == torch.bfloat16:
+        dia_cg_chunk.launches_bf16[layout] += 1
     return out
 
 
 dia_cg_chunk.launches = {layout: 0 for layout in LAYOUTS}
+dia_cg_chunk.launches_bf16 = {layout: 0 for layout in LAYOUTS}  # those with bfloat16 bands
 dia_cg_chunk.grid = None  # blocks of the last CUDA launch
 
 
@@ -186,16 +201,19 @@ def _solve(bands, b, *, offsets, tol, nearzero, maxiter, chunk, precond, layout)
     """cgx's _dia_cg_vmem set-up (cg_kernel.py:189-243) and its chunk
     loop, from x0 = 0, on flat vectors."""
     offsets = tuple(int(o) for o in offsets)
-    if bands.dtype != b.dtype:
+    if bands.dtype != b.dtype and not (bands.dtype == torch.bfloat16 and b.dtype == torch.float32):
         raise TypeError(f"bands are {bands.dtype} but b is {b.dtype}")
     x = torch.zeros_like(b)
     r = b.clone()
     rr0 = _dot(b, b)
     if precond:
         # p0 = z0 = M^-1 b = 2 c0 - D^-1 A c0 with c0 = D^-1 b, through kernel B1
-        invd = 1.0 / bands[_diag_index(offsets)]
+        # on the (widened) bands the kernel streams
+        bw = bands.to(b.dtype)
+        invd = 1.0 / bw[_diag_index(offsets)]
         c0 = invd * b
-        p = 2.0 * c0 - invd * dia_matvec(bands, c0, offsets=offsets)
+        p = 2.0 * c0 - invd * dia_matvec(bw, c0, offsets=offsets)
+        del bw
         rsold0 = _dot(b, p)
     else:
         p = b.clone()
@@ -259,20 +277,23 @@ def dia_cg_solve_vmem(
     two sites; the same kernel here) and ``cols`` the 2-D plane width,
     kept for cgx's signature. cgx's TPU guard against VMEM capacity has
     no counterpart: the resident budget only routes ``solve``.
-    ``bands_dtype`` (bf16 band storage) is not ported yet."""
+    ``bands_dtype=torch.bfloat16`` (float32 only) streams the bands in
+    bfloat16: the solve then runs on the rounded operator, exact for
+    stencil constants and a nearby SPD matrix otherwise (the
+    refinement's inner, cgx cg_kernel.py:549-582)."""
     dev = resolve_device(device)
     if layout not in LAYOUTS:
         raise ValueError(f"unknown layout {layout!r}")
     if int(cols) < 1:
         raise ValueError(f"cols must be positive, got {cols}")
-    if bands_dtype is not None:
-        raise NotImplementedError(
-            "dia_cg_solve_vmem(bands_dtype=...): bf16 band storage is not ported to cgx_torch "
-            "yet (ROADMAP A6)")
     b = as_vector(b, dev, "b")
     n = b.shape[0]
+    bands = op.bands
+    storage = band_storage(b.dtype, bands_dtype)
+    if storage is not None:
+        bands = bands.to(storage)
     common = dict(offsets=tuple(op.offsets), maxiter=n if maxiter is None else int(maxiter),
                   chunk=int(chunk), precond=bool(precond))
     if layout == "2d":
-        return _dia_cg_vmem2d(op.bands, b, tol, nearzero, cols=int(cols), **common)
-    return _dia_cg_vmem(op.bands, b, tol, nearzero, **common)
+        return _dia_cg_vmem2d(bands, b, tol, nearzero, cols=int(cols), **common)
+    return _dia_cg_vmem(bands, b, tol, nearzero, **common)

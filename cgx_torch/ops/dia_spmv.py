@@ -45,11 +45,14 @@ def dia_matvec_dot_ref(
     return y, torch.sum(x * y)
 
 
-def _check(fn: str, bands, x, offsets) -> Tuple[int, ...]:
+def _check(fn: str, bands, x, offsets, *, bf16_bands: bool = False) -> Tuple[int, ...]:
+    """Validate bands, x and offsets; ``bf16_bands`` also accepts
+    bfloat16 bands under float32 x (the kernels that stream them)."""
     check_operands(fn, {"x": x})
     if not isinstance(bands, torch.Tensor) or bands.dim() != 2:
         raise ValueError(f"{fn}: bands must be a 2-D (ndiag, n) tensor")
-    if bands.dtype != x.dtype or bands.device != x.device:
+    narrow = bf16_bands and bands.dtype == torch.bfloat16 and x.dtype == torch.float32
+    if (bands.dtype != x.dtype and not narrow) or bands.device != x.device:
         raise ValueError(f"{fn}: bands ({bands.dtype}, {bands.device}) and x "
                          f"({x.dtype}, {x.device}) differ")
     offsets = tuple(int(o) for o in offsets)

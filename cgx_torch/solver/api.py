@@ -4,7 +4,7 @@ device and one right-hand side).
     import cgx_torch
     res = cgx_torch.solve(matrix, b)                       # fp64 reference CG
     res = cgx_torch.solve(matrix, b, cgx_torch.SolveConfig(
-        precision="fp32", use_pallas=True))                # whole-solve kernel
+        precision="fp32", use_pallas=True))                # B5, or B4 above the budget
     res = cgx_torch.solve(matrix, b, cgx_torch.SolveConfig(
         precision="mixed"))                                # fp64 refinement sweeps
 
@@ -14,12 +14,16 @@ Dispatch (cgx api.py:322-403):
 - ``use_pallas`` + banded + fp32 + ``precond in (None, "neumann")`` + no
   x0 runs the whole-solve kernel (:func:`cgx_torch.ops.cg_kernel.
   dia_cg_solve_vmem`, ``layout="2d"``) while its state fits
-  :data:`cgx_torch.config.RESIDENT_BUDGET_BYTES`; above it, no
-  preconditioner runs the three-kernel loop
-  (:func:`cgx_torch.solver.fast.dia_cg_solve_pallas`, standing in for
-  the streaming kernel B4) and ``"neumann"`` raises (B6). cgx's fallback
-  when a TPU compile service refuses the kernel is not ported: a failed
-  launch raises;
+  :data:`cgx_torch.config.RESIDENT_BUDGET_BYTES`. Above it
+  ``cfg.large_banded`` decides: ``"stream"`` (the default) runs the
+  streaming kernels of :mod:`cgx_torch.ops.cg_stream`, B4 with
+  ``bands_dtype="auto"`` without a preconditioner and B6 with
+  ``"neumann"``; ``"xla"`` runs the plain loop below, with the
+  configured preconditioner; any other value raises ``ValueError``.
+  cgx's fallback when a TPU compile service refuses the kernel is not
+  ported: a failed launch raises;
+- ``method="pipelined"`` runs :func:`cgx_torch.solver.pipelined.
+  pipelined_cg_solve`, with float64 dots for fp32;
 - ``precision="mixed"`` runs fp64 refinement around fp32 inner solves
   (:mod:`cgx_torch.solver.refine`);
 - everything else that is ported runs the plain reference loop, with
@@ -40,15 +44,16 @@ from cgx_torch.config import SolveConfig
 from cgx_torch.mats.containers import DIAMatrix
 from cgx_torch.ops._util import resolve_device
 from cgx_torch.ops.cg_kernel import dia_cg_solve_vmem, resident_state_bytes
+from cgx_torch.ops.cg_stream import dia_cg_solve_stream, dia_cg_solve_stream_pcg
 from cgx_torch.solver.cg import CGResult, as_vector, cg_solve
-from cgx_torch.solver.fast import dia_cg_solve_pallas
 from cgx_torch.solver.operators import DiaOperator, as_operator
+from cgx_torch.solver.pipelined import pipelined_cg_solve
 from cgx_torch.solver.precond import jacobi, neumann_banded
 from cgx_torch.solver.refine import iterative_refinement, refine_fixed_sweeps
 
 _DTYPES = {"fp64": torch.float64, "fp32": torch.float32}
 _UNPORTED_PRECISION = {
-    "bf16": "bf16 storage (ROADMAP A6, with B4)",
+    "bf16": "bf16 vectors (ROADMAP A6)",
     "tw": "triple-word refinement (ROADMAP A12)",
 }
 _UNPORTED_PRECOND = {
@@ -143,14 +148,22 @@ def solve(
         raise _unported(f"precision={cfg.precision!r}: {_UNPORTED_PRECISION[cfg.precision]}")
     if cfg.precision not in _DTYPES:
         raise ValueError(f"unknown precision {cfg.precision!r}")
-    if method != "reference":
+    if method not in ("reference", "pipelined"):
         raise _unported(f"method={method!r} (ROADMAP A7, A11)")
     dtype = _DTYPES[cfg.precision]
+    # fp32 vectors with fp64 dots, as cgx does whenever x64 is on
+    dot_precision = torch.float64 if dtype != torch.float64 else None
 
     op = mat if hasattr(mat, "matvec") else as_operator(mat, dtype=dtype, device=dev)
     b_dev = as_vector(b, dev, "b", dtype)
     n = b_dev.shape[0]
     maxiter = n if cfg.maxiter is None else cfg.maxiter
+    if method == "pipelined":  # cgx api.py:302-309
+        return pipelined_cg_solve(
+            op, b_dev, x0, tol=cfg.tolerance, maxiter=maxiter, nearzero=cfg.nearzero,
+            history=cfg.history, dot_precision=dot_precision,
+            precond=_build_precond(cfg, op), device=dev,
+        )
 
     if (cfg.use_pallas and isinstance(op, DiaOperator) and cfg.precision != "fp64"
             and cfg.precond in (None, "neumann") and x0 is None):  # the kernels start from 0
@@ -163,20 +176,20 @@ def solve(
                 op, b_dev, tol=cfg.tolerance, maxiter=maxiter, nearzero=cfg.nearzero,
                 precond=neumann, layout="2d", device=dev,
             )
-        if neumann:
-            raise _unported(
-                "precond='neumann' with use_pallas above the resident budget: the streaming "
-                "Neumann-PCG kernel (ROADMAP B6)")
-        # above the budget cgx streams (B4); the three-kernel loop stands in
-        return dia_cg_solve_pallas(
-            op, b_dev, tol=cfg.tolerance, maxiter=maxiter, nearzero=cfg.nearzero,
-            history=cfg.history, device=dev,
-        )
+        # above the budget (cgx api.py:365-391)
+        common = dict(tol=cfg.tolerance, maxiter=maxiter, nearzero=cfg.nearzero, device=dev)
+        if cfg.large_banded == "stream" and not neumann:
+            # bf16 band planes when, and only when, the round trip is exact
+            return dia_cg_solve_stream(op, b_dev, bands_dtype="auto", **common)
+        if cfg.large_banded == "stream":
+            # the kernel's in-launch PCG is neumann_banded(sweeps=2)
+            return dia_cg_solve_stream_pcg(op, b_dev, **common)
+        if cfg.large_banded != "xla":
+            raise ValueError(f"unknown large_banded {cfg.large_banded!r}")
     return cg_solve(
         op, b_dev, x0,
         tol=cfg.tolerance, maxiter=maxiter, nearzero=cfg.nearzero, history=cfg.history,
-        # fp32 vectors with fp64 dots, as cgx does whenever x64 is on
-        dot_precision=torch.float64 if dtype != torch.float64 else None,
+        dot_precision=dot_precision,
         precond=_build_precond(cfg, op),
         device=dev,
     )

@@ -8,8 +8,10 @@
 :func:`refine_fixed_sweeps` runs its inner solves on the whole-solve
 kernel (B5, :mod:`cgx_torch.ops.cg_kernel`) with the in-kernel Neumann
 preconditioner; :func:`iterative_refinement` picks its inner by the
-resident budget. ``refine_pcg_sweeps`` and its ``_dd`` and ``_tw``
-variants are not ported yet (ROADMAP A9, A12).
+resident budget: B5, B5 with bfloat16 bands, or the streaming
+Neumann-PCG kernel (B6, :mod:`cgx_torch.ops.cg_stream`).
+``refine_pcg_sweeps`` and its ``_dd`` and ``_tw`` variants are not ported
+yet (ROADMAP A9, A12).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from cgx_torch.ops.cg_kernel import (
     dia_cg_solve_vmem,
     resident_state_bytes,
 )
+from cgx_torch.ops.cg_stream import dia_cg_solve_stream_pcg
 from cgx_torch.ops.reduce import vdot
 from cgx_torch.solver.cg import as_vector, cg_solve
 from cgx_torch.solver.fast import dia_cg_solve_pallas
@@ -70,12 +73,14 @@ def iterative_refinement(
     """Solve ``A x = b`` to an fp64 true residual with low-precision
     inner CG; converged when ``||b - A x|| < max(tol, rtol ||b||)``.
 
-    With ``use_pallas`` and a banded operator the inner solve is the
-    whole-solve kernel with its Neumann preconditioner while its state
-    fits :data:`cgx_torch.config.RESIDENT_BUDGET_BYTES`, else the
-    three-kernel loop; the bf16-band and streaming Neumann-PCG inners of
-    cgx raise until ROADMAP A6 and B6 land. ``block`` and ``interpret``
-    were TPU knobs and are gone."""
+    With ``use_pallas`` and a banded operator the inner solve is, as in
+    cgx (refine.py:142-156), the whole-solve kernel with its Neumann
+    preconditioner while its state fits
+    :data:`cgx_torch.config.RESIDENT_BUDGET_BYTES`; then the same kernel
+    with bfloat16 bands (a nearby SPD inner matrix, which the fp64 outer
+    corrects for) while that fits; then the streaming Neumann-PCG kernel
+    when the bands hold offset 0; else the three-kernel loop. ``block``
+    and ``interpret`` were TPU knobs and are gone."""
     dev = resolve_device(device)
     b64 = as_vector(b64, dev, "b64", torch.float64)
     n = b64.shape[0]
@@ -115,13 +120,12 @@ def iterative_refinement(
                                           chunk=min(512, inner_maxiter), precond=True,
                                           layout="2d", device=dev)
             elif itemsize == 4 and state_bf16 <= config.RESIDENT_BUDGET_BYTES:
-                raise NotImplementedError(
-                    "iterative_refinement: the whole-solve inner with bf16 bands is not ported "
-                    "to cgx_torch yet (ROADMAP A6)")
+                inner = dia_cg_solve_vmem(op_lo, r_lo, tol=inner_tol, maxiter=inner_maxiter,
+                                          chunk=min(512, inner_maxiter), precond=True,
+                                          bands_dtype=torch.bfloat16, layout="2d", device=dev)
             elif itemsize == 4 and 0 in tuple(op_lo.offsets):
-                raise NotImplementedError(
-                    "iterative_refinement: the streaming Neumann-PCG inner above the resident "
-                    "budget is not ported to cgx_torch yet (ROADMAP B6)")
+                inner = dia_cg_solve_stream_pcg(op_lo, r_lo, tol=inner_tol,
+                                                maxiter=inner_maxiter, device=dev)
             else:
                 inner = dia_cg_solve_pallas(op_lo, r_lo, tol=inner_tol, maxiter=inner_maxiter,
                                             device=dev)

@@ -11,54 +11,73 @@ Phases, one JSON object per line each:
    reports them (also printed raw on a line of their own);
 2. build: nvcc compiles the kernels of cgx_torch/csrc (one process per
    source, all at once);
-3. kernels: each CUDA kernel, in float32 and float64, on the bands of
-   lap2d_fd(3200) and lap2d_reference(10_240_000) (N = 10,240,000),
-   against its plain PyTorch version on the same seeded inputs, with
-   its time, the plain version's, a one-call PyTorch yardstick where
-   there is one, and the least time the card could take;
+3. kernels: the mat-vec and update kernels, in float32 and float64, on
+   the bands of lap2d_fd(3200) and lap2d_reference(10_240_000)
+   (N = 10,240,000), against their plain PyTorch versions on the same
+   seeded inputs, with their times, the plain versions', a one-call
+   PyTorch yardstick where there is one, and the least time the card
+   could take;
 4. goldens: the fp64 flagship goldens of tests/test_golden.py through
-   the three-kernel loop;
-5. main path: cgx_torch.solve on lap2d_fd(3200) in fp32 with
-   use_pallas=True, twice (bitwise equal), its kernel launch counts,
-   and the plain fp32 loop on the same problem;
-6. profile: device time by kernel and the card's idle share over 256
+   the three-kernel loop, with its launch counts;
+5. stream kernel: the streaming Chronopoulos-Gear kernels (split in
+   float32 with float32 and with bfloat16 bands, and in float64; stacked
+   in float32; the Neumann PCG in float32) on lap2d_fd(3200) from one
+   seeded state, one iteration and 32 against the plain version,
+   split against stacked bitwise, with ms an iteration, the bound, the
+   plain version's ms and the peak device memory;
+6. main path: cgx_torch.solve on lap2d_fd(3200) in fp32 with
+   use_pallas=True, twice (bitwise equal), its kernel launch counts, the
+   same solve through the stacked layout (bitwise equal), and the plain
+   pipelined loop (fp64 dots) and the plain classic loop on the same
+   problem;
+7. profile: device time by kernel and the card's idle share over 256
    iterations of the main path, from torch.profiler;
-7. dense kernels: dense_matvec and dense_matvec_dot, float32 and
-   float64, on lap2d_fd(100) densified (N = 10,000, tiles 1024 x 128,
-   the CLI's mapping of the reference's "1024 16") and on
-   lap2d_reference(16384) densified (N = 16,384, the default 256 x 512),
-   against their plain versions, with torch.mv as the yardstick;
-8. CLI, CUDA grammar: the reference's own run, lap2D_5pt_n100.mtx 1024
-   16 true, in fp64 through the dense kernel, twice (bitwise equal),
-   held to the lap2d_fd(100) goldens and the reference's gates;
-9. CLI, MPI grammar: 16384 --pallas, dense fp64 through the kernel,
-   against the plain fp64 dense loop;
-10. CLI, fp32: the CUDA grammar with --precision fp32 against the plain
+8. stream PCG path: the main path's call with precond="neumann", twice,
+   against the plain pipelined Neumann PCG;
+9. stream goldens: dia_cg_solve_stream in float64 on lap2d_fd(100) and
+   lap2d_reference(10000) at tol 1e-10, twice each, against the plain
+   float64 pipelined loop;
+10. dense kernels: dense_matvec and dense_matvec_dot, float32 and
+    float64, on lap2d_fd(100) densified (N = 10,000, tiles 1024 x 128,
+    the CLI's mapping of the reference's "1024 16") and on
+    lap2d_reference(16384) densified (N = 16,384, the default 256 x 512),
+    against their plain versions, with torch.mv as the yardstick;
+11. CLI, CUDA grammar: the reference's own run, lap2D_5pt_n100.mtx 1024
+    16 true, in fp64 through the dense kernel, twice (bitwise equal),
+    held to the lap2d_fd(100) goldens and the reference's gates;
+12. CLI, MPI grammar: 16384 --pallas, dense fp64 through the kernel,
+    against the plain fp64 dense loop;
+13. CLI, fp32: the CUDA grammar with --precision fp32 against the plain
     fp32 loop;
-11. resident kernel: the whole-solve chunk kernel against its plain
+14. resident kernel: the whole-solve chunk kernel against its plain
     version from one seeded state on the bands of lap2d_fd(1000)
-    (N = 1,000,000), float32 and float64: one iteration, and one
-    64-iteration chunk; then, in float32, with and without the Neumann
-    preconditioner, its ms per iteration in both layouts against the HBM
-    bound, the plain version's and the peak device memory;
-12. resident goldens: dia_cg_solve_vmem in float64 on lap2d_fd(100) and
+    (N = 1,000,000), float32, float64 and float32 under bfloat16 bands:
+    one iteration, and one 64-iteration chunk; then its ms per iteration
+    in both layouts against the HBM bound, the plain version's and the
+    peak device memory;
+15. resident goldens: dia_cg_solve_vmem in float64 on lap2d_fd(100) and
     lap2d_reference(10000) at tol 1e-10, twice each;
-13. resident path: cgx_torch.solve(lap2d_fd(g)) for g = 1000 and 1414
-    (N = 1,000,000 and 1,999,396) in fp32 with use_pallas=True, without
-    and with precond="neumann", twice each, against the plain fp32 (P)CG
-    loop and beside the three-kernel loop, with its launch counts; and
-    one direct call with layout="1d";
-14. crossover: the whole-solve kernel against the three-kernel loop in
-    us per iteration at N = 250,000, 1e6, 2e6 and 4e6, which sets
-    cgx_torch.config.RESIDENT_BUDGET_BYTES;
-15. mixed: cgx_torch.solve(lap2d_fd(1000)) with precision="mixed" at a
-    relative tolerance of 1e-11, beside the plain fp64 loop.
+16. resident path: the whole-solve kernel at N = 1,000,000 and 1,999,396
+    in fp32, without and with the Neumann preconditioner, twice each,
+    against the plain fp32 (P)CG loop and beside the three-kernel loop:
+    through cgx_torch.solve where the budget routes it there, by a direct
+    call where it no longer does; and one direct call with layout="1d";
+17. crossover: the whole-solve kernel against the streaming kernel, and
+    its Neumann PCG against the streaming PCG, in us per iteration at
+    N = 250,000, 1e6, 1,999,396 and 4e6, beside the three-kernel loop,
+    which sets cgx_torch.config.RESIDENT_BUDGET_BYTES;
+18. mixed: cgx_torch.solve(lap2d_fd(1000)) with precision="mixed" at a
+    relative tolerance of 1e-11, beside the plain fp64 loop;
+19. mixed above the budget: iterative_refinement(use_pallas=True) on
+    lap2d_fd(1000) with the budget set so that the inner solve is the
+    streaming PCG, then the whole-solve kernel under bfloat16 bands; and
+    one direct call of the latter with layout="1d".
 
 The CLI phases call cgx_torch.cli.main.run, the body of the CLI's main,
-in this process. Then a "kernels" line for the eight kernels, and, last,
-the contract line {"ok": true, "device": {...}}. Any failed check
-raises, so the script exits non-zero and prints no result. It needs a
-CUDA device and imports neither JAX nor cgx.
+in this process. Then a "kernels" line for the thirteen kernel sites,
+and, last, the contract line {"ok": true, "device": {...}}. Any failed
+check raises, so the script exits non-zero and prints no result. It
+needs a CUDA device and imports neither JAX nor cgx.
 """
 
 from __future__ import annotations
@@ -87,12 +106,16 @@ from cgx_torch import (
     config,
     densify_on_device,
     dia_cg_solve_pallas,
+    dia_cg_solve_stream,
+    dia_cg_solve_stream_pcg,
     dia_cg_solve_vmem,
+    iterative_refinement,
+    pipelined_cg_solve,
     solve,
 )
 from cgx_torch.cli import main as cli
 from cgx_torch.mats.generators import lap2d_fd, lap2d_fd_coo_lower, lap2d_reference, source_term
-from cgx_torch.ops import axpy, cg_kernel, dia_spmv, matvec
+from cgx_torch.ops import axpy, cg_kernel, cg_stream, dia_spmv, matvec
 from cgx_torch.ops._util import f32_exact
 from cgx_torch.solver.precond import neumann_banded
 
@@ -120,6 +143,18 @@ RESIDENT_GRIDS = (1000, 1414)  # N = 1,000,000 and 1,999,396 (cgx/config.py:33-3
 CHUNK = 64  # iterations per launch of dia_cg_solve_vmem's default
 CROSSOVER_GRIDS = (500, 1000, 1414, 2000)  # N = 250,000 .. 4,000,000
 CROSSOVER_ITERS = 512
+STREAM_ITERS = 32  # launches of the stream kernel phase's second comparison
+# name: (kernel site, vector dtype, bfloat16 bands, preconditioner, stacked layout)
+STREAM_CASES = {
+    "split_f32": ("stream_iteration", torch.float32, False, False, False),
+    "split_f32_bf16b": ("stream_iteration", torch.float32, True, False, False),
+    "split_f64": ("stream_iteration", torch.float64, False, False, False),
+    "stacked_f32": ("stream_iteration_stacked", torch.float32, False, False, True),
+    "pcg_f32": ("stream_iteration_pcg", torch.float32, False, True, False),
+}
+# the case whose shapes and dtypes the main paths give each streaming site
+STREAM_MAIN_CASE = {"stream_iteration": "split_f32_bf16b", "stream_iteration_stacked":
+                    "stacked_f32", "stream_iteration_pcg": "pcg_f32"}
 
 # (name substring, HBM bytes/s, float32 FLOP/s, float64 FLOP/s) from
 # NVIDIA's data sheets, dense, without tensor cores; first match wins.
@@ -154,9 +189,22 @@ KERNELS = {
     "dense_matvec_dot": ("cgx_torch/csrc/matvec.cu", "cgx/ops/matvec.py:163"),
     "dia_cg_vmem": ("cgx_torch/csrc/cg_kernel.cu", "cgx/ops/cg_kernel.py:245"),
     "dia_cg_vmem2d": ("cgx_torch/csrc/cg_kernel.cu", "cgx/ops/cg_kernel.py:479"),
+    "dia_cg_vmem_bf16b": ("cgx_torch/csrc/cg_kernel.cu", "cgx/ops/cg_kernel.py:245"),
+    "dia_cg_vmem2d_bf16b": ("cgx_torch/csrc/cg_kernel.cu", "cgx/ops/cg_kernel.py:479"),
+    "stream_iteration": ("cgx_torch/csrc/cg_stream.cu", "cgx/ops/cg_stream.py:404"),
+    "stream_iteration_stacked": ("cgx_torch/csrc/cg_stream.cu", "cgx/ops/cg_stream.py:930"),
+    "stream_iteration_pcg": ("cgx_torch/csrc/cg_stream.cu", "cgx/ops/cg_stream.py:1203"),
 }
-# the whole-solve kernel's two cgx sites, by the layout its wrapper counts
+# the whole-solve kernel's two cgx sites, by the layout its wrapper counts,
+# with the bands in the vectors' dtype and in bfloat16
 RESIDENT_SITES = {"dia_cg_vmem": "1d", "dia_cg_vmem2d": "2d"}
+BF16_SITES = {"dia_cg_vmem_bf16b": "1d", "dia_cg_vmem2d_bf16b": "2d"}
+STREAM_SITES = {
+    "stream_iteration": cg_stream._stream_iteration,
+    "stream_iteration_stacked": cg_stream._stream_iteration_stacked,
+    "stream_iteration_pcg": cg_stream._stream_iteration_pcg,
+}
+THREE_KERNEL = ("dia_matvec", "dia_matvec_dot", "fused_update_rs", "fused_axpby")
 WRAPPERS = {
     "dia_matvec": dia_spmv.dia_matvec,
     "dia_matvec_dot": dia_spmv.dia_matvec_dot,
@@ -176,15 +224,19 @@ STEP = re.compile(r"\[STEP (\d+)\] residual = ([0-9.e+-]+), \|\|x\|\| = ([0-9.e+
 
 
 def reset_launches() -> None:
-    for w in WRAPPERS.values():
+    for w in (*WRAPPERS.values(), *STREAM_SITES.values()):
         w.launches = 0
     cg_kernel.dia_cg_chunk.launches = {layout: 0 for layout in cg_kernel.LAYOUTS}
+    cg_kernel.dia_cg_chunk.launches_bf16 = {layout: 0 for layout in cg_kernel.LAYOUTS}
 
 
 def read_launches() -> dict:
-    counts = {name: w.launches for name, w in WRAPPERS.items()}
+    counts = {name: w.launches for name, w in (*WRAPPERS.items(), *STREAM_SITES.items())}
+    chunk = cg_kernel.dia_cg_chunk
     for name, layout in RESIDENT_SITES.items():
-        counts[name] = cg_kernel.dia_cg_chunk.launches[layout]
+        counts[name] = chunk.launches[layout] - chunk.launches_bf16[layout]
+    for name, layout in BF16_SITES.items():
+        counts[name] = chunk.launches_bf16[layout]
     return counts
 
 
@@ -270,13 +322,6 @@ def rel_err(got, ref, scale) -> float:
     return float((got - ref).abs().max() / scale)
 
 
-def bound_ms(spec, dtype, words: float, flops: float):
-    item = torch.finfo(dtype).bits // 8
-    t_bytes = words * item / spec["hbm_bytes_per_s"] * 1e3
-    t_ops = flops / spec["flops_per_s"][dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def kernel_cases(spec, problem: str, dia, dtype) -> dict:
     """Each kernel against its plain version on this problem and dtype;
     returns {kernel: record} and emits one line per kernel."""
@@ -344,7 +389,8 @@ def measure_cases(spec, problem: str, dtype, n: int, cases: dict, dot_terms: dic
         rec["ms"] = time_ms(kern)
         rec["plain_ms"] = time_ms(plain)
         rec["library_ms"] = None if lib is None else time_ms(lib)
-        rec["bound_ms"], rec["bound_by"] = bound_ms(spec, dtype, words, flops)
+        rec["bound_ms"], rec["bound_by"] = bound_of(spec, dtype,
+                                                    words * torch.finfo(dtype).bits // 8, flops)
         rec["bound_share"] = rec["bound_ms"] / rec["ms"]
         emit(rec)
         records[name] = rec
@@ -411,81 +457,125 @@ def true_rel(dia, x: np.ndarray, b: np.ndarray) -> float:
     return float(np.linalg.norm(dia.mat_vec(x) - b) / np.linalg.norm(b))
 
 
-def phase_goldens() -> None:
+def phase_goldens() -> dict:
+    """The goldens through the three-kernel loop; returns the launch
+    counts of its first run (kernels B1 and B2, which left the main path
+    when the streaming kernel took it over)."""
+    counts = None
     for problem, dia in (("lap2d_fd(100)", lap2d_fd(100)),
                          ("lap2d_reference(10000)", lap2d_reference(10000))):
         b = source_term(dia.shape[0])
         op = as_operator(dia, torch.float64, device=DEV)
+        reset_launches()
         t0 = time.perf_counter()
         res = dia_cg_solve_pallas(op, b, tol=1e-10, history=8, device=DEV)
         k = int(res.iterations)
         seconds = time.perf_counter() - t0
+        launches = read_launches()
+        counts = counts or launches
         hist = res.history.cpu().numpy()
         prefix_rel = float(np.max(np.abs(hist - GOLDEN_PREFIX[problem])
                                   / np.abs(GOLDEN_PREFIX[problem])))
         rel = true_rel(dia, res.x.cpu().numpy(), b)
         lo, hi = GOLDEN_K[problem]
         emit({"phase": "golden", "problem": problem, "dtype": "float64", "k": k,
-              "prefix_rel_err": prefix_rel, "true_rel": rel, "seconds": seconds})
+              "prefix_rel_err": prefix_rel, "true_rel": rel, "seconds": seconds,
+              "launches": {name: launches[name] for name in THREE_KERNEL}})
         check(bool(res.converged) and lo <= k <= hi, f"{problem}: k={k} not in [{lo}, {hi}]")
         check(prefix_rel <= 1e-10, f"{problem}: residual prefix off by {prefix_rel}")
         check(rel < 1e-11, f"{problem}: true relative residual {rel}")
+        check(launches["dia_matvec"] >= 1 and launches["dia_matvec_dot"] >= k + 1
+              and launches["fused_update_rs"] >= k and launches["fused_axpby"] >= k,
+              f"{problem}: the three-kernel loop missed a kernel: {launches} at k={k}")
+    return counts
+
+
+def stream_bytes(ndiag: int, n: int, bands_item: int, vec_item: int, precond: bool) -> int:
+    """Bytes an iteration of the streaming kernel must move: the bands
+    once, p, x, r, w and s in and out (and u with the preconditioner),
+    csrc/cg_stream.cu."""
+    return n * (ndiag * bands_item + (12 if precond else 10) * vec_item)
+
+
+def stream_flops(ndiag: int, n: int, precond: bool) -> int:
+    """Operations of an iteration, as cgx's cost estimate counts them
+    (cg_stream.py:463, :1261)."""
+    return (4 * ndiag + 14) * n if precond else (2 * ndiag + 8) * n
+
+
+def bound_of(spec, dtype, nbytes: float, flops: float):
+    """(ms, "bytes" or "operations"): the larger of the two times."""
+    t_bytes = nbytes / spec["hbm_bytes_per_s"] * 1e3
+    t_ops = flops / spec["flops_per_s"][dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def solve_twice(fn) -> tuple:
+    """Two runs of a solve, each with the launch counts set to 0 just
+    before it; returns (result, k, seconds, launches, bitwise equal)."""
+    runs = []
+    for _ in range(2):
+        reset_launches()
+        res, k, seconds = timed(fn)
+        runs.append((res, k, seconds, read_launches()))
+    (res, k, seconds, launches), (res2, k2, _, _) = runs
+    bitwise = k == k2 and torch.equal(res.x.view(torch.int32), res2.x.view(torch.int32))
+    return res, k, seconds, launches, bitwise
 
 
 def phase_main(spec) -> dict:
+    """The main path: solve(lap2d_fd(3200), fp32, use_pallas) above the
+    resident budget runs the streaming kernel with bfloat16 bands (the
+    bands -1, 0 and 4 survive the round trip). Returns its launch counts,
+    with the stacked site's from the same solve through layout="stacked"."""
     dia = lap2d_fd(GRID)
-    n = dia.shape[0]
+    n, ndiag = dia.shape[0], len(dia.offsets)
     b = source_term(n)
     tol = 1e-5 * float(np.linalg.norm(b))
     cfg = SolveConfig(precision="fp32", use_pallas=True, tolerance=tol)
     op = as_operator(dia, torch.float32, device=DEV)  # set-up: bands and b on the card
     b_dev = torch.as_tensor(b, dtype=torch.float32, device=DEV)
-    item = 4
+    check(cg_kernel.resident_state_bytes(ndiag, n, 4, 4) > config.RESIDENT_BUDGET_BYTES,
+          f"N = {n} is within the resident budget: the main path would not stream")
 
-    runs = []
-    for _ in range(2):
-        reset_launches()
-        sync()
-        t0 = time.perf_counter()
-        res = solve(op, b_dev, cfg, device=DEV)
-        k = int(res.iterations)  # waits for the solve
-        seconds = time.perf_counter() - t0
-        runs.append((res, k, seconds, read_launches()))
-    (res, k, seconds, launches), (res2, k2, _, _) = runs
+    res, k, seconds, launches, bitwise = solve_twice(lambda: solve(op, b_dev, cfg, device=DEV))
+    bands_dtype = cg_stream._stream_iteration.bands_dtype
     check(bool(res.converged), "main path did not converge")
-    bitwise = k == k2 and torch.equal(res.x.view(torch.int32), res2.x.view(torch.int32))
     check(bitwise, "two runs of the main path differ")
-    check(launches["dia_matvec_dot"] >= k + 1 and launches["fused_update_rs"] >= k
-          and launches["fused_axpby"] >= k and launches["dia_matvec"] >= 1,
-          f"main path missed a kernel: {launches} at k={k}")
-    check(launches["dia_cg_vmem"] == launches["dia_cg_vmem2d"] == 0,
-          f"N = {n} is above the resident budget, yet the whole-solve kernel ran: {launches}")
-    body_calls = launches["dia_matvec_dot"]
+    check(launches["stream_iteration"] >= k and bands_dtype == torch.bfloat16,
+          f"main path missed the streaming kernel: {launches} at k={k}, bands {bands_dtype}")
+    others = {name: c for name, c in launches.items()
+              if name != "stream_iteration" and name in KERNELS and c}
+    check(not others, f"main path launched other kernels: {others}")
 
-    sync()
-    t0 = time.perf_counter()
-    plain = cg_solve(op, b_dev, tol=tol, device=DEV)
-    k_plain = int(plain.iterations)
-    plain_seconds = time.perf_counter() - t0
+    # cgx's second site: the same solve with r, w and s stacked (B7)
+    reset_launches()
+    stacked, k_stacked, stacked_seconds = timed(lambda: dia_cg_solve_stream(
+        op, b_dev, tol=tol, layout="stacked", bands_dtype="auto", device=DEV))
+    launches["stream_iteration_stacked"] = read_launches()["stream_iteration_stacked"]
+    same = k_stacked == k and torch.equal(stacked.x.view(torch.int32), res.x.view(torch.int32))
+    check(same and launches["stream_iteration_stacked"] >= k,
+          f"stacked layout: k={k_stacked}, bitwise equal to split: {same}, "
+          f"{launches['stream_iteration_stacked']} launches")
 
-    # true residuals in fp64 on the card, through the plain fp64 mat-vec
-    bands64 = torch.as_tensor(dia.bands, dtype=torch.float64, device=DEV)
-    b64 = torch.as_tensor(b, dtype=torch.float64, device=DEV)
-
-    def rel64(x):
-        r = dia_spmv.dia_matvec_ref(bands64, x.double(), offsets=tuple(dia.offsets)) - b64
-        return float(torch.linalg.norm(r) / torch.linalg.norm(b64))
-
-    rel_fast, rel_plain = rel64(res.x), rel64(plain.x)
-    per_iter_words = (len(dia.offsets) + 2) * n + 6 * n + 3 * n  # 16N for 5 bands
+    plain, k_plain, plain_seconds = timed(lambda: pipelined_cg_solve(
+        op, b_dev, tol=tol, dot_precision=torch.float64, device=DEV))
+    classic, k_classic, classic_seconds = timed(lambda: cg_solve(
+        op, b_dev, tol=tol, dot_precision=torch.float64, device=DEV))
+    rel64 = rel64_on_card(dia, b)
+    rel_fast, rel_plain, rel_classic = rel64(res.x), rel64(plain.x), rel64(classic.x)
+    bound_iter, bound_by = bound_of(spec, torch.float32, stream_bytes(ndiag, n, 2, 4, False),
+                                    stream_flops(ndiag, n, False))
     rec = {"phase": "main", "problem": f"lap2d_fd({GRID})", "n": n, "dtype": "float32",
-           "tol": tol, "k": k, "converged": True, "bitwise_repeat": bitwise,
-           "seconds": seconds, "us_per_iter": seconds / body_calls * 1e6,
-           "body_iterations": body_calls,
-           "bound_us_per_iter": per_iter_words * item / spec["hbm_bytes_per_s"] * 1e6,
-           "launches": launches, "k_plain": k_plain, "plain_seconds": plain_seconds,
-           "plain_us_per_iter": plain_seconds / (k_plain + 1) * 1e6,
-           "true_rel": rel_fast, "true_rel_plain": rel_plain,
+           "bands_dtype": str(bands_dtype), "tol": tol, "k": k, "converged": True,
+           "bitwise_repeat": bitwise, "seconds": seconds, "us_per_iter": seconds / k * 1e6,
+           "launches_run": launches["stream_iteration"], "grid": cg_stream._stream_iteration.grid,
+           "bound_us_per_iter": bound_iter * 1e3, "bound_by": bound_by, "launches": launches,
+           "k_stacked": k_stacked, "stacked_seconds": stacked_seconds, "stacked_bitwise": same,
+           "k_plain": k_plain, "plain_seconds": plain_seconds,
+           "plain_us_per_iter": plain_seconds / k_plain * 1e6,
+           "k_classic": k_classic, "classic_seconds": classic_seconds,
+           "true_rel": rel_fast, "true_rel_plain": rel_plain, "true_rel_classic": rel_classic,
            "x_finite": bool(torch.isfinite(res.x).all())}
     emit(rec)
     check(rec["x_finite"] and res.x.shape == (n,), "main path result is not finite")
@@ -515,8 +605,7 @@ def phase_profile(op, b_dev) -> None:
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
-        name = next((k for k in ("dia_matvec_dot_kernel", "dia_matvec_kernel",
-                                 "update_rs_kernel", "axpby_kernel") if k in e.name), "other")
+        name = "cg_stream_kernel" if "cg_stream_kernel" in e.name else "other"
         us = e.time_range.elapsed_us()
         by_name[name] = by_name.get(name, 0.0) + us / PROFILE_ITERS
         busy_us += us
@@ -527,6 +616,167 @@ def phase_profile(op, b_dev) -> None:
           "device_busy_us_per_iter": busy_us / PROFILE_ITERS,
           "profiled_wall_us_per_iter": wall_us / PROFILE_ITERS,
           "idle_share": 1 - busy_us / wall_us})
+
+
+def stream_state(dia, dtype, precond: bool, stacked: bool):
+    """Bands and cgx's start state from a seeded b, with a seeded x."""
+    bands = torch.as_tensor(dia.bands, dtype=dtype, device=DEV)
+    rng = np.random.default_rng(SEED)
+    b, x = (torch.as_tensor(rng.standard_normal(dia.shape[0]), dtype=dtype, device=DEV)
+            for _ in range(2))
+    st = cg_stream.initial_state(bands, b, 0.0, offsets=tuple(dia.offsets), precond=precond,
+                                 stacked=stacked)
+    st.x.copy_(x)
+    return bands, st
+
+
+def clone_state(st):
+    if st.rws is not None:
+        rws = st.rws.clone()
+        pairs = (rws[:, 0], rws[:, 1], rws[:, 2])
+    else:
+        rws, pairs = None, tuple(t.clone() for t in (st.r, st.w, st.s))
+    return cg_stream.StreamState(st.p.clone(), st.x.clone(),
+                                 None if st.u is None else st.u.clone(), *pairs, rws,
+                                 st.scal.clone())
+
+
+def phase_stream_kernel(spec) -> dict:
+    """Each streaming case against its plain version from one seeded
+    state at N = 10,240,000: one launch (vectors within VEC_RTOL, dots
+    within DOT_RTOL) and STREAM_ITERS launches (within CHUNK_RTOL: a
+    dot's last bit can flip a float alpha, and the difference compounds),
+    split against stacked bitwise; then the time of a launch. Returns the
+    records of the kernels line for the three streaming sites."""
+    dia = lap2d_fd(GRID)
+    n, ndiag, offsets = dia.shape[0], len(dia.offsets), tuple(dia.offsets)
+    kw = dict(offsets=offsets, tol=0.0, nearzero=1e-14, maxiter=10**9)
+    records, after = {}, {}
+    for case, (site, dtype, bf16, precond, stacked) in STREAM_CASES.items():
+        bands, st = stream_state(dia, dtype, precond, stacked)
+        kb = bands.to(torch.bfloat16) if bf16 else bands
+        del bands
+        one_err = None
+        for launches, vec_rtol, dot_rtol in ((1, VEC_RTOL[dtype], DOT_RTOL[dtype]),
+                                             (STREAM_ITERS, CHUNK_RTOL[dtype], CHUNK_RTOL[dtype])):
+            got, ref = clone_state(st), clone_state(st)
+            for _ in range(launches):
+                cg_stream.step(kb, got, **kw)
+                cg_stream._iteration_ref(kb, *ref[:6], ref.scal, **kw)
+            sync()
+            pairs = [(a, w) for a, w in zip(got[:6], ref[:6]) if a is not None]
+            max_abs = max(float((a - w).abs().max()) for a, w in pairs)
+            vec_rel = max(rel_err(a, w, w.abs().max()) for a, w in pairs)
+            dot_rel = float(((got.scal[:3] - ref.scal[:3]).abs() / ref.scal[:3].abs()).max())
+            same = torch.equal(got.scal[cg_stream.K:], ref.scal[cg_stream.K:])
+            emit({"phase": "stream_kernel_check", "case": case, "problem": f"lap2d_fd({GRID})",
+                  "n": n, "dtype": str(dtype), "bands_dtype": str(kb.dtype), "launches": launches,
+                  "max_abs_err": max_abs, "vec_rel_err": vec_rel, "dot_rel_err": dot_rel,
+                  "vec_rtol": vec_rtol, "dot_rtol": dot_rtol, "grid": STREAM_SITES[site].grid,
+                  "scalars": got.scal.tolist(), "plain_scalars": ref.scal.tolist()})
+            check(vec_rel <= vec_rtol and dot_rel <= dot_rtol and same,
+                  f"stream {case} x{launches}: vectors {vec_rel}, dots {dot_rel}, "
+                  f"k/stop/breakdown {got.scal[cg_stream.K:].tolist()} against "
+                  f"{ref.scal[cg_stream.K:].tolist()}")
+            if launches == 1:
+                one_err = max_abs
+            elif case in ("split_f32", "stacked_f32"):
+                q = int(got.scal[cg_stream.K]) & 1
+                after[case] = [got.p, got.x, got.r[q], got.w[q], got.s[q]]
+            del got, ref
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        work = cg_stream.workspace(DEV, n)
+        ms = time_ms(lambda: cg_stream.step(kb, st, work=work, **kw))
+        peak = torch.cuda.max_memory_allocated()
+        held = sum(t.numel() * t.element_size() for t in (kb, *st, *work)
+                   if t is not None and t is not st.rws)
+        plain_ms = time_ms(lambda: cg_stream._iteration_ref(kb, *st[:6], st.scal, **kw),
+                           reps=3, burst=1)
+        item = torch.finfo(dtype).bits // 8
+        bound, bound_by = bound_of(spec, dtype,
+                                   stream_bytes(ndiag, n, 2 if bf16 else item, item, precond),
+                                   stream_flops(ndiag, n, precond))
+        rec = {"phase": "stream_kernel", "case": case, "site": site, "problem": f"lap2d_fd({GRID})",
+               "n": n, "dtype": str(dtype), "bands_dtype": str(kb.dtype),
+               "ms_per_iter": ms, "launches_per_iter": 3 if precond else 1,
+               "bound_ms_per_iter": bound,
+               "bound_by": bound_by, "bound_share": bound / ms, "plain_ms_per_iter": plain_ms,
+               "state_bytes": held, "max_memory_allocated": peak,
+               "grid": STREAM_SITES[site].grid,
+               "max_abs_err": one_err}
+        emit(rec)
+        if STREAM_MAIN_CASE[site] == case:
+            records[site] = {"max_abs_err": one_err, "ms": ms, "plain_ms": plain_ms,
+                             "bound_ms": bound, "bound_by": bound_by,
+                             "library_ms": None}  # no one PyTorch call runs a CG iteration
+        del kb, st, work
+        sync()
+    same = all(torch.equal(a, b) for a, b in zip(after["split_f32"], after["stacked_f32"]))
+    emit({"phase": "stream_layouts", "launches": STREAM_ITERS, "split_equals_stacked": same})
+    check(same, "split and stacked layouts differ")
+    return records
+
+
+def phase_stream_pcg(spec) -> dict:
+    """solve(lap2d_fd(3200), fp32, use_pallas, precond="neumann") above
+    the budget runs the streaming PCG kernel; against the plain pipelined
+    Neumann PCG with fp64 dots. Returns its launch counts."""
+    dia = lap2d_fd(GRID)
+    n, ndiag = dia.shape[0], len(dia.offsets)
+    b = source_term(n)
+    tol = 1e-5 * float(np.linalg.norm(b))
+    cfg = SolveConfig(precision="fp32", use_pallas=True, tolerance=tol, precond="neumann")
+    op = as_operator(dia, torch.float32, device=DEV)
+    b_dev = torch.as_tensor(b, dtype=torch.float32, device=DEV)
+    res, k, seconds, launches, bitwise = solve_twice(lambda: solve(op, b_dev, cfg, device=DEV))
+    check(bool(res.converged) and bitwise, f"stream PCG: converged {bool(res.converged)}, "
+          f"bitwise repeat {bitwise}")
+    others = {name: c for name, c in launches.items()
+              if name != "stream_iteration_pcg" and name in KERNELS and c}
+    check(launches["stream_iteration_pcg"] >= 3 * k and not others,  # three launches an iteration
+          f"stream PCG path: {launches} at k={k}")
+    pc = neumann_banded(op.bands, op.offsets, sweeps=2)
+    plain, k_plain, plain_seconds = timed(lambda: pipelined_cg_solve(
+        op, b_dev, tol=tol, precond=pc, dot_precision=torch.float64, device=DEV))
+    rel64 = rel64_on_card(dia, b)
+    rel, rel_plain = rel64(res.x), rel64(plain.x)
+    bound_iter, bound_by = bound_of(spec, torch.float32, stream_bytes(ndiag, n, 4, 4, True),
+                                    stream_flops(ndiag, n, True))
+    emit({"phase": "stream_pcg_path", "problem": f"lap2d_fd({GRID})", "n": n, "dtype": "float32",
+          "tol": tol, "k": k, "converged": True, "bitwise_repeat": bitwise, "seconds": seconds,
+          "us_per_iter": seconds / k * 1e6, "bound_us_per_iter": bound_iter * 1e3,
+          "bound_by": bound_by, "launches": launches, "grid": cg_stream._stream_iteration_pcg.grid,
+          "k_plain": k_plain, "plain_seconds": plain_seconds, "true_rel": rel,
+          "true_rel_plain": rel_plain, "x_finite": bool(torch.isfinite(res.x).all())})
+    check(bool(torch.isfinite(res.x).all()), "stream PCG result is not finite")
+    check(abs(k - k_plain) <= 0.02 * k_plain, f"stream PCG: k={k} vs plain k={k_plain}")
+    check(max(rel, rel_plain) <= 2 * min(rel, rel_plain),
+          f"stream PCG: true residuals {rel} and {rel_plain} differ by more than 2x")
+    return launches
+
+
+def phase_stream_goldens() -> None:
+    """The fp64 goldens through the streaming kernel, twice each: k within
+    2 of the plain fp64 pipelined loop's, the reference's quality gate."""
+    for problem, dia in (("lap2d_fd(100)", lap2d_fd(100)),
+                         ("lap2d_reference(10000)", lap2d_reference(10000))):
+        b = source_term(dia.shape[0])
+        op = as_operator(dia, torch.float64, device=DEV)
+        b_dev = torch.as_tensor(b, dtype=torch.float64, device=DEV)
+        runs = [timed(lambda: dia_cg_solve_stream(op, b_dev, tol=1e-10, device=DEV))
+                for _ in range(2)]
+        (res, k, seconds), (res2, k2, _) = runs
+        plain, k_plain, _ = timed(lambda: pipelined_cg_solve(op, b_dev, tol=1e-10, device=DEV))
+        rel = true_rel(dia, res.x.cpu().numpy(), b)
+        bitwise = k == k2 and torch.equal(res.x.view(torch.int64), res2.x.view(torch.int64))
+        emit({"phase": "stream_golden", "problem": problem, "dtype": "float64", "k": k,
+              "k_plain": k_plain, "true_rel": rel, "bitwise_repeat": bitwise, "seconds": seconds,
+              "grid": cg_stream._stream_iteration.grid})
+        check(bool(res.converged) and abs(k - k_plain) <= 2,
+              f"stream {problem}: k={k} vs plain k={k_plain}")
+        check(rel < 1e-11, f"stream {problem}: true relative residual {rel}")
+        check(bitwise, f"stream {problem}: two runs differ")
 
 
 def cli_run(argv):
@@ -670,13 +920,16 @@ def chunk_call(fn, bands, state, offsets, chunk, precond, **kw):
 
 def phase_resident_kernel(spec) -> dict:
     """The whole-solve chunk kernel against its plain version from one
-    seeded state, then its time against the bound, in float32. Returns
-    the records of the kernels line for its two sites."""
+    seeded state, then its time against the bound, in float32 (and under
+    bfloat16 bands with the preconditioner, as the refinement's inner runs
+    it). Returns the records of the kernels line for its four sites."""
     dia = lap2d_fd(RESIDENT_GRID)
     n, ndiag, offsets = dia.shape[0], len(dia.offsets), tuple(dia.offsets)
-    main_err = None
-    for dtype in (torch.float32, torch.float64):
+    errs = {}
+    for dtype, bf16 in ((torch.float32, False), (torch.float64, False), (torch.float32, True)):
         bands, state = seeded_state(dia, dtype)
+        if bf16:
+            bands = bands.to(torch.bfloat16)
         for precond in (False, True):
             for chunk, rtol in ((1, VEC_RTOL[dtype]), (CHUNK, CHUNK_RTOL[dtype])):
                 got, ref = [t.clone() for t in state], [t.clone() for t in state]
@@ -688,26 +941,29 @@ def phase_resident_kernel(spec) -> dict:
                 rsold_rel = rel_err(got[3][0], ref[3][0], ref[3][0].abs())
                 dot_tol = DOT_RTOL[dtype] if chunk == 1 else rtol
                 emit({"phase": "resident_kernel_check", "problem": f"lap2d_fd({RESIDENT_GRID})",
-                      "dtype": str(dtype), "precond": precond, "iterations": chunk,
-                      "max_abs_err": max_abs, "vec_rel_err": vec_rel, "rsold_rel_err": rsold_rel,
-                      "vec_rtol": rtol, "rsold_rtol": dot_tol, "grid": cg_kernel.dia_cg_chunk.grid,
-                      "scalars": got[3].tolist(), "plain_scalars": ref[3].tolist()})
+                      "dtype": str(dtype), "bands_dtype": str(bands.dtype), "precond": precond,
+                      "iterations": chunk, "max_abs_err": max_abs, "vec_rel_err": vec_rel,
+                      "rsold_rel_err": rsold_rel, "vec_rtol": rtol, "rsold_rtol": dot_tol,
+                      "grid": cg_kernel.dia_cg_chunk.grid, "scalars": got[3].tolist(),
+                      "plain_scalars": ref[3].tolist()})
                 check(vec_rel <= rtol and rsold_rel <= dot_tol,
-                      f"chunk kernel {dtype} precond={precond} x{chunk}: vectors {vec_rel}, "
-                      f"rsold {rsold_rel}")
+                      f"chunk kernel {dtype} bf16={bf16} precond={precond} x{chunk}: vectors "
+                      f"{vec_rel}, rsold {rsold_rel}")
                 check(torch.equal(got[3][1:], ref[3][1:]),
-                      f"chunk kernel {dtype} precond={precond} x{chunk}: converged, k, breakdown "
-                      f"{got[3][1:].tolist()} against {ref[3][1:].tolist()}")
-                if dtype == torch.float32 and chunk == 1 and not precond:
-                    main_err = max_abs
+                      f"chunk kernel {dtype} bf16={bf16} precond={precond} x{chunk}: converged, k, "
+                      f"breakdown {got[3][1:].tolist()} against {ref[3][1:].tolist()}")
+                if dtype == torch.float32 and chunk == 1 and precond == bf16:
+                    errs[bf16] = max_abs
         del bands, state
         sync()
 
     records = {}
     l2 = torch.cuda.get_device_properties(0).L2_cache_size
-    for precond in (False, True):
+    for precond, bf16 in ((False, False), (True, False), (True, True)):
         base = torch.cuda.memory_allocated()
         bands, state = seeded_state(dia, torch.float32)
+        if bf16:
+            bands = bands.to(torch.bfloat16)
         torch.cuda.reset_peak_memory_stats()
         ms = {layout: time_ms(lambda: chunk_call(cg_kernel.dia_cg_chunk, bands, state, offsets,
                                                  CHUNK, precond, layout=layout), reps=10, burst=2)
@@ -715,12 +971,14 @@ def phase_resident_kernel(spec) -> dict:
         peak = torch.cuda.max_memory_allocated() - base
         plain_ms = time_ms(lambda: chunk_call(cg_kernel.dia_cg_chunk_ref, bands, state, offsets,
                                               CHUNK, precond), reps=3, burst=1)
-        words = resident_words(ndiag, n, precond)
-        bound_iter, bound_by = bound_ms(spec, torch.float32, words, (2 * ndiag + 10) * n)
-        state_bytes = cg_kernel.resident_state_bytes(ndiag, n, 4, 4, precond=precond)
+        band_bytes = 2 if bf16 else 4
+        nbytes = resident_words(ndiag, n, precond) * 4 - (4 - band_bytes) * ndiag * n * (
+            2 if precond else 1)
+        bound_iter, bound_by = bound_of(spec, torch.float32, nbytes, (2 * ndiag + 10) * n)
+        state_bytes = cg_kernel.resident_state_bytes(ndiag, n, band_bytes, 4, precond=precond)
         rec = {"phase": "resident_kernel", "problem": f"lap2d_fd({RESIDENT_GRID})", "n": n,
-               "dtype": "float32", "precond": precond, "chunk": CHUNK,
-               "grid": cg_kernel.dia_cg_chunk.grid,
+               "dtype": "float32", "bands_dtype": str(bands.dtype), "precond": precond,
+               "chunk": CHUNK, "grid": cg_kernel.dia_cg_chunk.grid,
                "ms_per_iter": {layout: t / CHUNK for layout, t in ms.items()},
                "bound_ms_per_iter": bound_iter, "bound_by": bound_by,
                "bound_share": {layout: bound_iter * CHUNK / t for layout, t in ms.items()},
@@ -731,10 +989,11 @@ def phase_resident_kernel(spec) -> dict:
                 f"the {state_bytes / 1e6:.1f} MB state fits the card's {l2 / 1e6:.1f} MB L2, "
                 "so bands and vectors come back from L2, not from HBM as the bound assumes")
         emit(rec)
-        if not precond:
-            for name, layout in RESIDENT_SITES.items():
-                records[name] = {"max_abs_err": main_err, "ms": ms[layout], "plain_ms": plain_ms,
-                                 "bound_ms": bound_iter * CHUNK, "bound_by": bound_by,
+        if precond == bf16:  # fp32 bands without, bf16 bands with the preconditioner
+            for name, layout in (BF16_SITES if bf16 else RESIDENT_SITES).items():
+                records[name] = {"max_abs_err": errs[bf16], "ms": ms[layout],
+                                 "plain_ms": plain_ms, "bound_ms": bound_iter * CHUNK,
+                                 "bound_by": bound_by,
                                  "library_ms": None}  # no one PyTorch call runs a CG chunk
         del bands, state
         sync()
@@ -787,10 +1046,12 @@ def timed(fn):
 
 
 def phase_resident_path(spec) -> dict:
-    """cgx_torch.solve through the whole-solve kernel at N = 1e6 and 2e6,
-    fp32, without and with the Neumann preconditioner; returns the launch
-    counts of the first (N = 1e6, no preconditioner) with the direct
-    layout="1d" call's count of site 9."""
+    """The whole-solve kernel at N = 1e6 and 2e6, fp32, without and with
+    the Neumann preconditioner: through cgx_torch.solve where the budget
+    routes the size there, else (the budget came from phase_crossover) by
+    a direct dia_cg_solve_vmem call, so that the kernel is still driven.
+    Returns the launch counts of the first (N = 1e6, no preconditioner)
+    with the direct layout="1d" call's count of site 9."""
     counts = None
     for g in RESIDENT_GRIDS:
         dia = lap2d_fd(g)
@@ -801,16 +1062,17 @@ def phase_resident_path(spec) -> dict:
         b_dev = torch.as_tensor(b, dtype=torch.float32, device=DEV)
         rel64 = rel64_on_card(dia, b)
         for precond in (None, "neumann"):
+            state = cg_kernel.resident_state_bytes(ndiag, n, 4, 4, precond=precond is not None)
+            routed = state <= config.RESIDENT_BUDGET_BYTES
             cfg = SolveConfig(precision="fp32", use_pallas=True, tolerance=tol, precond=precond)
-            runs = []
-            for _ in range(2):
-                reset_launches()
-                res, k, seconds = timed(lambda: solve(op, b_dev, cfg, device=DEV))
-                runs.append((res, k, seconds, read_launches()))
-            (res, k, seconds, launches), (res2, k2, seconds2, _) = runs
-            bitwise = k == k2 and torch.equal(res.x.view(torch.int32), res2.x.view(torch.int32))
+            if routed:
+                res, k, seconds, launches, bitwise = solve_twice(
+                    lambda: solve(op, b_dev, cfg, device=DEV))
+            else:  # solve streams this size now; drive the kernel directly
+                res, k, seconds, launches, bitwise = solve_twice(lambda: dia_cg_solve_vmem(
+                    op, b_dev, tol=tol, precond=precond is not None, layout="2d", device=DEV))
             # the plain fp32 (P)CG loop as solve runs it without use_pallas: fp32 vectors,
-            # fp64 dots (the kernel's dots are correctly rounded fp32, csrc/cg_kernel.cu)
+            # fp64 dots, the kernel's arithmetic (csrc/cg_kernel.cu)
             pc = None if precond is None else neumann_banded(op.bands, op.offsets, sweeps=2)
             plain, k_plain, plain_seconds = timed(lambda: cg_solve(
                 op, b_dev, tol=tol, precond=pc, dot_precision=torch.float64, device=DEV))
@@ -818,9 +1080,9 @@ def phase_resident_path(spec) -> dict:
             words = resident_words(ndiag, n, precond is not None)
             rec = {"phase": "resident_path", "problem": f"lap2d_fd({g})", "n": n,
                    "dtype": "float32", "precond": precond, "tol": tol, "k": k,
+                   "through_solve": routed, "state_bytes": state,
                    "converged": bool(res.converged), "bitwise_repeat": bitwise,
-                   "seconds": seconds, "seconds_repeat": seconds2,
-                   "us_per_iter": seconds / (k + 1) * 1e6,
+                   "seconds": seconds, "us_per_iter": seconds / (k + 1) * 1e6,
                    "bound_us_per_iter": words * 4 / spec["hbm_bytes_per_s"] * 1e6,
                    "launches": launches, "grid": cg_kernel.dia_cg_chunk.grid,
                    "k_plain": k_plain, "plain_seconds": plain_seconds,
@@ -838,9 +1100,9 @@ def phase_resident_path(spec) -> dict:
             chunks = -(-(k + 1) // CHUNK)
             check(rec["converged"] and rec["x_finite"] and res.x.shape == (n,),
                   f"resident path {g} {precond}: did not converge to a finite x")
-            check(launches["dia_cg_vmem2d"] >= chunks and launches["dia_cg_vmem"] == 0
-                  and launches["dia_matvec_dot"] == launches["fused_update_rs"]
-                  == launches["fused_axpby"] == 0,
+            others = {name: c for name, c in launches.items()  # B1 forms the PCG's z0
+                      if name not in ("dia_cg_vmem2d", "dia_matvec") and name in KERNELS and c}
+            check(launches["dia_cg_vmem2d"] >= chunks and not others,
                   f"resident path {g} {precond} left the whole-solve kernel: {launches} at k={k}")
             check(bitwise, f"resident path {g} {precond}: two runs differ")
             check(abs(k - k_plain) <= 0.02 * k_plain,
@@ -867,38 +1129,64 @@ def phase_resident_path(spec) -> dict:
 
 
 def phase_crossover(spec) -> None:
-    """The whole-solve kernel against the three-kernel loop, fp32, a fixed
-    CROSSOVER_ITERS iterations at tol 0, in turns (B5, loop, loop, B5)
-    after a warm-up of each; the budget is the largest state at which the
-    kernel still wins."""
-    winners = []
+    """The whole-solve kernel against the streaming kernel (bf16 bands by
+    "auto", as solve runs it), and with the Neumann preconditioner
+    against the streaming PCG, fp32, a fixed CROSSOVER_ITERS iterations at
+    tol 0, in turns (resident, stream, stream, resident, twice) after a
+    warm-up of each, the least time of each route; the three-kernel loop
+    beside them for reference. The budget
+    is the preconditioned state of the largest size at which both
+    whole-solve routes still win (so the unpreconditioned state of that
+    size is within it too)."""
+    pairs = {"plain": ("resident", "stream"), "pcg": ("resident_pcg", "stream_pcg")}
+    suggested, lost = 0, False
     for g in CROSSOVER_GRIDS:
         dia = lap2d_fd(g)
         n, ndiag = dia.shape[0], len(dia.offsets)
         op = as_operator(dia, torch.float32, device=DEV)
         b_dev = torch.as_tensor(source_term(n), dtype=torch.float32, device=DEV)
-        runs = {"resident": lambda: dia_cg_solve_vmem(op, b_dev, tol=0.0, maxiter=CROSSOVER_ITERS,
-                                                      layout="2d", device=DEV),
-                "three_kernel": lambda: dia_cg_solve_pallas(op, b_dev, tol=0.0,
-                                                            maxiter=CROSSOVER_ITERS, device=DEV)}
+        it = dict(tol=0.0, maxiter=CROSSOVER_ITERS, device=DEV)
+        runs = {"resident": lambda: dia_cg_solve_vmem(op, b_dev, layout="2d", **it),
+                "stream": lambda: dia_cg_solve_stream(op, b_dev, bands_dtype="auto", **it),
+                "resident_pcg": lambda: dia_cg_solve_vmem(op, b_dev, layout="2d", precond=True,
+                                                          **it),
+                "stream_pcg": lambda: dia_cg_solve_stream_pcg(op, b_dev, **it),
+                "three_kernel": lambda: dia_cg_solve_pallas(op, b_dev, **it)}
         seconds = {name: [] for name in runs}
-        for name in ("resident", "three_kernel", "resident", "three_kernel", "three_kernel",
-                     "resident"):
-            res, k, s = timed(runs[name])
+        order = [name for a, c in pairs.values() for name in (a, c) + (a, c, c, a) * 2]
+        order += ["three_kernel"] * 3
+        for name in order:
+            res, k, t = timed(runs[name])
             check(k == CROSSOVER_ITERS, f"crossover {name} at N = {n}: k = {k}")
-            seconds[name].append(s)
-        us = {name: min(s[1:]) / CROSSOVER_ITERS * 1e6 for name, s in seconds.items()}
-        state = cg_kernel.resident_state_bytes(ndiag, n, 4, 4)
+            seconds[name].append(t)
+        us = {name: min(t[1:]) / CROSSOVER_ITERS * 1e6 for name, t in seconds.items()}
+        state = {"plain": cg_kernel.resident_state_bytes(ndiag, n, 4, 4),
+                 "pcg": cg_kernel.resident_state_bytes(ndiag, n, 4, 4, precond=True)}
+        wins = {case: us[a] < us[c] for case, (a, c) in pairs.items()}
+        hbm_us = 1e6 / spec["hbm_bytes_per_s"]
         emit({"phase": "crossover", "problem": f"lap2d_fd({g})", "n": n, "state_bytes": state,
-              "us_per_iter": us, "seconds": seconds,
-              "bound_us_per_iter": resident_words(ndiag, n, False) * 4
-              / spec["hbm_bytes_per_s"] * 1e6})
-        if us["resident"] < us["three_kernel"]:
-            winners.append(state)
+              "us_per_iter": us, "seconds": seconds, "resident_wins": wins,
+              "bound_us_per_iter": {"resident": resident_words(ndiag, n, False) * 4 * hbm_us,
+                                    "stream": stream_bytes(ndiag, n, 2, 4, False) * hbm_us,
+                                    "stream_pcg": stream_bytes(ndiag, n, 4, 4, True) * hbm_us}})
+        lost = lost or not all(wins.values())
+        if not lost:
+            suggested = state["pcg"]
         del op, b_dev
         sync()
-    emit({"phase": "crossover_budget", "largest_winning_state_bytes": max(winners, default=None),
+    emit({"phase": "crossover_budget", "budget_from_sweep": suggested,
           "configured_budget_bytes": config.RESIDENT_BUDGET_BYTES})
+
+
+def mixed_inner(n: int, ndiag: int) -> str:
+    """The kernel site the fp32 inner solves of the refinement run at this
+    size under the configured budget (cgx_torch.solver.refine)."""
+    budget = config.RESIDENT_BUDGET_BYTES
+    if cg_kernel.resident_state_bytes(ndiag, n, 4, 4, precond=True) <= budget:
+        return "dia_cg_vmem2d"
+    if cg_kernel.resident_state_bytes(ndiag, n, 2, 4, precond=True) <= budget:
+        return "dia_cg_vmem2d_bf16b"
+    return "stream_iteration_pcg"
 
 
 def phase_mixed(spec) -> None:
@@ -910,6 +1198,7 @@ def phase_mixed(spec) -> None:
     op64 = as_operator(dia, torch.float64, device=DEV)
     b64 = torch.as_tensor(b, dtype=torch.float64, device=DEV)
     rel64 = rel64_on_card(dia, b)
+    inner = mixed_inner(n, len(dia.offsets))
     reset_launches()
     res, sweeps, seconds = timed(lambda: solve(op64, b64, SolveConfig(precision="mixed",
                                                                       tolerance=1e-11),
@@ -919,20 +1208,84 @@ def phase_mixed(spec) -> None:
         op64, b64, tol=1e-11 * float(np.linalg.norm(b)), device=DEV))
     rel, rel_plain = rel64(res.x), rel64(plain.x)
     emit({"phase": "mixed", "problem": f"lap2d_fd({RESIDENT_GRID})", "n": n, "rtol": 1e-11,
-          "sweeps": sweeps, "converged": bool(res.converged), "true_rel": rel,
+          "sweeps": sweeps, "converged": bool(res.converged), "true_rel": rel, "inner": inner,
           "seconds": seconds, "launches": launches, "k_plain_fp64": k_plain,
           "plain_seconds": plain_seconds, "true_rel_plain": rel_plain})
     check(bool(res.converged) and rel < 1e-11 and sweeps <= 4,
           f"mixed: converged={bool(res.converged)}, true relative residual {rel}, {sweeps} sweeps")
-    check(launches["dia_cg_vmem2d"] >= sweeps, f"mixed: inner solves missed the kernel: {launches}")
+    check(launches[inner] >= sweeps, f"mixed: inner solves missed {inner}: {launches}")
+
+
+def phase_mixed_above(spec) -> dict:
+    """iterative_refinement(use_pallas=True) on lap2d_fd(1000) with the
+    budget set so that the inner solves run the streaming PCG, then the
+    whole-solve kernel under bfloat16 bands: each below 1e-11 within
+    max_outer = 8. Returns the bf16 sites' launch counts: the 2d one from
+    the second run, the 1d one from a direct call."""
+    dia = lap2d_fd(RESIDENT_GRID)
+    n, ndiag = dia.shape[0], len(dia.offsets)
+    b = source_term(n)
+    op64 = as_operator(dia, torch.float64, device=DEV)
+    b64 = torch.as_tensor(b, dtype=torch.float64, device=DEV)
+    rel64 = rel64_on_card(dia, b)
+    bf16_state = cg_kernel.resident_state_bytes(ndiag, n, 2, 4, precond=True)
+    counts = {}
+    configured = config.RESIDENT_BUDGET_BYTES
+    try:
+        for inner, budget in (("stream_iteration_pcg", bf16_state - 1),
+                              ("dia_cg_vmem2d_bf16b", bf16_state)):
+            config.RESIDENT_BUDGET_BYTES = budget
+            check(mixed_inner(n, ndiag) == inner, f"budget {budget} does not route to {inner}")
+            reset_launches()
+            sync()
+            t0 = time.perf_counter()
+            res = iterative_refinement(op64, b64, tol=0.0, rtol=1e-11, max_outer=8,
+                                       use_pallas=True, device=DEV)
+            seconds = time.perf_counter() - t0  # the host read of each sweep's norm waited
+            launches = read_launches()
+            rel = rel64(res.x)
+            inner_k = res.inner_iterations.tolist()
+            emit({"phase": "mixed_above_budget", "problem": f"lap2d_fd({RESIDENT_GRID})",
+                  "n": n, "budget_bytes": budget, "inner": inner, "sweeps": res.outer_iterations,
+                  "inner_iterations": inner_k, "converged": bool(res.converged), "true_rel": rel,
+                  "seconds": seconds, "launches": launches})
+            check(bool(res.converged) and rel < 1e-11 and res.outer_iterations <= 8,
+                  f"mixed above the budget ({inner}): converged={bool(res.converged)}, "
+                  f"true relative residual {rel}, {res.outer_iterations} sweeps")
+            # a launch an iteration for the streaming PCG, a chunk of 512 for the resident one
+            need = sum(inner_k) if inner == "stream_iteration_pcg" else res.outer_iterations
+            check(launches[inner] >= max(need, 1),
+                  f"mixed above the budget: inner solves missed {inner}: {launches}")
+            counts[inner] = launches[inner]
+    finally:
+        config.RESIDENT_BUDGET_BYTES = configured
+    # site 9 under bfloat16 bands: the same inner through layout="1d"
+    op32 = as_operator(dia, torch.float32, device=DEV)
+    r32 = (b64 / torch.linalg.norm(b64)).to(torch.float32)
+    reset_launches()
+    res1, k1, seconds1 = timed(lambda: dia_cg_solve_vmem(
+        op32, r32, tol=1e-6, precond=True, bands_dtype=torch.bfloat16, layout="1d", device=DEV))
+    counts["dia_cg_vmem_bf16b"] = read_launches()["dia_cg_vmem_bf16b"]
+    emit({"phase": "bf16_bands_1d", "problem": f"lap2d_fd({RESIDENT_GRID})", "k": k1,
+          "converged": bool(res1.converged), "seconds": seconds1,
+          "launches": counts["dia_cg_vmem_bf16b"]})
+    check(bool(res1.converged) and counts["dia_cg_vmem_bf16b"] >= -(-(k1 + 1) // CHUNK),
+          f"bf16 bands, layout='1d': converged {bool(res1.converged)}, "
+          f"{counts['dia_cg_vmem_bf16b']} launches")
+    return counts
 
 
 def main() -> int:
     spec = phase_device()
     phase_build()
     records = phase_kernels(spec)
-    phase_goldens()
-    launches = phase_main(spec)
+    # each kernel's launches come from a path that runs it, counted from 0 just before it
+    launches = {name: n for name, n in phase_goldens().items() if name in THREE_KERNEL}
+    records.update(phase_stream_kernel(spec))
+    launches.update({name: n for name, n in phase_main(spec).items()
+                     if name in ("stream_iteration", "stream_iteration_stacked")})
+    launches["stream_iteration_pcg"] = phase_stream_pcg(spec)["stream_iteration_pcg"]
+    phase_stream_goldens()
     records.update(phase_dense_kernels(spec))
     with tempfile.TemporaryDirectory() as tmp:
         launches.update({name: n for name, n in phase_cli_reference(spec, Path(tmp)).items()
@@ -945,6 +1298,7 @@ def main() -> int:
                      if name in RESIDENT_SITES})
     phase_crossover(spec)
     phase_mixed(spec)
+    launches.update({name: n for name, n in phase_mixed_above(spec).items() if name in BF16_SITES})
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         rec = records[name]

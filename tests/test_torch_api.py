@@ -9,7 +9,7 @@ import torch
 import cgx
 import cgx_torch
 from cgx_torch import SolveConfig, config
-from cgx_torch.ops import axpy, cg_kernel, dia_spmv
+from cgx_torch.ops import axpy, cg_kernel, cg_stream, dia_spmv
 
 THREE_KERNEL = [dia_spmv.dia_matvec, dia_spmv.dia_matvec_dot, axpy.fused_update_rs,
                 axpy.fused_axpby]
@@ -71,21 +71,46 @@ def test_pallas_route_goes_through_the_kernels(problem):
     assert _counts() == before
 
 
-def test_pallas_route_above_the_budget(problem, monkeypatch):
-    """Above the resident budget: no preconditioner runs the three-kernel
-    loop (standing in for B4); "neumann" raises naming B6."""
+def _stream_counts():
+    return [f.launches for f in (cg_stream._stream_iteration, cg_stream._stream_iteration_stacked,
+                                 cg_stream._stream_iteration_pcg)]
+
+
+@pytest.mark.parametrize("precond", [None, "neumann"])
+def test_pallas_route_above_the_budget(problem, monkeypatch, precond):
+    """Above the resident budget large_banded decides, as in cgx
+    api.py:365-391: "stream" runs B4 (no preconditioner) or B6
+    ("neumann"), a launch an iteration and none of B5's or of the
+    three-kernel loop's (frozen once converged, up to the next host
+    read), within one iteration of cgx's streaming solve;
+    "xla" runs the plain loop with the configured preconditioner, the k
+    and x of cgx's "xla" route; any other value raises."""
+    import cgx.solver.api as cgx_api
+
     dia, b = problem
     tol = 1e-4 * np.linalg.norm(b)
     monkeypatch.setattr(config, "RESIDENT_BUDGET_BYTES", 1000)
+    monkeypatch.setattr(cgx_api, "VMEM_BUDGET_BYTES", 1000)
+    kw = dict(precision="fp32", tolerance=tol, use_pallas=True, precond=precond)
     loop, chunks = _counts()
-    res = cgx_torch.solve(dia, b, SolveConfig(precision="fp32", tolerance=tol, use_pallas=True),
-                          device="cpu")
-    moved = [c - c0 for c, c0 in zip(_counts()[0], loop)]
-    assert moved[0] == 1 and min(moved[1:]) >= int(res.iterations) + 1
-    assert _counts()[1] == chunks
-    with pytest.raises(NotImplementedError, match="B6"):
-        cgx_torch.solve(dia, b, SolveConfig(precision="fp32", tolerance=tol, use_pallas=True,
-                                            precond="neumann"), device="cpu")
+    stream = _stream_counts()
+    res = cgx_torch.solve(dia, b, SolveConfig(**kw), device="cpu")
+    moved = [c - c0 for c, c0 in zip(_stream_counts(), stream)]
+    k = int(res.iterations)
+    assert bool(res.converged) and _counts() == (loop, chunks)
+    launched = -(-k // 32) * 32  # the host reads the stop flag once per 32 launches
+    assert moved == ([0, 0, 3 * launched] if precond else [launched, 0, 0])  # PCG: 3 a call
+    want = cgx.solve(cgx.lap2d_reference(256), b, cgx.SolveConfig(**kw))
+    assert abs(k - int(want.iterations)) <= 1
+
+    got = cgx_torch.solve(dia, b, SolveConfig(large_banded="xla", **kw), device="cpu")
+    want = cgx.solve(cgx.lap2d_reference(256), b, cgx.SolveConfig(large_banded="xla", **kw))
+    assert _stream_counts() == [c + m for c, m in zip(stream, moved)]
+    assert int(got.iterations) == int(want.iterations)
+    wx = np.asarray(want.x, np.float64)
+    np.testing.assert_allclose(got.x.numpy(), wx, rtol=1e-4, atol=1e-4 * np.abs(wx).max())
+    with pytest.raises(ValueError, match="large_banded"):
+        cgx_torch.solve(dia, b, SolveConfig(large_banded="dense", **kw), device="cpu")
 
 
 def test_neumann_pallas_route_matches_cgx(problem):
@@ -122,7 +147,6 @@ def test_precond_without_pallas_matches_cgx(problem, precond, precision):
     [
         (SolveConfig(precision="bf16"), {}),
         (SolveConfig(precision="tw"), {}),
-        (SolveConfig(method="pipelined"), {}),
         (SolveConfig(precond="block_jacobi"), {}),
         (SolveConfig(precond="chebyshev"), {}),
         (SolveConfig(precond="mg"), {}),
@@ -130,7 +154,7 @@ def test_precond_without_pallas_matches_cgx(problem, precond, precision):
         (SolveConfig(), {"mesh": object()}),
         (SolveConfig(), {"method": "sstep"}),
     ],
-    ids=["bf16", "tw", "pipelined", "block_jacobi", "chebyshev", "mg", "n_devices", "mesh",
+    ids=["bf16", "tw", "block_jacobi", "chebyshev", "mg", "n_devices", "mesh",
          "sstep"],
 )
 def test_unported_configs_raise(problem, cfg, kwargs):
@@ -166,6 +190,9 @@ def test_default_device_needs_cuda(problem):
                  lambda: cgx_torch.dia_cg_solve_vmem(None, np.ones(4)),
                  lambda: cgx_torch.refine_fixed_sweeps(None, np.ones(4)),
                  lambda: cgx_torch.iterative_refinement(None, np.ones(4)),
+                 lambda: cgx_torch.pipelined_cg_solve(torch.eye(4), np.ones(4)),
+                 lambda: cgx_torch.dia_cg_solve_stream(None, np.ones(4)),
+                 lambda: cgx_torch.dia_cg_solve_stream_pcg(None, np.ones(4)),
                  lambda: cgx_torch.operator_from_numpy(np.eye(4))):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()

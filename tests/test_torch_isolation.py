@@ -28,7 +28,8 @@ def test_import_pulls_in_neither_jax_nor_cgx():
 
 
 @pytest.mark.parametrize("module", ["cgx_torch.cli.main", "cgx_torch.ops.matvec",
-                                    "cgx_torch.ops.cg_kernel", "cgx_torch.solver.refine"])
+                                    "cgx_torch.ops.cg_kernel", "cgx_torch.solver.refine",
+                                    "cgx_torch.ops.cg_stream", "cgx_torch.solver.pipelined"])
 def test_module_import_pulls_in_neither_jax_nor_cgx_nor_a_build(module):
     code = (f"import {module}, sys, cgx_torch; "
             "assert 'jax' not in sys.modules and 'cgx' not in sys.modules, "
@@ -70,7 +71,7 @@ def test_solver_loops_run_at_full_float32():
     torch.set_float32_matmul_precision("medium")  # TF32 on
     try:
         assert torch.backends.cuda.matmul.allow_tf32
-        for solve in (cgx_torch.cg_solve, cgx_torch.solve):
+        for solve in (cgx_torch.cg_solve, cgx_torch.solve, cgx_torch.pipelined_cg_solve):
             seen = []
             op = types.SimpleNamespace(matvec=_flag_recorder(seen))  # an operator, for solve
             res = solve(op, np.ones(8, np.float32), device="cpu")

@@ -14,7 +14,7 @@ from cgx.mats.generators import lap2d_fd, source_term
 from cgx.solver.refine import iterative_refinement as cgx_iterative
 from cgx.solver.refine import refine_fixed_sweeps as cgx_fixed
 from cgx_torch import SolveConfig, config
-from cgx_torch.ops import cg_kernel
+from cgx_torch.ops import cg_kernel, cg_stream
 
 G = 24
 N = G * G
@@ -74,23 +74,43 @@ def test_iterative_refinement_dense_and_other_inners(problem):
         assert bool(res.converged) and _true_rel(dia, res.x.numpy(), b) < 1e-11
 
 
-def test_iterative_refinement_pallas_routes_by_budget(problem, monkeypatch):
-    """use_pallas: within the budget the inner solve is B5 with its
-    Neumann preconditioner; cgx's bf16-band and streaming Neumann-PCG
-    inners above it raise naming A6 and B6."""
-    dia, b, _, op = problem
-    before = cg_kernel.dia_cg_chunk.launches["2d"]
-    res = cgx_torch.iterative_refinement(op, b, tol=0.0, rtol=1e-11, use_pallas=True,
-                                         device="cpu")
-    assert cg_kernel.dia_cg_chunk.launches["2d"] > before
-    assert bool(res.converged) and _true_rel(dia, res.x.numpy(), b) < 1e-11
+@pytest.mark.parametrize("inner", ["resident", "bf16_bands", "stream_pcg"])
+def test_iterative_refinement_pallas_routes_by_budget(problem, monkeypatch, inner):
+    """use_pallas routes the inner solve by the budget as cgx does
+    (refine.py:142-156): B5 with its Neumann preconditioner while the
+    fp32 state fits, B5 with bfloat16 bands while that fits, then the
+    streaming Neumann-PCG kernel B6. Each inner runs, and the solve
+    reaches cgx's relative residual within one sweep of cgx's count."""
+    import cgx.config as cgx_config
+
+    dia, b, cgx_op, op = problem
     fp32 = cg_kernel.resident_state_bytes(5, N, 4, 4, precond=True)
     bf16 = cg_kernel.resident_state_bytes(5, N, 2, 4, precond=True)
-    for budget, item in ((bf16, "A6"), (bf16 - 1, "B6")):
-        assert budget < fp32
-        monkeypatch.setattr(config, "RESIDENT_BUDGET_BYTES", budget)
-        with pytest.raises(NotImplementedError, match=item):
-            cgx_torch.iterative_refinement(op, b, use_pallas=True, device="cpu")
+    budget = {"resident": fp32, "bf16_bands": bf16, "stream_pcg": bf16 - 1}[inner]
+    monkeypatch.setattr(config, "RESIDENT_BUDGET_BYTES", budget)
+    def counts():
+        chunk = cg_kernel.dia_cg_chunk
+        return (chunk.launches["2d"], chunk.launches_bf16["2d"],
+                cg_stream._stream_iteration_pcg.launches)
+
+    before = counts()
+    res = cgx_torch.iterative_refinement(op, b, tol=0.0, rtol=1e-11, use_pallas=True,
+                                         device="cpu")
+    ran = [a > b_ for a, b_ in zip(counts(), before)]
+    assert ran == {"resident": [True, False, False], "bf16_bands": [True, True, False],
+                   "stream_pcg": [False, False, True]}[inner]
+    assert bool(res.converged) and _true_rel(dia, res.x.numpy(), b) < 1e-11
+    # cgx's own route to the same inner: its budget set just as far
+    if inner != "resident":
+        from cgx.ops.cg_kernel import vmem2d_scoped_bytes
+
+        cgx_bf16 = vmem2d_scoped_bytes(5, N, 2, 4, precond=True)
+        monkeypatch.setattr(cgx_config, "VMEM_BUDGET_BYTES",
+                            cgx_bf16 if inner == "bf16_bands" else cgx_bf16 - 1)
+    want = cgx_iterative(cgx_op, jnp.asarray(b), tol=0.0, rtol=1e-11, use_pallas=True,
+                         interpret=True)
+    assert bool(want.converged)
+    assert abs(res.outer_iterations - want.outer_iterations) <= 1
 
 
 def test_solve_mixed_matches_cgx(problem):

@@ -298,3 +298,199 @@ def test_cuda_resident_fp64_golden(cuda):
     assert bool(res.converged) and 485 <= int(res.iterations) <= 491
     x = res.x.cpu().numpy()
     assert np.linalg.norm(dia.mat_vec(x) - b) / np.linalg.norm(b) < 1e-11
+
+
+# --- the streaming kernels (B4, B7, B6) ----------------------------------
+
+
+def _stream_case(g, dtype, device, case, seed=0):
+    """Bands as the case streams them, and cgx's start state on
+    lap2d_fd(g) from a seeded b, with a seeded nonzero x."""
+    from cgx_torch.ops import cg_stream
+
+    dia = lap2d_fd(g)
+    offs = tuple(dia.offsets)
+    rng = np.random.default_rng(seed)
+    bands = torch.as_tensor(dia.bands, dtype=dtype, device=device)
+    b, x = (torch.as_tensor(rng.standard_normal(g * g), dtype=dtype, device=device)
+            for _ in range(2))
+    st = cg_stream.initial_state(bands, b, 0.0, offsets=offs, precond=case == "pcg",
+                                 stacked=case == "stacked")
+    st.x.copy_(x)
+    return (bands.to(torch.bfloat16) if case == "bf16" else bands), offs, st
+
+
+def _clone_state(st):
+    from cgx_torch.ops import cg_stream
+
+    if st.rws is not None:
+        rws = st.rws.clone()
+        pairs = (rws[:, 0], rws[:, 1], rws[:, 2])
+    else:
+        rws, pairs = None, tuple(t.clone() for t in (st.r, st.w, st.s))
+    return cg_stream.StreamState(st.p.clone(), st.x.clone(),
+                                 None if st.u is None else st.u.clone(), *pairs, rws,
+                                 st.scal.clone())
+
+
+STREAM_KW = dict(tol=0.0, nearzero=1e-14, maxiter=10**6)
+
+
+def _plain_step(bands, st, offs, **kw):
+    from cgx_torch.ops import cg_stream
+
+    cg_stream._iteration_ref(bands, st.p, st.x, st.u, st.r, st.w, st.s, st.scal, offsets=offs,
+                             **{**STREAM_KW, **kw})
+
+
+@pytest.mark.parametrize("case", ["split", "stacked", "bf16", "pcg"])
+def test_stream_wrappers_on_cpu_count_and_run_plain(case, monkeypatch):
+    """On CPU tensors each streaming wrapper counts the launches it
+    stands for, builds nothing and gives exactly its plain version's state."""
+    import cgx_torch._build as build
+    from cgx_torch.ops import cg_stream
+
+    def no_build():
+        raise AssertionError("a CPU call must not build the CUDA kernels")
+
+    monkeypatch.setattr(build, "load", no_build)
+    bands, offs, st = _stream_case(12, torch.float32, "cpu", case)
+    want = _clone_state(st)
+    site = {"split": cg_stream._stream_iteration, "stacked": cg_stream._stream_iteration_stacked,
+            "bf16": cg_stream._stream_iteration, "pcg": cg_stream._stream_iteration_pcg}[case]
+    before = site.launches
+    cg_stream.step(bands, st, offsets=offs, **STREAM_KW)
+    _plain_step(bands, want, offs)
+    assert site.launches == before + (3 if case == "pcg" else 1)  # the PCG's three launches
+    for a, w in zip(st, want):
+        assert (a is None and w is None) or torch.equal(a, w)
+    assert st.scal[cg_stream.K] == 1.0
+
+
+def test_stream_wrappers_reject_bad_operands():
+    from cgx_torch.ops import cg_stream
+
+    bands, offs, st = _stream_case(6, torch.float64, "cpu", "split")
+    with pytest.raises(ValueError):  # scalars must be float64
+        cg_stream._stream_iteration(bands, st.p, st.x, st.r, st.w, st.s, st.scal.float(),
+                                    offsets=offs, **STREAM_KW)
+    with pytest.raises(ValueError):  # a pair is two rows
+        cg_stream._stream_iteration(bands, st.p, st.x, st.r[0], st.w, st.s, st.scal,
+                                    offsets=offs, **STREAM_KW)
+    with pytest.raises(ValueError):  # bf16 bands under float64 vectors
+        cg_stream._stream_iteration(bands.to(torch.bfloat16), st.p, st.x, st.r, st.w, st.s,
+                                    st.scal, offsets=offs, **STREAM_KW)
+    with pytest.raises(ValueError):  # the stack is (2, 3, N)
+        cg_stream._stream_iteration_stacked(bands, st.p, st.x, st.r, st.scal, offsets=offs,
+                                            **STREAM_KW)
+    with pytest.raises(ValueError, match="offset 0"):
+        cg_stream._stream_iteration_pcg(bands[[0, 1, 3, 4]], st.p, st.x, st.p.clone(), st.r,
+                                        st.w, st.s, st.scal, offsets=(-6, -1, 1, 6), **STREAM_KW)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["split", "stacked", "bf16", "pcg"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("g", [30, 700])  # a grid of one block, and of many
+def test_cuda_stream_kernels_match_plain(cuda, g, dtype, case):
+    """One launch: vectors bitwise the plain version's (-fmad=false, the
+    same scalars), the float64 dots within 1e-12 (another summation
+    order). 32 launches: vectors within 1e-4/1e-12 of max|ref| (a dot's
+    last bit can flip a float alpha), k, stop and breakdown equal."""
+    from cgx_torch.ops import cg_stream
+
+    if case == "bf16" and dtype == torch.float64:
+        pytest.skip("bfloat16 bands go under float32 vectors only")
+    bands, offs, st = _stream_case(g, dtype, cuda, case)
+    for launches, rtol in ((1, 0.0), (32, 1e-4 if dtype == torch.float32 else 1e-12)):
+        got, want = _clone_state(st), _clone_state(st)
+        for _ in range(launches):
+            cg_stream.step(bands, got, offsets=offs, **STREAM_KW)
+            _plain_step(bands, want, offs)
+        torch.cuda.synchronize()
+        for a, w in zip(got[:6], want[:6]):
+            if a is not None:
+                assert float((a - w).abs().max()) <= rtol * float(w.abs().max()), case
+        k = cg_stream.K
+        assert torch.equal(got.scal[k:], want.scal[k:])
+        dots = got.scal[:3] - want.scal[:3]
+        assert float(dots.abs().max()) <= 1e-12 * float(want.scal[:3].abs().max()) or launches > 1
+
+
+@pytest.mark.cuda
+def test_cuda_stream_frozen_launch_changes_nothing(cuda):
+    from cgx_torch.ops import cg_stream
+
+    bands, offs, st = _stream_case(64, torch.float32, cuda, "split")
+    for scal_fix in ({cg_stream.STOP: 1.0}, {cg_stream.K: 7.0}):
+        frozen = _clone_state(st)
+        for i, v in scal_fix.items():
+            frozen.scal[i] = v
+        before = _clone_state(frozen)
+        cg_stream.step(bands, frozen, offsets=offs, **{**STREAM_KW, "maxiter": 7})
+        torch.cuda.synchronize()
+        for a, w in zip(frozen, before):
+            assert (a is None and w is None) or torch.equal(a, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precond", [False, True])
+def test_cuda_stream_solves_repeat_bitwise(cuda, precond):
+    """Two streaming solves are bitwise equal, split equals stacked, and
+    the fp32 count is the plain pipelined loop's with float64 dots."""
+    from cgx_torch.solver.pipelined import pipelined_cg_solve
+    from cgx_torch.solver.precond import neumann_banded
+
+    dia = lap2d_fd(300)
+    b = source_term(dia.shape[0])
+    tol = 1e-5 * float(np.linalg.norm(b))
+    op = cgx_torch.as_operator(dia, torch.float32, device=cuda)
+    bt = torch.as_tensor(b, dtype=torch.float32, device=cuda)
+    if precond:
+        runs = [cgx_torch.dia_cg_solve_stream_pcg(op, bt, tol=tol, device=cuda) for _ in range(2)]
+    else:
+        runs = [cgx_torch.dia_cg_solve_stream(op, bt, tol=tol, layout=layout, bands_dtype="auto",
+                                              device=cuda)
+                for layout in ("split", "split", "stacked")]
+    first = runs[0]
+    assert bool(first.converged)
+    for again in runs[1:]:
+        assert int(again.iterations) == int(first.iterations)
+        assert torch.equal(first.x.view(torch.int32), again.x.view(torch.int32))
+    pc = neumann_banded(op.bands, op.offsets, sweeps=2) if precond else None
+    plain = pipelined_cg_solve(op, bt, tol=tol, precond=pc, dot_precision=torch.float64,
+                               device=cuda)
+    assert abs(int(first.iterations) - int(plain.iterations)) <= 1
+
+
+@pytest.mark.cuda
+def test_cuda_stream_fp64_golden(cuda):
+    from cgx_torch.solver.pipelined import pipelined_cg_solve
+
+    dia = lap2d_fd(100)
+    b = source_term(dia.shape[0])
+    op = cgx_torch.as_operator(dia, torch.float64, device=cuda)
+    res = cgx_torch.dia_cg_solve_stream(op, b, tol=1e-10, device=cuda)
+    plain = pipelined_cg_solve(op, b, tol=1e-10, device=cuda)
+    assert bool(res.converged) and abs(int(res.iterations) - int(plain.iterations)) <= 2
+    x = res.x.cpu().numpy()
+    assert np.linalg.norm(dia.mat_vec(x) - b) / np.linalg.norm(b) < 1e-11
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precond", [False, True])
+def test_cuda_chunk_kernel_bf16_bands_match_plain(cuda, precond):
+    """B5 with bfloat16 bands: 64 iterations against the plain chunk on
+    the same rounded bands."""
+    dia = lap2d_fd(700)
+    bands, state = _chunk_state(dia, torch.float32, cuda)
+    bands = bands.to(torch.bfloat16)
+    got, ref = [t.clone() for t in state], [t.clone() for t in state]
+    kw = dict(offsets=dia.offsets, tol=0.0, nearzero=1e-14, maxiter=10**6, chunk=64,
+              precond=precond)
+    s_got = cg_kernel.dia_cg_chunk(bands, *got, **kw)
+    s_ref = cg_kernel.dia_cg_chunk_ref(bands, *ref, **kw)
+    torch.cuda.synchronize()
+    for a, w in zip(got[:3], ref[:3]):
+        assert float((a - w).abs().max()) <= 1e-4 * float(w.abs().max())
+    assert torch.equal(s_got[1:], s_ref[1:])
