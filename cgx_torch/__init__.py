@@ -25,7 +25,9 @@ from cgx_torch.mats.generators import (
 )
 from cgx_torch.ops.cg_kernel import dia_cg_solve_vmem
 from cgx_torch.ops.cg_stream import dia_cg_solve_stream, dia_cg_solve_stream_pcg
+from cgx_torch.ops.dia_powers import dia_sstep_basis
 from cgx_torch.ops.matvec import dense_matvec, dense_matvec_dot
+from cgx_torch.ops.sstep_stream import dia_sstep_stream_solve
 from cgx_torch.solver.api import solve
 from cgx_torch.solver.cg import CGResult, cg_solve
 from cgx_torch.solver.fast import dia_cg_solve_pallas
@@ -42,5 +44,6 @@ from cgx_torch.solver.operators import (
     operator_from_numpy,
 )
 from cgx_torch.solver.refine import RefineResult, iterative_refinement, refine_fixed_sweeps
+from cgx_torch.solver.sstep import sstep_cg_solve
 
 __version__ = "0.1.0"

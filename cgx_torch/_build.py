@@ -43,7 +43,8 @@ _offs = ctypes.POINTER(ctypes.c_longlong)
 _i = ctypes.c_int
 _d = ctypes.c_double
 _i_out = ctypes.POINTER(ctypes.c_int)
-# C signature of each entry point (both _f32 and _f64), by source.
+_d_in = ctypes.POINTER(ctypes.c_double)
+# C signature of each entry point (both _f32 and _f64 unless _ONLY says), by source.
 _SIGNATURES = {
     "dia_spmv": {
         "cgx_dia_matvec": (_p, _p, _p, _n, _offs, _i, _p),
@@ -65,10 +66,23 @@ _SIGNATURES = {
         "cgx_cg_stream": (_p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _n, _p, _p, _n, _offs,
                           _i, _i, _d, _d, _d, _i, _i_out, _p),
     },
+    "dia_powers": {
+        "cgx_dia_sstep_basis": (_p, _p, _p, _p, _p, _n, _n, _offs, _i, _i, _d, _d, _d_in, _i,
+                                _n, _i, _p),
+    },
+    "sstep_stream": {
+        "cgx_sstep_gram": (_p, _p, _p, _p, _p, _p, _p, _p, _n, _p, _n, _p, _n, _offs, _i, _i, _d,
+                           _d, _d_in, _i, _d, _d, _d, _n, _i, _p),
+        "cgx_sstep_recover": (_p, _p, _p, _p, _p, _p, _p, _p, _n, _p, _n, _offs, _i, _i, _d, _d,
+                              _d_in, _i, _n, _i, _p),
+        "cgx_sstep_replay": (_p, _p, _i, _d, _d, _d, _p),
+    },
 }
 # Entries that also take bfloat16 bands under float32 vectors, bound with
 # this suffix (cgx_torch.ops._util.BF16_BANDS_SUFFIX).
-_BF16_BANDS = ("cgx_dia_cg_chunk", "cgx_cg_stream")
+_BF16_BANDS = ("cgx_dia_cg_chunk", "cgx_cg_stream", "cgx_sstep_gram", "cgx_sstep_recover")
+# Entries with one variant only: the replay works on the float64 state.
+_ONLY = {"cgx_sstep_replay": ("_f64",)}
 
 
 def _nvcc() -> str:
@@ -133,7 +147,8 @@ def load() -> types.SimpleNamespace:
     for s, entries in _SIGNATURES.items():
         cdll = ctypes.CDLL(libs[s])
         for name, argtypes in entries.items():
-            for suffix in ("_f32", "_f64") + (("_f32_bf16b",) if name in _BF16_BANDS else ()):
+            suffixes = ("_f32", "_f64") + (("_f32_bf16b",) if name in _BF16_BANDS else ())
+            for suffix in _ONLY.get(name, suffixes):
                 fn = getattr(cdll, name + suffix)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int

@@ -32,7 +32,10 @@ Where the port differs from cgx's CLI, by design:
 - on CUDA the kernels are built before the clock starts, and the clock
   stops after ``torch.cuda.synchronize()``, so ``elapsed`` is the solve.
 
-``--devices > 1``, ``--precond``, ``--method`` other than ``reference``
+``--method pipelined`` and ``--method sstep`` run as cgx branches them
+(cli/main.py:341-377), the latter with ``--sstep-s``, ``--sstep-basis``,
+``--sstep-powers`` and ``--sstep-replace-every`` passed through.
+``--devices > 1``, ``--precond``, ``--method gvpipe`` and ``chebyshev``,
 and ``--precision bf16`` raise ``NotImplementedError`` naming their
 ROADMAP item.
 """
@@ -53,6 +56,8 @@ from cgx_torch.mats.generators import lap2d_reference, source_term
 from cgx_torch.ops._util import resolve_device
 from cgx_torch.solver.cg import CGResult, cg_solve
 from cgx_torch.solver.operators import PallasDenseOperator, as_operator
+from cgx_torch.solver.pipelined import pipelined_cg_solve
+from cgx_torch.solver.sstep import sstep_cg_solve
 
 DEFAULT_TILES = (256, 512)  # dense_matvec's static defaults (cgx/bench/autotune.py:38)
 _DTYPES = {"fp64": torch.float64, "fp32": torch.float32}
@@ -119,8 +124,8 @@ def run(argv=None) -> Run:
         raise _unported("--devices > 1 (sharded solves, ROADMAP A14)")
     if args.precond is not None:
         raise _unported(f"--precond {args.precond} (preconditioners, ROADMAP A4/A7/A10)")
-    if args.method != "reference":
-        raise _unported(f"--method {args.method} (ROADMAP A7/A11)")
+    if args.method in ("gvpipe", "chebyshev"):
+        raise _unported(f"--method {args.method} (ROADMAP A11)")
     dev = resolve_device(args.device)
     dtype = _DTYPES[args.precision]
     tol = args.tol if args.tol is not None else DEFAULT_TOLERANCE
@@ -187,7 +192,15 @@ def run(argv=None) -> Run:
         torch.cuda.synchronize(dev)
 
     t1 = time.perf_counter()
-    res = cg_solve(op, b, tol=tol, maxiter=maxiter, history=args.history, device=dev)
+    if args.method == "pipelined":
+        res = pipelined_cg_solve(op, b, tol=tol, maxiter=maxiter, history=args.history,
+                                 device=dev)
+    elif args.method == "sstep":
+        res = sstep_cg_solve(op, b, tol=tol, maxiter=maxiter, s=args.sstep_s,
+                             basis=args.sstep_basis, replace_every=args.sstep_replace_every,
+                             powers=args.sstep_powers, device=dev)
+    else:
+        res = cg_solve(op, b, tol=tol, maxiter=maxiter, history=args.history, device=dev)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     elapsed = time.perf_counter() - t1

@@ -57,8 +57,9 @@ class SolveConfig:
     # precond="neumann") or "xla" (the plain loop, with the configured
     # preconditioner).
     large_banded: str = "stream"
-    # "reference" or "pipelined" (Chronopoulos-Gear); the others (A7,
-    # A11) are not ported yet. The fields below select paths that are not
+    # "reference", "pipelined" (Chronopoulos-Gear) or "sstep" (s-step CG,
+    # with the sstep_* fields below); "gvpipe" and "chebyshev" (A11) are
+    # not ported yet. The other fields below select paths that are not
     # ported yet, but for precond; they keep cgx's defaults so that a cgx
     # configuration reads the same.
     method: str = "reference"

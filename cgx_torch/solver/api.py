@@ -24,6 +24,11 @@ Dispatch (cgx api.py:322-403):
   ported: a failed launch raises;
 - ``method="pipelined"`` runs :func:`cgx_torch.solver.pipelined.
   pipelined_cg_solve`, with float64 dots for fp32;
+- ``method="sstep"`` runs :func:`cgx_torch.solver.sstep.sstep_cg_solve`
+  with the configuration's ``sstep_*`` fields; ``sstep_powers="auto"``
+  resolves by :func:`_single_powers` (cgx api.py:104-137): the fused
+  kernels B10 for a banded non-fp64 operator on the card with
+  ``sstep_s <= 6``, else the plain basis;
 - ``precision="mixed"`` runs fp64 refinement around fp32 inner solves
   (:mod:`cgx_torch.solver.refine`);
 - everything else that is ported runs the plain reference loop, with
@@ -50,6 +55,7 @@ from cgx_torch.solver.operators import DiaOperator, as_operator
 from cgx_torch.solver.pipelined import pipelined_cg_solve
 from cgx_torch.solver.precond import jacobi, neumann_banded
 from cgx_torch.solver.refine import iterative_refinement, refine_fixed_sweeps
+from cgx_torch.solver.sstep import sstep_cg_solve
 
 _DTYPES = {"fp64": torch.float64, "fp32": torch.float32}
 _UNPORTED_PRECISION = {
@@ -80,6 +86,24 @@ def _build_precond(cfg: SolveConfig, op):
     if cfg.precond in _UNPORTED_PRECOND:
         raise _unported(f"precond={cfg.precond!r} (ROADMAP {_UNPORTED_PRECOND[cfg.precond]})")
     raise ValueError(f"unknown precond {cfg.precond!r}")
+
+
+def _single_powers(cfg: SolveConfig, op) -> str:
+    """The single-device ``powers`` mode of an s-step solve (cgx
+    ``_single_powers``): "auto" is "fused" for a banded operator of
+    float32 on CUDA with ``sstep_s <= 6`` (cgx: on an accelerator; the
+    fp32 basis-conditioning cap), else "off"."""
+    if cfg.sstep_powers == "auto":
+        if (isinstance(op, DiaOperator) and op.dtype != torch.float64 and int(cfg.sstep_s) <= 6
+                and op.bands.device.type == "cuda"):
+            return "fused"
+        return "off"
+    if cfg.sstep_powers in ("off", "pallas", "interpret", "fused"):
+        return cfg.sstep_powers
+    if cfg.sstep_powers == "deephalo":
+        raise ValueError("sstep_powers='deephalo' is a sharded mode (needs a device mesh); use "
+                         "sstep_powers='pallas' single-device")
+    raise ValueError(f"unknown sstep_powers {cfg.sstep_powers!r}")
 
 
 def _solve_mixed(mat, b, cfg: SolveConfig, method: str, dev: torch.device) -> CGResult:
@@ -148,8 +172,10 @@ def solve(
         raise _unported(f"precision={cfg.precision!r}: {_UNPORTED_PRECISION[cfg.precision]}")
     if cfg.precision not in _DTYPES:
         raise ValueError(f"unknown precision {cfg.precision!r}")
-    if method not in ("reference", "pipelined"):
-        raise _unported(f"method={method!r} (ROADMAP A7, A11)")
+    if method in ("gvpipe", "chebyshev"):
+        raise _unported(f"method={method!r} (ROADMAP A11)")
+    if method not in ("reference", "pipelined", "sstep"):
+        raise ValueError(f"unknown method {method!r}")
     dtype = _DTYPES[cfg.precision]
     # fp32 vectors with fp64 dots, as cgx does whenever x64 is on
     dot_precision = torch.float64 if dtype != torch.float64 else None
@@ -163,6 +189,15 @@ def solve(
             op, b_dev, x0, tol=cfg.tolerance, maxiter=maxiter, nearzero=cfg.nearzero,
             history=cfg.history, dot_precision=dot_precision,
             precond=_build_precond(cfg, op), device=dev,
+        )
+
+    if method == "sstep":  # cgx api.py:289-301
+        if cfg.precond is not None:
+            raise ValueError("sstep_cg_solve does not take a preconditioner")
+        return sstep_cg_solve(
+            op, b_dev, x0, tol=cfg.tolerance, maxiter=maxiter, nearzero=cfg.nearzero,
+            s=cfg.sstep_s, basis=cfg.sstep_basis, replace_every=cfg.sstep_replace_every,
+            powers=_single_powers(cfg, op), fallback=cfg.sstep_fallback, device=dev,
         )
 
     if (cfg.use_pallas and isinstance(op, DiaOperator) and cfg.precision != "fp64"

@@ -152,10 +152,11 @@ def test_precond_without_pallas_matches_cgx(problem, precond, precision):
         (SolveConfig(precond="mg"), {}),
         (SolveConfig(), {"n_devices": 4}),
         (SolveConfig(), {"mesh": object()}),
-        (SolveConfig(), {"method": "sstep"}),
+        (SolveConfig(), {"method": "gvpipe"}),
+        (SolveConfig(), {"method": "chebyshev"}),
     ],
     ids=["bf16", "tw", "block_jacobi", "chebyshev", "mg", "n_devices", "mesh",
-         "sstep"],
+         "gvpipe", "chebyshev_method"],
 )
 def test_unported_configs_raise(problem, cfg, kwargs):
     dia, b = problem
@@ -193,6 +194,8 @@ def test_default_device_needs_cuda(problem):
                  lambda: cgx_torch.pipelined_cg_solve(torch.eye(4), np.ones(4)),
                  lambda: cgx_torch.dia_cg_solve_stream(None, np.ones(4)),
                  lambda: cgx_torch.dia_cg_solve_stream_pcg(None, np.ones(4)),
+                 lambda: cgx_torch.sstep_cg_solve(torch.eye(4), np.ones(4)),
+                 lambda: cgx_torch.dia_sstep_stream_solve(None, np.ones(4)),
                  lambda: cgx_torch.operator_from_numpy(np.eye(4))):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()

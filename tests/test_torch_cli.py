@@ -69,6 +69,25 @@ def test_mpi_grammar_matches_cgx(extra, tmp_path, capsys):
     assert got[1][:2] == ["256", "1"]
 
 
+@pytest.mark.parametrize("method", ["pipelined", "sstep"])
+def test_methods_match_cgx(method, tmp_path, capsys):
+    """--method pipelined and --method sstep (cgx cli/main.py:341-377) on
+    lap2d_fd(24) through the CUDA grammar, fp64 at 1e-6: the [STEP k]
+    line (k equal for the pipelined recurrence, within s = 4 for s-step,
+    whose Gram sums in another order) and the CSV row."""
+    path = tmp_path / "lap24.mtx"
+    lap2d_fd_coo_lower(24).write(path)
+    (w_out, w_row), (g_out, g_row) = _both(
+        [str(path), "1024", "16", "false", "OUT", "--format", "dia", "--tol", "1e-6",
+         "--method", method], tmp_path, capsys)
+    wk, wres, wx, wrel = _step(w_out)
+    gk, gres, gx, grel = _step(g_out)
+    assert gk == wk if method == "pipelined" else abs(gk - wk) <= 4
+    assert gx == pytest.approx(wx, rel=1e-9)
+    assert grel < 1e-8 and wrel < 1e-8
+    assert g_row[:2] == w_row[:2] == ["1024", "16"] and float(g_row[2]) > 0
+
+
 @pytest.fixture
 def mtx12(tmp_path):
     path = tmp_path / "lap12.mtx"
@@ -140,7 +159,7 @@ def test_host_conversions_match_cgx(fmt):
 @pytest.mark.parametrize(
     "extra,item",
     [(["--devices", "4"], "A14"), (["--precond", "jacobi"], "A4/A7/A10"),
-     (["--method", "pipelined"], "A7/A11"), (["--precision", "bf16"], "A6")],
+     (["--method", "gvpipe"], "A11"), (["--precision", "bf16"], "A6")],
     ids=["devices", "precond", "method", "bf16"],
 )
 def test_unported_flags_raise_naming_their_item(extra, item, tmp_path):

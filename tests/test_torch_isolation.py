@@ -29,7 +29,10 @@ def test_import_pulls_in_neither_jax_nor_cgx():
 
 @pytest.mark.parametrize("module", ["cgx_torch.cli.main", "cgx_torch.ops.matvec",
                                     "cgx_torch.ops.cg_kernel", "cgx_torch.solver.refine",
-                                    "cgx_torch.ops.cg_stream", "cgx_torch.solver.pipelined"])
+                                    "cgx_torch.ops.cg_stream", "cgx_torch.solver.pipelined",
+                                    "cgx_torch.ops.dia_powers", "cgx_torch.ops.sstep_stream",
+                                    "cgx_torch.solver.sstep", "cgx_torch.solver.chebyshev",
+                                    "cgx_torch.ops.tw32"])
 def test_module_import_pulls_in_neither_jax_nor_cgx_nor_a_build(module):
     code = (f"import {module}, sys, cgx_torch; "
             "assert 'jax' not in sys.modules and 'cgx' not in sys.modules, "

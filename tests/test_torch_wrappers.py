@@ -494,3 +494,129 @@ def test_cuda_chunk_kernel_bf16_bands_match_plain(cuda, precond):
     for a, w in zip(got[:3], ref[:3]):
         assert float((a - w).abs().max()) <= 1e-4 * float(w.abs().max())
     assert torch.equal(s_got[1:], s_ref[1:])
+
+
+SSTEP = dict(theta=4.0, delta=3.9)
+NEWTON = (7.0, 0.5, 4.5, 2.0)
+
+
+def _sstep_inputs(g, dtype, device, seed=0):
+    dia = lap2d_fd(g)
+    rng = np.random.default_rng(seed)
+    p, r = (torch.as_tensor(rng.standard_normal(g * g), dtype=dtype, device=device)
+            for _ in range(2))
+    return dia, torch.as_tensor(dia.bands, dtype=dtype, device=device), p, r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shifts", [(), NEWTON], ids=["chebyshev", "newton"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("g", [33, 700])  # one tile, ragged; many tiles, many blocks
+def test_cuda_powers_kernel_matches_plain(cuda, g, dtype, shifts):
+    """B9's basis equals the plain one bit for bit (the same operations,
+    -fmad=false)."""
+    from cgx_torch.ops import dia_powers
+
+    dia, bands, p, r = _sstep_inputs(g, dtype, cuda)
+    kw = dict(offsets=dia.offsets, s=4, shifts=shifts, **SSTEP)
+    got = dia_powers.dia_sstep_basis(bands, p, r, **kw)
+    want = dia_powers.dia_sstep_basis_ref(bands, p, r, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["f32", "bf16", "f64"])
+@pytest.mark.parametrize("g", [33, 700])
+def test_cuda_sstep_block_matches_plain(cuda, g, case):
+    """One fused block from a seeded state: G within 1e-12 of sum|v_i v_j|,
+    the replayed coefficients within 1e-13, the scalars' k, conv and brk
+    equal; then x, r and p bitwise the plain recovery's from the same
+    coefficients; the replay kernel alone within 1e-13 of its plain version."""
+    from cgx_torch.ops import sstep_stream as ss
+
+    dtype = torch.float64 if case == "f64" else torch.float32
+    dia, bands, p, r = _sstep_inputs(g, dtype, cuda)
+    kb = bands.to(torch.bfloat16) if case == "bf16" else bands
+    kw = dict(offsets=dia.offsets, s=4, shifts=(), **SSTEP)
+    base = ss.initial_state(bands, r, torch.zeros_like(r), 0.0, **kw)
+    base.p[0].copy_(p)
+    sk = dict(tol=0.0, nearzero=1e-14, maxiter=10**6)
+    got, want = ([t.clone() for t in base] for _ in range(2))
+    ss._sstep_gram(kb, got[1], got[2], got[3], got[4], **kw, **sk)
+    ss._gram_ref(kb, want[1], want[2], want[3], want[4], **kw, **sk)
+    torch.cuda.synchronize()
+    m = 9
+    v = ss.dia_sstep_basis_ref(kb, p, r, **kw).double()
+    scale = (v.abs() @ v.abs().T).reshape(-1)
+    gg = slice(ss.GRAM, ss.GRAM + m * m)
+    assert float(((got[3][gg] - want[3][gg]).abs() / scale).max()) <= 1e-12
+    coef = slice(ss.COEF, ss.COEF + 3 * m)
+    assert float((got[3][coef] - want[3][coef]).abs().max()) <= 1e-13 * float(
+        want[3][coef].abs().max())
+    assert torch.equal(got[3][[ss.K, ss.CONV, ss.BRK, ss.LIVE]],
+                       want[3][[ss.K, ss.CONV, ss.BRK, ss.LIVE]])
+    want[3].copy_(got[3])  # the same coefficients on both sides
+    ss._sstep_recover(kb, got[1], got[2], got[0], got[3], **kw)
+    ss._recover_ref(kb, want[1], want[2], want[0], want[3], **kw)
+    torch.cuda.synchronize()
+    for a, w in zip(got[:4], want[:4]):
+        assert torch.equal(a, w)
+    st = want[3].clone()
+    ss.sstep_replay(got[3], got[4], s=4, **sk)
+    ss._replay_ref(st, want[4], s=4, **sk)
+    torch.cuda.synchronize()
+    assert float((got[3][coef] - st[coef]).abs().max()) <= 1e-13 * float(st[coef].abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_sstep_frozen_block_changes_nothing(cuda):
+    from cgx_torch.ops import sstep_stream as ss
+
+    dia, bands, p, r = _sstep_inputs(64, torch.float32, cuda)
+    kw = dict(offsets=dia.offsets, s=4, **SSTEP)
+    st = ss.initial_state(bands, r, torch.zeros_like(r), 0.0, **kw)
+    for fix in ({ss.CONV: 1.0}, {ss.BRK: 1.0}, {ss.K: 7.0}):
+        frozen = ss.BlockState(*(t.clone() for t in st))
+        for i, v in fix.items():
+            frozen.state[i] = v
+        before = [t.clone() for t in frozen]
+        ss.block(bands, frozen, tol=0.0, nearzero=1e-14, maxiter=7, **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, w) for a, w in zip(frozen, before))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("powers", ["fused", "pallas"])
+def test_cuda_sstep_solves_repeat_bitwise(cuda, powers):
+    """Two s-step solves on the kernels are bitwise equal, and the count is
+    within 2% of the plain loop with the kernels' float64 Gram."""
+    from cgx_torch.solver.chebyshev import spectral_bounds
+    from cgx_torch.solver.sstep import sstep_cg_solve
+
+    dia = lap2d_fd(300)
+    b = source_term(dia.shape[0])
+    tol = 1e-5 * float(np.linalg.norm(b))
+    op = cgx_torch.as_operator(dia, torch.float32, device=cuda)
+    bt = torch.as_tensor(b, dtype=torch.float32, device=cuda)
+    kw = dict(tol=tol, bounds=spectral_bounds(op, dia.shape[0]), device=cuda)
+    runs = [sstep_cg_solve(op, bt, powers=powers, **kw) for _ in range(2)]
+    assert bool(runs[0].converged)
+    assert int(runs[0].iterations) == int(runs[1].iterations)
+    assert torch.equal(runs[0].x.view(torch.int32), runs[1].x.view(torch.int32))
+    plain = sstep_cg_solve(op, bt, powers="off", gram_precision=torch.float64, **kw)
+    assert abs(int(runs[0].iterations) - int(plain.iterations)) <= 0.02 * int(plain.iterations) + 4
+
+
+@pytest.mark.cuda
+def test_cuda_sstep_fp64_golden(cuda):
+    from cgx_torch.solver.sstep import sstep_cg_solve
+
+    dia = lap2d_fd(100)
+    b = source_term(dia.shape[0])
+    op = cgx_torch.as_operator(dia, torch.float64, device=cuda)
+    res = cgx_torch.dia_sstep_stream_solve(op, b, tol=1e-10, device=cuda)
+    plain = sstep_cg_solve(op, b, tol=1e-10, gram_precision=torch.float64, device=cuda)
+    assert bool(res.converged) and abs(int(res.iterations) - int(plain.iterations)) <= 4
+    x = res.x.cpu().numpy()
+    assert np.linalg.norm(dia.mat_vec(x) - b) / np.linalg.norm(b) < 1e-11
