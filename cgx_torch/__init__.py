@@ -28,6 +28,7 @@ from cgx_torch.ops.cg_stream import dia_cg_solve_stream, dia_cg_solve_stream_pcg
 from cgx_torch.ops.dia_powers import dia_sstep_basis
 from cgx_torch.ops.matvec import dense_matvec, dense_matvec_dot
 from cgx_torch.ops.sstep_stream import dia_sstep_stream_solve
+from cgx_torch.parallel import ShardedCGSolver, make_mesh, make_sharded_solver, sharded_cg_solve
 from cgx_torch.solver.api import solve
 from cgx_torch.solver.cg import CGResult, cg_solve
 from cgx_torch.solver.fast import dia_cg_solve_pallas

@@ -50,6 +50,9 @@ _SIGNATURES = {
         "cgx_dia_matvec": (_p, _p, _p, _n, _offs, _i, _p),
         "cgx_dia_matvec_dot": (_p, _p, _p, _p, _n, _p, _p, _n, _offs, _i, _p),
     },
+    "dia_stream": {
+        "cgx_dia_matvec_stream": (_p, _n, _p, _p, _n, _offs, _i, _p),
+    },
     "axpy": {
         "cgx_fused_update_rs": (_p, _p, _p, _p, _p, _p, _p, _p, _n, _p, _p, _n, _p),
         "cgx_fused_axpby": (_p, _p, _p, _p, _p, _n, _p),

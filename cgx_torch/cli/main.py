@@ -35,14 +35,32 @@ Where the port differs from cgx's CLI, by design:
 ``--method pipelined`` and ``--method sstep`` run as cgx branches them
 (cli/main.py:341-377), the latter with ``--sstep-s``, ``--sstep-basis``,
 ``--sstep-powers`` and ``--sstep-replace-every`` passed through.
-``--devices > 1``, ``--precond``, ``--method gvpipe`` and ``chebyshev``,
-and ``--precision bf16`` raise ``NotImplementedError`` naming their
-ROADMAP item.
+``--precond jacobi`` and ``neumann`` run as cgx builds them
+(cli/main.py:285-340; neumann on a non-banded operator falls back to
+jacobi with a warning), and the ``[STEP k]`` line then shows
+``residual_norm``, as cgx's does (cli/main.py:398-406).
+
+``--devices P`` (P > 1) runs the sharded route
+(:mod:`cgx_torch.parallel.sharded_cg`) with ``--strategy``, one process
+per rank, as cgx's ``--devices`` does on one host (cli/main.py:197-240):
+
+    torchrun --nproc-per-node P python -m cgx_torch.cli.main N out.txt --devices P
+
+P must equal the world size. The process group is initialized from
+torchrun's environment if it is not yet (NCCL on the card, gloo with
+``--device cpu``), and destroyed again at the end. Rank 0 alone prints
+and appends the CSV row, whose ``psize`` is P.
+
+``--precond block_jacobi``, ``chebyshev`` (A7) and ``mg`` (A10),
+``--method gvpipe`` and ``chebyshev`` (A11), ``--method sstep`` with
+``--devices`` (A14) and ``--precision bf16`` (A6) raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 from typing import NamedTuple, Optional
@@ -55,12 +73,14 @@ from cgx_torch.mats.containers import COOMatrix, CSRMatrix, DIAMatrix, ELLMatrix
 from cgx_torch.mats.generators import lap2d_reference, source_term
 from cgx_torch.ops._util import resolve_device
 from cgx_torch.solver.cg import CGResult, cg_solve
-from cgx_torch.solver.operators import PallasDenseOperator, as_operator
+from cgx_torch.solver.operators import DiaOperator, PallasDenseOperator, as_operator
 from cgx_torch.solver.pipelined import pipelined_cg_solve
+from cgx_torch.solver.precond import jacobi, neumann_banded
 from cgx_torch.solver.sstep import sstep_cg_solve
 
 DEFAULT_TILES = (256, 512)  # dense_matvec's static defaults (cgx/bench/autotune.py:38)
 _DTYPES = {"fp64": torch.float64, "fp32": torch.float32}
+_UNPORTED_PRECOND = {"block_jacobi": "A7", "chebyshev": "A7", "mg": "A10"}
 
 
 def _build_parser() -> argparse.ArgumentParser:
@@ -120,10 +140,8 @@ def run(argv=None) -> Run:
     pos = args.positionals
     if args.precision == "bf16":
         raise _unported("--precision bf16 (bf16 storage, ROADMAP A6)")
-    if args.devices is not None and args.devices > 1:
-        raise _unported("--devices > 1 (sharded solves, ROADMAP A14)")
-    if args.precond is not None:
-        raise _unported(f"--precond {args.precond} (preconditioners, ROADMAP A4/A7/A10)")
+    if args.precond in _UNPORTED_PRECOND:
+        raise _unported(f"--precond {args.precond} (ROADMAP {_UNPORTED_PRECOND[args.precond]})")
     if args.method in ("gvpipe", "chebyshev"):
         raise _unported(f"--method {args.method} (ROADMAP A11)")
     dev = resolve_device(args.device)
@@ -176,6 +194,9 @@ def run(argv=None) -> Run:
             "csr": lambda: _dia_to_csr(mat),
         }[fmt]()
 
+    if args.devices is not None and args.devices > 1:
+        return _run_sharded(args, host, b_np, n, tol, maxiter, fmt, dev, csv_row_fn, out_file)
+
     if args.pallas and fmt == "dense":
         nt, bw = tiles or DEFAULT_TILES
         # the reference's NUM_THREADS x BLOCK_WIDTH sweep, clamped as cgx clamps it
@@ -192,19 +213,44 @@ def run(argv=None) -> Run:
         torch.cuda.synchronize(dev)
 
     t1 = time.perf_counter()
+    pc = _precond(args.precond, op, host, dtype, dev)
     if args.method == "pipelined":
         res = pipelined_cg_solve(op, b, tol=tol, maxiter=maxiter, history=args.history,
-                                 device=dev)
+                                 precond=pc, device=dev)
     elif args.method == "sstep":
+        if pc is not None:
+            print("warning: sstep takes no preconditioner; ignoring", file=sys.stderr)
         res = sstep_cg_solve(op, b, tol=tol, maxiter=maxiter, s=args.sstep_s,
                              basis=args.sstep_basis, replace_every=args.sstep_replace_every,
                              powers=args.sstep_powers, device=dev)
     else:
-        res = cg_solve(op, b, tol=tol, maxiter=maxiter, history=args.history, device=dev)
+        res = cg_solve(op, b, tol=tol, maxiter=maxiter, history=args.history, precond=pc,
+                       device=dev)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     elapsed = time.perf_counter() - t1
+    row = _report(args, host, b_np, n, res, fmt, elapsed, csv_row_fn(1, elapsed), out_file)
+    return Run(0, op, res, elapsed, row)
 
+
+def _precond(name: Optional[str], op, host, dtype, dev):
+    """The single-device preconditioner of ``--precond`` (cgx
+    cli/main.py:285-340): jacobi, or neumann on a banded operator (two
+    sweeps, as ``solve`` builds it; jacobi with a warning otherwise)."""
+    if name is None:
+        return None
+    base = op if hasattr(op, "diagonal") else as_operator(host, dtype=dtype, device=dev)
+    if name == "neumann" and isinstance(base, DiaOperator):
+        return neumann_banded(base.bands, base.offsets, sweeps=2)
+    if name == "neumann":
+        print("warning: --precond neumann needs a banded operator; falling back to jacobi",
+              file=sys.stderr)
+    return jacobi(base.diagonal())
+
+
+def _report(args, host, b_np, n: int, res: CGResult, fmt: str, elapsed: float, row: str,
+            out_file: str) -> str:
+    """The ``[STEP k]`` line, the time, and the CSV row appended."""
     if not args.no_debug:
         x = res.x.cpu().numpy().astype(np.float64)
         if n <= 20000:
@@ -212,16 +258,67 @@ def run(argv=None) -> Run:
             rel = np.linalg.norm(r_true) / np.linalg.norm(b_np)
         else:
             rel = float("nan")
-        # reference parity: sqrt(rsold), stale by one iteration (cg.cc:152)
-        shown = float(np.sqrt(res.rsold.cpu().numpy().astype(np.float64)))
+        # reference parity: sqrt(rsold), stale by one iteration (cg.cc:152); under a
+        # preconditioner rsold is <r, z>, so the residual norm instead (cgx cli/main.py:398-406)
+        if args.precond is None:
+            shown = float(np.sqrt(res.rsold.cpu().numpy().astype(np.float64)))
+        else:
+            shown = float(res.residual_norm.cpu().numpy().astype(np.float64))
         print("\t[STEP {}] residual = {:e}, ||x|| = {:e}, ||Ax - b||/||b|| = {:e}".format(
             int(res.iterations), shown, float(np.linalg.norm(x)), rel))
 
     print(f"Time for CG ({fmt} solver)  = {elapsed} [s]")
-    row = csv_row_fn(1, elapsed)
     with open(out_file, "a") as f:
         f.write(row + "\n")
-    return Run(0, op, res, elapsed, row)
+    return row
+
+
+def _run_sharded(args, host, b_np, n: int, tol: float, maxiter, fmt: str, dev, csv_row_fn,
+                 out_file: str) -> Run:
+    """``--devices P``: the sharded solve on P ranks, this process one of
+    them (cgx cli/main.py:197-240). Rank 0 reports."""
+    import torch.distributed as dist
+
+    from cgx_torch.parallel.mesh import make_mesh
+    from cgx_torch.parallel.multihost import initialize_from_env
+    from cgx_torch.parallel.sharded_cg import sharded_cg_solve
+
+    if args.method == "sstep":
+        raise _unported("--method sstep with --devices (the sharded s-step, ROADMAP A14)")
+    own_group = not dist.is_initialized()
+    if own_group:
+        if "WORLD_SIZE" not in os.environ and "SLURM_NTASKS" not in os.environ:
+            raise ValueError(f"--devices {args.devices} runs one process a rank: start it as "
+                             f"torchrun --nproc-per-node {args.devices} ...")
+        initialize_from_env(backend="gloo" if dev.type == "cpu" else "nccl")
+    try:
+        world = dist.get_world_size()
+        if world != args.devices:
+            raise ValueError(f"--devices {args.devices} but the process group has {world} ranks")
+        mesh = make_mesh(args.devices, device=dev)
+        host_mat = host if isinstance(host, (DIAMatrix, ELLMatrix, CSRMatrix)) else (
+            _as_dense_np(host))
+        b_host = b_np if args.precision == "fp64" else b_np.astype(np.float32)
+        if dev.type == "cuda":
+            from cgx_torch import _build
+
+            _build.load()  # nvcc runs here, not inside the timed solve
+        dist.barrier()
+        t1 = time.perf_counter()
+        res = sharded_cg_solve(host_mat, b_host, mesh=mesh, strategy=args.strategy,
+                               method=args.method, precond=args.precond, tol=tol,
+                               maxiter=maxiter, history=args.history)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        elapsed = time.perf_counter() - t1
+        row = ""
+        if mesh.rank == 0:
+            row = _report(args, host, b_np, n, res, fmt, elapsed,
+                          csv_row_fn(args.devices, elapsed), out_file)
+        return Run(0, host_mat, res, elapsed, row)
+    finally:
+        if own_group:
+            dist.destroy_process_group()
 
 
 def main(argv=None) -> int:

@@ -1,0 +1,24 @@
+"""cgx_torch.parallel: the sharded route on ``torch.distributed``
+(counterpart of ``cgx/parallel``): meshes of ranks, start-up, row-block
+partitions and the sharded CG solver."""
+
+from cgx_torch.parallel.mesh import ROWS_AXIS, Mesh, make_mesh
+from cgx_torch.parallel.multihost import (
+    global_mesh,
+    initialize_from_env,
+    is_multihost,
+    process_local_rows,
+)
+from cgx_torch.parallel.partition import padded_size, partition
+from cgx_torch.parallel.sharded_cg import (
+    ShardedCGSolver,
+    make_sharded_solver,
+    sharded_block_cg_solve,
+    sharded_block_deflated_cg_solve,
+    sharded_cg_solve,
+    sharded_cg_solve_batched,
+    sharded_deflated_cg_solve,
+    sharded_mg_cg_solve,
+    sharded_refine_fixed_sweeps,
+    sharded_tw_solve,
+)

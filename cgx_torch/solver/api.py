@@ -31,6 +31,10 @@ Dispatch (cgx api.py:322-403):
   ``sstep_s <= 6``, else the plain basis;
 - ``precision="mixed"`` runs fp64 refinement around fp32 inner solves
   (:mod:`cgx_torch.solver.refine`);
+- ``n_devices > 1`` or ``mesh=`` runs the sharded route on
+  ``torch.distributed`` (:mod:`cgx_torch.parallel.sharded_cg`), with
+  ``strategy``; there ``precond="mg"`` (A10), ``precision="mixed"`` and
+  ``method="sstep"`` (A14) raise;
 - everything else that is ported runs the plain reference loop, with
   the configured preconditioner;
 - what is not ported yet raises ``NotImplementedError`` naming its
@@ -46,7 +50,7 @@ import torch
 
 from cgx_torch import config as settings
 from cgx_torch.config import SolveConfig
-from cgx_torch.mats.containers import DIAMatrix
+from cgx_torch.mats.containers import COOMatrix, CSRMatrix, DenseMatrix, DIAMatrix, ELLMatrix
 from cgx_torch.ops._util import resolve_device
 from cgx_torch.ops.cg_kernel import dia_cg_solve_vmem, resident_state_bytes
 from cgx_torch.ops.cg_stream import dia_cg_solve_stream, dia_cg_solve_stream_pcg
@@ -140,6 +144,59 @@ def _solve_mixed(mat, b, cfg: SolveConfig, method: str, dev: torch.device) -> CG
     )
 
 
+def _host_matrix(mat):
+    """The host form of ``mat`` for the sharded route, which cuts its
+    own row blocks (cgx's ``_to_host``): containers and ndarrays as they
+    are, a port operator or a 2-D tensor read back from its device."""
+    if isinstance(mat, (DIAMatrix, DenseMatrix, ELLMatrix, CSRMatrix, COOMatrix, np.ndarray)):
+        return mat
+    if isinstance(mat, DiaOperator):
+        bands = mat.bands.cpu().numpy()
+        return DIAMatrix((bands.shape[1],) * 2, tuple(mat.offsets), bands)
+    if isinstance(mat, torch.Tensor):
+        return mat.cpu().numpy()
+    if hasattr(mat, "a"):  # DenseOperator, PallasDenseOperator
+        return mat.a.cpu().numpy()
+    if hasattr(mat, "tocoo") and hasattr(mat, "shape"):  # scipy.sparse
+        return COOMatrix.from_scipy(mat)
+    raise TypeError(f"the sharded route takes a host matrix or a banded or dense operator, "
+                    f"not {type(mat)}")
+
+
+def _solve_sharded(mat, b, cfg: SolveConfig, method: str, dev: torch.device, *, n_devices,
+                   mesh, strategy: str, x0) -> CGResult:
+    """The sharded route (cgx api.py:210-270):
+    :func:`cgx_torch.parallel.sharded_cg.sharded_cg_solve` with the
+    configuration's method, preconditioner, tolerance, history and
+    maxiter, fp32 with float64 dots. Run it on every rank of the mesh,
+    with the same arguments."""
+    from cgx_torch.parallel.sharded_cg import sharded_cg_solve
+
+    if cfg.precond == "mg":
+        raise _unported("precond='mg' on the sharded route (mg_sharded, ROADMAP A10)")
+    if cfg.precision == "mixed":
+        raise _unported("precision='mixed' on the sharded route (sharded_refine_fixed_sweeps, "
+                        "ROADMAP A14)")
+    if cfg.precision in _UNPORTED_PRECISION:
+        raise _unported(f"precision={cfg.precision!r}: {_UNPORTED_PRECISION[cfg.precision]}")
+    if cfg.precision not in _DTYPES:
+        raise ValueError(f"unknown precision {cfg.precision!r}")
+    b_np = (b.detach().cpu().numpy() if isinstance(b, torch.Tensor) else np.asarray(b))
+    if b_np.ndim == 2:
+        raise _unported("multi-RHS solves of a 2-D b (ROADMAP A11)")
+    b_np = b_np.astype(np.float64 if cfg.precision == "fp64" else np.float32)
+    if x0 is not None:
+        x0 = x0.detach().cpu().numpy() if isinstance(x0, torch.Tensor) else np.asarray(x0)
+    return sharded_cg_solve(
+        _host_matrix(mat), b_np, x0=x0, mesh=mesh, n_devices=n_devices, strategy=strategy,
+        method=method, precond=cfg.precond,
+        tol=cfg.tolerance, maxiter=b_np.shape[0] if cfg.maxiter is None else cfg.maxiter,
+        nearzero=cfg.nearzero, history=cfg.history,
+        dot_precision=None if cfg.precision == "fp64" else torch.float64,
+        dense_fp64=cfg.dense_fp64, local_kernel=cfg.local_kernel, device=dev,
+    )
+
+
 def solve(
     mat,
     b,
@@ -147,21 +204,24 @@ def solve(
     *,
     n_devices: Optional[int] = None,
     mesh=None,
+    strategy: str = "auto",
     method: Optional[str] = None,
     x0=None,
     device="cuda",
 ) -> CGResult:
-    """Solve ``A x = b`` on one device with the configuration's path.
+    """Solve ``A x = b`` with the configuration's path.
 
     ``mat`` is a host container (``DIAMatrix``, ``DenseMatrix``,
     ``ELLMatrix``, ``CSRMatrix``, ``COOMatrix``), a scipy.sparse matrix,
     an ndarray, a 2-D tensor or a port operator; tensors must already be
-    on ``device``."""
+    on ``device``. ``n_devices > 1`` or a ``mesh`` takes the sharded
+    route (:func:`_solve_sharded`), on every rank of the mesh."""
     cfg = config or SolveConfig()
     method = cfg.method if method is None else method
     dev = resolve_device(device)
     if (n_devices is not None and n_devices > 1) or mesh is not None:
-        raise _unported("sharded solves (n_devices / mesh, ROADMAP A14)")
+        return _solve_sharded(mat, b, cfg, method, dev, n_devices=n_devices, mesh=mesh,
+                              strategy=strategy, x0=x0)
     if x0 is not None and cfg.precision == "mixed":
         raise ValueError("precision='mixed' manages its own inner starts; x0 is not supported")
     if np.ndim(b) == 2:

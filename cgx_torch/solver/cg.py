@@ -69,6 +69,7 @@ def run_recurrence(
     maxiter: int,
     history: int,
     precond: Optional[Callable] = None,
+    marks=None,
 ) -> CGResult:
     """The reference recurrence from ``x`` with residual ``r`` and
     ``rr0 = <r, r>``, through three callables:
@@ -80,7 +81,12 @@ def run_recurrence(
 
     and ``precond(r) -> (z, <r, z>)``, or None for ``z = r`` (then
     ``p = r`` and ``rsold = rr0``, the unpreconditioned recurrence).
-    Scalars are 0-d tensors; ``tol`` has the dtype of the dots."""
+    Scalars are 0-d tensors; ``tol`` has the dtype of the dots.
+
+    ``marks``, if given, has ``next_iteration()``, called as each loop
+    iteration starts, and ``end_loop()``, called when the loop is over:
+    the sharded solver passes :mod:`cgx_torch.utils.collectives`, whose
+    record of the collectives splits by them."""
     dtype, dev = x.dtype, x.device
     one = torch.ones((), dtype=dtype, device=dev)
     zero = torch.zeros((), dtype=dtype, device=dev)
@@ -97,6 +103,8 @@ def run_recurrence(
     done = 0
     while done < maxiter and not bool(converged):  # the one host sync per chunk
         for _ in range(min(_CHUNK, maxiter - done)):
+            if marks is not None:
+                marks.next_iteration()
             active = ~converged
             ap, conj = mv_dot(p)
             breakdown = breakdown | (active & (conj <= 0))
@@ -116,6 +124,8 @@ def run_recurrence(
             rsnew = torch.where(active, rr, rsnew)
             converged = converged | conv
         done += min(_CHUNK, maxiter - done)
+    if marks is not None:
+        marks.end_loop()
     return CGResult(
         x=x,
         iterations=k,
@@ -182,35 +192,74 @@ def cg_solve(
     dev = resolve_device(device)
     b = as_vector(b, dev, "b")
     x0 = torch.zeros_like(b) if x0 is None else as_vector(x0, dev, "x0", b.dtype)
-    mv = _as_matvec(a, dev)
     acc = b.dtype if dot_precision is None else dot_precision
-
-    def dot(u, v):
-        return vdot(u, v, precision=dot_precision)
-
-    def mv_dot(p):
-        ap = mv(p)
-        return ap, dot(p, ap)
-
-    def update(x, p, r, ap, alpha):
-        r = r - alpha * ap
-        return x + alpha * p, r, dot(r, r)
-
-    def axpby(p, r, a_, b_):
-        return r * b_ + p * a_  # r + beta p, as cgx's new_dir + beta * p
-
-    def apply_precond(r):
-        z = precond(r)
-        return z, dot(r, z)
-
     with f32_exact():
-        r = b - mv(x0)
-        return run_recurrence(
-            x0, r, dot(r, r),
-            mv_dot=mv_dot, update=update, axpby=axpby,
-            precond=None if precond is None else apply_precond,
+        return cg_loop(
+            _as_matvec(a, dev), b, x0,
+            dots=lambda pairs: tuple(vdot(u, v, precision=dot_precision) for u, v in pairs),
+            precond=precond,
             tol=torch.tensor(tol, dtype=acc, device=dev),
             nearzero=torch.tensor(nearzero, dtype=b.dtype, device=dev),
             maxiter=b.shape[0] if maxiter is None else int(maxiter),
             history=int(history),
         )
+
+
+def cg_loop(
+    mv: Callable,
+    b: torch.Tensor,
+    x0: torch.Tensor,
+    *,
+    dots: Callable,
+    precond: Optional[Callable],
+    tol: torch.Tensor,
+    nearzero: torch.Tensor,
+    maxiter: int,
+    history: int,
+    marks=None,
+) -> CGResult:
+    """The reference recurrence from ``x0`` through ``mv(v) -> A v`` and
+    ``dots(pairs) -> tuple`` of the dots of a list of ``(u, v)`` pairs
+    (cgx ``cg_loop``, whose ``dot`` hook the sharded solver gives an
+    all-reduced dot, ``sharded_cg.py:823-832``); ``precond`` is
+    ``r -> M^-1 r`` or None. With a preconditioner ``<r, r>`` and
+    ``<r, z>`` go into one ``dots`` call, as neither waits on the other
+    (cgx's two reductions, which XLA's combiner fuses). Every scalar is
+    0-d on the device; ``tol`` has the dots' dtype. ``marks`` as for
+    :func:`run_recurrence`."""
+
+    def dot(u, v):
+        return dots([(u, v)])[0]
+
+    def mv_dot(p):
+        ap = mv(p)
+        return ap, dot(p, ap)
+
+    fused = {}  # the (z, <r, z>) of the update's fused reduction, for apply_precond
+
+    def update(x, p, r, ap, alpha):
+        r = r - alpha * ap
+        x = x + alpha * p
+        if precond is None:
+            return x, r, dot(r, r)
+        z = precond(r)
+        rr, rz = dots([(r, r), (r, z)])
+        fused["z"] = (z, rz)
+        return x, r, rr
+
+    def axpby(p, r, a_, b_):
+        return r * b_ + p * a_  # r + beta p, as cgx's new_dir + beta * p
+
+    def apply_precond(r):
+        if "z" in fused:  # run_recurrence asks for the r the update just made
+            return fused.pop("z")
+        z = precond(r)
+        return z, dot(r, z)
+
+    r = b - mv(x0)
+    return run_recurrence(
+        x0, r, dot(r, r),
+        mv_dot=mv_dot, update=update, axpby=axpby,
+        precond=None if precond is None else apply_precond,
+        tol=tol, nearzero=nearzero, maxiter=maxiter, history=history, marks=marks,
+    )

@@ -52,14 +52,21 @@ def pipelined_cg_loop(
     history: int,
     dot_precision: Optional[torch.dtype] = None,
     precond: Optional[Callable] = None,
+    dots: Optional[Callable] = None,
+    marks=None,
 ) -> CGResult:
     """The recurrence from ``x0`` (cgx ``pipelined.py:49-184``). ``tol``
-    is a 0-d tensor of the dots' dtype, ``nearzero`` one of ``b``'s."""
+    is a 0-d tensor of the dots' dtype, ``nearzero`` one of ``b``'s.
+    ``dots(pairs) -> tuple`` computes the dots of a list of ``(a, b)``
+    pairs in one fused reduction (cgx's hook, ``sharded_cg.py:800-821``:
+    the sharded solver all-reduces them in one collective); by default
+    each is a local :func:`cgx_torch.ops.reduce.vdot`. ``marks`` as for
+    :func:`cgx_torch.solver.cg.run_recurrence`."""
     dtype, dev = b.dtype, b.device
     acc = dtype if dot_precision is None else dot_precision
-
-    def dots(*pairs):
-        return tuple(vdot(a, c, precision=dot_precision) for a, c in pairs)
+    if dots is None:
+        def dots(pairs):
+            return tuple(vdot(a, c, precision=dot_precision) for a, c in pairs)
 
     def pc(v):
         return v if precond is None else precond(v)
@@ -68,7 +75,7 @@ def pipelined_cg_loop(
     u = pc(r)
     w = matvec(u)
     x, p, s = x0, torch.zeros_like(r), torch.zeros_like(r)
-    (rr0,) = dots((r, r))
+    (rr0,) = dots([(r, r)])
     zero = torch.zeros((), dtype=acc, device=dev)
     # a zero start residual would make alpha 0/0 (cgx pipelined.py:83-84)
     converged = (torch.sqrt(rr0) < tol) | (rr0 == 0)
@@ -83,11 +90,13 @@ def pipelined_cg_loop(
     done = 0
     while done < maxiter and not bool(converged):  # the one host sync per chunk
         for _ in range(min(_CHUNK, maxiter - done)):
+            if marks is not None:
+                marks.next_iteration()
             if precond is None:
-                gamma, delta = dots((r, u), (w, u))
+                gamma, delta = dots([(r, u), (w, u)])
                 rr = gamma
             else:
-                gamma, delta, rr = dots((r, u), (w, u), (r, r))
+                gamma, delta, rr = dots([(r, u), (w, u), (r, r)])
             res = torch.sqrt(rr)
             conv_now = res < tol
             if history:
@@ -114,7 +123,10 @@ def pipelined_cg_loop(
             k = torch.where(upd, k + 1, k)
             converged = converged | conv_now
         done += min(_CHUNK, maxiter - done)
-    (rr,) = dots((r, r))
+    if marks is not None:
+        marks.end_loop()
+    # the final <r, r> through the loop's reduction: a sharded solve's is global
+    (rr,) = dots([(r, r)])
     return CGResult(
         x=x,
         iterations=k,

@@ -90,13 +90,26 @@ Phases, one JSON object per line each:
     fused blocks;
 23. sstep goldens: dia_sstep_stream_solve in float64 on lap2d_fd(100)
     and lap2d_reference(10000) at tol 1e-10, twice each, against the
-    plain float64 s-step loop.
+    plain float64 s-step loop;
+24. stream matvec: kernel B8's two entry points (flat bands, band planes)
+    on lap2d_fd(3200) in float32 and float64, bitwise against their plain
+    versions, and the sharded halo mat-vec's local product through B8 with
+    seeded halos bitwise against its plain form; their times, the plain
+    versions', torch.sparse's CSR product and the bound;
+25. sharded: a real NCCL process group of one rank (FileStore), and
+    cgx_torch.solve(lap2d_fd(3200), fp32, mesh=make_mesh(1)), "auto"
+    resolving the local product to B8: the reference and the pipelined
+    method, twice each (bitwise), against the plain loops of phase 6 (k
+    within 2%, true residual within 2x), B8 on every iteration and B1 on
+    none, the collectives of every iteration from the recorder; then a
+    profile over 256 iterations (B8, NCCL, the rest, the idle share);
+26. sharded goldens: the fp64 goldens through the sharded route with B8
+    forced, twice each.
 
 The CLI phases call cgx_torch.cli.main.run, the body of the CLI's main,
-in this process. Then a "kernels" line for the ported kernels (the
-thirteen of slices 1-4, the three s-step sites and the replay kernel,
-with the two sites still to port under "not_ported"), and, last, the
-contract line {"ok": true, "device": {...}}. Any failed
+in this process. Then a "kernels" line for the ported kernels (every
+pallas_call site of cgx, with the replay kernel; "not_ported" is empty),
+and, last, the contract line {"ok": true, "device": {...}}. Any failed
 check raises, so the script exits non-zero and prints no result. It
 needs a CUDA device and imports neither JAX nor cgx.
 """
@@ -106,6 +119,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -117,6 +131,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from cgx_torch import (
     DenseOperator,
@@ -135,6 +150,8 @@ from cgx_torch import (
     solve,
 )
 from cgx_torch.cli import main as cli
+from cgx_torch.parallel import make_mesh, make_sharded_solver
+from cgx_torch.parallel import sharded_cg as sc
 from cgx_torch.mats.generators import lap2d_fd, lap2d_fd_coo_lower, lap2d_reference, source_term
 from cgx_torch.ops import axpy, cg_kernel, cg_stream, dia_powers, dia_spmv, matvec
 from cgx_torch.ops import sstep_stream as ss
@@ -142,6 +159,7 @@ from cgx_torch.ops._util import f32_exact
 from cgx_torch.solver.chebyshev import device_matvec, host_matvec, lanczos_bounds, spectral_bounds
 from cgx_torch.solver.precond import neumann_banded
 from cgx_torch.solver.sstep import newton_shifts, sstep_cg_solve
+from cgx_torch.utils import collectives
 
 SEED = 0
 DEV = "cuda"  # every tensor of the run lives here
@@ -236,13 +254,12 @@ KERNELS = {
     # no pallas_call: cgx replays in XLA (replay_block, called at cgx/solver/sstep.py:218
     # and cgx/ops/sstep_stream.py:730); one small kernel here, so the host sets no pace
     "sstep_replay": ("cgx_torch/csrc/sstep_stream.cu", "cgx/solver/sstep.py:284"),
+    # B8: the flat form has no solver caller in cgx (and none here); the
+    # planes form is the sharded route's local product
+    "dia_matvec_stream": ("cgx_torch/csrc/dia_stream.cu", "cgx/ops/dia_spmv.py:192"),
+    "dia_matvec_stream2d_planes": ("cgx_torch/csrc/dia_stream.cu", "cgx/ops/dia_spmv.py:354"),
 }
-# cgx's sites that no single-device path runs: the sharded solves' (ROADMAP A14)
-NOT_PORTED = [
-    {"name": "dia_matvec_stream", "replaces": "cgx/ops/dia_spmv.py:192", "roadmap": "A14"},
-    {"name": "dia_matvec_stream2d_planes", "replaces": "cgx/ops/dia_spmv.py:354",
-     "roadmap": "A14"},
-]
+NOT_PORTED = []  # every pallas_call site of cgx has its kernel
 SSTEP_SITES = {
     "dia_sstep_basis_planes": dia_powers.dia_sstep_basis_planes,
     "sstep_gram": ss._sstep_gram,
@@ -266,6 +283,14 @@ WRAPPERS = {
     "fused_axpby": axpy.fused_axpby,
     "dense_matvec": matvec.dense_matvec,
     "dense_matvec_dot": matvec.dense_matvec_dot,
+    "dia_matvec_stream": dia_spmv.dia_matvec_stream,
+    "dia_matvec_stream2d_planes": dia_spmv.dia_matvec_stream2d_planes,
+}
+B8_SITES = ("dia_matvec_stream", "dia_matvec_stream2d_planes")
+# per-iteration collectives of the sharded route (tests/test_collective_counts.py)
+SHARDED_SIGNATURE = {
+    "reference": [("ppermute", 1, GRID), ("ppermute", 1, GRID), ("psum", 1, 1), ("psum", 1, 1)],
+    "pipelined": [("psum", 1, 2), ("ppermute", 1, GRID), ("ppermute", 1, GRID)],
 }
 # (problem, host matrix, (block_rows, block_cols)) of the dense kernel phase
 DENSE_PROBLEMS = [
@@ -1709,6 +1734,218 @@ def phase_sstep_goldens() -> None:
         check(bitwise, f"sstep {problem}: two runs differ")
 
 
+def phase_stream_matvec(spec) -> dict:
+    """Kernel B8 on lap2d_fd(GRID), float32 and float64: both entry
+    points against their plain versions, bitwise; the sharded halo
+    mat-vec's local product with B8 and seeded, non-zero halos against
+    its plain "xla" form, bitwise; then the times of each entry point,
+    its plain version and torch.sparse's CSR product. Returns the float32
+    records (the sharded route's dtype)."""
+    dia = lap2d_fd(GRID)
+    n, ndiag, offsets = dia.shape[0], len(dia.offsets), tuple(dia.offsets)
+    records = {}
+    for dtype in (torch.float32, torch.float64):
+        bands = torch.as_tensor(dia.bands, dtype=dtype, device=DEV)
+        planes = dia_spmv.stream2d_band_planes(bands, rows=sc.PLANE_ROWS,
+                                               cols=sc.PLANE_COLS).contiguous()
+        rng = np.random.default_rng(SEED)
+        x = torch.as_tensor(rng.standard_normal(n), dtype=dtype, device=DEV)
+        want = dia_spmv.dia_matvec_ref(bands, x, offsets=offsets)
+        flat = dia_spmv.dia_matvec_stream(bands, x, offsets=offsets)
+        plane = dia_spmv.dia_matvec_stream2d_planes(planes, x, offsets=offsets)
+        sync()
+        same = {"dia_matvec_stream": torch.equal(flat, want),
+                "dia_matvec_stream2d_planes": torch.equal(plane, want)}
+        # the halo mat-vec of rank 1 of 4: its rows of the bands, its block of x,
+        # and the neighbours' edge rows of x as its (non-zero) halos
+        mesh = make_mesh(device=DEV)
+        halo, n_loc = max(abs(o) for o in offsets), n // 4
+        lo, hi = n_loc, 2 * n_loc
+        left, right = x[lo - halo: lo], x[hi: hi + halo]
+        shard = bands[:, lo:hi].contiguous()
+        shard_planes = dia_spmv.stream2d_band_planes(shard, rows=sc.PLANE_ROWS,
+                                                     cols=sc.PLANE_COLS).contiguous()
+        xla = sc._DiaHalo(mesh, shard, offsets, n_loc, local_kernel="xla").local(
+            x[lo:hi], left, right)
+        st = sc._DiaHalo(mesh, shard_planes, offsets, n_loc, local_kernel="stream2d").local(
+            x[lo:hi], left, right)
+        sync()
+        same["halo_stream2d_vs_xla"] = torch.equal(st, xla)
+        same["halo_xla_vs_global_rows"] = torch.equal(xla, want[lo:hi])
+        emit({"phase": "stream_matvec_check", "problem": f"lap2d_fd({GRID})", "n": n,
+              "dtype": str(dtype), "bitwise": same, "halo": halo, "shard_rows": [lo, hi],
+              "halo_max_abs": float(torch.maximum(left.abs().max(), right.abs().max()))})
+        del shard, shard_planes
+        check(all(same.values()), f"B8 {dtype}: not bitwise equal to the plain versions: {same}")
+        del flat, plane, want, xla, st
+        csr = csr_of(bands, offsets)
+        cases = {
+            "dia_matvec_stream": (
+                lambda: dia_spmv.dia_matvec_stream(bands, x, offsets=offsets),
+                lambda: dia_spmv.dia_matvec_stream_ref(bands, x, offsets=offsets),
+                lambda: torch.mv(csr, x), (ndiag + 2) * n, 2 * ndiag * n),
+            "dia_matvec_stream2d_planes": (
+                lambda: dia_spmv.dia_matvec_stream2d_planes(planes, x, offsets=offsets),
+                lambda: dia_spmv.dia_matvec_stream2d_planes_ref(planes, x, offsets=offsets),
+                lambda: torch.mv(csr, x), (ndiag + 2) * n, 2 * ndiag * n),
+        }
+        recs = measure_cases(spec, f"lap2d_fd({GRID}) B8", dtype, n, cases, {})
+        if dtype == torch.float32:
+            records = recs
+        del bands, planes, csr, x
+        sync()
+    return records
+
+
+@contextlib.contextmanager
+def nccl_mesh():
+    """A real NCCL process group of one rank (a FileStore in a temporary
+    directory) and the mesh over it; destroyed on the way out."""
+    with tempfile.TemporaryDirectory() as tmp:
+        store = dist.FileStore(os.path.join(tmp, "store"), 1)
+        dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                                device_id=torch.device(DEV, torch.cuda.current_device()))
+        try:
+            mesh = make_mesh(1, device=DEV)
+            check(mesh.group is not None and dist.get_backend(mesh.group) == "nccl",
+                  f"the mesh is not an NCCL group: {mesh}")
+            emit({"phase": "nccl_group", "world": dist.get_world_size(), "rank": mesh.rank,
+                  "backend": dist.get_backend(mesh.group), "device": str(mesh.device),
+                  "nccl": str(torch.cuda.nccl.version())})
+            yield mesh
+        finally:
+            dist.destroy_process_group()
+
+
+def phase_sharded(spec, mesh, b4: dict) -> dict:
+    """The sharded route through solve(..., mesh=mesh) on one NCCL rank:
+    lap2d_fd(GRID) in fp32 (float64 dots) at tol 1e-5 ||b||, "auto"
+    resolving the local product to B8. The reference method twice
+    (bitwise), against the plain classic loop of the main phase (the same
+    recurrence; k within 2%, true residual within 2x); the pipelined
+    method likewise against the plain pipelined loop. The collectives of
+    each iteration from the recorder; B1 must not run. Returns B8's
+    launch counts from the reference run."""
+    dia = lap2d_fd(GRID)
+    n, ndiag = dia.shape[0], len(dia.offsets)
+    b = source_term(n)
+    tol = 1e-5 * float(np.linalg.norm(b))
+    rel64 = rel64_on_card(dia, b)
+    resolved = sc._resolve_local_kernel("auto", n, torch.float32, mesh.device)
+    check(resolved == "stream2d", f"auto resolved the local product to {resolved!r}")
+    t0 = time.perf_counter()
+    make_sharded_solver(dia, n, dtype=np.float32, mesh=mesh, tol=tol,
+                        dot_precision=torch.float64)
+    sync()
+    setup_seconds = time.perf_counter() - t0  # the shard's planes built and uploaded
+    counts = {}
+    for method, plain_k, plain_rel in (("reference", b4["k_classic"], b4["true_rel_classic"]),
+                                       ("pipelined", b4["k_plain"], b4["true_rel_plain"])):
+        cfg = SolveConfig(precision="fp32", tolerance=tol, method=method)
+        with collectives.capture() as cap:
+            res, k, seconds, launches, bitwise = solve_twice(
+                lambda: solve(dia, b, cfg, mesh=mesh, device=DEV))
+        sigs = [cap.signature(i) for i in range(len(cap.programs))]
+        rel = rel64(res.x)
+        b8 = launches["dia_matvec_stream2d_planes"]
+        others = {name: c for name, c in launches.items()
+                  if name != "dia_matvec_stream2d_planes" and name in KERNELS and c}
+        bound_iter, bound_by = bound_of(spec, torch.float32, (ndiag + 2) * n * 4, 2 * ndiag * n)
+        rec = {"phase": "sharded", "method": method, "problem": f"lap2d_fd({GRID})", "n": n,
+               "dtype": "float32", "world": mesh.size, "backend": dist.get_backend(mesh.group),
+               "local_kernel": resolved, "tol": tol, "k": k, "converged": bool(res.converged),
+               "bitwise_repeat": bitwise, "seconds": seconds, "setup_seconds": setup_seconds,
+               "us_per_iter": (seconds - setup_seconds) / k * 1e6,
+               "b8_bound_us_per_iter": bound_iter * 1e3, "bound_by": bound_by,
+               "launches": launches, "b8_launches": b8,
+               "signature_iter": sigs[0]["iter"], "signature_setup": sigs[0]["setup"],
+               "signature_uniform": all(sg["uniform"] for sg in sigs),
+               "loop_iterations": sigs[0]["iterations"],
+               "k_plain": plain_k, "true_rel": rel, "true_rel_plain": plain_rel,
+               "x_finite": bool(torch.isfinite(res.x).all())}
+        emit(rec)
+        where = f"sharded {method}"
+        check(rec["converged"] and rec["x_finite"] and res.x.shape == (n,),
+              f"{where}: did not converge to a finite x")
+        check(bitwise, f"{where}: two runs differ")
+        check(b8 >= k + 1 and launches["dia_matvec"] == 0 and not others,
+              f"{where}: launches {launches} at k={k}")
+        check(all(sg["iter"] == SHARDED_SIGNATURE[method] and sg["uniform"] for sg in sigs),
+              f"{where}: collectives an iteration {sigs[0]['iter']}")
+        check(abs(k - plain_k) <= 0.02 * plain_k, f"{where}: k={k} vs plain k={plain_k}")
+        check(max(rel, plain_rel) <= 2 * min(rel, plain_rel),
+              f"{where}: true residuals {rel} and {plain_rel} differ by more than 2x")
+        if method == "reference":
+            counts = {name: launches[name] for name in B8_SITES}
+        del res
+        sync()
+    phase_sharded_profile(mesh, dia, b)
+    return counts
+
+
+def phase_sharded_profile(mesh, dia, b) -> None:
+    """Device time by kernel (B8, NCCL, the rest) and the card's idle
+    share over PROFILE_ITERS iterations of the sharded reference route,
+    from torch.profiler; the shard is built before the window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    solver = make_sharded_solver(dia, dia.shape[0], dtype=np.float32, mesh=mesh, tol=0.0,
+                                 maxiter=PROFILE_ITERS, dot_precision=torch.float64)
+    solver.solve(b)
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        k = int(solver.solve(b).iterations)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_name, busy_us, count = {}, 0.0, 0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        low = e.name.lower()
+        name = ("b8_dia_stream_kernel" if "dia_stream_kernel" in low else
+                "nccl" if "nccl" in low else "other")
+        us = e.time_range.elapsed_us()
+        by_name[name] = by_name.get(name, 0.0) + us / PROFILE_ITERS
+        busy_us += us
+        count += 1
+    emit({"phase": "sharded_profile", "iterations": PROFILE_ITERS, "k": k,
+          "device_events": count, "device_events_per_iter": count / PROFILE_ITERS,
+          "device_us_per_iter": by_name, "device_busy_us_per_iter": busy_us / PROFILE_ITERS,
+          "profiled_wall_us_per_iter": wall_us / PROFILE_ITERS,
+          "idle_share": 1 - busy_us / wall_us})
+    check(k == PROFILE_ITERS and by_name.get("b8_dia_stream_kernel", 0) > 0,
+          f"sharded profile: k={k}, device time {by_name}")
+
+
+def phase_sharded_goldens(mesh) -> None:
+    """The fp64 goldens through the sharded route with B8 forced
+    (local_kernel="stream2d"; "auto" takes the plain product for fp64, as
+    cgx does), at tol 1e-10, twice each: k in the golden window or within
+    2 of the plain fp64 loop, true residual below 1e-11, bitwise repeat."""
+    for problem, dia in (("lap2d_fd(100)", lap2d_fd(100)),
+                         ("lap2d_reference(10000)", lap2d_reference(10000))):
+        b = source_term(dia.shape[0])
+        cfg = SolveConfig(tolerance=1e-10, local_kernel="stream2d")
+        reset_launches()
+        runs = [timed(lambda: solve(dia, b, cfg, mesh=mesh, device=DEV)) for _ in range(2)]
+        b8 = dia_spmv.dia_matvec_stream2d_planes.launches
+        (res, k, seconds), (res2, k2, _) = runs
+        op = as_operator(dia, torch.float64, device=DEV)
+        plain, k_plain, _ = timed(lambda: cg_solve(op, b, tol=1e-10, device=DEV))
+        rel = true_rel(dia, res.x.cpu().numpy(), b)
+        bitwise = k == k2 and torch.equal(res.x.view(torch.int64), res2.x.view(torch.int64))
+        lo, hi = GOLDEN_K[problem]
+        emit({"phase": "sharded_golden", "problem": problem, "dtype": "float64", "k": k,
+              "k_plain": k_plain, "true_rel": rel, "bitwise_repeat": bitwise,
+              "seconds": seconds, "b8_launches_two_runs": b8})
+        check(bool(res.converged) and (lo <= k <= hi or abs(k - k_plain) <= 2),
+              f"sharded {problem}: k={k}, window [{lo}, {hi}], plain k={k_plain}")
+        check(rel < 1e-11, f"sharded {problem}: true relative residual {rel}")
+        check(bitwise, f"sharded {problem}: two runs differ")
+        check(b8 >= 2 * (k + 1), f"sharded {problem}: {b8} B8 launches for k={k}")
+
+
 def main() -> int:
     spec = phase_device()
     phase_build()
@@ -1738,6 +1975,10 @@ def main() -> int:
     records.update(phase_sstep_kernels(spec, bounds))
     launches.update(phase_sstep_path(spec, bounds, bounds_seconds, b4_main))
     phase_sstep_goldens()
+    records.update(phase_stream_matvec(spec))
+    with nccl_mesh() as mesh:
+        launches.update(phase_sharded(spec, mesh, b4_main))
+        phase_sharded_goldens(mesh)
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         rec = records[name]

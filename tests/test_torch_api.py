@@ -150,8 +150,9 @@ def test_precond_without_pallas_matches_cgx(problem, precond, precision):
         (SolveConfig(precond="block_jacobi"), {}),
         (SolveConfig(precond="chebyshev"), {}),
         (SolveConfig(precond="mg"), {}),
-        (SolveConfig(), {"n_devices": 4}),
-        (SolveConfig(), {"mesh": object()}),
+        # the sharded route runs since ROADMAP A14 landed; what it does not port yet raises
+        (SolveConfig(method="sstep"), {"n_devices": 4}),
+        (SolveConfig(precond="mg"), {"mesh": object()}),
         (SolveConfig(), {"method": "gvpipe"}),
         (SolveConfig(), {"method": "chebyshev"}),
     ],
@@ -162,6 +163,64 @@ def test_unported_configs_raise(problem, cfg, kwargs):
     dia, b = problem
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cgx_torch.solve(dia, b, cfg, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize(
+    "cfg,item",
+    [(SolveConfig(method="sstep"), "A14"), (SolveConfig(precond="mg"), "A10"),
+     (SolveConfig(precision="mixed"), "A14"), (SolveConfig(precond="block_jacobi"), "A7"),
+     (SolveConfig(method="gvpipe"), "A11")],
+    ids=["sstep", "mg", "mixed", "block_jacobi", "gvpipe"],
+)
+def test_sharded_unported_options_name_their_item(problem, cfg, item):
+    dia, b = problem
+    mesh = cgx_torch.make_mesh(device="cpu")
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        cgx_torch.solve(dia, b, cfg, mesh=mesh, device="cpu")
+
+
+@pytest.mark.parametrize("precision", ["fp64", "fp32"])
+@pytest.mark.parametrize("method", ["reference", "pipelined"])
+@pytest.mark.parametrize("precond", [None, "jacobi", "neumann"])
+def test_mesh_routes_to_the_sharded_solver(problem, precision, method, precond):
+    """solve(mesh=) runs cgx_torch.parallel's sharded_cg_solve (cgx
+    api.py:210-270) with the configuration's method, preconditioner and
+    tolerance; on one rank it is the single-device loop bit for bit, and
+    it matches cgx's solve on make_mesh(1)."""
+    from cgx.parallel.mesh import make_mesh as cgx_mesh
+
+    from cgx_torch.utils import collectives
+
+    dia, b = problem
+    cfg = SolveConfig(precision=precision, tolerance=1e-6 * np.linalg.norm(b), method=method,
+                      precond=precond, history=8)
+    with collectives.capture() as cap:
+        got = cgx_torch.solve(dia, b, cfg, mesh=cgx_torch.make_mesh(device="cpu"), device="cpu")
+    assert cap.programs, "the sharded solver did not run"
+    single = cgx_torch.solve(dia, b, cfg, device="cpu")
+    assert torch.equal(got.x, single.x) and int(got.iterations) == int(single.iterations)
+    want = cgx.solve(cgx.lap2d_reference(256), b, cgx.SolveConfig(**{
+        "precision": precision, "tolerance": cfg.tolerance, "method": method, "precond": precond}),
+        mesh=cgx_mesh(1))
+    assert abs(int(got.iterations) - int(want.iterations)) <= (0 if precision == "fp64" else 1)
+    rtol = 1e-10 if precision == "fp64" else 1e-3
+    np.testing.assert_allclose(got.x.numpy(), np.asarray(want.x), rtol=rtol,
+                               atol=rtol * np.abs(np.asarray(want.x)).max())
+
+
+def test_sharded_route_takes_x0_and_operators(problem):
+    """x0 is passed as cgx passes it; a port operator is read back to
+    the host; n_devices=1 stays on one device, as in cgx."""
+    dia, b = problem
+    mesh = cgx_torch.make_mesh(device="cpu")
+    cfg = SolveConfig(tolerance=1e-6)
+    first = cgx_torch.solve(dia, b, cfg, mesh=mesh, device="cpu")
+    warm = cgx_torch.solve(dia, b, cfg, mesh=mesh, x0=first.x, device="cpu")
+    assert int(warm.iterations) <= 1
+    op = cgx_torch.as_operator(dia, device="cpu")
+    again = cgx_torch.solve(op, b, cfg, mesh=mesh, device="cpu")
+    assert torch.equal(again.x, first.x)
+    assert torch.equal(cgx_torch.solve(dia, b, cfg, n_devices=1, device="cpu").x, first.x)
 
 
 def test_unported_inputs_raise(problem):

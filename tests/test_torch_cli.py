@@ -158,9 +158,11 @@ def test_host_conversions_match_cgx(fmt):
 
 @pytest.mark.parametrize(
     "extra,item",
-    [(["--devices", "4"], "A14"), (["--precond", "jacobi"], "A4/A7/A10"),
-     (["--method", "gvpipe"], "A11"), (["--precision", "bf16"], "A6")],
-    ids=["devices", "precond", "method", "bf16"],
+    # --devices and --precond jacobi|neumann run now (test_torch_cli_sharded.py); these raise
+    [(["--devices", "4", "--method", "sstep"], "A14"), (["--precond", "block_jacobi"], "A7"),
+     (["--method", "gvpipe"], "A11"), (["--precision", "bf16"], "A6"),
+     (["--precond", "mg"], "A10"), (["--precond", "chebyshev"], "A7")],
+    ids=["devices", "precond", "method", "bf16", "mg", "chebyshev"],
 )
 def test_unported_flags_raise_naming_their_item(extra, item, tmp_path):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):

@@ -32,7 +32,10 @@ def test_import_pulls_in_neither_jax_nor_cgx():
                                     "cgx_torch.ops.cg_stream", "cgx_torch.solver.pipelined",
                                     "cgx_torch.ops.dia_powers", "cgx_torch.ops.sstep_stream",
                                     "cgx_torch.solver.sstep", "cgx_torch.solver.chebyshev",
-                                    "cgx_torch.ops.tw32"])
+                                    "cgx_torch.ops.tw32", "cgx_torch.parallel",
+                                    "cgx_torch.parallel.sharded_cg",
+                                    "cgx_torch.parallel.multihost",
+                                    "cgx_torch.utils.collectives"])
 def test_module_import_pulls_in_neither_jax_nor_cgx_nor_a_build(module):
     code = (f"import {module}, sys, cgx_torch; "
             "assert 'jax' not in sys.modules and 'cgx' not in sys.modules, "
@@ -53,6 +56,7 @@ def test_sources_import_neither_jax_nor_cgx():
 
 def test_import_builds_no_kernel():
     code = ("import cgx_torch, cgx_torch.ops.dia_spmv, cgx_torch.ops.axpy, sys; "
+            "import cgx_torch.parallel.sharded_cg; "
             "assert not cgx_torch._build.load.cache_info().currsize; "
             "assert 'ctypes' not in sys.modules or not cgx_torch._build.load.cache_info().hits")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,

@@ -620,3 +620,42 @@ def test_cuda_sstep_fp64_golden(cuda):
     assert bool(res.converged) and abs(int(res.iterations) - int(plain.iterations)) <= 4
     x = res.x.cpu().numpy()
     assert np.linalg.norm(dia.mat_vec(x) - b) / np.linalg.norm(b) < 1e-11
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("make", [lambda: lap2d_fd(100), lambda: lap2d_reference(300_000),
+                                  lambda: cgx_torch.lap3d_fd(30)],
+                         ids=["fd100", "ref300k", "3d30"])
+def test_cuda_stream_matvec_matches_plain_bitwise(cuda, dtype, make):
+    """B8, both entry points: the products in offset order, rounded one by
+    one (-fmad=false), are the plain version's bit for bit."""
+    dia = make()
+    offs = tuple(dia.offsets)
+    bands = torch.as_tensor(dia.bands, dtype=dtype, device=cuda)
+    x = torch.as_tensor(np.random.default_rng(3).standard_normal(dia.shape[0]), dtype=dtype,
+                        device=cuda)
+    planes = dia_spmv.stream2d_band_planes(bands, rows=256, cols=512).contiguous()
+    want = dia_spmv.dia_matvec_ref(bands, x, offsets=offs)
+    flat = dia_spmv.dia_matvec_stream(bands, x, offsets=offs)
+    plane = dia_spmv.dia_matvec_stream2d_planes(planes, x, offsets=offs)
+    torch.cuda.synchronize()
+    assert torch.equal(flat, want) and torch.equal(plane, want)
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_stream2d_equals_xla(cuda):
+    """One rank without a process group: the B8 local product with its
+    patched edges gives the plain local path's solve bit for bit."""
+    from cgx_torch.parallel import make_mesh, sharded_cg_solve
+
+    dia = lap2d_fd(300)
+    b = source_term(dia.shape[0]).astype(np.float32)
+    mesh = make_mesh(device=cuda)
+    kw = dict(mesh=mesh, tol=1e-5 * float(np.linalg.norm(b)), dot_precision=torch.float64)
+    before = dia_spmv.dia_matvec_stream2d_planes.launches
+    st = sharded_cg_solve(dia, b, local_kernel="stream2d", **kw)
+    assert dia_spmv.dia_matvec_stream2d_planes.launches - before >= int(st.iterations) + 1
+    xla = sharded_cg_solve(dia, b, local_kernel="xla", **kw)
+    assert int(st.iterations) == int(xla.iterations)
+    assert torch.equal(st.x.view(torch.int32), xla.x.view(torch.int32))
