@@ -1,0 +1,69 @@
+#!/usr/bin/env python3
+"""Time two end-to-end paths of one checkout of cgx_torch, for comparing
+two versions on one card.
+
+    python3 ab_paths.py CHECKOUT LABEL
+
+runs, from CHECKOUT (the root of a checkout: this one, or another unpacked
+with ``git archive`` into a directory ``.gitignore`` lists), after its
+``chip_smoke.py`` device and build phases: the reference project's CLI run
+(``lap2D_5pt_n100.mtx 1024 16 true``: fp64, N = 10,000, the dense kernel)
+RUNS times in-process, and ``solve(lap2d_fd(3200), fp32, method="sstep")``
+(N = 10,240,000, the fused s-step kernels) once. It prints one line,
+``RESULT {json}``, with the CLI's seconds (the first run included: it pays
+the first calls) and the s-step solve's k and seconds. Host clocks vary
+between calls and cards, so compare two checkouts only within one call,
+in turns (A, B, B, A). It needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+RUNS = 6
+
+
+def main(root: str, label: str) -> int:
+    os.chdir(root)
+    sys.path.insert(0, os.getcwd())
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from cgx_torch import SolveConfig, as_operator, solve
+    from cgx_torch.mats.generators import lap2d_fd, lap2d_fd_coo_lower, source_term
+
+    cs.phase_device()
+    cs.phase_build()
+    out = {"label": label, "checkout": root, "cli_seconds": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        mtx = Path(tmp) / "lap2D_5pt_n100.mtx"
+        lap2d_fd_coo_lower(100).write(mtx, comment=" 2D 5-point Laplacian, 100x100 grid")
+        argv = [str(mtx), "1024", "16", "true", str(Path(tmp) / "out.txt")]
+        for _ in range(RUNS):
+            run, m, _ = cs.cli_run(argv)
+            out["cli_seconds"].append(run.seconds)
+            out["cli_k"] = int(m.group(1))
+    dia = lap2d_fd(cs.GRID)
+    b = source_term(dia.shape[0])
+    op = as_operator(dia, torch.float32, device="cuda")
+    b_dev = torch.as_tensor(b, dtype=torch.float32, device="cuda")
+    cfg = SolveConfig(precision="fp32", method="sstep", tolerance=1e-5 * float(np.linalg.norm(b)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = solve(op, b_dev, cfg, device="cuda")
+    torch.cuda.synchronize()
+    out["sstep"] = {"k": int(res.iterations), "seconds": time.perf_counter() - t0}
+    print("RESULT " + json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    if len(sys.argv) != 3:
+        sys.exit(__doc__)
+    sys.exit(main(sys.argv[1], sys.argv[2]))

@@ -58,7 +58,7 @@ _SIGNATURES = {
         "cgx_fused_axpby": (_p, _p, _p, _p, _p, _n, _p),
     },
     "matvec": {
-        "cgx_dense_matvec": (_p, _p, _p, _n, _n, _n, _p),
+        "cgx_dense_matvec": (_p, _p, _p, _n, _n, _n, _n, _n, _i, _i, _i, _i, _p),
         "cgx_dense_matvec_dot": (_p, _p, _p, _p, _p, _p, _p, _n, _n, _n, _n, _p),
     },
     "cg_kernel": {
@@ -78,12 +78,15 @@ _SIGNATURES = {
                            _d, _d_in, _i, _d, _d, _d, _n, _i, _p),
         "cgx_sstep_recover": (_p, _p, _p, _p, _p, _p, _p, _p, _n, _p, _n, _offs, _i, _i, _d, _d,
                               _d_in, _i, _n, _i, _p),
+        "cgx_sstep_gram_wave": (_p, _p, _p, _p, _p, _p, _p, _p, _n, _p, _n, _offs, _i, _i, _d,
+                                _d, _d_in, _i, _d, _d, _d, _offs, _i, _i, _p),
         "cgx_sstep_replay": (_p, _p, _i, _d, _d, _d, _p),
     },
 }
 # Entries that also take bfloat16 bands under float32 vectors, bound with
 # this suffix (cgx_torch.ops._util.BF16_BANDS_SUFFIX).
-_BF16_BANDS = ("cgx_dia_cg_chunk", "cgx_cg_stream", "cgx_sstep_gram", "cgx_sstep_recover")
+_BF16_BANDS = ("cgx_dia_cg_chunk", "cgx_cg_stream", "cgx_sstep_gram", "cgx_sstep_recover",
+               "cgx_sstep_gram_wave")
 # Entries with one variant only: the replay works on the float64 state.
 _ONLY = {"cgx_sstep_replay": ("_f64",)}
 
@@ -112,7 +115,8 @@ def _digest() -> str:
 def build() -> dict:
     """Compile every source whose library is missing; return
     ``{source: library path}`` and, under ``"ptxas"``, what ``nvcc``
-    reported about registers and spills for the sources it compiled."""
+    reported about each kernel's registers and spills for the sources it
+    compiled."""
     tag = _digest()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     libs = {s: BUILD_DIR / f"libcgx_{s}_{tag}.so" for s in _SIGNATURES}
@@ -134,7 +138,8 @@ def build() -> dict:
             failed.append(f"{s}.cu (nvcc exit {proc.returncode}):\n{out}{err}")
             continue
         os.replace(tmp, libs[s])  # atomic: a concurrent loader sees whole files only
-        report += [ln.strip() for ln in err.splitlines() if "registers" in ln or "spill" in ln]
+        report += [ln.strip() for ln in err.splitlines()
+                   if "registers" in ln or "spill" in ln or "entry function" in ln]
     if failed:
         raise RuntimeError("building the cgx_torch kernels failed:\n" + "\n".join(failed))
     return {**{s: str(p) for s, p in libs.items()}, "ptxas": report}

@@ -15,6 +15,23 @@ namespace cgx {
 
 constexpr int kThreads = 256;     // threads per block
 constexpr int kMaxBlocks = 1024;  // grid-stride loops cover any n with at most this many blocks
+constexpr int kSharedOptin = 232448;  // bytes of shared memory a block may take on the H100
+
+// Lets kernel K take all the dynamic shared memory a block may have beside
+// its static shared memory: set once per kernel and process (one device a
+// process), not on every launch, which the host loops would pay for. Returns
+// the setting's error.
+template <auto K>
+cudaError_t allow_shared() {
+  static const cudaError_t err = [] {
+    cudaFuncAttributes attr;
+    const cudaError_t e = cudaFuncGetAttributes(&attr, K);
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(K, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                kSharedOptin - static_cast<int>(attr.sharedSizeBytes));
+  }();
+  return err;
+}
 
 inline int grid_for(long long n) {
   long long blocks = (n + kThreads - 1) / kThreads;

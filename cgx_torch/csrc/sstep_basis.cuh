@@ -27,9 +27,20 @@
 // keep them in the block's scratch for a last pass over the tile. The halo is
 // computed redundantly by neighbouring blocks: (7 tile + 18 R) / (7 tile) row
 // evaluations a row for s = 4, 1.2 at N = 10,240,000 over 264 blocks with
-// R = 3200. Each level is a pass over the slab through device memory and L2;
-// keeping the levels on chip (a wavefront over the slab, clusters and
-// distributed shared memory, or TMA) is the next kernel's work.
+// R = 3200. Each level of gen_chain is a pass over the slab through device
+// memory and L2.
+//
+// gen_wave keeps the levels on chip instead: a wavefront over the slab. Each
+// step, every level advances W rows, each a fixed lag behind the level below
+// it (R + W: a level's stencil reaches R rows ahead, and it reads only rows
+// the level below finished in an earlier step, so a step needs one barrier).
+// A level lives only in a ring in shared memory, long enough for its oldest
+// reader: the next level's stencil, Chebyshev's three-term step two levels up,
+// and a consumer that reads all 2s+1 levels at one row (the Gram's frontier,
+// the last lag). Level 0 is read from the input vector; a copy of it at the
+// frontier's rows rides in a ring of its own. The lags, ring lengths and W
+// are planned on the host (cgx_torch.ops.sstep_stream.gram_plan), so the CPU
+// tests can walk the same schedule.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -238,6 +249,281 @@ __device__ void replay(double* st, const double* g, const double* bmat, int s, d
   st[kRsnew] = rsnew;
   st[kConv] = conv ? 1.0 : 0.0;
   st[kBrk] = brk ? 1.0 : 0.0;
+}
+
+// ---- the wavefront generator ----
+
+constexpr int kWaveThreads = 512;  // threads of a wavefront block, and W; one block an SM
+constexpr int kWaveMaxS = 4;       // s of the wavefront kernels (gram_plan's WAVE_MAX_S)
+constexpr int kWaveMaxM = 2 * kWaveMaxS + 1;
+constexpr int kWavePlanHead = 4;   // width, lag of the consumer, slab rows, shared bytes
+
+// The schedule of gram_plan, per level in basis order (p-chain, then r-chain).
+// At step t level l forms rows [F + t W - lag[l], + W) of its range, where
+// F = max(0, t0 - (s-1) R) is where the p-chain's level 1 starts; the
+// consumer reads rows [F + t W - lag_use, + W) of the slab.
+struct WavePlan {
+  long long width;
+  long long lag_use;
+  long long slab;
+  long long lag[kWaveMaxM];
+  int ring[kWaveMaxM];      // values of each level's ring
+  int ring_off[kWaveMaxM];  // its first value in the shared buffer
+};
+
+// A level's place in a step: its window's first row, its range [lo, hi) on
+// the slab, whether the whole window and its stencil lie inside the range and
+// [0, n) (inner: no row needs a bound test), and the ring slots of the
+// window's first row: in its own ring, in its source level's ring, in the ring
+// two levels below (the three-term step), and of the consumer's window in its
+// own ring.
+struct WaveSlots {
+  long long row, lo, hi;
+  int inner, own, src, old, use;
+};
+
+__host__ __device__ inline long long pos_mod(long long x, long long q) {
+  const long long r = x % q;
+  return r < 0 ? r + q : r;
+}
+
+__device__ __forceinline__ int wrap(int slot, int q) { return slot >= q ? slot - q : slot; }
+
+// Level l of the basis as its index k in its chain and the chain's width
+__host__ __device__ constexpr int chain_k(int l, int s) { return l <= s ? l : l - s - 1; }
+__host__ __device__ constexpr int chain_width(int l, int s) { return l <= s ? s + 1 : s; }
+
+// band_row with x held in a ring of q values whose slot base holds row i
+template <typename T, typename B>
+__device__ __forceinline__ T ring_band_row(const Basis<T, B>& a, const T* ring, int q, int base,
+                                           long long i) {
+  T acc = T(0);
+#pragma unroll
+  for (int d = 0; d < kMaxDiags; ++d) {
+    if (d < a.o.ndiag) {
+      const long long j = i + a.o.off[d];
+      if (j >= 0 && j < a.n) {
+        int slot = base + static_cast<int>(a.o.off[d]);
+        slot = slot < 0 ? slot + q : (slot >= q ? slot - q : slot);
+        acc += widen(a.bands[d * a.n + i]) * ring[slot];
+      }
+    }
+  }
+  return acc;
+}
+
+// Level l's place at step 0 of the slab [t0, t1) (from f0, the p-chain's
+// level 1's first row), or at the step after sl (advance); one thread a level.
+__device__ __forceinline__ WaveSlots wave_slots(const WavePlan& pl, int l, int s, long long reach,
+                                                long long n, long long t0, long long t1,
+                                                long long f0, bool advance, WaveSlots sl) {
+  const int k = chain_k(l, s);
+  const int q = pl.ring[l];
+  const int qs = k >= 2 ? pl.ring[l - 1] : 1;
+  const int qo = k >= 3 ? pl.ring[l - 2] : 1;
+  const int w = static_cast<int>(pl.width);
+  if (advance) {
+    sl.row += w;
+    sl.own = wrap(sl.own + w, q);
+    sl.src = k >= 2 ? wrap(sl.src + w, qs) : 0;
+    sl.old = k >= 3 ? wrap(sl.old + w, qo) : 0;
+    sl.use = wrap(sl.use + w, q);
+  } else {
+    // level k is needed (width - 1 - k) R rows past the slab; the copy of level 0 on it only
+    const long long grow =
+        k == 0 ? 0 : static_cast<long long>(chain_width(l, s) - 1 - k) * reach;
+    sl.row = f0 - pl.lag[l];
+    sl.lo = t0 - grow > 0 ? t0 - grow : 0;
+    sl.hi = t1 + grow < n ? t1 + grow : n;
+    sl.own = static_cast<int>(pos_mod(sl.row, q));
+    sl.src = static_cast<int>(pos_mod(sl.row, qs));
+    sl.old = static_cast<int>(pos_mod(sl.row, qo));
+    sl.use = static_cast<int>(pos_mod(f0 - pl.lag_use, q));
+  }
+  sl.inner = sl.row >= sl.lo && sl.row + w <= sl.hi && sl.row - reach >= 0 &&
+             sl.row + w + reach <= n;
+  return sl;
+}
+
+// Diagonals of a kernel built for ND of them (ND = 0: any number, read at run time)
+template <int ND>
+struct Diags {
+  static constexpr int n = ND ? ND : kMaxDiags;
+};
+
+// The global values of a full window's row, loaded up front: the chain's
+// level 0 at the row's taps (level 1: x, whose tap at offset 0 is x0) and at
+// the row (level 2's three-term step).
+template <int ND, typename T>
+struct Taps {
+  T x[Diags<ND>::n];
+  T x0, to;
+};
+
+// Level l's value (k = its index in its chain, k >= 1) at window position jj
+// of a full window (inner: every row and tap in range, no test), from the band
+// values bw at the row and, for k = 1 and 2, the loaded taps of level 0.
+template <int S, int ND, typename T, typename B>
+__device__ __forceinline__ T level_full(const Basis<T, B>& a, const WavePlan& pl,
+                                        const WaveSlots& sl, const T* ring, const Taps<ND, T>& tp,
+                                        int l, int jj, const T (&bw)[Diags<ND>::n]) {
+  const int k = chain_k(l, S);
+  T mv = T(0), tc, to = T(0);
+  if (k == 1) {
+#pragma unroll
+    for (int d = 0; d < Diags<ND>::n; ++d)
+      if (ND || d < a.o.ndiag) mv += bw[d] * tp.x[d];
+    tc = tp.x0;
+  } else {
+    const int qs = pl.ring[l - 1];
+    const T* src = ring + pl.ring_off[l - 1];
+    const int base = wrap(sl.src + jj, qs);
+#pragma unroll
+    for (int d = 0; d < Diags<ND>::n; ++d) {
+      if (ND || d < a.o.ndiag) {
+        int slot = base + static_cast<int>(a.o.off[d]);
+        slot = slot < 0 ? slot + qs : (slot >= qs ? slot - qs : slot);
+        mv += bw[d] * src[slot];
+      }
+    }
+    tc = src[base];
+  }
+  if (!a.newton && k >= 2)
+    to = k == 2 ? tp.to : ring[pl.ring_off[l - 2] + wrap(sl.old + jj, pl.ring[l - 2])];
+  return next_level(a, k, mv, tc, to);
+}
+
+// A value of a level at one row, or ok = false where the row is outside the
+// level's range
+template <typename T>
+struct Formed {
+  T v;
+  bool ok;
+};
+
+// Level l's value at window position jj of a window that is not full: the
+// row and each tap tested as band_row does, so the sums are the same as a
+// full window's. Kept out of line, away from the steps' hot path.
+template <int S, typename T, typename B>
+__device__ __noinline__ Formed<T> level_edge(const Basis<T, B>& a, const WavePlan& pl,
+                                             WaveSlots sl, const T* ring, const T* v0, int l,
+                                             int jj) {
+  const long long row = sl.row + jj;
+  if (row < sl.lo || row >= sl.hi) return {T(0), false};
+  const int k = chain_k(l, S);
+  if (k == 0) return {v0[row], true};
+  T mv, tc, to = T(0);
+  if (k == 1) {
+    mv = band_row(a, v0, 0, row);
+    tc = v0[row];
+  } else {
+    const int qs = pl.ring[l - 1];
+    const T* src = ring + pl.ring_off[l - 1];
+    const int base = wrap(sl.src + jj, qs);
+    mv = ring_band_row(a, src, qs, base, row);
+    tc = src[base];
+  }
+  if (!a.newton && k >= 2)
+    to = k == 2 ? v0[row] : ring[pl.ring_off[l - 2] + wrap(sl.old + jj, pl.ring[l - 2])];
+  return {next_level(a, k, mv, tc, to), true};
+}
+
+// All 2s+1 levels (s = S) over the slab [t0, t1) by the wavefront of pl, in
+// the ring buffer of the block's shared memory; slots is a shared
+// [2][kWaveMaxM] table. W is the block's size: thread jj forms row jj of
+// every level's window. The p-chain's level v+1 and the r-chain's level v lag
+// alike, so they share the step's band values: s windows of bands a step, for
+// 2s - 1 levels. A step issues all of its loads from device memory first,
+// then calls use(first row, slots) while they are in flight, then forms and
+// stores its levels. Full windows (inner) take a path with no tests; the few
+// others, at the slab's and the vector's ends, take level_edge. The consumer
+// may read, at its window's rows, every level formed in an earlier step
+// (wave_at), and nothing else of the rings. Every thread of the block calls
+// it; each step ends with the one barrier. ND (0: any) is the number of
+// diagonals the kernel is built for. Each value is formed by band_row's and
+// next_level's operations, so with -fmad=false the levels are gen_chain's bit
+// for bit.
+template <int S, int ND, typename T, typename B, typename Use>
+__device__ __forceinline__ void gen_wave(const Basis<T, B>& a, const WavePlan& pl,
+                                         const T* __restrict__ p0, const T* __restrict__ r0,
+                                         T* ring, long long t0, long long t1,
+                                         WaveSlots (*slots)[kWaveMaxM], Use& use) {
+  constexpr int M = 2 * S + 1;
+  const int w = static_cast<int>(pl.width);
+  const long long n = a.n;
+  const long long f0 = t0 - (S - 1) * a.reach > 0 ? t0 - (S - 1) * a.reach : 0;
+  const long long steps = (t1 - f0 + pl.lag_use + w - 1) / w;
+  const int jj = threadIdx.x;
+  if (threadIdx.x < M)
+    slots[0][threadIdx.x] = wave_slots(pl, threadIdx.x, S, a.reach, n, t0, t1, f0, false, {});
+  __syncthreads();
+  for (long long t = 0; t < steps; ++t) {
+    const WaveSlots* sl = slots[t & 1];
+    // 1. the loads from device memory of the full windows: the copies of
+    // level 0, the bands of the s windows, level 0's taps for level 1 and 2
+    T copy[2], bw[S][Diags<ND>::n];
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int l = c ? S + 1 : 0;
+      if (sl[l].inner) copy[c] = (c ? r0 : p0)[sl[l].row + jj];
+    }
+#pragma unroll
+    for (int v = 0; v < S; ++v) {  // window v: the p-chain's level v+1, the r-chain's level v
+      if (sl[v + 1].inner) {
+        const B* bp = a.bands + sl[v + 1].row + jj;
+#pragma unroll
+        for (int d = 0; d < Diags<ND>::n; ++d)
+          bw[v][d] = (ND || d < a.o.ndiag) ? widen(bp[d * n]) : T(0);
+      }
+    }
+    Taps<ND, T> tp[2];  // the p-chain's, the r-chain's
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int l1 = c ? S + 2 : 1;  // the chain's level 1 (in window c) and level 2
+      const int top = c ? 2 * S : S;
+      const T* v0 = c ? r0 : p0;
+      if (l1 <= top && sl[l1].inner) {
+        const T* x = v0 + sl[l1].row + jj;
+#pragma unroll
+        for (int d = 0; d < Diags<ND>::n; ++d)
+          tp[c].x[d] = (ND || d < a.o.ndiag) ? x[a.o.off[d]] : T(0);
+        tp[c].x0 = x[0];
+      }
+      if (l1 + 1 <= top && sl[l1 + 1].inner) tp[c].to = v0[sl[l1 + 1].row + jj];
+    }
+    // 2. the consumer, on rows formed in earlier steps, while the loads fly
+    use(f0 + t * w - pl.lag_use, sl);
+    // 3. this step's levels, stored
+#pragma unroll
+    for (int l = 0; l < M; ++l) {
+      const int k = chain_k(l, S);
+      T val;
+      bool ok = true;
+      if (sl[l].inner) {
+        if (k == 0)
+          val = copy[l ? 1 : 0];
+        else
+          val = level_full<S, ND>(a, pl, sl[l], ring, tp[l <= S ? 0 : 1], l, jj,
+                                  bw[l <= S ? k - 1 : k]);
+      } else {
+        const Formed<T> e = level_edge<S>(a, pl, sl[l], ring, l <= S ? p0 : r0, l, jj);
+        val = e.v;
+        ok = e.ok;
+      }
+      if (ok) ring[pl.ring_off[l] + wrap(sl[l].own + jj, pl.ring[l])] = val;
+    }
+    if (threadIdx.x < M)
+      slots[(t + 1) & 1][threadIdx.x] =
+          wave_slots(pl, threadIdx.x, S, a.reach, n, t0, t1, f0, true, sl[threadIdx.x]);
+    __syncthreads();  // this step's levels are formed, and the next step's slots set
+  }
+}
+
+// Level l at position jj of the consumer's window (see gen_wave)
+template <typename T>
+__device__ __forceinline__ T wave_at(const WavePlan& pl, const T* ring, const WaveSlots* sl, int l,
+                                     int jj) {
+  return ring[pl.ring_off[l] + wrap(sl[l].use + jj, pl.ring[l])];
 }
 
 }  // namespace cgx

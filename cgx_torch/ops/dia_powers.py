@@ -96,13 +96,19 @@ class LaunchShape(NamedTuple):
     scratch: int
 
 
+def slab_grid(n: int, blocks: int, min_slab: int = MIN_TILE) -> int:
+    """Blocks of a slab kernel on n rows: ``blocks``, fewer where a slab
+    would have fewer than ``min_slab`` rows."""
+    return max(1, min(blocks, -(-n // min_slab)))
+
+
 def launch_shape(n: int, offsets: Sequence[int], s: int, device, keep: int = 0) -> LaunchShape:
     """BLOCKS_PER_SM blocks an SM (fewer for a small n), each on one slab
     of ``tile`` rows, and ``block_scratch`` of csrc/sstep_basis.cuh for
     each: two working levels, and ``keep`` levels of the slab."""
     reach = max(abs(int(o)) for o in offsets)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    grid = max(1, min(BLOCKS_PER_SM * sms, -(-n // MIN_TILE)))
+    grid = slab_grid(n, BLOCKS_PER_SM * sms)
     tile = -(-n // grid)
     return LaunchShape(tile, grid, grid * (2 * (tile + 2 * max(s - 1, 0) * reach) + keep * tile))
 

@@ -12,16 +12,86 @@ matrix and any positive tile sizes are taken; nothing is padded.
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU
 tensor it runs the plain version beside it, which is also what the
 tests and ``chip_smoke.py`` compare the kernel with. Each wrapper
-counts its runs in ``.launches``.
+counts its runs in ``.launches``. ``dense_matvec``'s kernel runs on the
+persistent grid of :func:`dense_plan`, which the CPU tests hold.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
 from cgx_torch.ops._util import check_operands, f32_exact, launch
+
+DENSE_THREADS = 512  # kDenseThreads of csrc/matvec.cu: one block an SM
+SHARED_OPTIN = 232448  # bytes of shared memory one block may take on the H100 (227 KB)
+DENSE_MAX_ROWS = 4096  # rows a block: their sums leave room for x (more blocks than SMs past it)
+
+
+class DensePlan(NamedTuple):
+    """How ``dense_matvec``'s kernel runs: ``aligned`` (every row start,
+    tile and chunk 16-byte aligned: vector loads throughout; else the
+    peeled scalar head and tail); ``staging`` of x in shared memory:
+    "whole", by "chunks" of ``chunk_cols`` (whole tiles), or "global"
+    (read in place, a tile being wider than a block's shared memory);
+    ``shared`` bytes a block (x's chunk, its rows' tile sums over a chunk,
+    their running sums); ``grid`` blocks, one an SM, each on
+    ``rows_per_cta`` contiguous rows."""
+
+    aligned: bool
+    staging: str
+    chunk_cols: int
+    shared: int
+    grid: int
+    rows_per_cta: int
+
+
+def _align16(nbytes: int) -> int:
+    return -(-nbytes // 16) * 16
+
+
+def dense_shared(chunk_cols: int, block_cols: int, rows: int, item: int, staged: bool) -> int:
+    """csrc/matvec.cu dense_shared: x's chunk, the tile sums, the running sums."""
+    tiles = -(-chunk_cols // block_cols)
+    return (_align16(chunk_cols * item) if staged else 0) + _align16(rows * tiles * item) + \
+        rows * item
+
+
+@functools.lru_cache(maxsize=64)  # the CG loop asks for the same plan every iteration
+def dense_plan(n_rows: int, n_cols: int, block_cols: int, dtype: torch.dtype, sms: int, *,
+               pointers_aligned: bool = True) -> DensePlan:
+    """The persistent grid of ``dense_matvec`` on an (n_rows, n_cols)
+    matrix: one block an SM, rows split evenly (at most DENSE_MAX_ROWS a
+    block, which binds only on a card with few SMs); x staged whole where it
+    and the tile sums fit a block's shared memory, else by the widest
+    chunk of whole tiles that does, else read in place. In double at
+    N = 10,000 with 128-column tiles: 80,000 bytes of x and 48,032 of
+    tile sums; at 40,000, chunks of 66 tiles (8,448 columns)."""
+    item = torch.finfo(dtype).bits // 8
+    aligned = bool(pointers_aligned and n_cols * item % 16 == 0 and block_cols * item % 16 == 0)
+    rows = min(DENSE_MAX_ROWS, max(1, -(-n_rows // max(1, min(sms, n_rows)))))
+    grid = max(1, -(-n_rows // rows))  # every block has rows
+    tiles = max(1, -(-n_cols // block_cols))
+
+    def widest(staged: bool) -> int:  # tiles a chunk may hold
+        per_tile = (block_cols * item if staged else 0) + rows * item
+        t = min(tiles, max(0, (SHARED_OPTIN - rows * item - 32) // per_tile))
+        while t > 0 and dense_shared(min(t * block_cols, max(n_cols, 1)), block_cols, rows, item,
+                                     staged) > SHARED_OPTIN:
+            t -= 1
+        return t
+
+    t = widest(True)
+    staging = "whole" if t == tiles else "chunks"
+    if t == 0:
+        staging, t = "global", widest(False)
+        if t == 0:
+            raise ValueError(f"dense_matvec: {rows} rows a block do not fit its shared memory")
+    chunk = max(n_cols, 1) if t == tiles else t * block_cols
+    shared = dense_shared(chunk, block_cols, rows, item, staging != "global")
+    return DensePlan(aligned, staging, chunk, shared, grid, rows)
 
 
 def dense_matvec_ref(
@@ -69,6 +139,11 @@ def _check(fn: str, a, x, block_rows, block_cols) -> Tuple[int, int]:
     return br, bc
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def dense_matvec(
     a: torch.Tensor, x: torch.Tensor, *, block_rows: int = 256, block_cols: int = 512
 ) -> torch.Tensor:
@@ -77,9 +152,14 @@ def dense_matvec(
     if x.device.type == "cpu":
         y = dense_matvec_ref(a, x, block_rows=br, block_cols=bc)
     else:
-        y = torch.empty(a.shape[0], dtype=x.dtype, device=x.device)
-        launch("cgx_dense_matvec", x, a.data_ptr(), x.data_ptr(), y.data_ptr(),
-               a.shape[0], a.shape[1], bc)
+        n_rows, n_cols = a.shape
+        y = torch.empty(n_rows, dtype=x.dtype, device=x.device)
+        plan = dense_plan(n_rows, n_cols, bc, x.dtype, _sm_count(x.device.index),
+                          pointers_aligned=a.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0)
+        launch("cgx_dense_matvec", x, a.data_ptr(), x.data_ptr(), y.data_ptr(), n_rows, n_cols,
+               bc, plan.chunk_cols, plan.rows_per_cta, int(plan.staging != "global"),
+               int(plan.aligned), plan.shared, plan.grid)
+        dense_matvec.plan = plan
     dense_matvec.launches += 1
     return y
 
@@ -107,4 +187,5 @@ def dense_matvec_dot(
 
 
 dense_matvec.launches = 0
+dense_matvec.plan = None  # the DensePlan of the last CUDA launch
 dense_matvec_dot.launches = 0

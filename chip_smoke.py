@@ -39,9 +39,12 @@ Phases, one JSON object per line each:
    float64 pipelined loop;
 10. dense kernels: dense_matvec and dense_matvec_dot, float32 and
     float64, on lap2d_fd(100) densified (N = 10,000, tiles 1024 x 128,
-    the CLI's mapping of the reference's "1024 16") and on
-    lap2d_reference(16384) densified (N = 16,384, the default 256 x 512),
-    against their plain versions, with torch.mv as the yardstick;
+    the CLI's mapping of the reference's "1024 16"), on
+    lap2d_reference(16384) densified (N = 16,384, the default 256 x 512)
+    and on lap2d_reference(1001) densified (N = 1,001, tiles 100 x 37:
+    rows off the 16-byte grid), against their plain versions, with
+    torch.mv as the yardstick; dense_matvec's plan (aligned or peeled,
+    the staging of x, the grid) and a bitwise repeat;
 11. CLI, CUDA grammar: the reference's own run, lap2D_5pt_n100.mtx 1024
     16 true, in fp64 through the dense kernel, twice (bitwise equal),
     held to the lap2d_fd(100) goldens and the reference's gates;
@@ -77,17 +80,22 @@ Phases, one JSON object per line each:
     bfloat16 bands, and float64) and the replay kernel on lap2d_fd(3200)
     from seeded p and r, s = 4, Chebyshev and Newton, against their plain
     versions: the basis and the recovered x, r and p bitwise, the Gram
-    within 1e-12 of sum |v_i v_j|, the replayed coefficients within 1e-13;
-    then each one's ms against its bound, the plain version's ms and the
-    peak device memory;
+    within 1e-12 of sum |v_i v_j| of the plain one's and of the exact
+    sums, in the design gram_plan picks (the wavefront for float32
+    vectors, the slab for float64) and, where that is the wavefront, in
+    the slab design too, the replayed coefficients within 1e-13; the
+    design and its plan recorded; then each one's ms against its bound,
+    the plain version's ms and the peak device memory (the Gram also in
+    the slab design);
 21. sstep path: cgx_torch.solve(lap2d_fd(3200), fp32, method="sstep"),
     which resolves to the fused kernels with bfloat16 bands, twice
     (bitwise equal), and the same call with sstep_powers="pallas" (the
     matrix-powers kernel and the replay kernel), twice; against the plain
     fp32 s-step loop with a float64 Gram, beside the main path's
-    streaming kernel; the Lanczos bounds timed apart as set-up;
-22. sstep profile: device time by kernel and the idle share over 64
-    fused blocks;
+    streaming kernel; the Lanczos bounds timed apart as set-up; the fused
+    route's Gram in the wavefront design;
+22. sstep profile: device time by kernel (the Gram's us a block) and the
+    idle share over 64 fused blocks;
 23. sstep goldens: dia_sstep_stream_solve in float64 on lap2d_fd(100)
     and lap2d_reference(10000) at tol 1e-10, twice each, against the
     plain float64 s-step loop;
@@ -296,6 +304,8 @@ SHARDED_SIGNATURE = {
 DENSE_PROBLEMS = [
     ("lap2d_fd(100)", lambda: lap2d_fd(100), (1024, 128)),  # the CLI's "1024 16"
     ("lap2d_reference(16384)", lambda: lap2d_reference(16384), (256, 512)),  # the defaults
+    # odd N and tiles: rows and tiles off the 16-byte grid, the kernel's peeled path
+    ("lap2d_reference(1001)", lambda: lap2d_reference(1001), (100, 37)),
 ]
 MPI_N = 16384  # the reference's largest MPI size (the 16384 key of plots.ipynb's ALPHAS)
 STEP = re.compile(r"\[STEP (\d+)\] residual = ([0-9.e+-]+), \|\|x\|\| = ([0-9.e+-]+), "
@@ -514,7 +524,18 @@ def dense_kernel_cases(spec, problem: str, dia, dtype, tiles) -> dict:
     }
     dot_terms = {"dense_matvec_dot": lambda out: (x, out[0])}
     records = measure_cases(spec, f"{problem} dense {br}x{bc}", dtype, n, cases, dot_terms)
-    del a
+    y1 = matvec.dense_matvec(a, x, block_rows=br, block_cols=bc)
+    y2 = matvec.dense_matvec(a, x, block_rows=br, block_cols=bc)
+    sync()
+    plan = matvec.dense_matvec.plan
+    rec = {"phase": "dense_plan", "problem": problem, "dtype": str(dtype), "n": n,
+           "tiles": [br, bc], **plan._asdict(), "bitwise_repeat": torch.equal(y1, y2)}
+    emit(rec)
+    check(rec["bitwise_repeat"], f"dense_matvec {problem} {dtype}: two calls differ")
+    check(plan.aligned == (n * torch.finfo(dtype).bits // 8 % 16 == 0
+                           and bc * torch.finfo(dtype).bits // 8 % 16 == 0),
+          f"dense_matvec {problem} {dtype}: plan {plan}")
+    del a, y1, y2
     return records
 
 
@@ -1448,6 +1469,7 @@ def sstep_checks(case: str, basis: str, dia, kw) -> dict:
     start = seeded_block(bands, p, r, kw)
     got, want = (ss.BlockState(*(t.clone() for t in start)) for _ in range(2))
     ss._sstep_gram(kb, got.p, got.r, got.state, got.bmat, **kw, **SSTEP_CONTROL)
+    plan = ss._sstep_gram.plan  # gram_plan's design for this shape
     ss._gram_ref(kb, want.p, want.r, want.state, want.bmat, **kw, **SSTEP_CONTROL)
     sync()
     g_kern, g_plain = got.state[gram].view(m, m), want.state[gram].view(m, m)
@@ -1458,6 +1480,20 @@ def sstep_checks(case: str, basis: str, dia, kw) -> dict:
     errs["sstep_gram"] = float((g_kern - g_plain).abs().max())
     check(gram_rel <= GRAM_RTOL, f"{where}: Gram off the plain one by {gram_rel} of sum|v_i v_j|")
     check(kern_exact <= GRAM_RTOL, f"{where}: Gram off the exact sums by {kern_exact}")
+    designs = {plan.design: {"rel_to_plain": gram_rel, "rel_to_exact": kern_exact}}
+    if plan.design != "slab":  # the other design on the same inputs, forced
+        other = ss.BlockState(*(t.clone() for t in start))
+        work = ss.workspace(DEV, n, kw["offsets"], SSTEP_S, dtype)
+        work = work._replace(plan=ss.slab_plan(n, SSTEP_S, dtype, plan.grid))
+        ss._sstep_gram(kb, other.p, other.r, other.state, other.bmat, work=work, **kw,
+                       **SSTEP_CONTROL)
+        sync()
+        g_slab = other.state[gram].view(m, m)
+        designs["slab"] = {"rel_to_plain": float(((g_slab - g_plain).abs() / scale).max()),
+                           "rel_to_exact": float(((g_slab - exact).abs() / scale).max())}
+        check(max(designs["slab"].values()) <= GRAM_RTOL,
+              f"{where}: the slab design's Gram is off by {designs['slab']}")
+        del other, work
     # the replay: the replay kernel and its plain version on the kernel's G, from
     # the start's scalars; the Gram launch's own replay runs the same device code
     rk, rp = start.state.clone(), start.state.clone()
@@ -1492,7 +1528,10 @@ def sstep_checks(case: str, basis: str, dia, kw) -> dict:
           "gram_rel_err_to_exact": kern_exact, "plain_gram_rel_err_to_exact": plain_exact,
           "coef_rel_err": coef_rel, "powers_checked": not bf16, "recover_bitwise": same,
           "state_after_gram": got.state[:ss.COEF].tolist(),
-          "grid": {"gram": ss._sstep_gram.grid, "recover": ss._sstep_recover.grid}})
+          "grid": {"gram": plan.grid, "recover": ss._sstep_recover.grid},
+          "gram_design": plan.design, "gram_plan": {"width": plan.width, "shared": plan.shared,
+                                                    "grid": plan.grid, "slab": plan.slab},
+          "gram_designs": designs})
     return errs
 
 
@@ -1539,6 +1578,12 @@ def sstep_times(spec, case: str, dia, kw) -> dict:
                "bands_dtype": str(kb.dtype), "ms": ms, "bound_ms": bound, "bound_by": bound_by,
                "bound_share": bound / ms, "plain_ms": plain_ms, "max_memory_allocated": peak,
                "grid": SSTEP_SITES[site].grid}
+        if site == "sstep_gram":
+            rec["design"] = work.plan.design
+            if work.plan.design != "slab":  # the slab design on the same inputs
+                slab = work._replace(plan=ss.slab_plan(n, SSTEP_S, dtype, work.plan.grid))
+                rec["slab_ms"] = time_ms(lambda: ss._sstep_gram(
+                    kb, st.p, st.r, st.state, st.bmat, work=slab, **kw, **SSTEP_CONTROL))
         if site == "sstep_recover":
             rec["note"] = "each timed call also copies 2 words of the state (the live mark)"
         emit(rec)
@@ -1641,6 +1686,7 @@ def phase_sstep_path(spec, bounds, bounds_seconds: float, b4: dict) -> dict:
                "us_per_iter": (seconds - bounds_seconds) / k * 1e6,
                "blocks_launched": blocks, "launches": {s_: launches[s_] for s_ in SSTEP_SITES},
                "bands_dtype": str(ss._sstep_gram.bands_dtype) if route == "fused" else "float32",
+               "gram_design": ss._sstep_gram.design if route == "fused" else None,
                "bound_us_per_iter": bound_block / SSTEP_S * 1e3,
                "bound_counts": bound_sites,
                "k_plain": k_plain, "plain_seconds": plain_seconds,
@@ -1659,6 +1705,8 @@ def phase_sstep_path(spec, bounds, bounds_seconds: float, b4: dict) -> dict:
         others = {name: c for name, c in launches.items()
                   if name not in (*sites, "stream_iteration") and name in KERNELS and c}
         check(not others, f"{where} launched other kernels: {others}")
+        check(route != "fused" or rec["gram_design"] == "wavefront",
+              f"{where}: the Gram ran the {rec['gram_design']} design")
         check(abs(k - k_plain) <= 0.02 * k_plain, f"{where}: k={k} vs plain k={k_plain}")
         check(max(rel, rel_plain) <= 2 * min(rel, rel_plain),
               f"{where}: true residuals {rel} and {rel_plain} differ by more than 2x")
@@ -1687,13 +1735,19 @@ def phase_sstep_profile(op, b_dev, bounds) -> None:
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
-        name = next((kn for kn in ("gram_kernel", "recover_kernel") if kn in e.name), "other")
+        name = next((key for key, kn in (("gram_kernel", "gram_wave_kernel"),
+                                         ("gram_kernel", "gram_slab_kernel"),
+                                         ("recover_kernel", "recover_kernel")) if kn in e.name),
+                    "other")
         us = e.time_range.elapsed_us()
         by_name[name] = by_name.get(name, 0.0) + us / SSTEP_PROFILE_BLOCKS
         busy_us += us
         count += 1
     emit({"phase": "sstep_profile", "blocks": SSTEP_PROFILE_BLOCKS, "k": k,
-          "device_events": count, "device_us_per_block": by_name,
+          "gram_design": ss._sstep_gram.design,
+          "gram_us_per_block": by_name.get("gram_kernel", 0.0),
+          "profiled_us_per_iter": wall_us / iters, "device_events": count,
+          "device_us_per_block": by_name,
           "device_busy_us_per_block": busy_us / SSTEP_PROFILE_BLOCKS,
           "profiled_wall_us_per_block": wall_us / SSTEP_PROFILE_BLOCKS,
           "idle_share": 1 - busy_us / wall_us})

@@ -217,3 +217,70 @@ def test_densify_on_device_matches_host_dense():
     assert cgx_torch.densify_on_device(op, torch.float32).a.dtype == torch.float32
     want = np.asarray(cgx_ops.densify_on_device(cgx_ops.DiaOperator.from_host(lap2d_fd(9))).a)
     np.testing.assert_array_equal(dense.a.numpy(), want)
+
+
+# dense_matvec's launch plan (cgx_torch/csrc/matvec.cu, dense_matvec_persistent_kernel)
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("sms", [1, 7, H100_SMS])
+@pytest.mark.parametrize("n_rows", [1, 5, 131, 132, 133, 1001, 10_000, 16_384, 40_000])
+def test_dense_plan_rows_cover_each_row_once(n_rows, sms):
+    """The persistent grid's row ranges are contiguous, in block order,
+    and cover [0, N) exactly once; no more blocks than SMs unless a
+    block's rows would outgrow its shared memory."""
+    plan = matvec.dense_plan(n_rows, n_rows, 128, torch.float64, sms)
+    assert 1 <= plan.grid <= max(sms, -(-n_rows // matvec.DENSE_MAX_ROWS))
+    covered = np.zeros(n_rows, dtype=int)
+    end = 0
+    rpc = plan.rows_per_cta  # block b: rows [b rpc, (b + 1) rpc) within [0, N)
+    for lo, hi in ((min(b * rpc, n_rows), min((b + 1) * rpc, n_rows)) for b in range(plan.grid)):
+        assert lo == end or lo == hi == n_rows
+        covered[lo:hi] += 1
+        end = hi
+    assert end == n_rows and np.all(covered == 1)
+    assert (plan.grid - 1) * plan.rows_per_cta < n_rows  # no block without rows
+
+
+@pytest.mark.parametrize(
+    "n,block_cols,dtype,staging,chunk",
+    [(10_000, 128, torch.float32, "whole", 10_000),  # the reference's run, 1024 x 128
+     (10_000, 128, torch.float64, "whole", 10_000),
+     (16_384, 512, torch.float32, "whole", 16_384),  # the defaults, 256 x 512
+     (16_384, 512, torch.float64, "whole", 16_384),
+     (40_000, 128, torch.float32, "chunks", 133 * 128),  # x and the tile sums outgrow 227 KB
+     (40_000, 128, torch.float64, "chunks", 66 * 128),
+     (40_000, 40_000, torch.float64, "global", 40_000)],  # one tile wider than shared memory
+)
+def test_dense_plan_staging(n, block_cols, dtype, staging, chunk):
+    """x is staged whole where it and the tile sums fit one block's
+    shared memory, else by the widest chunk of whole tiles that fits, and
+    read in place where not even one tile fits."""
+    plan = matvec.dense_plan(n, n, block_cols, dtype, H100_SMS)
+    item = torch.finfo(dtype).bits // 8
+    assert (plan.staging, plan.chunk_cols) == (staging, chunk)
+    assert plan.shared <= matvec.SHARED_OPTIN
+    assert plan.shared == matvec.dense_shared(plan.chunk_cols, block_cols, plan.rows_per_cta,
+                                              item, staging != "global")
+    if staging == "chunks":
+        assert plan.chunk_cols % block_cols == 0
+        wider = plan.chunk_cols + block_cols  # one tile more does not fit
+        assert matvec.dense_shared(wider, block_cols, plan.rows_per_cta, item,
+                                   True) > matvec.SHARED_OPTIN
+
+
+@pytest.mark.parametrize(
+    "n,block_cols,dtype,aligned",
+    [(10_000, 128, torch.float64, True), (10_000, 128, torch.float32, True),
+     (1001, 37, torch.float64, False), (1001, 37, torch.float32, False),  # odd N: peeled
+     (1001, 128, torch.float64, False),  # odd N: every other row starts off the grid
+     (1002, 128, torch.float32, False),  # N not a multiple of 4 in float32
+     (1002, 128, torch.float64, True), (1000, 100, torch.float32, True),
+     (1000, 37, torch.float32, False)],  # tiles off the grid
+)
+def test_dense_plan_aligned_or_peeled(n, block_cols, dtype, aligned):
+    """Vector loads throughout only where every row start, tile and chunk
+    is 16 bytes aligned; else the peeled scalar head and tail."""
+    assert matvec.dense_plan(n, n, block_cols, dtype, H100_SMS).aligned is aligned
+    assert matvec.dense_plan(n, n, block_cols, dtype, H100_SMS,
+                             pointers_aligned=False).aligned is False

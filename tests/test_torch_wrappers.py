@@ -570,6 +570,42 @@ def test_cuda_sstep_block_matches_plain(cuda, g, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["f32", "bf16", "f64"])
+@pytest.mark.parametrize("g", [33, 700])
+def test_cuda_gram_designs_agree(cuda, g, case):
+    """The wavefront and the slab design of the Gram launch, on the same
+    inputs: each within 1e-12 of the exact sums (relative to sum|v_i v_j|),
+    the same k, conv and brk, and each bitwise repeatable."""
+    from cgx_torch.ops import sstep_stream as ss
+
+    dtype = torch.float64 if case == "f64" else torch.float32
+    dia, bands, p, r = _sstep_inputs(g, dtype, cuda)
+    kb = bands.to(torch.bfloat16) if case == "bf16" else bands
+    kw = dict(offsets=dia.offsets, s=4, shifts=(), **SSTEP)
+    sk = dict(tol=0.0, nearzero=1e-14, maxiter=10**6)
+    base = ss.initial_state(bands, r, torch.zeros_like(r), 0.0, **kw)
+    base.p[0].copy_(p)
+    n, m = g * g, 9
+    work = ss.workspace(cuda, n, dia.offsets, 4, dtype)
+    assert work.plan.design == "wavefront"  # a reach of g fits the rings
+    slab = work._replace(plan=ss.slab_plan(n, 4, dtype, work.plan.grid))
+    v = ss.dia_sstep_basis_ref(kb, p, r, **kw).double()
+    exact, scale = (v @ v.T).reshape(-1), (v.abs() @ v.abs().T).reshape(-1)
+    gg, flags = slice(ss.GRAM, ss.GRAM + m * m), [ss.K, ss.CONV, ss.BRK, ss.LIVE]
+    states = []
+    for wk in (work, work, slab, slab):
+        st = [t.clone() for t in base]
+        ss._sstep_gram(kb, st[1], st[2], st[3], st[4], work=wk, **kw, **sk)
+        assert ss._sstep_gram.design == wk.plan.design
+        states.append(st[3])
+    torch.cuda.synchronize()
+    for st in states:
+        assert float(((st[gg] - exact).abs() / scale).max()) <= 1e-12
+        assert torch.equal(st[flags], states[0][flags])
+    assert torch.equal(states[0], states[1]) and torch.equal(states[2], states[3])
+
+
+@pytest.mark.cuda
 def test_cuda_sstep_frozen_block_changes_nothing(cuda):
     from cgx_torch.ops import sstep_stream as ss
 
