@@ -9,9 +9,13 @@ with ``git archive`` into a directory ``.gitignore`` lists), after its
 ``chip_smoke.py`` device and build phases: the reference project's CLI run
 (``lap2D_5pt_n100.mtx 1024 16 true``: fp64, N = 10,000, the dense kernel)
 RUNS times in-process, and ``solve(lap2d_fd(3200), fp32, method="sstep")``
-(N = 10,240,000, the fused s-step kernels) once. It prints one line,
-``RESULT {json}``, with the CLI's seconds (the first run included: it pays
-the first calls) and the s-step solve's k and seconds. Host clocks vary
+(N = 10,240,000) once on each s-step route: "auto" (the fused s-step
+kernels) and ``sstep_powers="pallas"`` (the matrix-powers and replay
+kernels). It prints one line, ``RESULT {json}``, with the CLI's seconds
+(the first run included: it pays the first calls), each s-step solve's k
+and seconds, and the peak device memory (``torch.cuda.max_memory_allocated``)
+that 64 fused blocks take above their operator and right-hand side, given
+the solve's bounds (the fused loop's state and workspace). Host clocks vary
 between calls and cards, so compare two checkouts only within one call,
 in turns (A, B, B, A). It needs a CUDA device.
 """
@@ -35,7 +39,8 @@ def main(root: str, label: str) -> int:
     import torch
 
     import chip_smoke as cs
-    from cgx_torch import SolveConfig, as_operator, solve
+    from cgx_torch import SolveConfig, as_operator, dia_sstep_stream_solve, solve
+    from cgx_torch.solver.chebyshev import spectral_bounds
     from cgx_torch.mats.generators import lap2d_fd, lap2d_fd_coo_lower, source_term
 
     cs.phase_device()
@@ -53,12 +58,21 @@ def main(root: str, label: str) -> int:
     b = source_term(dia.shape[0])
     op = as_operator(dia, torch.float32, device="cuda")
     b_dev = torch.as_tensor(b, dtype=torch.float32, device="cuda")
-    cfg = SolveConfig(precision="fp32", method="sstep", tolerance=1e-5 * float(np.linalg.norm(b)))
+    tol = 1e-5 * float(np.linalg.norm(b))
+    for key, extra in (("sstep", {}), ("sstep_pallas", {"sstep_powers": "pallas"})):
+        cfg = SolveConfig(precision="fp32", method="sstep", tolerance=tol, **extra)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solve(op, b_dev, cfg, device="cuda")
+        torch.cuda.synchronize()
+        out[key] = {"k": int(res.iterations), "seconds": time.perf_counter() - t0}
+        del res
+    bounds = spectral_bounds(op, dia.shape[0])
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = solve(op, b_dev, cfg, device="cuda")
-    torch.cuda.synchronize()
-    out["sstep"] = {"k": int(res.iterations), "seconds": time.perf_counter() - t0}
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    dia_sstep_stream_solve(op, b_dev, s=4, bounds=bounds, tol=0.0, maxiter=256, device="cuda")
+    out["fused_loop_peak_bytes_above_inputs"] = torch.cuda.max_memory_allocated() - held
     print("RESULT " + json.dumps(out), flush=True)
     return 0
 

@@ -72,21 +72,27 @@ _SIGNATURES = {
     "dia_powers": {
         "cgx_dia_sstep_basis": (_p, _p, _p, _p, _p, _n, _n, _offs, _i, _i, _d, _d, _d_in, _i,
                                 _n, _i, _p),
+        "cgx_dia_sstep_basis_wave": (_p, _p, _p, _p, _n, _offs, _i, _i, _d, _d, _d_in, _i, _offs,
+                                     _i, _i, _p),
     },
     "sstep_stream": {
         "cgx_sstep_gram": (_p, _p, _p, _p, _p, _p, _p, _p, _n, _p, _n, _p, _n, _offs, _i, _i, _d,
                            _d, _d_in, _i, _d, _d, _d, _n, _i, _p),
-        "cgx_sstep_recover": (_p, _p, _p, _p, _p, _p, _p, _p, _n, _p, _n, _offs, _i, _i, _d, _d,
-                              _d_in, _i, _n, _i, _p),
         "cgx_sstep_gram_wave": (_p, _p, _p, _p, _p, _p, _p, _p, _n, _p, _n, _offs, _i, _i, _d,
                                 _d, _d_in, _i, _d, _d, _d, _offs, _i, _i, _p),
         "cgx_sstep_replay": (_p, _p, _i, _d, _d, _d, _p),
+    },
+    "sstep_recover": {
+        "cgx_sstep_recover": (_p, _p, _p, _p, _p, _p, _p, _p, _n, _p, _n, _offs, _i, _i, _d, _d,
+                              _d_in, _i, _n, _i, _p),
+        "cgx_sstep_recover_wave": (_p, _p, _p, _p, _p, _p, _p, _p, _n, _offs, _i, _i, _d, _d,
+                                   _d_in, _i, _offs, _i, _i, _p),
     },
 }
 # Entries that also take bfloat16 bands under float32 vectors, bound with
 # this suffix (cgx_torch.ops._util.BF16_BANDS_SUFFIX).
 _BF16_BANDS = ("cgx_dia_cg_chunk", "cgx_cg_stream", "cgx_sstep_gram", "cgx_sstep_recover",
-               "cgx_sstep_gram_wave")
+               "cgx_sstep_gram_wave", "cgx_sstep_recover_wave")
 # Entries with one variant only: the replay works on the float64 state.
 _ONLY = {"cgx_sstep_replay": ("_f64",)}
 

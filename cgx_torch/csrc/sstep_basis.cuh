@@ -1,7 +1,7 @@
 // The s-step Krylov basis generator and the coefficient replay, shared by the
 // matrix-powers kernel (dia_powers.cu, B9) and the fused s-step block
-// (sstep_stream.cu, B10), as cgx keeps _gen_basis in lockstep with
-// _powers_kernel.
+// (sstep_stream.cu and sstep_recover.cu, B10), as cgx keeps _gen_basis in
+// lockstep with _powers_kernel.
 //
 // The basis of a block of s iterations is 2s+1 vectors of length n:
 //   V[0..s]     = T_0(A)p .. T_s(A)p       (the p-chain, width s+1)
@@ -36,15 +36,19 @@
 // the level below finished in an earlier step, so a step needs one barrier).
 // A level lives only in a ring in shared memory, long enough for its oldest
 // reader: the next level's stencil, Chebyshev's three-term step two levels up,
-// and a consumer that reads all 2s+1 levels at one row (the Gram's frontier,
-// the last lag). Level 0 is read from the input vector; a copy of it at the
-// frontier's rows rides in a ring of its own. The lags, ring lengths and W
-// are planned on the host (cgx_torch.ops.sstep_stream.gram_plan), so the CPU
-// tests can walk the same schedule.
+// and a consumer that reads all 2s+1 levels at one row (the frontier, the
+// last lag: the Gram's products, the recover's combinations, B9's stores).
+// Level 0 is read from the input vector; a copy of it at the frontier's rows
+// rides in a ring of its own. The lags, ring lengths and W are planned on the
+// host (cgx_torch.ops.dia_powers.basis_plan), so the CPU tests can walk the
+// same schedule.
 #pragma once
 
 #include <cuda_bf16.h>
 
+#include <type_traits>
+
+#include "common.cuh"
 #include "dia_row.cuh"
 
 namespace cgx {
@@ -254,11 +258,11 @@ __device__ void replay(double* st, const double* g, const double* bmat, int s, d
 // ---- the wavefront generator ----
 
 constexpr int kWaveThreads = 512;  // threads of a wavefront block, and W; one block an SM
-constexpr int kWaveMaxS = 4;       // s of the wavefront kernels (gram_plan's WAVE_MAX_S)
+constexpr int kWaveMaxS = 4;       // s of the wavefront kernels (basis_plan's WAVE_MAX_S)
 constexpr int kWaveMaxM = 2 * kWaveMaxS + 1;
 constexpr int kWavePlanHead = 4;   // width, lag of the consumer, slab rows, shared bytes
 
-// The schedule of gram_plan, per level in basis order (p-chain, then r-chain).
+// The schedule of basis_plan, per level in basis order (p-chain, then r-chain).
 // At step t level l forms rows [F + t W - lag[l], + W) of its range, where
 // F = max(0, t0 - (s-1) R) is where the p-chain's level 1 starts; the
 // consumer reads rows [F + t W - lag_use, + W) of the slab.
@@ -270,6 +274,32 @@ struct WavePlan {
   int ring[kWaveMaxM];      // values of each level's ring
   int ring_off[kWaveMaxM];  // its first value in the shared buffer
 };
+
+// The plan array of basis_plan: [width, lag_use, slab, shared bytes, lag[m],
+// ring[m], ring_off[m]]. Refused unless W is the block's size, every ring is
+// at least a step long, a ring a stencil reads is at least the reach, the
+// rings fit the shared bytes without overlapping, and grid slabs cover [0, n).
+template <typename T>
+inline bool make_wave_plan(WavePlan* pl, const long long* plan, int plan_len, int s, long long n,
+                           long long reach, int grid) {
+  const int m = 2 * s + 1;
+  if (s < 1 || s > kWaveMaxS || plan_len != kWavePlanHead + 3 * m) return false;
+  pl->width = plan[0];
+  pl->lag_use = plan[1];
+  pl->slab = plan[2];
+  if (pl->width != kWaveThreads || pl->slab < 1 || grid < 1 || pl->slab * grid < n) return false;
+  long long end = 0;
+  for (int l = 0; l < m; ++l) {
+    const long long q = plan[kWavePlanHead + m + l], off = plan[kWavePlanHead + 2 * m + l];
+    const bool feeds = l != s && l != 2 * s && l != s + 1 && l != 0;  // not a top, not a copy
+    if (q < pl->width || (feeds && q < reach) || off < end || q > (1LL << 30)) return false;
+    end = off + q;
+    pl->lag[l] = plan[kWavePlanHead + l];
+    pl->ring[l] = static_cast<int>(q);
+    pl->ring_off[l] = static_cast<int>(off);
+  }
+  return end * static_cast<long long>(sizeof(T)) <= plan[3];
+}
 
 // A level's place in a step: its window's first row, its range [lo, hi) on
 // the slab, whether the whole window and its stencil lie inside the range and
@@ -345,7 +375,11 @@ __device__ __forceinline__ WaveSlots wave_slots(const WavePlan& pl, int l, int s
   return sl;
 }
 
-// Diagonals of a kernel built for ND of them (ND = 0: any number, read at run time)
+// Diagonals of a kernel built for ND of them (ND = 0: any number, read at run
+// time). ND = 5 is built for the 5-point stencils with their offsets sorted
+// and centred, off[0] < off[1] < off[2] = 0 < off[3] < off[4] (wave_dispatch
+// sends other offsets to ND = 0): a tap then wraps round its ring on one side
+// only, and the centre tap is the level's own value.
 template <int ND>
 struct Diags {
   static constexpr int n = ND ? ND : kMaxDiags;
@@ -378,15 +412,16 @@ __device__ __forceinline__ T level_full(const Basis<T, B>& a, const WavePlan& pl
     const int qs = pl.ring[l - 1];
     const T* src = ring + pl.ring_off[l - 1];
     const int base = wrap(sl.src + jj, qs);
+    tc = src[base];
 #pragma unroll
     for (int d = 0; d < Diags<ND>::n; ++d) {
       if (ND || d < a.o.ndiag) {
         int slot = base + static_cast<int>(a.o.off[d]);
-        slot = slot < 0 ? slot + qs : (slot >= qs ? slot - qs : slot);
-        mv += bw[d] * src[slot];
+        if (ND != 5 || d < 2) slot = slot < 0 ? slot + qs : slot;
+        if (ND != 5 || d > 2) slot = slot >= qs ? slot - qs : slot;
+        mv += bw[d] * (ND == 5 && d == 2 ? tc : src[slot]);  // ND = 5: the centre is tc
       }
     }
-    tc = src[base];
   }
   if (!a.newton && k >= 2)
     to = k == 2 ? tp.to : ring[pl.ring_off[l - 2] + wrap(sl.old + jj, pl.ring[l - 2])];
@@ -428,15 +463,28 @@ __device__ __noinline__ Formed<T> level_edge(const Basis<T, B>& a, const WavePla
   return {next_level(a, k, mv, tc, to), true};
 }
 
+// A gen_wave consumer's hook besides its call at the frontier, a no-op unless
+// the consumer defines its own: load(first) issues the consumer's own loads
+// from device memory for the frontier's window [first, first + W) among the
+// step's others, before the call.
+struct WaveUse {
+  __device__ __forceinline__ void load(long long) {}
+};
+
 // All 2s+1 levels (s = S) over the slab [t0, t1) by the wavefront of pl, in
 // the ring buffer of the block's shared memory; slots is a shared
 // [2][kWaveMaxM] table. W is the block's size: thread jj forms row jj of
 // every level's window. The p-chain's level v+1 and the r-chain's level v lag
 // alike, so they share the step's band values: s windows of bands a step, for
-// 2s - 1 levels. A step issues all of its loads from device memory first,
-// then calls use(first row, slots) while they are in flight, then forms and
-// stores its levels. Full windows (inner) take a path with no tests; the few
-// others, at the slab's and the vector's ends, take level_edge. The consumer
+// 2s - 1 levels. A step issues all of its loads from device memory first (the
+// consumer's load hook among them), then calls use(first row, slots) while
+// they are in flight, then forms and stores its levels. Full windows (inner)
+// take a path with no tests; the few others, at the slab's and the vector's
+// ends, take level_edge. A step whose windows are all full (three in four at
+// N = 10,240,000; the and-reduction of the step's barrier says so) runs a copy
+// of the step with no test and no branch a level, which the compiler schedules
+// as one block: on the H100 it took the recover from 1.00 to 0.72 ms with
+// bf16 bands. The consumer
 // may read, at its window's rows, every level formed in an earlier step
 // (wave_at), and nothing else of the rings. Every thread of the block calls
 // it; each step ends with the one barrier. ND (0: any) is the number of
@@ -454,68 +502,86 @@ __device__ __forceinline__ void gen_wave(const Basis<T, B>& a, const WavePlan& p
   const long long f0 = t0 - (S - 1) * a.reach > 0 ? t0 - (S - 1) * a.reach : 0;
   const long long steps = (t1 - f0 + pl.lag_use + w - 1) / w;
   const int jj = threadIdx.x;
-  if (threadIdx.x < M)
-    slots[0][threadIdx.x] = wave_slots(pl, threadIdx.x, S, a.reach, n, t0, t1, f0, false, {});
-  __syncthreads();
+  WaveSlots next;
+  bool inner = true;
+  if (threadIdx.x < M) {
+    next = wave_slots(pl, threadIdx.x, S, a.reach, n, t0, t1, f0, false, {});
+    slots[0][threadIdx.x] = next;
+    inner = next.inner;
+  }
+  // Whether every level's window of the step is full: then the step takes a
+  // path with no test a level (the uniform one of most steps)
+  bool full = __syncthreads_and(inner);
   for (long long t = 0; t < steps; ++t) {
     const WaveSlots* sl = slots[t & 1];
-    // 1. the loads from device memory of the full windows: the copies of
-    // level 0, the bands of the s windows, level 0's taps for level 1 and 2
-    T copy[2], bw[S][Diags<ND>::n];
+    const auto step = [&](auto all_full) {
+      constexpr bool kFull = decltype(all_full)::value;
+      // 1. the loads from device memory of the full windows: the copies of
+      // level 0, the bands of the s windows, level 0's taps for level 1 and 2
+      T copy[2], bw[S][Diags<ND>::n];
 #pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int l = c ? S + 1 : 0;
-      if (sl[l].inner) copy[c] = (c ? r0 : p0)[sl[l].row + jj];
-    }
-#pragma unroll
-    for (int v = 0; v < S; ++v) {  // window v: the p-chain's level v+1, the r-chain's level v
-      if (sl[v + 1].inner) {
-        const B* bp = a.bands + sl[v + 1].row + jj;
-#pragma unroll
-        for (int d = 0; d < Diags<ND>::n; ++d)
-          bw[v][d] = (ND || d < a.o.ndiag) ? widen(bp[d * n]) : T(0);
+      for (int c = 0; c < 2; ++c) {
+        const int l = c ? S + 1 : 0;
+        if (kFull || sl[l].inner) copy[c] = (c ? r0 : p0)[sl[l].row + jj];
       }
-    }
-    Taps<ND, T> tp[2];  // the p-chain's, the r-chain's
 #pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int l1 = c ? S + 2 : 1;  // the chain's level 1 (in window c) and level 2
-      const int top = c ? 2 * S : S;
-      const T* v0 = c ? r0 : p0;
-      if (l1 <= top && sl[l1].inner) {
-        const T* x = v0 + sl[l1].row + jj;
+      for (int v = 0; v < S; ++v) {  // window v: the p-chain's level v+1, the r-chain's level v
+        if (kFull || sl[v + 1].inner) {
+          const B* bp = a.bands + sl[v + 1].row + jj;
 #pragma unroll
-        for (int d = 0; d < Diags<ND>::n; ++d)
-          tp[c].x[d] = (ND || d < a.o.ndiag) ? x[a.o.off[d]] : T(0);
-        tp[c].x0 = x[0];
+          for (int d = 0; d < Diags<ND>::n; ++d)
+            bw[v][d] = (ND || d < a.o.ndiag) ? widen(bp[d * n]) : T(0);
+        }
       }
-      if (l1 + 1 <= top && sl[l1 + 1].inner) tp[c].to = v0[sl[l1 + 1].row + jj];
-    }
-    // 2. the consumer, on rows formed in earlier steps, while the loads fly
-    use(f0 + t * w - pl.lag_use, sl);
-    // 3. this step's levels, stored
+      Taps<ND, T> tp[2];  // the p-chain's, the r-chain's
 #pragma unroll
-    for (int l = 0; l < M; ++l) {
-      const int k = chain_k(l, S);
-      T val;
-      bool ok = true;
-      if (sl[l].inner) {
-        if (k == 0)
-          val = copy[l ? 1 : 0];
-        else
-          val = level_full<S, ND>(a, pl, sl[l], ring, tp[l <= S ? 0 : 1], l, jj,
-                                  bw[l <= S ? k - 1 : k]);
-      } else {
-        const Formed<T> e = level_edge<S>(a, pl, sl[l], ring, l <= S ? p0 : r0, l, jj);
-        val = e.v;
-        ok = e.ok;
+      for (int c = 0; c < 2; ++c) {
+        const int l1 = c ? S + 2 : 1;  // the chain's level 1 (in window c) and level 2
+        const int top = c ? 2 * S : S;
+        const T* v0 = c ? r0 : p0;
+        if (l1 <= top && (kFull || sl[l1].inner)) {
+          const T* x = v0 + sl[l1].row + jj;
+#pragma unroll
+          for (int d = 0; d < Diags<ND>::n; ++d)
+            tp[c].x[d] = (ND || d < a.o.ndiag) ? x[a.o.off[d]] : T(0);
+          tp[c].x0 = ND == 5 ? tp[c].x[2] : x[0];
+        }
+        if (l1 + 1 <= top && (kFull || sl[l1 + 1].inner)) tp[c].to = v0[sl[l1 + 1].row + jj];
       }
-      if (ok) ring[pl.ring_off[l] + wrap(sl[l].own + jj, pl.ring[l])] = val;
+      const long long first = f0 + t * w - pl.lag_use;
+      use.load(first);
+      // 2. the consumer, on rows formed in earlier steps, while the loads fly
+      use(first, sl);
+      // 3. this step's levels, stored
+#pragma unroll
+      for (int l = 0; l < M; ++l) {
+        const int k = chain_k(l, S);
+        T val;
+        bool ok = true;
+        if (kFull || sl[l].inner) {
+          if (k == 0)
+            val = copy[l ? 1 : 0];
+          else
+            val = level_full<S, ND>(a, pl, sl[l], ring, tp[l <= S ? 0 : 1], l, jj,
+                                    bw[l <= S ? k - 1 : k]);
+        } else {
+          const Formed<T> e = level_edge<S>(a, pl, sl[l], ring, l <= S ? p0 : r0, l, jj);
+          val = e.v;
+          ok = e.ok;
+        }
+        if (ok) ring[pl.ring_off[l] + wrap(sl[l].own + jj, pl.ring[l])] = val;
+      }
+    };
+    if (full)
+      step(std::true_type{});
+    else
+      step(std::false_type{});
+    if (threadIdx.x < M) {
+      next = wave_slots(pl, threadIdx.x, S, a.reach, n, t0, t1, f0, true, sl[threadIdx.x]);
+      slots[(t + 1) & 1][threadIdx.x] = next;
+      inner = next.inner;
     }
-    if (threadIdx.x < M)
-      slots[(t + 1) & 1][threadIdx.x] =
-          wave_slots(pl, threadIdx.x, S, a.reach, n, t0, t1, f0, true, sl[threadIdx.x]);
-    __syncthreads();  // this step's levels are formed, and the next step's slots set
+    full = __syncthreads_and(inner);  // this step's levels are formed, the next step's slots set
   }
 }
 
@@ -524,6 +590,40 @@ template <typename T>
 __device__ __forceinline__ T wave_at(const WavePlan& pl, const T* ring, const WaveSlots* sl, int l,
                                      int jj) {
   return ring[pl.ring_off[l] + wrap(sl[l].use + jj, pl.ring[l])];
+}
+
+// f(S, ND) with S = s and ND the diagonals a wavefront kernel is built for,
+// both std::integral_constant: 5 (the 5-point stencils with sorted, centred
+// offsets, see Diags) or 0 (any number, read at run time).
+template <typename F>
+int wave_dispatch(int s, const long long* offsets, int ndiag, F&& f) {
+  using std::integral_constant;
+  const auto in_s = [&](auto nd) {
+    switch (s) {
+      case 1:
+        return f(integral_constant<int, 1>{}, nd);
+      case 2:
+        return f(integral_constant<int, 2>{}, nd);
+      case 3:
+        return f(integral_constant<int, 3>{}, nd);
+      default:
+        return f(integral_constant<int, 4>{}, nd);
+    }
+  };
+  const bool centred = ndiag == 5 && offsets[0] < offsets[1] && offsets[1] < 0 &&
+                       offsets[2] == 0 && 0 < offsets[3] && offsets[3] < offsets[4];
+  return centred ? in_s(integral_constant<int, 5>{}) : in_s(integral_constant<int, 0>{});
+}
+
+// Launches wave kernel K on the stream with the plan's shared bytes, after
+// letting K take them; the launch's error
+template <auto K, typename... Args>
+int wave_launch(int grid, long long shared, void* stream, const Args&... args) {
+  const cudaError_t allowed = allow_shared<K>();
+  if (allowed != cudaSuccess) return static_cast<int>(allowed);
+  K<<<grid, kWaveThreads, static_cast<size_t>(shared), static_cast<cudaStream_t>(stream)>>>(
+      args...);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace cgx

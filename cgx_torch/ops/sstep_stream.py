@@ -3,8 +3,10 @@ their plain versions (counterpart of ``cgx/ops/sstep_stream.py``).
 
 A block of s iterations is two launches that each stream the bands, p
 and r once and regenerate the Krylov basis on chip
-(``cgx_torch/csrc/sstep_stream.cu``, whose header note gives the bound
-and the design):
+(``cgx_torch/csrc/sstep_stream.cu`` and ``sstep_recover.cu``, whose
+header notes give the bound and the designs; both launches of a block
+run the design of :func:`cgx_torch.ops.dia_powers.basis_plan`, recorded
+in ``.design`` and ``.plan``):
 
 - :func:`_sstep_gram` (site ``sstep_stream.py:395``): the Gram matrix
   ``G = V V^T`` in float64, then, in the launch's last block, the replay
@@ -37,7 +39,6 @@ runs too, which cgx's TPU kernels refuse.
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -53,16 +54,15 @@ from cgx_torch.ops._util import (
 )
 from cgx_torch.ops.cg_stream import _resolve_bands_dtype
 from cgx_torch.ops.dia_powers import (
-    BLOCKS_PER_SM,
     MAX_S,
-    MIN_TILE,
-    LaunchShape,
+    BasisPlan,
     _check_layout,
+    basis_plan,
     check_basis,
     dia_sstep_basis_ref,
-    launch_shape,
     shifts_arg,
-    slab_grid,
+    slab_scratch,
+    sms_of,
 )
 from cgx_torch.ops.dia_spmv import _offsets_arg, dia_matvec_ref
 from cgx_torch.solver.cg import CGResult, as_vector
@@ -76,137 +76,37 @@ COEF = 8
 GRAM = COEF + 3 * MAX_M
 STATE_LEN = GRAM + MAX_M * MAX_M
 
-# The Gram launch's wavefront design (csrc/sstep_basis.cuh gen_wave)
-WAVE_THREADS = 512  # kWaveThreads: one block an SM, and W, the rows a level advances a step
-WAVE_MAX_S = 4  # kWaveMaxS: the 45 float64 sums of s = 4 in two threads' registers
-SHARED_OPTIN = 232448  # bytes of shared memory one block may take on the H100 (227 KB)
-WAVE_STATIC = 1024  # of them kept for the kernel's static shared memory (its slot table)
-GRAM_SLAB_SHARED = 64 * 1024  # kGramShared: the slab design's sub-tile
-
-
-class GramPlan(NamedTuple):
-    """How the Gram launch runs. ``design`` is "wavefront" or "slab".
-    For the wavefront: ``width`` W, the consumer's lag ``lag_use`` (the
-    Gram's frontier), each level's ``lags``, ``rings`` (values) and
-    ``ring_offsets`` in basis order (p-chain, then r-chain). ``shared``:
-    dynamic shared bytes a block; ``grid`` blocks, each on one ``slab``
-    of rows."""
-
-    design: str
-    width: int
-    lag_use: int
-    lags: Tuple[int, ...]
-    rings: Tuple[int, ...]
-    ring_offsets: Tuple[int, ...]
-    shared: int
-    grid: int
-    slab: int
-
-    def as_arg(self):
-        """The plan array of csrc/sstep_stream.cu make_wave_plan, and its length."""
-        vals = (self.width, self.lag_use, self.slab, self.shared, *self.lags, *self.rings,
-                *self.ring_offsets)
-        return (ctypes.c_longlong * len(vals))(*vals), len(vals)
-
-
-def level_of(l: int, s: int) -> Tuple[int, int]:
-    """Level l of the basis (p-chain, then r-chain) as (index in its
-    chain, the chain's width)."""
-    return (l, s + 1) if l <= s else (l - s - 1, s)
-
-
-def wave_schedule(s: int, reach: int, width: int):
-    """``(lag_use, lags, rings)`` of the wavefront. Level k >= 1 of the
-    p-chain lags the p-chain's level 1 by (k - 1)(R + W); the r-chain one
-    level later, so that both chains' tops lag (s - 1)(R + W); the Gram
-    reads one step behind the tops; the copies of level 0 one step ahead
-    of the Gram. A ring holds its level from the newest row it writes back
-    to the oldest row a reader still reads in the same step: the next
-    level's stencil (its lag + R), the three-term step two levels up, the
-    Gram."""
-    R, W = int(reach), int(width)
-    lag_use = (s - 1) * (R + W) + W
-
-    def lag(k: int, chain_width: int) -> int:
-        if k == 0:
-            return lag_use - W
-        return (k - 1 + (chain_width == s)) * (R + W)
-
-    lags, rings = [], []
-    for l in range(2 * s + 1):
-        k, cw = level_of(l, s)
-        readers = [lag_use]
-        if k >= 1 and k + 1 < cw:
-            readers.append(lag(k + 1, cw) + R)
-        if k >= 1 and k + 2 < cw:
-            readers.append(lag(k + 2, cw))
-        lags.append(lag(k, cw))
-        rings.append(max(readers) - lags[-1] + W)
-    return lag_use, tuple(lags), tuple(rings)
-
-
-def gram_plan(n: int, offsets, s: int, dtype: torch.dtype, sms: int, *,
-              min_slab: int = MIN_TILE) -> GramPlan:
-    """The Gram launch's design on n rows. The rule: the wavefront where
-    s <= WAVE_MAX_S and its rings fit one block's shared memory, with one
-    block an SM; else the slab design with BLOCKS_PER_SM blocks an SM. At
-    N = 10,240,000, s = 4 and R = 3200 float32 vectors take the wavefront
-    (48,000 values, 192,000 bytes), float64 ones the slab (384,000
-    bytes). W is the kernel's block, WAVE_THREADS rows. ``min_slab``: the
-    fewest rows a block's slab may have (a small n takes fewer blocks)."""
-    s = int(s)
-    m = 2 * s + 1
-    npairs = m * (m + 1) // 2
-    item = torch.finfo(dtype).bits // 8
-    reach = max(abs(int(o)) for o in offsets)
-    if s <= WAVE_MAX_S:
-        w = WAVE_THREADS
-        lag_use, lags, rings = wave_schedule(s, reach, w)
-        offs = tuple(int(v) for v in np.cumsum((0,) + rings[:-1]))
-        shared = max(sum(rings) * item, WAVE_THREADS // 32 * npairs * 8, m * m * 8)
-        if shared + WAVE_STATIC <= SHARED_OPTIN:
-            grid = slab_grid(n, sms, min_slab)
-            return GramPlan("wavefront", w, lag_use, lags, rings, offs, shared, grid,
-                            -(-n // grid))
-    return slab_plan(n, s, dtype, sms, min_slab=min_slab)
-
-
-def slab_plan(n: int, s: int, dtype: torch.dtype, sms: int, *,
-              min_slab: int = MIN_TILE) -> GramPlan:
-    """The slab design's plan: BLOCKS_PER_SM blocks an SM, each on one
-    slab, and the sub-tile's shared bytes (what gram_plan picks where the
-    wavefront does not fit; ``chip_smoke.py`` also runs it beside the
-    wavefront)."""
-    m = 2 * int(s) + 1
-    item = torch.finfo(dtype).bits // 8
-    grid = slab_grid(n, BLOCKS_PER_SM * sms, min_slab)
-    rows = GRAM_SLAB_SHARED // (m * item) // 32 * 32
-    return GramPlan("slab", 0, 0, (), (), (), m * rows * item, grid, -(-n // grid))
-
 
 class Workspace(NamedTuple):
-    """Scratch of the two launches on N rows: the slab launch shape (the
-    recover launch's, and the Gram's in the slab design), the
-    block-private basis levels, the Gram's plan, the Gram partials and
-    the ticket (zero between launches; the kernels reset it)."""
+    """Scratch of the two launches on N rows: their plan (one design for
+    both, :func:`cgx_torch.ops.dia_powers.basis_plan`), the slab design's
+    block-private basis levels (empty for the wavefront), the Gram
+    partials and the ticket (zero between launches; the kernels reset
+    it)."""
 
-    shape: LaunchShape
+    plan: BasisPlan
     scratch: torch.Tensor
-    plan: GramPlan
     partials: torch.Tensor
     ticket: torch.Tensor
 
 
-def workspace(device, n: int, offsets, s: int, dtype: torch.dtype) -> Workspace:
-    """The recover launch keeps each block's slab of all m levels after its
-    two working levels; so does the Gram launch in the slab design."""
-    m = 2 * s + 1
-    shape = launch_shape(n, offsets, s, device, keep=m)
-    plan = gram_plan(n, offsets, s, dtype,
-                     torch.cuda.get_device_properties(device).multi_processor_count)
-    return Workspace(shape, torch.empty(shape.scratch, dtype=dtype, device=device), plan,
-                     torch.empty(max(shape.grid, plan.grid) * m * (m + 1) // 2,
-                                 dtype=torch.float64, device=device),
+def workspace_values(plan: BasisPlan, offsets, s: int) -> Tuple[int, int]:
+    """Values of a workspace of ``plan``: the scratch (the slab design
+    keeps each block's slab of all m levels after its two working
+    levels; the wavefront none) and the float64 Gram partials."""
+    m = 2 * int(s) + 1
+    return slab_scratch(plan, offsets, s, keep=m), plan.grid * m * (m + 1) // 2
+
+
+def workspace(device, n: int, offsets, s: int, dtype: torch.dtype,
+              plan: Optional[BasisPlan] = None) -> Workspace:
+    """The workspace of :func:`basis_plan`'s design, or of ``plan``
+    (``slab_plan(...)`` forces the slab design on the card)."""
+    if plan is None:
+        plan = basis_plan(n, tuple(int(o) for o in offsets), int(s), dtype, sms_of(device))
+    scratch, partials = workspace_values(plan, offsets, s)
+    return Workspace(plan, torch.empty(scratch, dtype=dtype, device=device),
+                     torch.empty(partials, dtype=torch.float64, device=device),
                      torch.zeros(1, dtype=torch.int32, device=device))
 
 
@@ -320,12 +220,11 @@ def _sstep_gram(bands, p, r, state, bmat, *, offsets: Sequence[int], s: int, the
             launch("cgx_sstep_gram_wave", p, *head, work.partials.data_ptr(),
                    work.partials.numel(), work.ticket.data_ptr(), n, *basis, *plan.as_arg(),
                    plan.grid, suffix=_suffix(bands, p))
-            _sstep_gram.grid = plan.grid
-        else:  # the slab kernel takes the recover launch's shape
+        else:
             launch("cgx_sstep_gram", p, *head, work.scratch.data_ptr(), work.scratch.numel(),
                    work.partials.data_ptr(), work.partials.numel(), work.ticket.data_ptr(), n,
-                   *basis, work.shape.tile, work.shape.grid, suffix=_suffix(bands, p))
-            _sstep_gram.grid = work.shape.grid
+                   *basis, plan.slab, plan.grid, suffix=_suffix(bands, p))
+        _sstep_gram.grid = plan.grid
         _sstep_gram.design = plan.design
         _sstep_gram.plan = plan
     _sstep_gram.launches += 1
@@ -344,13 +243,21 @@ def _sstep_recover(bands, p, r, x, state, *, offsets: Sequence[int], s: int, the
     else:
         n = p.shape[1]
         work = workspace(p.device, n, offsets, s, p.dtype) if work is None else work
+        plan = work.plan
         sh, nsh = shifts_arg(shifts)
-        launch("cgx_sstep_recover", p, bands.data_ptr(), p[0].data_ptr(), p[1].data_ptr(),
-               r[0].data_ptr(), r[1].data_ptr(), x.data_ptr(), state.data_ptr(),
-               work.scratch.data_ptr(), work.scratch.numel(), work.ticket.data_ptr(), n,
-               _offsets_arg(offsets), len(offsets), s, float(theta), float(delta), sh, nsh,
-               work.shape.tile, work.shape.grid, suffix=_suffix(bands, p))
-        _sstep_recover.grid = work.shape.grid
+        head = (bands.data_ptr(), p[0].data_ptr(), p[1].data_ptr(), r[0].data_ptr(),
+                r[1].data_ptr(), x.data_ptr(), state.data_ptr())
+        basis = (_offsets_arg(offsets), len(offsets), s, float(theta), float(delta), sh, nsh)
+        if plan.design == "wavefront":
+            launch("cgx_sstep_recover_wave", p, *head, work.ticket.data_ptr(), n, *basis,
+                   *plan.as_arg(), plan.grid, suffix=_suffix(bands, p))
+        else:
+            launch("cgx_sstep_recover", p, *head, work.scratch.data_ptr(), work.scratch.numel(),
+                   work.ticket.data_ptr(), n, *basis, plan.slab, plan.grid,
+                   suffix=_suffix(bands, p))
+        _sstep_recover.grid = plan.grid
+        _sstep_recover.design = plan.design
+        _sstep_recover.plan = plan
     _sstep_recover.launches += 1
 
 
@@ -372,8 +279,9 @@ for _fn in (_sstep_gram, _sstep_recover, sstep_replay):
     _fn.launches = 0
     _fn.grid = None  # blocks of the last CUDA launch
 _sstep_gram.bands_dtype = None  # the band storage of the last call
-_sstep_gram.design = None  # gram_plan's design of the last CUDA launch, and the plan
-_sstep_gram.plan = None
+for _fn in (_sstep_gram, _sstep_recover):
+    _fn.design = None  # basis_plan's design of the last CUDA launch, and the plan
+    _fn.plan = None
 
 
 class BlockState(NamedTuple):

@@ -78,27 +78,30 @@ Phases, one JSON object per line each:
 20. sstep kernels: the matrix-powers kernel (float32 and float64), the
     fused s-step Gram and recover kernels (float32 with float32 and with
     bfloat16 bands, and float64) and the replay kernel on lap2d_fd(3200)
-    from seeded p and r, s = 4, Chebyshev and Newton, against their plain
-    versions: the basis and the recovered x, r and p bitwise, the Gram
-    within 1e-12 of sum |v_i v_j| of the plain one's and of the exact
-    sums, in the design gram_plan picks (the wavefront for float32
-    vectors, the slab for float64) and, where that is the wavefront, in
-    the slab design too, the replayed coefficients within 1e-13; the
-    design and its plan recorded; then each one's ms against its bound,
-    the plain version's ms and the peak device memory (the Gram also in
-    the slab design);
+    from seeded p, r and x, s = 4, Chebyshev and Newton, against their
+    plain versions: the basis and the recovered x, r and p bitwise, the
+    Gram within 1e-12 of sum |v_i v_j| of the plain one's and of the exact
+    sums, each of the three in the design basis_plan picks (the wavefront
+    for float32 vectors, the slab for float64) and, where that is the
+    wavefront, in the slab design too, the replayed coefficients within
+    1e-13; the design and its plan recorded; the same checks on
+    lap3d_fd(48) (7 diagonals: the kernels built for any number of them,
+    Chebyshev); then each one's ms against
+    its bound, the plain version's ms and the peak device memory, and
+    the slab design's ms on the same inputs;
 21. sstep path: cgx_torch.solve(lap2d_fd(3200), fp32, method="sstep"),
     which resolves to the fused kernels with bfloat16 bands, twice
     (bitwise equal), and the same call with sstep_powers="pallas" (the
     matrix-powers kernel and the replay kernel), twice; against the plain
     fp32 s-step loop with a float64 Gram, beside the main path's
-    streaming kernel; the Lanczos bounds timed apart as set-up; the fused
-    route's Gram in the wavefront design;
-22. sstep profile: device time by kernel (the Gram's us a block) and the
-    idle share over 64 fused blocks;
+    streaming kernel; the Lanczos bounds timed apart as set-up; every
+    basis kernel of the route in the wavefront design;
+22. sstep profile: device time by kernel (the Gram's and the recover's us
+    a block) and the idle share over 64 fused blocks, and the peak device
+    memory the fused loop takes above its operator and right-hand side;
 23. sstep goldens: dia_sstep_stream_solve in float64 on lap2d_fd(100)
     and lap2d_reference(10000) at tol 1e-10, twice each, against the
-    plain float64 s-step loop;
+    plain float64 s-step loop, both launches in the wavefront design;
 24. stream matvec: kernel B8's two entry points (flat bands, band planes)
     on lap2d_fd(3200) in float32 and float64, bitwise against their plain
     versions, and the sharded halo mat-vec's local product through B8 with
@@ -160,7 +163,13 @@ from cgx_torch import (
 from cgx_torch.cli import main as cli
 from cgx_torch.parallel import make_mesh, make_sharded_solver
 from cgx_torch.parallel import sharded_cg as sc
-from cgx_torch.mats.generators import lap2d_fd, lap2d_fd_coo_lower, lap2d_reference, source_term
+from cgx_torch.mats.generators import (
+    lap2d_fd,
+    lap2d_fd_coo_lower,
+    lap2d_reference,
+    lap3d_fd,
+    source_term,
+)
 from cgx_torch.ops import axpy, cg_kernel, cg_stream, dia_powers, dia_spmv, matvec
 from cgx_torch.ops import sstep_stream as ss
 from cgx_torch.ops._util import f32_exact
@@ -217,6 +226,7 @@ SSTEP_MAIN_CASE = {"dia_sstep_basis_planes": "f32", "sstep_gram": "f32_bf16b",
 GRAM_RTOL = 1e-12  # against sum |v_i v_j|: float64 sums in two orders
 COEF_RTOL = 1e-13  # the replay's coefficients, against their max
 SSTEP_PROFILE_BLOCKS = 64
+GENERIC_GRID = 48  # lap3d_fd(48): N = 110,592, 7 diagonals, reach 2304
 
 # (name substring, HBM bytes/s, float32 FLOP/s, float64 FLOP/s) from
 # NVIDIA's data sheets, dense, without tensor cores; first match wins.
@@ -258,7 +268,7 @@ KERNELS = {
     "stream_iteration_pcg": ("cgx_torch/csrc/cg_stream.cu", "cgx/ops/cg_stream.py:1203"),
     "dia_sstep_basis_planes": ("cgx_torch/csrc/dia_powers.cu", "cgx/ops/dia_powers.py:299"),
     "sstep_gram": ("cgx_torch/csrc/sstep_stream.cu", "cgx/ops/sstep_stream.py:395"),
-    "sstep_recover": ("cgx_torch/csrc/sstep_stream.cu", "cgx/ops/sstep_stream.py:466"),
+    "sstep_recover": ("cgx_torch/csrc/sstep_recover.cu", "cgx/ops/sstep_stream.py:466"),
     # no pallas_call: cgx replays in XLA (replay_block, called at cgx/solver/sstep.py:218
     # and cgx/ops/sstep_stream.py:730); one small kernel here, so the host sets no pace
     "sstep_replay": ("cgx_torch/csrc/sstep_stream.cu", "cgx/solver/sstep.py:284"),
@@ -1435,6 +1445,12 @@ def pair_sums(v: torch.Tensor):
 SSTEP_CONTROL = dict(tol=0.0, nearzero=1e-14, maxiter=10**9)  # no iteration freezes
 
 
+def slab_plan_of(n: int, dtype):
+    """The slab design's plan on this card: what basis_plan picks where the
+    rings do not fit, forced here to run beside the wavefront."""
+    return dia_powers.slab_plan(n, SSTEP_S, dtype, dia_powers.sms_of(DEV))
+
+
 def sstep_inputs(case: str, dia):
     """The case's bands on the card, the bands its kernels stream, and
     seeded p and r."""
@@ -1446,22 +1462,31 @@ def sstep_inputs(case: str, dia):
     return bands, bands.to(torch.bfloat16) if bf16 else bands, p, r
 
 
-def sstep_checks(case: str, basis: str, dia, kw) -> dict:
+def sstep_checks(case: str, basis: str, dia, kw, problem: str = f"lap2d_fd({GRID})") -> dict:
     """One case of the s-step kernels against their plain versions from
     seeded p and r; returns each site's max abs error."""
     dtype, bf16 = SSTEP_CASES[case]
     n = dia.shape[0]
     bands, kb, p, r = sstep_inputs(case, dia)
     errs = {}
-    where = f"sstep {case} {basis}"
+    where = f"sstep {problem} {case} {basis}"
+    powers_designs = {}
     if not bf16:  # the matrix-powers kernel: bands in the vectors' dtype
-        got = dia_powers.dia_sstep_basis_planes(bands, p, r, **kw)
         want = ss.dia_sstep_basis_ref(bands, p, r, **kw)
+        got = dia_powers.dia_sstep_basis_planes(bands, p, r, **kw)
+        design = dia_powers.dia_sstep_basis_planes.design  # basis_plan's for this shape
         sync()
         errs["dia_sstep_basis_planes"] = float((got - want).abs().max())
-        check(torch.equal(got, want), f"{where}: the matrix-powers basis is not the plain one, "
-                                      f"max abs {errs['dia_sstep_basis_planes']}")
-        del got, want
+        powers_designs[design] = torch.equal(got, want)
+        del got
+        if design != "slab":  # the other design on the same inputs, forced
+            got = dia_powers.dia_sstep_basis_planes(bands, p, r, plan=slab_plan_of(n, dtype), **kw)
+            sync()
+            powers_designs["slab"] = torch.equal(got, want)
+            del got
+        check(all(powers_designs.values()), f"{where}: the matrix-powers basis is not the plain "
+              f"one: {powers_designs}, max abs {errs['dia_sstep_basis_planes']}")
+        del want
     m = 2 * SSTEP_S + 1
     gram = slice(ss.GRAM, ss.GRAM + m * m)
     coef = slice(ss.COEF, ss.COEF + 3 * m)
@@ -1469,7 +1494,7 @@ def sstep_checks(case: str, basis: str, dia, kw) -> dict:
     start = seeded_block(bands, p, r, kw)
     got, want = (ss.BlockState(*(t.clone() for t in start)) for _ in range(2))
     ss._sstep_gram(kb, got.p, got.r, got.state, got.bmat, **kw, **SSTEP_CONTROL)
-    plan = ss._sstep_gram.plan  # gram_plan's design for this shape
+    plan = ss._sstep_gram.plan  # basis_plan's design for this shape
     ss._gram_ref(kb, want.p, want.r, want.state, want.bmat, **kw, **SSTEP_CONTROL)
     sync()
     g_kern, g_plain = got.state[gram].view(m, m), want.state[gram].view(m, m)
@@ -1481,11 +1506,11 @@ def sstep_checks(case: str, basis: str, dia, kw) -> dict:
     check(gram_rel <= GRAM_RTOL, f"{where}: Gram off the plain one by {gram_rel} of sum|v_i v_j|")
     check(kern_exact <= GRAM_RTOL, f"{where}: Gram off the exact sums by {kern_exact}")
     designs = {plan.design: {"rel_to_plain": gram_rel, "rel_to_exact": kern_exact}}
+    slab = None
     if plan.design != "slab":  # the other design on the same inputs, forced
         other = ss.BlockState(*(t.clone() for t in start))
-        work = ss.workspace(DEV, n, kw["offsets"], SSTEP_S, dtype)
-        work = work._replace(plan=ss.slab_plan(n, SSTEP_S, dtype, plan.grid))
-        ss._sstep_gram(kb, other.p, other.r, other.state, other.bmat, work=work, **kw,
+        slab = ss.workspace(DEV, n, kw["offsets"], SSTEP_S, dtype, plan=slab_plan_of(n, dtype))
+        ss._sstep_gram(kb, other.p, other.r, other.state, other.bmat, work=slab, **kw,
                        **SSTEP_CONTROL)
         sync()
         g_slab = other.state[gram].view(m, m)
@@ -1493,7 +1518,7 @@ def sstep_checks(case: str, basis: str, dia, kw) -> dict:
                            "rel_to_exact": float(((g_slab - exact).abs() / scale).max())}
         check(max(designs["slab"].values()) <= GRAM_RTOL,
               f"{where}: the slab design's Gram is off by {designs['slab']}")
-        del other, work
+        del other
     # the replay: the replay kernel and its plain version on the kernel's G, from
     # the start's scalars; the Gram launch's own replay runs the same device code
     rk, rp = start.state.clone(), start.state.clone()
@@ -1513,25 +1538,37 @@ def sstep_checks(case: str, basis: str, dia, kw) -> dict:
     check(torch.equal(got.state[flags], want.state[flags]),
           f"{where}: k/conv/brk/live {got.state[flags].tolist()} against "
           f"{want.state[flags].tolist()}")
-    # the recover launch from the same coefficients on both sides
+    # the recover launch from the same coefficients and a seeded x on both sides, in
+    # basis_plan's design and, where that is the wavefront, in the slab design
     want.state.copy_(got.state)
-    ss._sstep_recover(kb, got.p, got.r, got.x, got.state, **kw)
+    want.x.copy_(p)
+    after_gram = ss.BlockState(*(t.clone() for t in want))
     ss._recover_ref(kb, want.p, want.r, want.x, want.state, **kw)
-    sync()
-    errs["sstep_recover"] = max(float((a - w).abs().max()) for a, w in zip(got[:3], want[:3]))
-    same = all(torch.equal(a, w) for a, w in zip(got[:4], want[:4]))
-    check(same, f"{where}: recovered x, r, p or state differ from the plain version, "
-                f"max abs {errs['sstep_recover']}")
+    recover_designs = {}
+    for work in (None, slab) if slab is not None else (None,):
+        mine = ss.BlockState(*(t.clone() for t in after_gram))
+        ss._sstep_recover(kb, mine.p, mine.r, mine.x, mine.state, work=work, **kw)
+        sync()
+        recover_designs[ss._sstep_recover.design] = all(
+            torch.equal(a, w) for a, w in zip(mine[:4], want[:4]))
+        if work is None:
+            errs["sstep_recover"] = max(float((a - w).abs().max())
+                                        for a, w in zip(mine[:3], want[:3]))
+    del mine, after_gram, slab
+    same = all(recover_designs.values())
+    check(same, f"{where}: recovered x, r, p or state differ from the plain version: "
+                f"{recover_designs}, max abs {errs['sstep_recover']}")
     emit({"phase": "sstep_kernel_check", "case": case, "basis": basis,
-          "problem": f"lap2d_fd({GRID})", "n": n, "dtype": str(dtype),
+          "problem": problem, "n": n, "dtype": str(dtype),
           "bands_dtype": str(kb.dtype), "max_abs_err": errs, "gram_rel_err": gram_rel,
           "gram_rel_err_to_exact": kern_exact, "plain_gram_rel_err_to_exact": plain_exact,
           "coef_rel_err": coef_rel, "powers_checked": not bf16, "recover_bitwise": same,
           "state_after_gram": got.state[:ss.COEF].tolist(),
-          "grid": {"gram": plan.grid, "recover": ss._sstep_recover.grid},
+          "grid": {"gram": plan.grid, "recover": plan.grid},
           "gram_design": plan.design, "gram_plan": {"width": plan.width, "shared": plan.shared,
                                                     "grid": plan.grid, "slab": plan.slab},
-          "gram_designs": designs})
+          "gram_designs": designs, "recover_bitwise_by_design": recover_designs,
+          "powers_bitwise_by_design": powers_designs})
     return errs
 
 
@@ -1560,6 +1597,17 @@ def sstep_times(spec, case: str, dia, kw) -> dict:
         "sstep_replay": (lambda: ss.sstep_replay(st.state, st.bmat, s=SSTEP_S, **SSTEP_CONTROL),
                          lambda: ss._replay_ref(st.state, st.bmat, s=SSTEP_S, **SSTEP_CONTROL)),
     }
+    slab = None
+    slab_runs = {}
+    if work.plan.design != "slab":
+        slab_plan = slab_plan_of(n, dtype)
+        slab = ss.workspace(DEV, n, kw["offsets"], SSTEP_S, dtype, plan=slab_plan)
+        slab_runs = {
+            "sstep_gram": lambda: ss._sstep_gram(kb, st.p, st.r, st.state, st.bmat, work=slab,
+                                                 **kw, **SSTEP_CONTROL),
+            "sstep_recover": lambda: recover(ss._sstep_recover, work=slab),
+            "dia_sstep_basis_planes": lambda: dia_powers.dia_sstep_basis_planes(
+                bands, p, r, plan=slab_plan, **kw)}
     if not bf16:
         runs["dia_sstep_basis_planes"] = (lambda: dia_powers.dia_sstep_basis_planes(bands, p, r,
                                                                                     **kw),
@@ -1578,17 +1626,16 @@ def sstep_times(spec, case: str, dia, kw) -> dict:
                "bands_dtype": str(kb.dtype), "ms": ms, "bound_ms": bound, "bound_by": bound_by,
                "bound_share": bound / ms, "plain_ms": plain_ms, "max_memory_allocated": peak,
                "grid": SSTEP_SITES[site].grid}
-        if site == "sstep_gram":
+        if site != "sstep_replay":  # basis_plan's design, and the slab design forced
             rec["design"] = work.plan.design
-            if work.plan.design != "slab":  # the slab design on the same inputs
-                slab = work._replace(plan=ss.slab_plan(n, SSTEP_S, dtype, work.plan.grid))
-                rec["slab_ms"] = time_ms(lambda: ss._sstep_gram(
-                    kb, st.p, st.r, st.state, st.bmat, work=slab, **kw, **SSTEP_CONTROL))
+        if site in slab_runs:
+            rec["slab_ms"] = time_ms(slab_runs[site])
+            rec["slab_bound_share"] = bound / rec["slab_ms"]
         if site == "sstep_recover":
             rec["note"] = "each timed call also copies 2 words of the state (the live mark)"
         emit(rec)
         records[site] = rec
-    del bands, kb, st, work
+    del bands, kb, st, work, slab, slab_runs
     sync()
     return records
 
@@ -1632,6 +1679,14 @@ def phase_sstep_kernels(spec, bounds) -> dict:
             if basis == "chebyshev":
                 errs[case] = e
             sync()
+    # a 7-point stencil: the wavefront kernels built for any number of diagonals
+    # (the main path's 5-point kernels are built for sorted, centred offsets)
+    dia3 = lap3d_fd(GENERIC_GRID)
+    bounds3 = spectral_bounds(as_operator(dia3, torch.float32, device=DEV), dia3.shape[0])
+    for case in SSTEP_CASES:
+        sstep_checks(case, "chebyshev", dia3, sstep_kw(dia3, bounds3),
+                     problem=f"lap3d_fd({GENERIC_GRID})")
+        sync()
     records = {}
     for case in SSTEP_CASES:
         for site, rec in sstep_times(spec, case, dia, sstep_kw(dia, bounds)).items():
@@ -1639,7 +1694,8 @@ def phase_sstep_kernels(spec, bounds) -> dict:
                 records[site] = {"max_abs_err": errs[case][site], "ms": rec["ms"],
                                  "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                                  "bound_by": rec["bound_by"],
-                                 "library_ms": None}  # no one PyTorch call builds a Krylov basis
+                                 "library_ms": None,  # no one PyTorch call builds a Krylov basis
+                                 "design": rec.get("design"), "slab_ms": rec.get("slab_ms")}
     return records
 
 
@@ -1687,6 +1743,9 @@ def phase_sstep_path(spec, bounds, bounds_seconds: float, b4: dict) -> dict:
                "blocks_launched": blocks, "launches": {s_: launches[s_] for s_ in SSTEP_SITES},
                "bands_dtype": str(ss._sstep_gram.bands_dtype) if route == "fused" else "float32",
                "gram_design": ss._sstep_gram.design if route == "fused" else None,
+               "recover_design": ss._sstep_recover.design if route == "fused" else None,
+               "powers_design": (dia_powers.dia_sstep_basis_planes.design
+                                 if route == "pallas" else None),
                "bound_us_per_iter": bound_block / SSTEP_S * 1e3,
                "bound_counts": bound_sites,
                "k_plain": k_plain, "plain_seconds": plain_seconds,
@@ -1705,8 +1764,9 @@ def phase_sstep_path(spec, bounds, bounds_seconds: float, b4: dict) -> dict:
         others = {name: c for name, c in launches.items()
                   if name not in (*sites, "stream_iteration") and name in KERNELS and c}
         check(not others, f"{where} launched other kernels: {others}")
-        check(route != "fused" or rec["gram_design"] == "wavefront",
-              f"{where}: the Gram ran the {rec['gram_design']} design")
+        designs = ((rec["gram_design"], rec["recover_design"]) if route == "fused"
+                   else (rec["powers_design"],))
+        check(all(d == "wavefront" for d in designs), f"{where}: the designs ran were {designs}")
         check(abs(k - k_plain) <= 0.02 * k_plain, f"{where}: k={k} vs plain k={k_plain}")
         check(max(rel, rel_plain) <= 2 * min(rel, rel_plain),
               f"{where}: true residuals {rel} and {rel_plain} differ by more than 2x")
@@ -1725,7 +1785,11 @@ def phase_sstep_profile(op, b_dev, bounds) -> None:
 
     iters = SSTEP_PROFILE_BLOCKS * SSTEP_S
     kw = dict(s=SSTEP_S, bounds=bounds, tol=0.0, maxiter=iters, device=DEV)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     dia_sstep_stream_solve(op, b_dev, **kw)
+    peak = torch.cuda.max_memory_allocated() - held  # the loop's state and workspace
     sync()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1737,6 +1801,7 @@ def phase_sstep_profile(op, b_dev, bounds) -> None:
             continue
         name = next((key for key, kn in (("gram_kernel", "gram_wave_kernel"),
                                          ("gram_kernel", "gram_slab_kernel"),
+                                         ("recover_kernel", "recover_wave_kernel"),
                                          ("recover_kernel", "recover_kernel")) if kn in e.name),
                     "other")
         us = e.time_range.elapsed_us()
@@ -1744,13 +1809,14 @@ def phase_sstep_profile(op, b_dev, bounds) -> None:
         busy_us += us
         count += 1
     emit({"phase": "sstep_profile", "blocks": SSTEP_PROFILE_BLOCKS, "k": k,
-          "gram_design": ss._sstep_gram.design,
+          "gram_design": ss._sstep_gram.design, "recover_design": ss._sstep_recover.design,
           "gram_us_per_block": by_name.get("gram_kernel", 0.0),
+          "recover_us_per_block": by_name.get("recover_kernel", 0.0),
           "profiled_us_per_iter": wall_us / iters, "device_events": count,
           "device_us_per_block": by_name,
           "device_busy_us_per_block": busy_us / SSTEP_PROFILE_BLOCKS,
           "profiled_wall_us_per_block": wall_us / SSTEP_PROFILE_BLOCKS,
-          "idle_share": 1 - busy_us / wall_us})
+          "idle_share": 1 - busy_us / wall_us, "peak_bytes_above_inputs": peak})
     check(k == iters and by_name.get("gram_kernel", 0) > 0 and by_name.get("recover_kernel", 0) > 0,
           f"sstep profile: k={k}, device time {by_name}")
 
@@ -1779,6 +1845,7 @@ def phase_sstep_goldens() -> None:
         rel, rel_plain = true_rel(dia, res.x.cpu().numpy(), b), true_rel(dia, plain.x.cpu().numpy(), b)
         bitwise = k == k2 and torch.equal(res.x.view(torch.int64), res2.x.view(torch.int64))
         emit({"phase": "sstep_golden", "problem": problem, "dtype": "float64", "s": SSTEP_S,
+              "designs": {"gram": ss._sstep_gram.design, "recover": ss._sstep_recover.design},
               "k": k, "k_plain": k_plain, "true_rel": rel, "true_rel_plain": rel_plain,
               "breakdown": bool(res.breakdown), "bitwise_repeat": bitwise, "seconds": seconds})
         check(bool(res.converged) and abs(k - k_plain) <= SSTEP_S,
@@ -1786,6 +1853,9 @@ def phase_sstep_goldens() -> None:
         check(rel < max(1e-11, 2 * rel_plain),
               f"sstep {problem}: true relative residual {rel} (plain loop {rel_plain})")
         check(bitwise, f"sstep {problem}: two runs differ")
+        check(ss._sstep_gram.design == ss._sstep_recover.design == "wavefront",
+              f"sstep {problem}: the launches ran {ss._sstep_gram.design}, "
+              f"{ss._sstep_recover.design}")
 
 
 def phase_stream_matvec(spec) -> dict:
@@ -2040,7 +2110,9 @@ def main() -> int:
                         "launches": launches[name], "max_abs_err": rec["max_abs_err"],
                         "ms": rec["ms"], "plain_ms": rec["plain_ms"],
                         "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
-                        "library_ms": rec["library_ms"]})
+                        "library_ms": rec["library_ms"],
+                        # the s-step sites' basis_plan design, and the slab design's time
+                        "design": rec.get("design"), "slab_ms": rec.get("slab_ms")})
     print(json.dumps({"kernels": kernels, "not_ported": NOT_PORTED}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -576,6 +576,7 @@ def test_cuda_gram_designs_agree(cuda, g, case):
     """The wavefront and the slab design of the Gram launch, on the same
     inputs: each within 1e-12 of the exact sums (relative to sum|v_i v_j|),
     the same k, conv and brk, and each bitwise repeatable."""
+    from cgx_torch.ops import dia_powers as dp
     from cgx_torch.ops import sstep_stream as ss
 
     dtype = torch.float64 if case == "f64" else torch.float32
@@ -588,7 +589,8 @@ def test_cuda_gram_designs_agree(cuda, g, case):
     n, m = g * g, 9
     work = ss.workspace(cuda, n, dia.offsets, 4, dtype)
     assert work.plan.design == "wavefront"  # a reach of g fits the rings
-    slab = work._replace(plan=ss.slab_plan(n, 4, dtype, work.plan.grid))
+    slab = ss.workspace(cuda, n, dia.offsets, 4, dtype,
+                        plan=dp.slab_plan(n, 4, dtype, work.plan.grid))
     v = ss.dia_sstep_basis_ref(kb, p, r, **kw).double()
     exact, scale = (v @ v.T).reshape(-1), (v.abs() @ v.abs().T).reshape(-1)
     gg, flags = slice(ss.GRAM, ss.GRAM + m * m), [ss.K, ss.CONV, ss.BRK, ss.LIVE]
@@ -603,6 +605,46 @@ def test_cuda_gram_designs_agree(cuda, g, case):
         assert float(((st[gg] - exact).abs() / scale).max()) <= 1e-12
         assert torch.equal(st[flags], states[0][flags])
     assert torch.equal(states[0], states[1]) and torch.equal(states[2], states[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["f32", "bf16", "f64"])
+@pytest.mark.parametrize("g", [33, 700])
+def test_cuda_recover_and_powers_designs_agree(cuda, g, case):
+    """The wavefront and the slab design of the recover launch and of B9,
+    on the same inputs: x, r, p and the state bitwise the plain recover's,
+    the basis bitwise the plain one, in both designs."""
+    from cgx_torch.ops import dia_powers as dp
+    from cgx_torch.ops import sstep_stream as ss
+
+    dtype = torch.float64 if case == "f64" else torch.float32
+    dia, bands, p, r = _sstep_inputs(g, dtype, cuda)
+    kb = bands.to(torch.bfloat16) if case == "bf16" else bands
+    kw = dict(offsets=dia.offsets, s=4, shifts=(), **SSTEP)
+    sk = dict(tol=0.0, nearzero=1e-14, maxiter=10**6)
+    base = ss.initial_state(bands, r, torch.zeros_like(r), 0.0, **kw)
+    base.p[0].copy_(p)
+    base.x.copy_(p)
+    ss._gram_ref(kb, base.p, base.r, base.state, base.bmat, **kw, **sk)
+    n = g * g
+    work = ss.workspace(cuda, n, dia.offsets, 4, dtype)
+    assert work.plan.design == "wavefront"
+    slab_plan = dp.slab_plan(n, 4, dtype, work.plan.grid)
+    slab = ss.workspace(cuda, n, dia.offsets, 4, dtype, plan=slab_plan)
+    want = [t.clone() for t in base]
+    ss._recover_ref(kb, want[1], want[2], want[0], want[3], **kw)
+    for wk in (work, slab):
+        got = [t.clone() for t in base]
+        ss._sstep_recover(kb, got[1], got[2], got[0], got[3], work=wk, **kw)
+        assert ss._sstep_recover.design == wk.plan.design
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, w) for a, w in zip(got[:4], want[:4]))
+    if case != "bf16":
+        ref = dp.dia_sstep_basis_ref(bands, p, r, **kw)
+        for plan in (None, slab_plan):
+            got = dp.dia_sstep_basis_planes(bands, p, r, plan=plan, **kw)
+            assert dp.dia_sstep_basis_planes.design == ("slab" if plan else "wavefront")
+            assert torch.equal(got, ref)
 
 
 @pytest.mark.cuda
