@@ -8,16 +8,20 @@ runs, from CHECKOUT (the root of a checkout: this one, or another unpacked
 with ``git archive`` into a directory ``.gitignore`` lists), after its
 ``chip_smoke.py`` device and build phases: the reference project's CLI run
 (``lap2D_5pt_n100.mtx 1024 16 true``: fp64, N = 10,000, the dense kernel)
-RUNS times in-process, and ``solve(lap2d_fd(3200), fp32, method="sstep")``
+RUNS times in-process, ``solve(lap2d_fd(3200), fp32, method="sstep")``
 (N = 10,240,000) once on each s-step route: "auto" (the fused s-step
 kernels) and ``sstep_powers="pallas"`` (the matrix-powers and replay
-kernels). It prints one line, ``RESULT {json}``, with the CLI's seconds
-(the first run included: it pays the first calls), each s-step solve's k
-and seconds, and the peak device memory (``torch.cuda.max_memory_allocated``)
-that 64 fused blocks take above their operator and right-hand side, given
-the solve's bounds (the fused loop's state and workspace). Host clocks vary
-between calls and cards, so compare two checkouts only within one call,
-in turns (A, B, B, A). It needs a CUDA device.
+kernels), and the stream PCG solve ``solve(lap2d_fd(3200), fp32,
+use_pallas=True, precond="neumann")`` (kernel B6) once; then the time of
+one B6 iteration and of one B8 planes product (float32 and float64) on
+lap2d_fd(3200), as the checkout runs them. It prints one line,
+``RESULT {json}``, with the CLI's seconds (the first run included: it pays
+the first calls), each solve's k and seconds, the kernels' ms, and the
+peak device memory (``torch.cuda.max_memory_allocated``) that 64 fused
+blocks take above their operator and right-hand side, given the solve's
+bounds (the fused loop's state and workspace). Host clocks vary between
+calls and cards, so compare two checkouts only within one call, in turns
+(A, B, B, A). It needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ def main(root: str, label: str) -> int:
     from cgx_torch import SolveConfig, as_operator, dia_sstep_stream_solve, solve
     from cgx_torch.solver.chebyshev import spectral_bounds
     from cgx_torch.mats.generators import lap2d_fd, lap2d_fd_coo_lower, source_term
+    from cgx_torch.ops import cg_stream, dia_spmv
 
     cs.phase_device()
     cs.phase_build()
@@ -59,8 +64,10 @@ def main(root: str, label: str) -> int:
     op = as_operator(dia, torch.float32, device="cuda")
     b_dev = torch.as_tensor(b, dtype=torch.float32, device="cuda")
     tol = 1e-5 * float(np.linalg.norm(b))
-    for key, extra in (("sstep", {}), ("sstep_pallas", {"sstep_powers": "pallas"})):
-        cfg = SolveConfig(precision="fp32", method="sstep", tolerance=tol, **extra)
+    for key, extra in (("sstep", {"method": "sstep"}),
+                       ("sstep_pallas", {"method": "sstep", "sstep_powers": "pallas"}),
+                       ("stream_pcg", {"use_pallas": True, "precond": "neumann"})):
+        cfg = SolveConfig(precision="fp32", tolerance=tol, **extra)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = solve(op, b_dev, cfg, device="cuda")
@@ -73,6 +80,23 @@ def main(root: str, label: str) -> int:
     held = torch.cuda.memory_allocated()
     dia_sstep_stream_solve(op, b_dev, s=4, bounds=bounds, tol=0.0, maxiter=256, device="cuda")
     out["fused_loop_peak_bytes_above_inputs"] = torch.cuda.max_memory_allocated() - held
+    del op, b_dev
+    torch.cuda.empty_cache()
+    offsets, n = tuple(dia.offsets), dia.shape[0]
+    kw = dict(offsets=offsets, tol=0.0, nearzero=1e-14, maxiter=10**9)
+    bands, st = cs.stream_state(dia, torch.float32, True, False)
+    work = cg_stream.workspace("cuda", n)
+    out["b6_ms"] = cs.time_ms(lambda: cg_stream.step(bands, st, work=work, **kw))
+    del bands, st, work
+    for dtype in (torch.float32, torch.float64):
+        bands = torch.as_tensor(dia.bands, dtype=dtype, device="cuda")
+        planes = dia_spmv.stream2d_band_planes(bands, rows=256, cols=512).contiguous()
+        x = torch.as_tensor(np.random.default_rng(0).standard_normal(n), dtype=dtype,
+                            device="cuda")
+        out[f"b8_planes_ms_{str(dtype)[6:]}"] = cs.time_ms(
+            lambda: dia_spmv.dia_matvec_stream2d_planes(planes, x, offsets=offsets))
+        del bands, planes, x
+        torch.cuda.empty_cache()
     print("RESULT " + json.dumps(out), flush=True)
     return 0
 

@@ -51,7 +51,7 @@ _SIGNATURES = {
         "cgx_dia_matvec_dot": (_p, _p, _p, _p, _n, _p, _p, _n, _offs, _i, _p),
     },
     "dia_stream": {
-        "cgx_dia_matvec_stream": (_p, _n, _p, _p, _n, _offs, _i, _p),
+        "cgx_dia_matvec_stream": (_p, _n, _p, _p, _n, _offs, _i, _offs, _i, _i, _p),
     },
     "axpy": {
         "cgx_fused_update_rs": (_p, _p, _p, _p, _p, _p, _p, _p, _n, _p, _p, _n, _p),
@@ -68,6 +68,8 @@ _SIGNATURES = {
     "cg_stream": {
         "cgx_cg_stream": (_p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _n, _p, _p, _n, _offs,
                           _i, _i, _d, _d, _d, _i, _i_out, _p),
+        "cgx_pcg_wave": (_p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _n, _p, _p, _n, _offs, _i,
+                         _d, _d, _d, _offs, _i, _i, _p),
     },
     "dia_powers": {
         "cgx_dia_sstep_basis": (_p, _p, _p, _p, _p, _n, _n, _offs, _i, _i, _d, _d, _d_in, _i,
@@ -91,7 +93,8 @@ _SIGNATURES = {
 }
 # Entries that also take bfloat16 bands under float32 vectors, bound with
 # this suffix (cgx_torch.ops._util.BF16_BANDS_SUFFIX).
-_BF16_BANDS = ("cgx_dia_cg_chunk", "cgx_cg_stream", "cgx_sstep_gram", "cgx_sstep_recover",
+_BF16_BANDS = ("cgx_dia_cg_chunk", "cgx_cg_stream", "cgx_pcg_wave", "cgx_sstep_gram",
+               "cgx_sstep_recover",
                "cgx_sstep_gram_wave", "cgx_sstep_recover_wave")
 # Entries with one variant only: the replay works on the float64 state.
 _ONLY = {"cgx_sstep_replay": ("_f64",)}

@@ -17,141 +17,322 @@
 // is 287 MB in float (86 us at 3.35 TB/s) and 573 MB in double.
 //
 // Design. cgx's TPU kernels keep x in HBM and DMA a double-buffered halo
-// window of it into VMEM for each block of rows; that is a TPU layout device
-// and is not copied here. What the Hopper kernel takes from it is that x is
-// staged on chip: a block owns a tile of `tile` consecutive rows; the offsets
-// are grouped into clusters of neighbouring offsets (a gap of at most `tile`),
-// and for each cluster the block loads the x segment its tile needs,
-// [t0 + lo, t0 + tile + hi), margins included, into shared memory with
-// coalesced loads, zero-filled outside [0, n). Every band's term then comes
-// from shared memory. For lap2d_fd(3200) (offsets -3200, -1, 0, 1, 3200) and
-// the 2048-row tile that is three segments, 2048 + 2048 + 2050 elements: 24.6
-// KB in float, 49.2 KB in double. Above 48 KB a block needs the dynamic
-// shared-memory opt-in, which the launcher sets on every launch (the
-// choice over a smaller tile: fewer, larger segments keep the halo share of
-// the loads small). A tile of 1024, 512 or 256 rows is taken where the
-// clusters of a wide stencil would not fit kSmemBudget.
-//
-// Not done yet (later speed work): cp.async double buffering across tiles,
-// TMA, vector loads.
+// window of it into VMEM for each block of rows. Here x is staged on chip
+// too, once per block: a persistent grid of a few blocks an SM, each walking
+// a contiguous run of tiles (tile = 4 rows a thread). The offsets are grouped
+// into clusters (cgx_torch.ops.dia_spmv.stream_plan: one cluster while its
+// ring fits, so the 5- and 7-point stencils take one), and each cluster keeps
+// a ring of x in shared memory indexed by row modulo its length Q >= 2 tile +
+// span + 8: the window [t + lo, t + tile + hi) a tile reads, and the next
+// tile's tile new rows, which 16-byte cp.async copies bring in while the
+// current tile's products run. So each x value enters shared memory once per
+// block and cluster, a tile costs one barrier, and no block waits on a lone
+// staging pass but its first. The ring's first four values are mirrored past
+// its end, so four consecutive rows never wrap. Each thread owns 4
+// consecutive rows: 16-byte loads of each band row where the band's rows lie
+// on the 16-byte grid (every band of the planes, whose stride is a multiple
+// of 131,072; band d of the flat form where d * n % 4 == 0), else four scalar
+// loads, and a 16-byte store of y; the rows past n take a scalar tail. A tap
+// whose offset is a multiple of 4 reads its four x values as one 16-byte
+// shared load. An x that is off the 16-byte grid (a view) is copied value by
+// value; y is always a fresh tensor. The design before this one (three
+// segments staged per 2048-row block with scalar loads, every x value staged
+// three times, and the shared-memory opt-in set on every launch) took 0.1713
+// ms in float at n = 10,240,000 on an H100 (PERF.md).
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
+#include "common.cuh"
 #include "dia_row.cuh"
 
 namespace cgx {
 
-constexpr int kStreamThreads = 256;
-constexpr int kSmemBudget = 112 * 1024;  // bytes a block may stage
-constexpr int kTiles[] = {2048, 1024, 512, 256};
+constexpr int kStreamThreads = 256;  // the most threads a block (the plan's threads)
+constexpr int kStreamRows = 4;       // rows a thread owns in a tile
+constexpr int kStreamPlanHead = 5;   // threads, tiles a block, shared bytes, clusters, ndiag
+constexpr int kMirror = 4;           // ring values mirrored past its end
 
+// The plan of cgx_torch.ops.dia_spmv.stream_plan.
 struct StreamPlan {
-  long long lo[kMaxDiags];  // each cluster's least offset
-  int width[kMaxDiags];     // tile + the cluster's span: elements staged
-  int base[kMaxDiags];      // where the cluster starts in shared memory
-  int pos[kMaxDiags];       // per diagonal: base of its cluster + (off - lo)
-  int nseg;
-  int ndiag;
+  long long lo[kMaxDiags];    // each cluster's least offset
+  long long hi[kMaxDiags];    // and greatest
+  int ring[kMaxDiags];        // each cluster's ring length Q (a multiple of 4)
+  int ring_off[kMaxDiags];    // its first value in shared memory (a multiple of 4)
+  long long off[kMaxDiags];   // each diagonal's offset
+  int dring[kMaxDiags];       // the ring length of each diagonal's cluster
+  int droff[kMaxDiags];       // and its first value
+  long long tiles_per_block;
   int tile;
-  int smem_elems;
+  int nclus;
+  int ndiag;
+  int vec_x;                  // x on the 16-byte grid: 16-byte copies
+  int vec_y;                  // y on the 16-byte grid: 16-byte stores
+  unsigned band_vec;          // bit d: band d's rows on the 16-byte grid
 };
 
+// The plan array [threads, tiles a block, shared bytes, clusters, ndiag, then
+// (lo, hi, Q, first value) a cluster, then the cluster of each diagonal].
+// Refused unless the tile is 4 rows a thread, every ring holds a tile's window
+// and the next tile's rows, the rings fit the shared bytes without
+// overlapping, each diagonal lies in its cluster, and the tiles cover [0, n).
 template <typename T>
-__global__ void __launch_bounds__(kStreamThreads)
-dia_stream_kernel(const T* __restrict__ bands, long long stride, const T* __restrict__ x,
-                  T* __restrict__ y, long long n, StreamPlan p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* seg = reinterpret_cast<T*>(smem_raw);
-  const long long t0 = static_cast<long long>(blockIdx.x) * p.tile;
-#pragma unroll
-  for (int c = 0; c < kMaxDiags; ++c) {  // static indices keep p in the parameter bank
-    if (c < p.nseg) {
-      const long long g0 = t0 + p.lo[c];
-      T* dst = seg + p.base[c];
-      for (int k = threadIdx.x; k < p.width[c]; k += kStreamThreads) {
-        const long long j = g0 + k;
-        dst[k] = (j >= 0 && j < n) ? x[j] : T(0);
-      }
-    }
+static bool make_stream_plan(StreamPlan* p, const long long* plan, int plan_len,
+                             const long long* offsets, int ndiag, long long n, int grid,
+                             int* threads) {
+  if (plan_len < kStreamPlanHead) return false;
+  const long long nthreads = plan[0], nclus = plan[3];
+  if (nthreads < 32 || nthreads > kStreamThreads || nthreads % 32 || plan[4] != ndiag ||
+      nclus < 1 || nclus > ndiag || plan_len != kStreamPlanHead + 4 * nclus + ndiag)
+    return false;
+  *threads = static_cast<int>(nthreads);
+  p->tile = static_cast<int>(nthreads * kStreamRows);
+  p->tiles_per_block = plan[1];
+  if (p->tiles_per_block < 1 || grid < 1 || p->tiles_per_block * grid * p->tile < n) return false;
+  long long end = 0;
+  for (int c = 0; c < kMaxDiags; ++c) p->lo[c] = p->hi[c] = 0, p->ring[c] = p->ring_off[c] = 0;
+  for (int c = 0; c < nclus; ++c) {
+    const long long* e = plan + kStreamPlanHead + 4 * c;
+    const long long q = e[2];
+    if (e[1] < e[0] || q % 4 || q < 2LL * p->tile + (e[1] - e[0]) + 8 || e[3] % 4 ||
+        e[3] < end || q > (1LL << 28))
+      return false;
+    p->lo[c] = e[0];
+    p->hi[c] = e[1];
+    p->ring[c] = static_cast<int>(q);
+    p->ring_off[c] = static_cast<int>(e[3]);
+    end = e[3] + q + kMirror;
   }
-  __syncthreads();
-  for (int r = threadIdx.x; r < p.tile; r += kStreamThreads) {
-    const long long i = t0 + r;
-    if (i >= n) break;
-    T acc = T(0);
-#pragma unroll
-    for (int d = 0; d < kMaxDiags; ++d) {
-      if (d < p.ndiag) acc += bands[d * stride + i] * seg[p.pos[d] + r];
-    }
-    y[i] = acc;
+  if (end * static_cast<long long>(sizeof(T)) > plan[2] || plan[2] > kSharedOptin) return false;
+  for (int d = 0; d < kMaxDiags; ++d) {
+    p->off[d] = d < ndiag ? offsets[d] : 0;
+    p->dring[d] = 1;
+    p->droff[d] = 0;
+    if (d >= ndiag) continue;
+    const long long c = plan[kStreamPlanHead + 4 * nclus + d];
+    if (c < 0 || c >= nclus || offsets[d] < p->lo[c] || offsets[d] > p->hi[c]) return false;
+    p->dring[d] = p->ring[c];
+    p->droff[d] = p->ring_off[c];
+  }
+  p->nclus = static_cast<int>(nclus);
+  p->ndiag = ndiag;
+  return true;
+}
+
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes, int valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(valid));
+  else if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(src), "r"(valid));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(valid));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n"); }
+
+__device__ __forceinline__ long long stream_pos_mod(long long x, long long q) {
+  const long long r = x % q;
+  return r < 0 ? r + q : r;
+}
+
+// Rows [j0, j1) of x (multiples of 4) into the ring of q values at slot
+// row mod q, zeros outside [0, n); slots 0..3 also at q..q+3. Asynchronous:
+// the caller commits and waits.
+template <typename T>
+__device__ void stage(T* ring, int q, const T* __restrict__ x, long long n, long long j0,
+                      long long j1, bool vec) {
+  const int v = vec ? 16 / static_cast<int>(sizeof(T)) : 1;  // values a copy
+  const long long step = static_cast<long long>(blockDim.x) * v;
+  long long j = j0 + static_cast<long long>(threadIdx.x) * v;
+  if (j >= j1) return;
+  int slot = static_cast<int>(stream_pos_mod(j, q));
+  const int adv = static_cast<int>(step % q);
+  for (; j < j1; j += step) {
+    const long long have = j < 0 ? 0 : (n - j < v ? n - j : v);
+    const int valid = have > 0 ? static_cast<int>(have) * static_cast<int>(sizeof(T)) : 0;
+    const T* src = valid ? x + j : x;
+    cp_async(ring + slot, src, v * static_cast<int>(sizeof(T)), valid);
+    if (slot < kMirror) cp_async(ring + q + slot, src, v * static_cast<int>(sizeof(T)), valid);
+    slot += adv;
+    slot = slot >= q ? slot - q : slot;
   }
 }
 
-// Clusters of the offsets for one tile; false if they would not fit the budget.
-static bool make_plan(const long long* offsets, int ndiag, int tile, int elem_bytes,
-                      StreamPlan* p) {
-  long long s[kMaxDiags];
-  for (int d = 0; d < ndiag; ++d) s[d] = offsets[d];
-  for (int a = 1; a < ndiag; ++a)  // insertion sort: ndiag <= 16
-    for (int b = a; b > 0 && s[b - 1] > s[b]; --b) {
-      const long long t = s[b];
-      s[b] = s[b - 1];
-      s[b - 1] = t;
+__device__ __forceinline__ long long floor4(long long v) { return v >= 0 ? v & ~3LL : -((-v + 3) & ~3LL); }
+__device__ __forceinline__ long long ceil4(long long v) { return -floor4(-v); }
+
+template <typename T>
+struct Vec4 {
+  T v[4];
+};
+
+// Four values from p, 16-byte aligned
+template <typename T>
+__device__ __forceinline__ Vec4<T> load4(const T* p) {
+  Vec4<T> r;
+  if constexpr (sizeof(T) == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    r.v[0] = t.x, r.v[1] = t.y, r.v[2] = t.z, r.v[3] = t.w;
+  } else {
+    const double2 a = reinterpret_cast<const double2*>(p)[0];
+    const double2 b = reinterpret_cast<const double2*>(p)[1];
+    r.v[0] = a.x, r.v[1] = a.y, r.v[2] = b.x, r.v[3] = b.y;
+  }
+  return r;
+}
+
+template <typename T>
+__device__ __forceinline__ void store4(T* p, const T (&v)[4]) {
+  if constexpr (sizeof(T) == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    reinterpret_cast<double2*>(p)[0] = make_double2(v[0], v[1]);
+    reinterpret_cast<double2*>(p)[1] = make_double2(v[2], v[3]);
+  }
+}
+
+// A thread's four band values of one band row from bp: a 16-byte load where
+// bit 0 of vec says the band's rows are on the 16-byte grid and all four rows
+// are below n (whole), else one value a row, zero past n (left: rows below n).
+template <typename T>
+__device__ __forceinline__ Vec4<T> band4(const T* __restrict__ bp, long long left, bool whole,
+                                         unsigned vec) {
+  if (whole && (vec & 1u)) return load4(bp);
+  Vec4<T> r;
+#pragma unroll
+  for (int e = 0; e < kStreamRows; ++e) r.v[e] = e < left ? bp[e] : T(0);
+  return r;
+}
+
+// ND: the diagonals the kernel is built for, their band values loaded ahead
+// of the tile's barrier (5 and 7, the 2D and 3D stencils), or 0: any number,
+// each band loaded as its term is summed.
+template <typename T, int ND>
+__global__ void __launch_bounds__(kStreamThreads)
+    dia_stream_kernel(const T* __restrict__ bands, long long stride, const T* __restrict__ x,
+                      T* __restrict__ y, long long n, StreamPlan p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  const int tile = p.tile;
+  const long long ntiles = (n + tile - 1) / tile;
+  const long long k0 = static_cast<long long>(blockIdx.x) * p.tiles_per_block;
+  const long long k1 = k0 + p.tiles_per_block < ntiles ? k0 + p.tiles_per_block : ntiles;
+  if (k0 >= k1) return;
+  // each diagonal's ring slot of row t + off, for the current tile t
+  int base[kMaxDiags];
+  const long long first = k0 * tile;
+#pragma unroll
+  for (int d = 0; d < kMaxDiags; ++d)  // static indices keep p and base in registers
+    base[d] = d < p.ndiag ? static_cast<int>(stream_pos_mod(first + p.off[d], p.dring[d])) : 0;
+  // the first tile's windows, [floor4(t + lo), ceil4(t + tile + hi)) a cluster
+#pragma unroll
+  for (int c = 0; c < kMaxDiags; ++c)
+    if (c < p.nclus)
+      stage(sm + p.ring_off[c], p.ring[c], x, n, floor4(first + p.lo[c]),
+            ceil4(first + tile + p.hi[c]), p.vec_x);
+  cp_async_commit();
+  for (long long k = k0; k < k1; ++k) {
+    const long long t = k * tile;
+    const long long i = t + static_cast<long long>(threadIdx.x) * kStreamRows;
+    const bool whole = i + kStreamRows <= n;
+    // 1. this thread's band values, in flight across the barrier
+    Vec4<T> bv[ND ? ND : 1];
+#pragma unroll
+    for (int d = 0; d < ND; ++d) bv[d] = band4(bands + d * stride + i, n - i, whole, p.band_vec >> d);
+    // 2. this tile's x is in the rings; the ring slots of the tile before are free
+    cp_async_wait_all();
+    __syncthreads();
+    if (k + 1 < k1) {
+#pragma unroll
+      for (int c = 0; c < kMaxDiags; ++c) {
+        if (c < p.nclus) {
+          const long long j0 = ceil4(t + tile + p.hi[c]);
+          stage(sm + p.ring_off[c], p.ring[c], x, n, j0, j0 + tile, p.vec_x);
+        }
+      }
+      cp_async_commit();
     }
-  long long hi[kMaxDiags];
-  int nseg = 0;
-  for (int d = 0; d < ndiag; ++d) {
-    if (nseg > 0 && s[d] - hi[nseg - 1] <= tile) {
-      hi[nseg - 1] = s[d];
+    // 3. the products, in offset order
+    T acc[kStreamRows] = {T(0), T(0), T(0), T(0)};
+#pragma unroll
+    for (int d = 0; d < (ND ? ND : kMaxDiags); ++d) {
+      if (ND || d < p.ndiag) {
+        const Vec4<T> b4 = ND ? bv[ND ? d : 0]
+                              : band4(bands + d * stride + i, n - i, whole, p.band_vec >> d);
+        const int q = p.dring[d];
+        int s = base[d] + threadIdx.x * kStreamRows;
+        s = s >= q ? s - q : s;
+        const T* xr = sm + p.droff[d] + s;
+        T xv[kStreamRows];
+        if ((p.off[d] & 3) == 0) {
+          const Vec4<T> x4 = load4(xr);
+#pragma unroll
+          for (int e = 0; e < kStreamRows; ++e) xv[e] = x4.v[e];
+        } else {
+#pragma unroll
+          for (int e = 0; e < kStreamRows; ++e) xv[e] = xr[e];
+        }
+#pragma unroll
+        for (int e = 0; e < kStreamRows; ++e) acc[e] += b4.v[e] * xv[e];
+      }
+    }
+    if (whole && p.vec_y) {
+      store4(y + i, acc);
     } else {
-      p->lo[nseg] = s[d];
-      hi[nseg] = s[d];
-      ++nseg;
+#pragma unroll
+      for (int e = 0; e < kStreamRows; ++e)
+        if (i + e < n) y[i + e] = acc[e];
+    }
+#pragma unroll
+    for (int d = 0; d < kMaxDiags; ++d) {
+      if (d < p.ndiag) {
+        const int b = base[d] + tile;
+        base[d] = b >= p.dring[d] ? b - p.dring[d] : b;
+      }
     }
   }
-  long long total = 0;
-  for (int c = 0; c < nseg; ++c) {
-    p->base[c] = static_cast<int>(total);
-    p->width[c] = static_cast<int>(tile + (hi[c] - p->lo[c]));
-    total += p->width[c];
-  }
-  if (total * elem_bytes > kSmemBudget) return false;
-  for (int c = nseg; c < kMaxDiags; ++c) p->lo[c] = 0, p->width[c] = 0, p->base[c] = 0;
-  for (int d = 0; d < kMaxDiags; ++d) {
-    p->pos[d] = 0;
-    if (d >= ndiag) continue;
-    for (int c = 0; c < nseg; ++c)
-      if (offsets[d] >= p->lo[c] && offsets[d] <= hi[c])
-        p->pos[d] = p->base[c] + static_cast<int>(offsets[d] - p->lo[c]);
-  }
-  p->nseg = nseg;
-  p->ndiag = ndiag;
-  p->tile = tile;
-  p->smem_elems = static_cast<int>(total);
-  return true;
+}
+
+// Launches kernel K with the plan's shared bytes, after letting K take them
+// (once a process, common.cuh); the launch's error
+template <auto K, typename T>
+static int stream_launch(int grid, int threads, long long shared, void* stream, const void* bands,
+                         long long stride, const void* x, void* y, long long n,
+                         const StreamPlan& p) {
+  const cudaError_t allowed = allow_shared<K>();
+  if (allowed != cudaSuccess) return static_cast<int>(allowed);
+  K<<<grid, threads, static_cast<size_t>(shared), static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(bands), stride, static_cast<const T*>(x), static_cast<T*>(y), n, p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 static int launch_stream(const void* bands, long long stride, const void* x, void* y, long long n,
-                         const long long* offsets, int ndiag, void* stream) {
+                         const long long* offsets, int ndiag, const long long* plan, int plan_len,
+                         int grid, void* stream) {
   if (n < 0 || stride < n || ndiag < 1 || ndiag > kMaxDiags)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
   StreamPlan p;
-  bool ok = false;
-  for (int tile : kTiles)
-    if ((ok = make_plan(offsets, ndiag, tile, static_cast<int>(sizeof(T)), &p))) break;
-  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  // the >48 KB opt-in holds for the current device only: set it on every launch
-  const cudaError_t e = cudaFuncSetAttribute(
-      dia_stream_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBudget);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const long long blocks = (n + p.tile - 1) / p.tile;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  dia_stream_kernel<T><<<static_cast<unsigned int>(blocks), kStreamThreads,
-                         static_cast<size_t>(p.smem_elems) * sizeof(T),
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(bands), stride, static_cast<const T*>(x), static_cast<T*>(y), n, p);
-  return static_cast<int>(cudaGetLastError());
+  int threads = 0;
+  if (!make_stream_plan<T>(&p, plan, plan_len, offsets, ndiag, n, grid, &threads))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto on_grid = [](const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; };
+  p.vec_x = on_grid(x);
+  p.vec_y = on_grid(y);
+  p.band_vec = 0u;
+  for (int d = 0; d < ndiag; ++d)
+    if (on_grid(static_cast<const T*>(bands) + d * stride)) p.band_vec |= 1u << d;
+  if (ndiag == 5)
+    return stream_launch<dia_stream_kernel<T, 5>, T>(grid, threads, plan[2], stream, bands, stride,
+                                                  x, y, n, p);
+  if (ndiag == 7)
+    return stream_launch<dia_stream_kernel<T, 7>, T>(grid, threads, plan[2], stream, bands, stride,
+                                                  x, y, n, p);
+  return stream_launch<dia_stream_kernel<T, 0>, T>(grid, threads, plan[2], stream, bands, stride, x,
+                                                y, n, p);
 }
 
 }  // namespace cgx
@@ -159,15 +340,20 @@ static int launch_stream(const void* bands, long long stride, const void* x, voi
 extern "C" {
 
 // bands: ndiag rows of `stride` elements (stride = n for the flat form,
-// rows_p * cols for the planes form); x and y: n elements.
+// rows_p * cols for the planes form); x and y: n elements; the plan and grid
+// of cgx_torch.ops.dia_spmv.stream_plan.
 int cgx_dia_matvec_stream_f32(const void* bands, long long stride, const void* x, void* y,
-                              long long n, const long long* offsets, int ndiag, void* stream) {
-  return cgx::launch_stream<float>(bands, stride, x, y, n, offsets, ndiag, stream);
+                              long long n, const long long* offsets, int ndiag,
+                              const long long* plan, int plan_len, int grid, void* stream) {
+  return cgx::launch_stream<float>(bands, stride, x, y, n, offsets, ndiag, plan, plan_len, grid,
+                                   stream);
 }
 
 int cgx_dia_matvec_stream_f64(const void* bands, long long stride, const void* x, void* y,
-                              long long n, const long long* offsets, int ndiag, void* stream) {
-  return cgx::launch_stream<double>(bands, stride, x, y, n, offsets, ndiag, stream);
+                              long long n, const long long* offsets, int ndiag,
+                              const long long* plan, int plan_len, int grid, void* stream) {
+  return cgx::launch_stream<double>(bands, stride, x, y, n, offsets, ndiag, plan, plan_len, grid,
+                                    stream);
 }
 
 }  // extern "C"

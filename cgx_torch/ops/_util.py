@@ -32,6 +32,8 @@ def check_device(t: torch.Tensor, dev: torch.device, name: str) -> None:
 
 
 KERNEL_DTYPES = {torch.float32: "_f32", torch.float64: "_f64"}
+SHARED_OPTIN = 232448  # bytes of shared memory one block may take on the H100 (227 KB)
+MIN_TILE = 1024  # rows of the smallest slab of a slab kernel: a small n takes fewer blocks
 # entries whose bands are stored in bfloat16 under float32 vectors
 BF16_BANDS_SUFFIX = "_f32_bf16b"
 
@@ -51,6 +53,16 @@ def band_storage(vec_dtype: torch.dtype, bands_dtype) -> Optional[torch.dtype]:
 
 def round_up(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+def slab_grid(n: int, blocks: int, min_slab: int = MIN_TILE) -> int:
+    """Blocks of a slab kernel on n rows: ``blocks``, fewer where a slab
+    would have fewer than ``min_slab`` rows."""
+    return max(1, min(blocks, -(-n // min_slab)))
+
+
+def sms_of(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def pow2_rhs_scale(b: torch.Tensor, x0: Optional[torch.Tensor] = None):

@@ -20,16 +20,18 @@ scalars moved the counts past the 2% gate, ROADMAP C).
   its ping-pong pair; the same kernel, so bitwise the split result;
 - :func:`_stream_iteration_pcg` (site ``cg_stream.py:1203``): the
   iteration with the degree-1 Neumann preconditioner
-  ``M^-1 = 2 D^-1 - D^-1 A D^-1``, in three launches.
+  ``M^-1 = 2 D^-1 - D^-1 A D^-1``, in the design :func:`pcg_plan`
+  picks: one launch on a wavefront whose levels c' and u' stay in
+  shared-memory rings where the rings fit, else three launches (an
+  update launch, a preconditioner launch and a mat-vec-and-dots launch).
 
 A launch reads the pair's ``k % 2`` half and writes the other (k is the
 device's count, which a frozen launch keeps), advances p, x (and u) in
 place and rewrites the scalars. On a CUDA tensor each wrapper launches
 its kernel or raises; on a CPU tensor it runs the plain version beside
 it. Each counts in ``.launches`` the kernel launches its calls make (or
-stand for, on the CPU): one an iteration, three for the Neumann PCG,
-whose iteration is an update launch, a preconditioner launch and a
-mat-vec-and-dots launch.
+stand for, on the CPU): one an iteration, and for the Neumann PCG one or
+three, as its plan says.
 
 The host loops :func:`_dia_cg_stream` and :func:`_dia_cg_stream_pcg`
 do cgx's set-up (x0 = 0, w0 = A b or A u0 through the plain mat-vec, as
@@ -45,6 +47,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import math
 from typing import NamedTuple, Optional, Sequence, Tuple
 
@@ -54,11 +57,14 @@ from cgx_torch.config import DEFAULT_TOLERANCE, NEARZERO
 from cgx_torch.ops._util import (
     BF16_BANDS_SUFFIX,
     KERNEL_DTYPES,
+    SHARED_OPTIN,
     band_storage,
     check_operands,
     pow2_rhs_scale,
     resolve_device,
     round_up,
+    slab_grid,
+    sms_of,
 )
 from cgx_torch.ops.dia_spmv import _check as _check_bands
 from cgx_torch.ops.dia_spmv import _offsets_arg, dia_matvec_ref
@@ -70,6 +76,9 @@ LAYOUTS = ("split", "stacked")
 GAMMA, DELTA, RR, GAMMA_OLD, ALPHA_OLD, K, STOP, BREAKDOWN = range(8)
 _SCALARS = 8
 ROWS_PER_BLOCK = 1024  # kThreads * kRowsPerThread of csrc/cg_stream.cu
+# The PCG's wavefront design (csrc/cg_stream.cu pcg_wave_kernel)
+PCG_THREADS = 512  # kPcgThreads: one block an SM, and W, the rows a level advances a step
+PCG_STATIC = 1024  # shared bytes kept for the kernel's static shared memory (the block sums)
 
 
 class Workspace(NamedTuple):
@@ -85,6 +94,77 @@ def workspace(device, n: int) -> Workspace:
     blocks = -(-n // ROWS_PER_BLOCK)
     return Workspace(torch.empty(3 * blocks, dtype=torch.float64, device=device),
                      torch.zeros(1, dtype=torch.int32, device=device))
+
+
+class PcgPlan(NamedTuple):
+    """How the Neumann-PCG iteration runs. ``design`` is "wavefront"
+    (one launch, ``launches`` 1) or "three" (three launches). For the
+    wavefront: ``width`` W; the ``lags`` of L0 (c', the frontier), L1
+    (u') and L2 (w'); the ``rings`` of c', u' and r' (values) and their
+    ``ring_offsets`` in the shared buffer; ``shared`` bytes a block;
+    ``grid`` blocks, each on one ``slab`` of rows."""
+
+    design: str
+    width: int
+    lags: Tuple[int, int, int]
+    rings: Tuple[int, int, int]
+    ring_offsets: Tuple[int, int, int]
+    shared: int
+    grid: int
+    slab: int
+
+    @property
+    def launches(self) -> int:
+        return 1 if self.design == "wavefront" else 3
+
+    def as_arg(self):
+        """The plan array of csrc/cg_stream.cu make_pcg_plan, and its length."""
+        vals = (self.width, self.slab, self.shared, *self.lags[1:], *self.rings,
+                *self.ring_offsets)
+        return (ctypes.c_longlong * len(vals))(*vals), len(vals)
+
+
+def pcg_schedule(reach: int, width: int):
+    """``(lags, rings)`` of the wavefront: L1 lags L0 by R + W and L2
+    lags L1 by R + W (a level's stencil reaches R rows ahead, and it
+    reads only rows the level below finished in an earlier step). A ring
+    holds its level from the oldest row a reader reads in a step to the
+    newest row the level writes in it: c' from R rows before L1's window
+    (2R + 2W), u' from R rows before L2's (2R + 2W), r' from L1's window,
+    where gamma' reads it (R + 2W)."""
+    R, W = int(reach), int(width)
+    lags = (0, R + W, 2 * (R + W))
+    rings = (lags[1] + W + R, lags[2] - lags[1] + W + R, lags[1] + W)
+    return lags, rings
+
+
+def three_plan(n: int) -> PcgPlan:
+    """The three-launch design's plan: a block for each ROWS_PER_BLOCK
+    rows (what pcg_plan picks where the rings do not fit;
+    ``chip_smoke.py`` also runs it beside the wavefront)."""
+    grid = -(-n // ROWS_PER_BLOCK)
+    return PcgPlan("three", 0, (0, 0, 0), (0, 0, 0), (0, 0, 0), 0, grid, ROWS_PER_BLOCK)
+
+
+@functools.lru_cache(maxsize=64)
+def pcg_plan(n: int, offsets: Tuple[int, ...], dtype: torch.dtype, sms: int) -> PcgPlan:
+    """The design of the Neumann-PCG iteration on n rows. The rule: the
+    wavefront where its three rings (in the vectors' dtype) fit one
+    block's shared memory, one block an SM (``sms`` blocks, fewer where
+    a slab would have fewer than MIN_TILE rows); else three launches. At
+    R = 3200 and W = 512 the rings hold 19,072 values: 76,288 bytes in
+    float32, 152,576 in float64, so both take the wavefront at
+    N = 10,240,000. The design depends on the reach and the dtype only,
+    not on ``sms``."""
+    item = torch.finfo(dtype).bits // 8
+    reach = max(abs(int(o)) for o in offsets)
+    lags, rings = pcg_schedule(reach, PCG_THREADS)
+    shared = sum(rings) * item
+    if shared + PCG_STATIC > SHARED_OPTIN:
+        return three_plan(n)
+    offs = (0, rings[0], rings[0] + rings[1])
+    grid = slab_grid(n, sms)
+    return PcgPlan("wavefront", PCG_THREADS, lags, rings, offs, shared, grid, -(-n // grid))
 
 
 def _dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -114,24 +194,55 @@ def _check(fn: str, bands, p, x, u, pairs, scal, offsets) -> Tuple[int, ...]:
     return _check_bands(fn, bands, x, offsets, bf16_bands=True)
 
 
+class Step(NamedTuple):
+    """What a launch derives from the scalars before it touches a vector:
+    alpha and beta (0-d tensors in the vectors' dtype), the breakdown
+    flag, the parity q of the pair halves it reads, and the scalars it
+    read."""
+
+    alpha: torch.Tensor
+    beta: torch.Tensor
+    brk: float
+    q: int
+    gamma: float
+    k: float
+
+
+def step_scalars(scal, dtype, *, nearzero, maxiter) -> Optional[Step]:
+    """The kernels' prelude on the host: None for a frozen launch (stop
+    set, or k >= maxiter), else alpha, beta and the breakdown flag from
+    the float64 scalars, as csrc/cg_stream.cu derives them."""
+    gamma, delta, _, gamma_old, alpha_old, k, stop, brk = scal.tolist()
+    if stop != 0.0 or not k < maxiter:
+        return None
+    first = k == 0.0
+    beta_d = 0.0 if first else gamma / gamma_old
+    denom = delta if first else delta - beta_d * gamma / alpha_old
+    if denom <= 0.0:
+        brk = 1.0
+    alpha = torch.tensor(gamma / _nan_max(denom, gamma * nearzero), dtype=dtype)
+    return Step(alpha, torch.tensor(beta_d, dtype=dtype), brk, int(k) & 1, gamma, k)
+
+
+def new_scalars(scal, st: Step, gamma_new: float, delta_new: float, rr_new: float, *,
+                tol) -> None:
+    """The last block's rewrite of the scalars after an active launch."""
+    stop_new = 0.0 if (rr_new > 0.0 and math.sqrt(rr_new) >= tol) else 1.0
+    scal.copy_(torch.tensor([gamma_new, delta_new, rr_new, st.gamma, float(st.alpha), st.k + 1.0,
+                             stop_new, st.brk], dtype=torch.float64))
+
+
 def _iteration_ref(bands, p, x, u, r, w, s, scal, *, offsets, tol, nearzero, maxiter) -> None:
     """Plain version of the three sites' kernels: one iteration with the
     kernel's arithmetic in torch, the dots summed by ``torch.sum`` in
     float64. ``r``, ``w`` and ``s`` are pairs (indexable by 0 and 1) of
     1-D tensors; ``u`` is None without the preconditioner. Reads the
     scalars on the host."""
-    gamma, delta, _, gamma_old, alpha_old, k, stop, brk = scal.tolist()
-    if stop != 0.0 or not k < maxiter:
+    st = step_scalars(scal, x.dtype, nearzero=nearzero, maxiter=maxiter)
+    if st is None:
         return  # frozen, as the kernel
     dt = x.dtype
-    first = k == 0.0
-    beta_d = 0.0 if first else gamma / gamma_old
-    denom = delta if first else delta - beta_d * gamma / alpha_old
-    if denom <= 0.0:
-        brk = 1.0
-    alpha = torch.tensor(gamma / _nan_max(denom, gamma * nearzero), dtype=dt, device=x.device)
-    beta = torch.tensor(beta_d, dtype=dt, device=x.device)
-    q = int(k) & 1
+    alpha, beta, q = st.alpha.to(x.device), st.beta.to(x.device), st.q
     bw = bands.to(dt)  # exact: bfloat16 widens to float32
     s_new = w[q] + beta * s[q]
     r_new = r[q] - alpha * s_new
@@ -151,55 +262,74 @@ def _iteration_ref(bands, p, x, u, r, w, s, scal, *, offsets, tol, nearzero, max
     s[1 - q].copy_(s_new)
     gamma_new, delta_new = _dot(r_new, u_new).item(), _dot(w_new, u_new).item()
     rr_new = gamma_new if u is None else _dot(r_new, r_new).item()
-    stop_new = 0.0 if (rr_new > 0.0 and math.sqrt(rr_new) >= tol) else 1.0
-    scal.copy_(torch.tensor([gamma_new, delta_new, rr_new, gamma, float(alpha), k + 1.0, stop_new,
-                             brk], dtype=torch.float64))
+    new_scalars(scal, st, gamma_new, delta_new, rr_new, tol=tol)
 
 
-def _count(fn, bands) -> None:
-    """Count the kernel launches one call stands for: the preconditioned
-    iteration is three (csrc/cg_stream.cu), the others one."""
-    fn.launches += 3 if fn is _stream_iteration_pcg else 1
+def _count(fn, bands, launches: int = 1) -> None:
+    """Count the kernel launches one call stands for: one, or the PCG
+    plan's one or three (csrc/cg_stream.cu)."""
+    fn.launches += launches
     fn.bands_dtype = bands.dtype
 
 
-def _launcher(fn, bands, p, x, u, r, w, s, scal, offsets, tol, nearzero, maxiter, work):
+def _launcher(fn, bands, p, x, u, r, w, s, scal, offsets, tol, nearzero, maxiter, work,
+              plan=None):
     """A call that launches the kernel for site ``fn`` on these operands
     (already checked) and counts it. Its C arguments are built once, so a
     host loop on buffers that stay put pays only the call; it runs on
-    the stream that was current here, with x's device current."""
+    the stream that was current here, with x's device current. The PCG
+    runs ``plan`` (default :func:`pcg_plan`'s)."""
     from cgx_torch import _build
 
-    work = workspace(x.device, x.shape[0]) if work is None else work
+    n = x.shape[0]
+    work = workspace(x.device, n) if work is None else work
     suffix = BF16_BANDS_SUFFIX if bands.dtype == torch.bfloat16 else KERNEL_DTYPES[x.dtype]
-    entry = getattr(_build.load(), "cgx_cg_stream" + suffix)
-    grid = ctypes.c_int(0)
-    c = None if u is None else torch.empty_like(x)  # D^-1 r', between the PCG's launches
+    lib = _build.load()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     pairs = [t.data_ptr() for t in (r[0], r[1], w[0], w[1], s[0], s[1])]
-    args = (bands.data_ptr(), p.data_ptr(), x.data_ptr(), *(None if v is None else v.data_ptr()
-                                                             for v in (u, c)),
-            *pairs, work.partials.data_ptr(), work.partials.numel(), work.ticket.data_ptr(),
-            scal.data_ptr(), x.shape[0], _offsets_arg(offsets), len(offsets),
-            offsets.index(0) if u is not None else -1, float(tol), float(nearzero),
-            float(maxiter), int(u is not None), ctypes.byref(grid),
-            torch.cuda.current_stream(x.device).cuda_stream)
+    grid = ctypes.c_int(0)
+    c = None
+    if u is not None and plan is None:
+        plan = pcg_plan(n, offsets, x.dtype, sms_of(x.device))
+    if plan is not None and plan.design == "wavefront":
+        entry = getattr(lib, "cgx_pcg_wave" + suffix)
+        grid.value = plan.grid
+        plan_arg, plan_len = plan.as_arg()
+        args = (bands.data_ptr(), p.data_ptr(), x.data_ptr(), u.data_ptr(), *pairs,
+                work.partials.data_ptr(), work.partials.numel(), work.ticket.data_ptr(),
+                scal.data_ptr(), n, _offsets_arg(offsets), len(offsets), float(tol),
+                float(nearzero), float(maxiter), plan_arg, plan_len, plan.grid, stream)
+    else:
+        entry = getattr(lib, "cgx_cg_stream" + suffix)
+        c = None if u is None else torch.empty_like(x)  # D^-1 r', between the PCG's launches
+        args = (bands.data_ptr(), p.data_ptr(), x.data_ptr(), *(None if v is None else v.data_ptr()
+                                                                 for v in (u, c)),
+                *pairs, work.partials.data_ptr(), work.partials.numel(), work.ticket.data_ptr(),
+                scal.data_ptr(), n, _offsets_arg(offsets), len(offsets),
+                offsets.index(0) if u is not None else -1, float(tol), float(nearzero),
+                float(maxiter), int(u is not None), ctypes.byref(grid), stream)
+    launches = 1 if plan is None else plan.launches
 
     def go() -> None:
         rc = entry(*args)
         if rc != 0:
-            raise RuntimeError(f"cgx_cg_stream: the CUDA launch failed with cudaError {rc}")
+            raise RuntimeError(f"{entry.__name__}: the CUDA launch failed with cudaError {rc}")
         fn.grid = grid.value
-        _count(fn, bands)
+        if plan is not None:
+            fn.design, fn.plan = plan.design, plan
+        _count(fn, bands, launches)
 
     # the tensors whose addresses args holds live as long as the call
     go.operands = (bands, p, x, u, c, r, w, s, scal, work)
     return go
 
 
-def _launch(fn, bands, p, x, u, r, w, s, scal, offsets, tol, nearzero, maxiter, work) -> None:
+def _launch(fn, bands, p, x, u, r, w, s, scal, offsets, tol, nearzero, maxiter, work,
+            plan=None) -> None:
     """One launch of the kernel on the given halves of the pairs."""
     with torch.cuda.device(x.device):
-        _launcher(fn, bands, p, x, u, r, w, s, scal, offsets, tol, nearzero, maxiter, work)()
+        _launcher(fn, bands, p, x, u, r, w, s, scal, offsets, tol, nearzero, maxiter, work,
+                  plan)()
 
 
 def _stream_iteration(bands, p, x, r, w, s, scal, *, offsets: Sequence[int], tol: float,
@@ -236,25 +366,31 @@ def _stream_iteration_stacked(bands, p, x, rws, scal, *, offsets: Sequence[int],
 
 
 def _stream_iteration_pcg(bands, p, x, u, r, w, s, scal, *, offsets: Sequence[int], tol: float,
-                          nearzero: float, maxiter: int,
-                          work: Optional[Workspace] = None) -> None:
-    """One Neumann-preconditioned iteration; u advances in place."""
+                          nearzero: float, maxiter: int, work: Optional[Workspace] = None,
+                          plan: Optional[PcgPlan] = None) -> None:
+    """One Neumann-preconditioned iteration; u advances in place. On the
+    card in the design of :func:`pcg_plan` (``plan=three_plan(n)``
+    forces three launches); on the CPU counted as that design's launches."""
     offsets = _check("_stream_iteration_pcg", bands, p, x, u, {"r": r, "w": w, "s": s}, scal,
                      offsets)
     _diag_index(offsets)
     if x.device.type == "cpu":
         _iteration_ref(bands, p, x, u, r, w, s, scal, offsets=offsets, tol=tol,
                        nearzero=nearzero, maxiter=maxiter)
-        _count(_stream_iteration_pcg, bands)
+        if plan is None:  # the design is the same on any number of SMs
+            plan = pcg_plan(x.shape[0], offsets, x.dtype, 1)
+        _count(_stream_iteration_pcg, bands, plan.launches)
     else:
         _launch(_stream_iteration_pcg, bands, p, x, u, r, w, s, scal, offsets, tol, nearzero,
-                maxiter, work)
+                maxiter, work, plan)
 
 
 for _fn in (_stream_iteration, _stream_iteration_stacked, _stream_iteration_pcg):
     _fn.launches = 0
     _fn.grid = None  # blocks of the last CUDA launch
     _fn.bands_dtype = None  # the band storage of the last call
+_stream_iteration_pcg.design = None  # pcg_plan's design of the last CUDA launch, and the plan
+_stream_iteration_pcg.plan = None
 
 
 def _diag_index(offsets: Sequence[int]) -> int:
@@ -312,12 +448,13 @@ def initial_state(bands, b, tol: float, *, offsets, precond: bool = False,
 
 
 def step(bands, st: StreamState, *, offsets, tol: float, nearzero: float, maxiter: int,
-         work: Optional[Workspace] = None) -> None:
+         work: Optional[Workspace] = None, plan: Optional[PcgPlan] = None) -> None:
     """One iteration on ``st``, through the wrapper of its site: the PCG
-    kernel when ``st`` carries u, else the stacked or the split one."""
+    kernel (in ``plan``'s design) when ``st`` carries u, else the stacked
+    or the split one."""
     kw = dict(offsets=offsets, tol=tol, nearzero=nearzero, maxiter=maxiter, work=work)
     if st.u is not None:
-        _stream_iteration_pcg(bands, st.p, st.x, st.u, st.r, st.w, st.s, st.scal, **kw)
+        _stream_iteration_pcg(bands, st.p, st.x, st.u, st.r, st.w, st.s, st.scal, plan=plan, **kw)
     elif st.rws is not None:
         _stream_iteration_stacked(bands, st.p, st.x, st.rws, st.scal, **kw)
     else:
@@ -520,8 +657,9 @@ def dia_cg_solve_stream_pcg(
     pad_stride=False,
     device="cuda",
 ) -> CGResult:
-    """Neumann-preconditioned streaming CG: one launch per iteration,
-    ``M^-1 = 2 D^-1 - D^-1 A D^-1`` applied inside it, the arithmetic of
+    """Neumann-preconditioned streaming CG: one launch per iteration where
+    :func:`pcg_plan` takes the wavefront (c' and u' kept on chip), else
+    three; ``M^-1 = 2 D^-1 - D^-1 A D^-1`` applied inside, the arithmetic of
     ``pipelined_cg_solve(precond=neumann_banded(sweeps=2),
     dot_precision=float64)``. Stops on the unpreconditioned residual
     ``sqrt(<r, r>) < tol``; ``rsold`` holds <r, u>. Needs offset 0 in

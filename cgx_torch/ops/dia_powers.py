@@ -38,18 +38,24 @@ import numpy as np
 
 import torch
 
-from cgx_torch.ops._util import check_operands, launch, round_up
+from cgx_torch.ops._util import (
+    MIN_TILE,
+    SHARED_OPTIN,
+    check_operands,
+    launch,
+    round_up,
+    slab_grid,
+    sms_of,
+)
 from cgx_torch.ops.cg_stream import LANES
 from cgx_torch.ops.dia_spmv import _check as _check_bands
 from cgx_torch.ops.dia_spmv import _offsets_arg, dia_matvec_ref
 
 MAX_S = 16  # kMaxS of csrc/sstep_basis.cuh
 BLOCKS_PER_SM = 2  # the slab design's grid: each block owns one slab of about n / grid rows
-MIN_TILE = 1024  # rows of the smallest slab: a small n takes fewer blocks
 # The wavefront design (csrc/sstep_basis.cuh gen_wave)
 WAVE_THREADS = 512  # kWaveThreads: one block an SM, and W, the rows a level advances a step
 WAVE_MAX_S = 4  # kWaveMaxS: the Gram's 45 float64 sums of s = 4 in two threads' registers
-SHARED_OPTIN = 232448  # bytes of shared memory one block may take on the H100 (227 KB)
 WAVE_STATIC = 2048  # of them kept for a kernel's static shared memory (slots, coefficients)
 GRAM_SLAB_SHARED = 64 * 1024  # kGramShared: the slab design's Gram sub-tile
 
@@ -102,12 +108,6 @@ def dia_sstep_basis_ref(bands: torch.Tensor, p: torch.Tensor, r: torch.Tensor, *
     cols = basis_columns_fn(lambda v: dia_matvec_ref(bw, v, offsets=offsets), p.dtype, theta,
                             delta, tuple(shifts))
     return torch.stack(cols(p, s + 1) + cols(r, s))
-
-
-def slab_grid(n: int, blocks: int, min_slab: int = MIN_TILE) -> int:
-    """Blocks of a slab kernel on n rows: ``blocks``, fewer where a slab
-    would have fewer than ``min_slab`` rows."""
-    return max(1, min(blocks, -(-n // min_slab)))
 
 
 class BasisPlan(NamedTuple):
@@ -223,10 +223,6 @@ def slab_scratch(plan: BasisPlan, offsets: Sequence[int], s: int, keep: int = 0)
         return 0
     reach = max(abs(int(o)) for o in offsets)
     return plan.grid * (2 * (plan.slab + 2 * max(int(s) - 1, 0) * reach) + keep * plan.slab)
-
-
-def sms_of(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def shifts_arg(shifts: Sequence[float]):

@@ -15,17 +15,25 @@ runs in ``.launches``.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+import functools
+from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from cgx_torch._build import PARTIALS
-from cgx_torch.ops._util import check_operands, launch, round_up
+from cgx_torch.ops._util import check_operands, launch, round_up, sms_of
 
 MAX_DIAGS = 16  # kMaxDiags of csrc/dia_row.cuh
 LANES = 128  # cgx's lane width: its streaming kernels' block and cols are multiples of it
+# B8 (csrc/dia_stream.cu)
+STREAM_THREADS = 256  # kStreamThreads: a block's most threads
+STREAM_ROWS = 4  # kStreamRows: consecutive rows a thread owns, 16 bytes of float
+STREAM_MIRROR = 4  # kMirror: ring values mirrored past its end
+SM_SHARED = 233472  # shared memory of an H100 SM (228 KB), split among its blocks
+# blocks an SM: each holds 4 band values a diagonal a thread in registers
+STREAM_BLOCKS_PER_SM = {torch.float32: 4, torch.float64: 2}
 
 
 def dia_matvec_ref(
@@ -117,11 +125,89 @@ def _check_block(fn: str, name: str, value: int) -> None:
         raise ValueError(f"{fn}: {name}={value} must be a positive multiple of {LANES}")
 
 
+class StreamPlan(NamedTuple):
+    """How kernel B8 runs (csrc/dia_stream.cu): ``threads`` a block, each
+    owning STREAM_ROWS consecutive rows of a ``tile``; ``grid`` blocks,
+    each walking ``tiles_per_block`` consecutive tiles; the offsets'
+    ``clusters`` as (least offset, greatest offset, ring length Q, first
+    value in shared memory), each a ring of x indexed by row modulo Q;
+    ``diag_cluster``, each diagonal's cluster; ``shared`` bytes a block."""
+
+    threads: int
+    tile: int
+    grid: int
+    tiles_per_block: int
+    clusters: Tuple[Tuple[int, int, int, int], ...]
+    diag_cluster: Tuple[int, ...]
+    shared: int
+
+    def as_arg(self):
+        """The plan array of csrc/dia_stream.cu make_stream_plan, and its length."""
+        vals = (self.threads, self.tiles_per_block, self.shared, len(self.clusters),
+                len(self.diag_cluster), *(v for c in self.clusters for v in c),
+                *self.diag_cluster)
+        return (ctypes.c_longlong * len(vals))(*vals), len(vals)
+
+
+def _ring(tile: int, lo: int, hi: int) -> int:
+    """A cluster's ring: a tile's window [t + lo, t + tile + hi) rounded out
+    to the 16-byte grid, and the next tile's rows."""
+    return round_up(2 * tile + (hi - lo) + 8, 4)
+
+
+def _clusters(offsets, tile: int, item: int, budget: int):
+    """The sorted offsets in clusters of neighbours: one while the rings fit
+    ``budget`` bytes, else split at the widest gaps; None if even one a
+    diagonal does not fit."""
+    srt = sorted(set(offsets))
+    cuts = sorted(range(1, len(srt)), key=lambda j: srt[j] - srt[j - 1], reverse=True)
+    for ncut in range(len(srt)):
+        bounds = [0, *sorted(cuts[:ncut]), len(srt)]
+        groups = [(srt[a], srt[b - 1]) for a, b in zip(bounds, bounds[1:])]
+        if sum(_ring(tile, lo, hi) + STREAM_MIRROR for lo, hi in groups) * item <= budget:
+            return groups
+    return None
+
+
+@functools.lru_cache(maxsize=64)
+def stream_plan(n: int, offsets: Tuple[int, ...], dtype: torch.dtype, sms: int) -> StreamPlan:
+    """B8's plan on n rows: STREAM_THREADS threads a block (fewer where
+    even one cluster a diagonal outgrows the budget), tiles of 4 rows a
+    thread, STREAM_BLOCKS_PER_SM[dtype] blocks an SM with a budget of
+    shared memory each, every block on a contiguous run of tiles. At
+    lap2d_fd(3200) the offsets take one cluster, a ring of 8,456 values
+    (33,840 bytes with its mirror in float32, 67,680 in float64)."""
+    item = torch.finfo(dtype).bits // 8
+    per_sm = STREAM_BLOCKS_PER_SM[dtype]
+    budget = SM_SHARED // per_sm - 1024
+    for threads in (STREAM_THREADS, STREAM_THREADS // 2, STREAM_THREADS // 4):
+        tile = STREAM_ROWS * threads
+        groups = _clusters(offsets, tile, item, budget)
+        if groups is not None:
+            break
+    else:
+        raise ValueError(f"B8 cannot stage x for offsets {offsets} in {dtype}")
+    clusters, start = [], 0
+    for lo, hi in groups:
+        q = _ring(tile, lo, hi)
+        clusters.append((lo, hi, q, start))
+        start += q + STREAM_MIRROR
+    diag_cluster = tuple(next(c for c, (lo, hi) in enumerate(groups) if lo <= o <= hi)
+                         for o in offsets)
+    tiles = max(1, -(-n // tile))
+    per_block = -(-tiles // min(tiles, per_sm * sms))
+    return StreamPlan(threads, tile, -(-tiles // per_block), per_block, tuple(clusters),
+                      diag_cluster, start * item)
+
+
 def _stream(fn, bands: torch.Tensor, stride: int, x: torch.Tensor, offsets) -> torch.Tensor:
     y = torch.empty_like(x)
+    plan = stream_plan(x.shape[0], offsets, x.dtype, sms_of(x.device))
+    arg, arg_len = plan.as_arg()
     launch("cgx_dia_matvec_stream", x, bands.data_ptr(), stride, x.data_ptr(), y.data_ptr(),
-           x.shape[0], _offsets_arg(offsets), len(offsets))
+           x.shape[0], _offsets_arg(offsets), len(offsets), arg, arg_len, plan.grid)
     fn.launches += 1
+    fn.plan = plan
     return y
 
 
@@ -230,3 +316,5 @@ dia_matvec.launches = 0
 dia_matvec_dot.launches = 0
 dia_matvec_stream.launches = 0
 dia_matvec_stream2d_planes.launches = 0
+dia_matvec_stream.plan = None  # stream_plan of the last CUDA launch
+dia_matvec_stream2d_planes.plan = None

@@ -23,10 +23,9 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from cgx_torch.ops._util import check_operands, f32_exact, launch
+from cgx_torch.ops._util import SHARED_OPTIN, check_operands, f32_exact, launch
 
 DENSE_THREADS = 512  # kDenseThreads of csrc/matvec.cu: one block an SM
-SHARED_OPTIN = 232448  # bytes of shared memory one block may take on the H100 (227 KB)
 DENSE_MAX_ROWS = 4096  # rows a block: their sums leave room for x (more blocks than SMs past it)
 
 

@@ -21,10 +21,12 @@ Phases, one JSON object per line each:
    the three-kernel loop, with its launch counts;
 5. stream kernel: the streaming Chronopoulos-Gear kernels (split in
    float32 with float32 and with bfloat16 bands, and in float64; stacked
-   in float32; the Neumann PCG in float32) on lap2d_fd(3200) from one
-   seeded state, one iteration and 32 against the plain version,
-   split against stacked bitwise, with ms an iteration, the bound, the
-   plain version's ms and the peak device memory;
+   in float32; the Neumann PCG in float32, in both designs: the wavefront
+   pcg_plan picks, one launch an iteration, and the three launches) on
+   lap2d_fd(3200) from one seeded state, one iteration (the PCG's p, x,
+   u, r', s' and w' bitwise) and 32 against the plain version, split
+   against stacked bitwise, with ms an iteration, the bound, the plain
+   version's ms and the peak device memory;
 6. main path: cgx_torch.solve on lap2d_fd(3200) in fp32 with
    use_pallas=True, twice (bitwise equal), its kernel launch counts, the
    same solve through the stacked layout (bitwise equal), and the plain
@@ -33,7 +35,8 @@ Phases, one JSON object per line each:
 7. profile: device time by kernel and the card's idle share over 256
    iterations of the main path, from torch.profiler;
 8. stream PCG path: the main path's call with precond="neumann", twice,
-   against the plain pipelined Neumann PCG;
+   against the plain pipelined Neumann PCG, one launch of the wavefront
+   an iteration; then its profile over 256 iterations;
 9. stream goldens: dia_cg_solve_stream in float64 on lap2d_fd(100) and
    lap2d_reference(10000) at tol 1e-10, twice each, against the plain
    float64 pipelined loop;
@@ -104,9 +107,9 @@ Phases, one JSON object per line each:
     plain float64 s-step loop, both launches in the wavefront design;
 24. stream matvec: kernel B8's two entry points (flat bands, band planes)
     on lap2d_fd(3200) in float32 and float64, bitwise against their plain
-    versions, and the sharded halo mat-vec's local product through B8 with
-    seeded halos bitwise against its plain form; their times, the plain
-    versions', torch.sparse's CSR product and the bound;
+    versions, with its plan, and the sharded halo mat-vec's local product
+    through B8 with seeded halos bitwise against its plain form; their
+    times, the plain versions', torch.sparse's CSR product and the bound;
 25. sharded: a real NCCL process group of one rank (FileStore), and
     cgx_torch.solve(lap2d_fd(3200), fp32, mesh=make_mesh(1)), "auto"
     resolving the local product to B8: the reference and the pipelined
@@ -695,15 +698,16 @@ def phase_main(spec) -> dict:
     return launches, rec
 
 
-def phase_profile(op, b_dev) -> None:
-    """Where an iteration of the main path spends its time on the card:
-    device time by kernel over PROFILE_ITERS iterations, from
-    torch.profiler's CUDA events, and the share of the (profiled) wall
-    time in which the card ran nothing."""
+def phase_profile(op, b_dev, precond=None) -> None:
+    """Where an iteration of the main path (or its precond="neumann"
+    twin) spends its time on the card: device time by kernel over
+    PROFILE_ITERS iterations, from torch.profiler's CUDA events, and the
+    share of the (profiled) wall time in which the card ran nothing."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    cfg = SolveConfig(precision="fp32", use_pallas=True, tolerance=0.0, maxiter=PROFILE_ITERS)
+    cfg = SolveConfig(precision="fp32", use_pallas=True, tolerance=0.0, maxiter=PROFILE_ITERS,
+                      precond=precond)
     solve(op, b_dev, cfg, device=DEV)
     sync()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -714,12 +718,13 @@ def phase_profile(op, b_dev) -> None:
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
-        name = "cg_stream_kernel" if "cg_stream_kernel" in e.name else "other"
+        name = next((k for k in ("pcg_wave_kernel", "cg_stream_kernel") if k in e.name), "other")
         us = e.time_range.elapsed_us()
         by_name[name] = by_name.get(name, 0.0) + us / PROFILE_ITERS
         busy_us += us
         count += 1
-    emit({"phase": "profile", "iterations": PROFILE_ITERS, "device_events": count,
+    emit({"phase": "profile", "precond": precond, "iterations": PROFILE_ITERS,
+          "device_events": count,
           "device_events_per_iter": count / PROFILE_ITERS,
           "device_us_per_iter": by_name,
           "device_busy_us_per_iter": busy_us / PROFILE_ITERS,
@@ -750,13 +755,25 @@ def clone_state(st):
                                  st.scal.clone())
 
 
+def stream_designs(case: str, n: int, offsets, dtype):
+    """The designs a streaming case runs: the PCG's pcg_plan pick first
+    (the wavefront at N = 10,240,000), then the three-launch design; one
+    (None) for the others."""
+    if not STREAM_CASES[case][3]:
+        return [None]
+    return [cg_stream.pcg_plan(n, offsets, dtype, dia_powers.sms_of(DEV)),
+            cg_stream.three_plan(n)]
+
+
 def phase_stream_kernel(spec) -> dict:
     """Each streaming case against its plain version from one seeded
-    state at N = 10,240,000: one launch (vectors within VEC_RTOL, dots
-    within DOT_RTOL) and STREAM_ITERS launches (within CHUNK_RTOL: a
-    dot's last bit can flip a float alpha, and the difference compounds),
-    split against stacked bitwise; then the time of a launch. Returns the
-    records of the kernels line for the three streaming sites."""
+    state at N = 10,240,000: one launch (vectors within VEC_RTOL, for the
+    PCG in each design p, x, u, r', s' and w' bitwise; dots within
+    DOT_RTOL) and STREAM_ITERS launches (within CHUNK_RTOL: a dot's last
+    bit can flip a float alpha, and the difference compounds), split
+    against stacked bitwise; then the time of an iteration, the PCG's in
+    both designs. Returns the records of the kernels line for the three
+    streaming sites."""
     dia = lap2d_fd(GRID)
     n, ndiag, offsets = dia.shape[0], len(dia.offsets), tuple(dia.offsets)
     kw = dict(offsets=offsets, tol=0.0, nearzero=1e-14, maxiter=10**9)
@@ -765,61 +782,75 @@ def phase_stream_kernel(spec) -> dict:
         bands, st = stream_state(dia, dtype, precond, stacked)
         kb = bands.to(torch.bfloat16) if bf16 else bands
         del bands
-        one_err = None
-        for launches, vec_rtol, dot_rtol in ((1, VEC_RTOL[dtype], DOT_RTOL[dtype]),
-                                             (STREAM_ITERS, CHUNK_RTOL[dtype], CHUNK_RTOL[dtype])):
-            got, ref = clone_state(st), clone_state(st)
-            for _ in range(launches):
-                cg_stream.step(kb, got, **kw)
-                cg_stream._iteration_ref(kb, *ref[:6], ref.scal, **kw)
+        times = {}
+        for plan in stream_designs(case, n, offsets, dtype):
+            design = None if plan is None else plan.design
+            one_err = None
+            for launches, vec_rtol, dot_rtol in ((1, VEC_RTOL[dtype], DOT_RTOL[dtype]),
+                                                 (STREAM_ITERS, CHUNK_RTOL[dtype],
+                                                  CHUNK_RTOL[dtype])):
+                got, ref = clone_state(st), clone_state(st)
+                for _ in range(launches):
+                    cg_stream.step(kb, got, plan=plan, **kw)
+                    cg_stream._iteration_ref(kb, *ref[:6], ref.scal, **kw)
+                sync()
+                pairs = [(a, w) for a, w in zip(got[:6], ref[:6]) if a is not None]
+                max_abs = max(float((a - w).abs().max()) for a, w in pairs)
+                vec_rel = max(rel_err(a, w, w.abs().max()) for a, w in pairs)
+                dot_rel = float(((got.scal[:3] - ref.scal[:3]).abs() / ref.scal[:3].abs()).max())
+                same = torch.equal(got.scal[cg_stream.K:], ref.scal[cg_stream.K:])
+                bitwise = all(torch.equal(a, w) for a, w in pairs)
+                emit({"phase": "stream_kernel_check", "case": case, "design": design,
+                      "problem": f"lap2d_fd({GRID})", "n": n, "dtype": str(dtype),
+                      "bands_dtype": str(kb.dtype), "launches": launches,
+                      "max_abs_err": max_abs, "vec_rel_err": vec_rel, "bitwise": bitwise,
+                      "dot_rel_err": dot_rel, "vec_rtol": vec_rtol, "dot_rtol": dot_rtol,
+                      "grid": STREAM_SITES[site].grid, "scalars": got.scal.tolist(),
+                      "plain_scalars": ref.scal.tolist()})
+                check(vec_rel <= vec_rtol and dot_rel <= dot_rtol and same,
+                      f"stream {case} {design} x{launches}: vectors {vec_rel}, dots {dot_rel}, "
+                      f"k/stop/breakdown {got.scal[cg_stream.K:].tolist()} against "
+                      f"{ref.scal[cg_stream.K:].tolist()}")
+                if launches == 1:
+                    one_err = max_abs
+                    check(bitwise or not precond,
+                          f"stream {case} {design}: one launch is not bitwise the plain one")
+                elif case in ("split_f32", "stacked_f32"):
+                    q = int(got.scal[cg_stream.K]) & 1
+                    after[case] = [got.p, got.x, got.r[q], got.w[q], got.s[q]]
+                del got, ref
             sync()
-            pairs = [(a, w) for a, w in zip(got[:6], ref[:6]) if a is not None]
-            max_abs = max(float((a - w).abs().max()) for a, w in pairs)
-            vec_rel = max(rel_err(a, w, w.abs().max()) for a, w in pairs)
-            dot_rel = float(((got.scal[:3] - ref.scal[:3]).abs() / ref.scal[:3].abs()).max())
-            same = torch.equal(got.scal[cg_stream.K:], ref.scal[cg_stream.K:])
-            emit({"phase": "stream_kernel_check", "case": case, "problem": f"lap2d_fd({GRID})",
-                  "n": n, "dtype": str(dtype), "bands_dtype": str(kb.dtype), "launches": launches,
-                  "max_abs_err": max_abs, "vec_rel_err": vec_rel, "dot_rel_err": dot_rel,
-                  "vec_rtol": vec_rtol, "dot_rtol": dot_rtol, "grid": STREAM_SITES[site].grid,
-                  "scalars": got.scal.tolist(), "plain_scalars": ref.scal.tolist()})
-            check(vec_rel <= vec_rtol and dot_rel <= dot_rtol and same,
-                  f"stream {case} x{launches}: vectors {vec_rel}, dots {dot_rel}, "
-                  f"k/stop/breakdown {got.scal[cg_stream.K:].tolist()} against "
-                  f"{ref.scal[cg_stream.K:].tolist()}")
-            if launches == 1:
-                one_err = max_abs
-            elif case in ("split_f32", "stacked_f32"):
-                q = int(got.scal[cg_stream.K]) & 1
-                after[case] = [got.p, got.x, got.r[q], got.w[q], got.s[q]]
-            del got, ref
-        sync()
-        torch.cuda.reset_peak_memory_stats()
-        work = cg_stream.workspace(DEV, n)
-        ms = time_ms(lambda: cg_stream.step(kb, st, work=work, **kw))
-        peak = torch.cuda.max_memory_allocated()
-        held = sum(t.numel() * t.element_size() for t in (kb, *st, *work)
-                   if t is not None and t is not st.rws)
-        plain_ms = time_ms(lambda: cg_stream._iteration_ref(kb, *st[:6], st.scal, **kw),
-                           reps=3, burst=1)
-        item = torch.finfo(dtype).bits // 8
-        bound, bound_by = bound_of(spec, dtype,
-                                   stream_bytes(ndiag, n, 2 if bf16 else item, item, precond),
-                                   stream_flops(ndiag, n, precond))
-        rec = {"phase": "stream_kernel", "case": case, "site": site, "problem": f"lap2d_fd({GRID})",
-               "n": n, "dtype": str(dtype), "bands_dtype": str(kb.dtype),
-               "ms_per_iter": ms, "launches_per_iter": 3 if precond else 1,
-               "bound_ms_per_iter": bound,
-               "bound_by": bound_by, "bound_share": bound / ms, "plain_ms_per_iter": plain_ms,
-               "state_bytes": held, "max_memory_allocated": peak,
-               "grid": STREAM_SITES[site].grid,
-               "max_abs_err": one_err}
-        emit(rec)
-        if STREAM_MAIN_CASE[site] == case:
-            records[site] = {"max_abs_err": one_err, "ms": ms, "plain_ms": plain_ms,
-                             "bound_ms": bound, "bound_by": bound_by,
-                             "library_ms": None}  # no one PyTorch call runs a CG iteration
-        del kb, st, work
+            torch.cuda.reset_peak_memory_stats()
+            work = cg_stream.workspace(DEV, n)
+            ms = time_ms(lambda: cg_stream.step(kb, st, work=work, plan=plan, **kw))
+            peak = torch.cuda.max_memory_allocated()
+            held = sum(t.numel() * t.element_size() for t in (kb, *st, *work)
+                       if t is not None and t is not st.rws)
+            plain_ms = time_ms(lambda: cg_stream._iteration_ref(kb, *st[:6], st.scal, **kw),
+                               reps=3, burst=1)
+            item = torch.finfo(dtype).bits // 8
+            bound, bound_by = bound_of(spec, dtype,
+                                       stream_bytes(ndiag, n, 2 if bf16 else item, item, precond),
+                                       stream_flops(ndiag, n, precond))
+            rec = {"phase": "stream_kernel", "case": case, "site": site, "design": design,
+                   "problem": f"lap2d_fd({GRID})", "n": n, "dtype": str(dtype),
+                   "bands_dtype": str(kb.dtype), "ms_per_iter": ms,
+                   "launches_per_iter": 1 if plan is None else plan.launches,
+                   "bound_ms_per_iter": bound, "bound_by": bound_by, "bound_share": bound / ms,
+                   "plain_ms_per_iter": plain_ms, "state_bytes": held,
+                   "max_memory_allocated": peak, "grid": STREAM_SITES[site].grid,
+                   "max_abs_err": one_err}
+            emit(rec)
+            times[design] = ms
+            if STREAM_MAIN_CASE[site] == case and site not in records:
+                records[site] = {"max_abs_err": one_err, "ms": ms, "plain_ms": plain_ms,
+                                 "bound_ms": bound, "bound_by": bound_by,
+                                 "library_ms": None,  # no one PyTorch call runs a CG iteration
+                                 "design": design}
+            del work
+        if precond:
+            records[site]["three_ms"] = times["three"]
+        del kb, st
         sync()
     same = all(torch.equal(a, b) for a, b in zip(after["split_f32"], after["stacked_f32"]))
     emit({"phase": "stream_layouts", "launches": STREAM_ITERS, "split_equals_stacked": same})
@@ -829,8 +860,10 @@ def phase_stream_kernel(spec) -> dict:
 
 def phase_stream_pcg(spec) -> dict:
     """solve(lap2d_fd(3200), fp32, use_pallas, precond="neumann") above
-    the budget runs the streaming PCG kernel; against the plain pipelined
-    Neumann PCG with fp64 dots. Returns its launch counts."""
+    the budget runs the streaming PCG kernel in pcg_plan's design, its
+    launches a call 32 ceil(k / 32) times (the host reads the scalars once
+    per 32 calls); against the plain pipelined Neumann PCG with fp64 dots;
+    then its device-time profile. Returns its launch counts."""
     dia = lap2d_fd(GRID)
     n, ndiag = dia.shape[0], len(dia.offsets)
     b = source_term(n)
@@ -843,8 +876,11 @@ def phase_stream_pcg(spec) -> dict:
           f"bitwise repeat {bitwise}")
     others = {name: c for name, c in launches.items()
               if name != "stream_iteration_pcg" and name in KERNELS and c}
-    check(launches["stream_iteration_pcg"] >= 3 * k and not others,  # three launches an iteration
-          f"stream PCG path: {launches} at k={k}")
+    plan = cg_stream.pcg_plan(n, tuple(dia.offsets), torch.float32, dia_powers.sms_of(DEV))
+    calls = 32 * -(-k // 32)
+    check(launches["stream_iteration_pcg"] == plan.launches * calls and not others
+          and cg_stream._stream_iteration_pcg.design == plan.design,
+          f"stream PCG path: {launches} at k={k}, design {plan.design}")
     pc = neumann_banded(op.bands, op.offsets, sweeps=2)
     plain, k_plain, plain_seconds = timed(lambda: pipelined_cg_solve(
         op, b_dev, tol=tol, precond=pc, dot_precision=torch.float64, device=DEV))
@@ -856,12 +892,14 @@ def phase_stream_pcg(spec) -> dict:
           "tol": tol, "k": k, "converged": True, "bitwise_repeat": bitwise, "seconds": seconds,
           "us_per_iter": seconds / k * 1e6, "bound_us_per_iter": bound_iter * 1e3,
           "bound_by": bound_by, "launches": launches, "grid": cg_stream._stream_iteration_pcg.grid,
+          "design": plan.design, "launches_per_iter": plan.launches,
           "k_plain": k_plain, "plain_seconds": plain_seconds, "true_rel": rel,
           "true_rel_plain": rel_plain, "x_finite": bool(torch.isfinite(res.x).all())})
     check(bool(torch.isfinite(res.x).all()), "stream PCG result is not finite")
     check(abs(k - k_plain) <= 0.02 * k_plain, f"stream PCG: k={k} vs plain k={k_plain}")
     check(max(rel, rel_plain) <= 2 * min(rel, rel_plain),
           f"stream PCG: true residuals {rel} and {rel_plain} differ by more than 2x")
+    phase_profile(op, b_dev, precond="neumann")
     return launches
 
 
@@ -1898,6 +1936,7 @@ def phase_stream_matvec(spec) -> dict:
         same["halo_xla_vs_global_rows"] = torch.equal(xla, want[lo:hi])
         emit({"phase": "stream_matvec_check", "problem": f"lap2d_fd({GRID})", "n": n,
               "dtype": str(dtype), "bitwise": same, "halo": halo, "shard_rows": [lo, hi],
+              "plan": dia_spmv.dia_matvec_stream2d_planes.plan._asdict(),
               "halo_max_abs": float(torch.maximum(left.abs().max(), right.abs().max()))})
         del shard, shard_planes
         check(all(same.values()), f"B8 {dtype}: not bitwise equal to the plain versions: {same}")
@@ -2111,8 +2150,10 @@ def main() -> int:
                         "ms": rec["ms"], "plain_ms": rec["plain_ms"],
                         "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
                         "library_ms": rec["library_ms"],
-                        # the s-step sites' basis_plan design, and the slab design's time
-                        "design": rec.get("design"), "slab_ms": rec.get("slab_ms")})
+                        # the s-step sites' basis_plan design and the slab design's time,
+                        # the PCG's pcg_plan design and the three-launch design's time
+                        "design": rec.get("design"), "slab_ms": rec.get("slab_ms"),
+                        "three_ms": rec.get("three_ms")})
     print(json.dumps({"kernels": kernels, "not_ported": NOT_PORTED}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -99,7 +99,10 @@ def test_pallas_route_above_the_budget(problem, monkeypatch, precond):
     k = int(res.iterations)
     assert bool(res.converged) and _counts() == (loop, chunks)
     launched = -(-k // 32) * 32  # the host reads the stop flag once per 32 launches
-    assert moved == ([0, 0, 3 * launched] if precond else [launched, 0, 0])  # PCG: 3 a call
+    # the PCG: the launches of its plan's design a call (one on the wavefront, csrc/cg_stream.cu)
+    per_call = cg_stream.pcg_plan(dia.shape[0], tuple(dia.offsets), torch.float32, 1).launches
+    assert per_call == 1
+    assert moved == ([0, 0, per_call * launched] if precond else [launched, 0, 0])
     want = cgx.solve(cgx.lap2d_reference(256), b, cgx.SolveConfig(**kw))
     assert abs(k - int(want.iterations)) <= 1
 

@@ -143,3 +143,143 @@ def test_argument_checks():
         dia_spmv.dia_matvec_stream(bands, xt, offsets=offs[:-1])
     with pytest.raises(TypeError):
         dia_spmv.dia_matvec_stream(bands.half(), xt.half(), offsets=offs)
+
+
+# --- B8's schedule (csrc/dia_stream.cu), walked in torch --------------------
+
+
+def stream_walk(plan, bands, x, offsets, *, rings=None):
+    """``plan``'s persistent grid in torch: each block walks its run of
+    tiles; x enters each cluster's ring (row modulo Q, the first four
+    slots mirrored past the end) once, in runs of rows on the 16-byte
+    grid (zeros outside [0, n)): the first tile's window, then each next
+    tile's rows while the current tile reads; each thread's four rows
+    read their taps as four consecutive slots. Fails on a read of a slot
+    holding another row, and on a slot written while the tile that reads
+    it runs. Returns y."""
+    n, ndiag = x.shape[0], len(offsets)
+    tile, threads = plan.tile, plan.threads
+    qs = [c[2] for c in plan.clusters] if rings is None else rings
+    flat = bands.reshape(ndiag, -1)
+    y = torch.full((n,), float("nan"), dtype=x.dtype)
+    ntiles = -(-n // tile)
+    lane = torch.arange(4)
+    tid = torch.arange(threads)
+    for b in range(plan.grid):
+        k0, k1 = b * plan.tiles_per_block, min(ntiles, (b + 1) * plan.tiles_per_block)
+        if k0 >= k1:
+            continue
+        val = [torch.full((q + 4,), float("nan"), dtype=x.dtype) for q in qs]
+        tag = [torch.full((q + 4,), -(2 ** 62), dtype=torch.int64) for q in qs]
+        read = [torch.zeros(q + 4, dtype=torch.bool) for q in qs]
+
+        def stage(c, j0, j1):
+            assert j0 % 4 == 0 and j1 % 4 == 0
+            rows = torch.arange(j0, j1)
+            xs = torch.zeros(rows.numel(), dtype=x.dtype)
+            ok = (rows >= 0) & (rows < n)
+            xs[ok] = x[rows[ok]]
+            slots = rows % qs[c]
+            mirror = slots < 4
+            for sl, keep in ((slots, slice(None)), (slots[mirror] + qs[c], mirror)):
+                assert not read[c][sl].any(), "a slot is rewritten while its tile reads it"
+                val[c][sl] = xs[keep]
+                tag[c][sl] = rows[keep]
+
+        def window(c, t):
+            lo, hi = plan.clusters[c][:2]
+            return (t + lo) // 4 * 4, -(-(t + tile + hi) // 4) * 4
+
+        for c in range(len(qs)):
+            stage(c, *window(c, k0 * tile))
+        for k in range(k0, k1):
+            t = k * tile
+            for r in read:
+                r.zero_()
+            i = t + 4 * tid[:, None] + lane  # (threads, 4) rows
+            acc = torch.zeros(i.shape, dtype=x.dtype)
+            reads = []
+            for d, off in enumerate(offsets):
+                c = plan.diag_cluster[d]
+                q = qs[c]
+                s = (t + off) % q + 4 * tid
+                s = torch.where(s >= q, s - q, s)[:, None] + lane
+                assert torch.equal(tag[c][s], i + off), "a row was overwritten before its read"
+                reads.append((c, s))
+                band = torch.zeros(i.shape, dtype=x.dtype)
+                ok = i < n
+                band[ok] = flat[d, i[ok]]
+                acc = acc + band * val[c][s]
+            for c, s in reads:
+                read[c][s.reshape(-1)] = True
+            if k + 1 < k1:  # issued while the tile's products run
+                for c in range(len(qs)):
+                    j0 = window(c, t)[1]
+                    stage(c, j0, j0 + tile)
+            ok = i < n
+            y[i[ok]] = acc[ok]
+    return y
+
+
+WALK_CASES = {  # (problem, planes (rows, cols) or None for the flat form)
+    "planes_fd90": ("lap2d_fd", 90, (8, 512)),
+    "planes_3d12": ("lap3d_fd", 12, (2, 512)),
+    "flat_fd33": ("lap2d_fd", 33, None),  # n = 1089: n % 4 == 1, band rows off the 16-byte grid
+    "flat_ref1001": ("lap2d_reference", 1001, None),  # n % 4 == 1, offsets +-1 and +-32
+}
+
+
+@pytest.mark.parametrize("sms", [1, 132])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", sorted(WALK_CASES))
+def test_stream_walk_bitwise(case, dtype, sms):
+    """The walk of B8's plan is bitwise the plain version, for the planes
+    form and for the flat form with n % 4 != 0 (the scalar tail; copies
+    of the last chunk zero-filled past n); with one SM (4 or 2 blocks,
+    long runs of tiles) and 132."""
+    make, g, planes = WALK_CASES[case]
+    dia, x = _problem(make, g)
+    offs = tuple(dia.offsets)
+    bands = torch.as_tensor(dia.bands, dtype=dtype)
+    xt = torch.as_tensor(x, dtype=dtype)
+    if planes is not None:
+        bands = dia_spmv.stream2d_band_planes(bands, rows=planes[0], cols=planes[1]).contiguous()
+    n = xt.shape[0]
+    plan = dia_spmv.stream_plan(n, offs, dtype, sms)
+    want = dia_spmv.dia_matvec_stream_ref(bands.reshape(len(offs), -1)[:, :n].contiguous(), xt,
+                                          offsets=offs)
+    assert torch.equal(stream_walk(plan, bands, xt, offs), want)
+
+
+def test_stream_walk_ring_short_fails():
+    """A ring a tile shorter than the window and the next tile's rows
+    loses rows the tile still reads."""
+    dia, x = _problem("lap2d_fd", 90)
+    offs = tuple(dia.offsets)
+    xt = torch.as_tensor(x, dtype=torch.float32)
+    bands = torch.as_tensor(dia.bands, dtype=torch.float32)
+    plan = dia_spmv.stream_plan(xt.shape[0], offs, torch.float32, 1)
+    q = plan.clusters[0][2]
+    with pytest.raises(AssertionError, match="overwritten|rewritten"):
+        stream_walk(plan, bands, xt, offs, rings=[q - plan.tile])
+
+
+def test_stream_plan_at_main_shape():
+    """lap2d_fd(3200): one cluster over the span 6400, a ring of 8,456
+    values (2 tiles of 1024 rows, the span, 8 for the 16-byte grid) and
+    its 4-value mirror; float32 4 blocks an SM, 19 tiles a block, float64
+    2 and 38; the plan array of make_stream_plan. Offsets too far apart
+    for one ring split at their widest gaps."""
+    offs = (-3200, -1, 0, 1, 3200)
+    for dtype, grid, per, shared in ((torch.float32, 527, 19, 33_840),
+                                     (torch.float64, 264, 38, 67_680)):
+        plan = dia_spmv.stream_plan(10_240_000, offs, dtype, 132)
+        assert (plan.threads, plan.tile, plan.grid, plan.tiles_per_block) == (256, 1024, grid, per)
+        assert plan.clusters == ((-3200, 3200, 8456, 0),) and plan.shared == shared
+        assert plan.grid * plan.tiles_per_block * plan.tile >= 10_240_000
+        arg, n_arg = plan.as_arg()
+        assert list(arg) == [256, per, shared, 1, 5, -3200, 3200, 8456, 0, 0, 0, 0, 0, 0]
+    far = dia_spmv.stream_plan(10**7, (-5_000_000, -1, 0, 1, 5_000_000), torch.float64, 132)
+    assert [c[:2] for c in far.clusters] == [(-5_000_000, -5_000_000), (-1, 1),
+                                            (5_000_000, 5_000_000)]
+    assert far.diag_cluster == (0, 1, 1, 1, 2)

@@ -361,7 +361,9 @@ def test_stream_wrappers_on_cpu_count_and_run_plain(case, monkeypatch):
     before = site.launches
     cg_stream.step(bands, st, offsets=offs, **STREAM_KW)
     _plain_step(bands, want, offs)
-    assert site.launches == before + (3 if case == "pcg" else 1)  # the PCG's three launches
+    # the PCG counts its plan's launches: one on the wavefront (its rings fit at R = 12)
+    per_call = cg_stream.pcg_plan(144, offs, torch.float32, 1).launches if case == "pcg" else 1
+    assert site.launches == before + per_call == before + 1
     for a, w in zip(st, want):
         assert (a is None and w is None) or torch.equal(a, w)
     assert st.scal[cg_stream.K] == 1.0
@@ -415,6 +417,45 @@ def test_cuda_stream_kernels_match_plain(cuda, g, dtype, case):
         assert torch.equal(got.scal[k:], want.scal[k:])
         dots = got.scal[:3] - want.scal[:3]
         assert float(dots.abs().max()) <= 1e-12 * float(want.scal[:3].abs().max()) or launches > 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("design", ["wavefront", "three"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("g", [30, 700])  # one slab shorter than 4R; many slabs
+def test_cuda_pcg_designs_bitwise(cuda, g, dtype, design):
+    """B6 in both designs from one seeded state: after a launch p, x, u,
+    r', s' and w' are bitwise the plain version's, the float64 dots
+    within 1e-12 (another summation order); the wavefront counts one
+    launch, the three-launch design three. A frozen launch changes
+    nothing."""
+    from cgx_torch.ops import cg_stream
+    from cgx_torch.ops._util import sms_of
+
+    bands, offs, st = _stream_case(g, dtype, cuda, "pcg")
+    n = g * g
+    plan = (cg_stream.pcg_plan(n, offs, dtype, sms_of(cuda)) if design == "wavefront"
+            else cg_stream.three_plan(n))
+    assert plan.design == design
+    got, want = _clone_state(st), _clone_state(st)
+    before = cg_stream._stream_iteration_pcg.launches
+    cg_stream.step(bands, got, offsets=offs, plan=plan, **STREAM_KW)
+    _plain_step(bands, want, offs)
+    torch.cuda.synchronize()
+    assert cg_stream._stream_iteration_pcg.launches - before == plan.launches
+    assert cg_stream._stream_iteration_pcg.design == design
+    q = 1  # the halves the launch wrote
+    for a, w in zip((got.p, got.x, got.u, got.r[q], got.s[q], got.w[q]),
+                    (want.p, want.x, want.u, want.r[q], want.s[q], want.w[q])):
+        assert torch.equal(a, w)
+    assert torch.equal(got.scal[cg_stream.K:], want.scal[cg_stream.K:])
+    assert float(((got.scal[:3] - want.scal[:3]).abs() / want.scal[:3].abs()).max()) <= 1e-12
+    got.scal[cg_stream.STOP] = 1.0
+    frozen = _clone_state(got)
+    cg_stream.step(bands, got, offsets=offs, plan=plan, **STREAM_KW)
+    torch.cuda.synchronize()
+    for a, w in zip(got, frozen):
+        assert (a is None and w is None) or torch.equal(a, w)
 
 
 @pytest.mark.cuda
@@ -719,6 +760,26 @@ def test_cuda_stream_matvec_matches_plain_bitwise(cuda, dtype, make):
     plane = dia_spmv.dia_matvec_stream2d_planes(planes, x, offsets=offs)
     torch.cuda.synchronize()
     assert torch.equal(flat, want) and torch.equal(plane, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_stream_matvec_off_the_grid(cuda, dtype):
+    """B8's scalar paths: the flat form with n % 4 != 0 (band rows off the
+    16-byte grid, a scalar tail) and an x view off the 16-byte grid
+    (copied value by value) are bitwise the plain version's."""
+    dia = lap2d_fd(333)
+    offs = tuple(dia.offsets)
+    n = dia.shape[0]
+    assert n % 4 == 1
+    bands = torch.as_tensor(dia.bands, dtype=dtype, device=cuda)
+    xs = torch.as_tensor(np.random.default_rng(4).standard_normal(n + 1), dtype=dtype,
+                         device=cuda)
+    for x in (xs[:n], xs[1:]):
+        want = dia_spmv.dia_matvec_ref(bands, x, offsets=offs)
+        assert torch.equal(dia_spmv.dia_matvec_stream(bands, x, offsets=offs), want)
+    assert dia_spmv.dia_matvec_stream.plan == dia_spmv.stream_plan(n, offs, dtype,
+                                                                   dia_spmv.sms_of(cuda))
 
 
 @pytest.mark.cuda
