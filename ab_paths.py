@@ -14,7 +14,12 @@ kernels) and ``sstep_powers="pallas"`` (the matrix-powers and replay
 kernels), and the stream PCG solve ``solve(lap2d_fd(3200), fp32,
 use_pallas=True, precond="neumann")`` (kernel B6) once; then the time of
 one B6 iteration and of one B8 planes product (float32 and float64) on
-lap2d_fd(3200), as the checkout runs them. It prints one line,
+lap2d_fd(3200), as the checkout runs them; then the resident path,
+``solve(lap2d_fd(1000), fp32, use_pallas=True)`` (N = 1,000,000, kernel
+B5) without and with ``precond="neumann"``, and ``precision="mixed"`` on
+the same problem at a relative tolerance of 1e-11, once each after a
+warm-up; the time of one 64-iteration B5 chunk there, and of one B1
+``dia_matvec_dot`` on lap2d_fd(3200), float32. It prints one line,
 ``RESULT {json}``, with the CLI's seconds (the first run included: it pays
 the first calls), each solve's k and seconds, the kernels' ms, and the
 peak device memory (``torch.cuda.max_memory_allocated``) that 64 fused
@@ -97,7 +102,51 @@ def main(root: str, label: str) -> int:
             lambda: dia_spmv.dia_matvec_stream2d_planes(planes, x, offsets=offsets))
         del bands, planes, x
         torch.cuda.empty_cache()
+    bands = torch.as_tensor(dia.bands, dtype=torch.float32, device="cuda")
+    x = torch.as_tensor(np.random.default_rng(0).standard_normal(n), dtype=torch.float32,
+                        device="cuda")
+    out["b1_dot_ms"] = cs.time_ms(lambda: dia_spmv.dia_matvec_dot(bands, x, offsets=offsets))
+    del bands, x
+    torch.cuda.empty_cache()
+    resident(cs, out)
     print("RESULT " + json.dumps(out), flush=True)
+
+
+def resident(cs, out: dict) -> None:
+    """The resident path's solves at N = 1e6 (each after one warm-up) and
+    one B5 chunk, as the checkout runs them."""
+    import numpy as np
+    import torch
+
+    from cgx_torch import SolveConfig, as_operator, solve
+    from cgx_torch.mats.generators import lap2d_fd, source_term
+    from cgx_torch.ops import cg_kernel
+
+    dia = lap2d_fd(cs.RESIDENT_GRID)
+    b = source_term(dia.shape[0])
+    tol = 1e-5 * float(np.linalg.norm(b))
+    op32 = as_operator(dia, torch.float32, device="cuda")
+    op64 = as_operator(dia, torch.float64, device="cuda")
+    b32 = torch.as_tensor(b, dtype=torch.float32, device="cuda")
+    b64 = torch.as_tensor(b, dtype=torch.float64, device="cuda")
+    for key, op, rhs, cfg in (
+            ("resident", op32, b32, SolveConfig(precision="fp32", use_pallas=True, tolerance=tol)),
+            ("resident_pcg", op32, b32, SolveConfig(precision="fp32", use_pallas=True,
+                                                     tolerance=tol, precond="neumann")),
+            ("mixed", op64, b64, SolveConfig(precision="mixed", tolerance=1e-11))):
+        for _ in range(2):  # the first pays the first calls
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = solve(op, rhs, cfg, device="cuda")
+            torch.cuda.synchronize()
+            out[key] = {"k": int(res.iterations), "seconds": time.perf_counter() - t0}
+            del res
+    bands, state = cs.seeded_state(dia, torch.float32)
+    out["b5_chunk_ms"] = cs.time_ms(lambda: cs.chunk_call(cg_kernel.dia_cg_chunk, bands, state,
+                                                          tuple(dia.offsets), cs.CHUNK, False),
+                                    reps=10, burst=2)
+    del bands, state, op32, op64
+    torch.cuda.empty_cache()
     return 0
 
 

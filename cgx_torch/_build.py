@@ -52,6 +52,8 @@ _SIGNATURES = {
     },
     "dia_stream": {
         "cgx_dia_matvec_stream": (_p, _n, _p, _p, _n, _offs, _i, _offs, _i, _i, _p),
+        "cgx_dia_matvec_stream_dot": (_p, _n, _p, _p, _n, _offs, _i, _offs, _i, _i, _p, _n, _p,
+                                      _p, _p),
     },
     "axpy": {
         "cgx_fused_update_rs": (_p, _p, _p, _p, _p, _p, _p, _p, _n, _p, _p, _n, _p),
@@ -59,11 +61,14 @@ _SIGNATURES = {
     },
     "matvec": {
         "cgx_dense_matvec": (_p, _p, _p, _n, _n, _n, _n, _n, _i, _i, _i, _i, _p),
-        "cgx_dense_matvec_dot": (_p, _p, _p, _p, _p, _p, _p, _n, _n, _n, _n, _p),
+        "cgx_dense_matvec_dot": (_p, _p, _p, _n, _n, _n, _n, _n, _i, _i, _i, _i, _p, _p, _p, _p,
+                                 _n, _p),
     },
     "cg_kernel": {
         "cgx_dia_cg_chunk": (_p, _p, _p, _p, _p, _p, _p, _n, _p, _p, _n, _offs, _i, _i,
                              _d, _d, _d, _i, _i, _i_out, _p),
+        "cgx_dia_cg_resident": (_p, _p, _p, _p, _p, _p, _n, _p, _p, _p, _n, _offs, _i, _i, _d, _d,
+                                _d, _i, _i, _offs, _i, _i, _i, _p),
     },
     "cg_stream": {
         "cgx_cg_stream": (_p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _n, _p, _p, _n, _offs,
@@ -93,7 +98,7 @@ _SIGNATURES = {
 }
 # Entries that also take bfloat16 bands under float32 vectors, bound with
 # this suffix (cgx_torch.ops._util.BF16_BANDS_SUFFIX).
-_BF16_BANDS = ("cgx_dia_cg_chunk", "cgx_cg_stream", "cgx_pcg_wave", "cgx_sstep_gram",
+_BF16_BANDS = ("cgx_dia_cg_chunk", "cgx_dia_cg_resident", "cgx_cg_stream", "cgx_pcg_wave", "cgx_sstep_gram",
                "cgx_sstep_recover",
                "cgx_sstep_gram_wave", "cgx_sstep_recover_wave")
 # Entries with one variant only: the replay works on the float64 state.

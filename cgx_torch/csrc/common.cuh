@@ -47,11 +47,13 @@ __device__ __forceinline__ T warp_sum(T v) {
   return v;  // lane 0 holds the warp's sum
 }
 
-// Sum of v over the block, in a fixed order; the result is valid in thread 0.
-// Every thread of the block must call it.
-template <typename T>
+// Sum of v over a block of at most NT threads (whole warps), in a fixed order:
+// a shuffle tree a warp, then one over the warps' sums; the result is valid in
+// thread 0. Every thread of the block must call it.
+template <typename T, int NT = kThreads>
 __device__ T block_sum(T v) {
-  __shared__ T warp_part[kThreads / 32];
+  static_assert(NT % 32 == 0 && NT <= 1024, "a block of whole warps");
+  __shared__ T warp_part[NT / 32];
   __syncthreads();  // an earlier call may still be reading warp_part
   v = warp_sum(v);
   const int lane = threadIdx.x & 31;
@@ -60,7 +62,7 @@ __device__ T block_sum(T v) {
   __syncthreads();
   T s = T(0);
   if (warp == 0) {
-    s = lane < kThreads / 32 ? warp_part[lane] : T(0);
+    s = lane < static_cast<int>(blockDim.x >> 5) ? warp_part[lane] : T(0);
     s = warp_sum(s);
   }
   return s;

@@ -12,7 +12,18 @@
 // 5-band stencils at n = 10,240,000 that is 7 * 4 B * n = 287 MB in float
 // (86 us at 3.35 TB/s) and 573 MB in double.
 //
-// Design: one thread per row in a grid-stride loop. Band reads are coalesced
+// Two designs, picked on the host by cgx_torch.ops.dia_spmv.matvec_plan. Where
+// B8's plan places x's rings in shared memory (every 2D and 3D stencil the
+// solvers build) and n gives every SM a 1024-row tile, both entries run B8's
+// kernel (csrc/dia_stream.cu, the flat form with stride n): dia_matvec is its
+// product, bitwise the same y, and dia_matvec_dot the same kernel with a dot
+// epilogue: x[i]*y[i] summed in the data type, one partial a block, combined
+// by the last-block ticket. That took 0.1095 ms against this file's 0.2262 at
+// n = 10,240,000 in float on an H100 (PERF.md). This file's kernels are the
+// other design: below a tile an SM (the fp64 goldens' n = 10,000) they are
+// the faster, and a caller may also force them (dia_spmv.GRID_PLAN).
+//
+// The grid-stride design: one thread per row in a grid-stride loop. Band reads are coalesced
 // across a warp; the shifted reads of x are coalesced too and come back from
 // L1/L2 (each x element is read by ndiag neighbouring rows). The TPU kernel
 // padded x by an aligned halo and rolled lanes because Mosaic needs 128-lane

@@ -16,6 +16,12 @@
 // once), 2*ndiag flops. For the 5-band lap2d_fd(3200), n = 10,240,000, that
 // is 287 MB in float (86 us at 3.35 TB/s) and 573 MB in double.
 //
+// The same kernel with a dot epilogue (DOT) is B1's dia_matvec_dot on B8's
+// design (csrc/dia_spmv.cu names it): each thread sums x[i] * y[i] over its rows
+// in the data type, tile after tile, a block sums its threads (shuffle trees,
+// then the warps in order) into one partial, and the last block to take the
+// integer ticket sums the partials in index order. No float atomics.
+//
 // Design. cgx's TPU kernels keep x in HBM and DMA a double-buffered halo
 // window of it into VMEM for each block of rows. Here x is staged on chip
 // too, once per block: a persistent grid of a few blocks an SM, each walking
@@ -52,6 +58,10 @@ constexpr int kStreamThreads = 256;  // the most threads a block (the plan's thr
 constexpr int kStreamRows = 4;       // rows a thread owns in a tile
 constexpr int kStreamPlanHead = 5;   // threads, tiles a block, shared bytes, clusters, ndiag
 constexpr int kMirror = 4;           // ring values mirrored past its end
+// blocks an SM of the plan (cgx_torch.ops.dia_spmv.STREAM_BLOCKS_PER_SM), which
+// the registers must leave room for: the grid is that many blocks an SM
+template <typename T>
+constexpr int kStreamBlocksPerSM = sizeof(T) == 4 ? 4 : 2;
 
 // The plan of cgx_torch.ops.dia_spmv.stream_plan.
 struct StreamPlan {
@@ -68,6 +78,7 @@ struct StreamPlan {
   int ndiag;
   int vec_x;                  // x on the 16-byte grid: 16-byte copies
   int vec_y;                  // y on the 16-byte grid: 16-byte stores
+  int self;                   // an offset is 0: the dot reads x from its ring
   unsigned band_vec;          // bit d: band d's rows on the 16-byte grid
 };
 
@@ -116,6 +127,8 @@ static bool make_stream_plan(StreamPlan* p, const long long* plan, int plan_len,
   }
   p->nclus = static_cast<int>(nclus);
   p->ndiag = ndiag;
+  p->self = 0;
+  for (int d = 0; d < ndiag; ++d) p->self |= offsets[d] == 0;
   return true;
 }
 
@@ -206,20 +219,56 @@ __device__ __forceinline__ Vec4<T> band4(const T* __restrict__ bp, long long lef
   return r;
 }
 
+// The dot of dia_matvec_dot (unused by the plain product).
+template <typename T>
+struct StreamDot {
+  T* partials;           // one a block
+  unsigned int* ticket;  // 0 at launch; the last block sets it back to 0
+  T* dot;
+};
+
+// This block's partial, then, in the last block to take the ticket, the
+// partials summed in index order into *dot.
+template <typename T>
+__device__ void stream_dot_combine(T part, const StreamDot<T>& sd) {
+  const T total = block_sum<T, kStreamThreads>(part);
+  __shared__ bool is_last;
+  if (threadIdx.x == 0) {
+    sd.partials[blockIdx.x] = total;
+    __threadfence();  // the partial is visible before the ticket is taken
+    is_last = atomicAdd(sd.ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  const volatile T* parts = sd.partials;  // written by other SMs: bypass L1
+  T v = T(0);
+  for (int j = threadIdx.x; j < static_cast<int>(gridDim.x); j += blockDim.x) v += parts[j];
+  v = block_sum<T, kStreamThreads>(v);
+  if (threadIdx.x == 0) {
+    *sd.dot = v;
+    *sd.ticket = 0u;
+  }
+}
+
 // ND: the diagonals the kernel is built for, their band values loaded ahead
 // of the tile's barrier (5 and 7, the 2D and 3D stencils), or 0: any number,
-// each band loaded as its term is summed.
-template <typename T, int ND>
-__global__ void __launch_bounds__(kStreamThreads)
+// each band loaded as its term is summed. DOT: also <x, y> (StreamDot).
+template <typename T, int ND, bool DOT>
+__global__ void __launch_bounds__(kStreamThreads, kStreamBlocksPerSM<T>)
     dia_stream_kernel(const T* __restrict__ bands, long long stride, const T* __restrict__ x,
-                      T* __restrict__ y, long long n, StreamPlan p) {
+                      T* __restrict__ y, long long n, StreamPlan p, StreamDot<T> sd) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
   const int tile = p.tile;
   const long long ntiles = (n + tile - 1) / tile;
   const long long k0 = static_cast<long long>(blockIdx.x) * p.tiles_per_block;
   const long long k1 = k0 + p.tiles_per_block < ntiles ? k0 + p.tiles_per_block : ntiles;
-  if (k0 >= k1) return;
+  if (k0 >= k1) {  // the whole block
+    if constexpr (DOT) stream_dot_combine(T(0), sd);
+    return;
+  }
+  T part = T(0);  // this thread's x[i] * y[i], summed in the data type (DOT)
   // each diagonal's ring slot of row t + off, for the current tile t
   int base[kMaxDiags];
   const long long first = k0 * tile;
@@ -256,6 +305,7 @@ __global__ void __launch_bounds__(kStreamThreads)
     }
     // 3. the products, in offset order
     T acc[kStreamRows] = {T(0), T(0), T(0), T(0)};
+    T x0[kStreamRows];  // x at this thread's rows, from the ring of offset 0 (DOT)
 #pragma unroll
     for (int d = 0; d < (ND ? ND : kMaxDiags); ++d) {
       if (ND || d < p.ndiag) {
@@ -276,6 +326,12 @@ __global__ void __launch_bounds__(kStreamThreads)
         }
 #pragma unroll
         for (int e = 0; e < kStreamRows; ++e) acc[e] += b4.v[e] * xv[e];
+        if constexpr (DOT) {
+          if (p.off[d] == 0) {
+#pragma unroll
+            for (int e = 0; e < kStreamRows; ++e) x0[e] = xv[e];
+          }
+        }
       }
     }
     if (whole && p.vec_y) {
@@ -285,6 +341,21 @@ __global__ void __launch_bounds__(kStreamThreads)
       for (int e = 0; e < kStreamRows; ++e)
         if (i + e < n) y[i + e] = acc[e];
     }
+    if constexpr (DOT) {  // x at this thread's rows: from the ring, else from device memory
+      if (p.self) {
+#pragma unroll
+        for (int e = 0; e < kStreamRows; ++e)
+          if (i + e < n) part += x0[e] * acc[e];
+      } else if (whole && p.vec_x) {
+        const Vec4<T> x4 = load4(x + i);
+#pragma unroll
+        for (int e = 0; e < kStreamRows; ++e) part += x4.v[e] * acc[e];
+      } else {
+#pragma unroll
+        for (int e = 0; e < kStreamRows; ++e)
+          if (i + e < n) part += x[i + e] * acc[e];
+      }
+    }
 #pragma unroll
     for (int d = 0; d < kMaxDiags; ++d) {
       if (d < p.ndiag) {
@@ -293,6 +364,7 @@ __global__ void __launch_bounds__(kStreamThreads)
       }
     }
   }
+  if constexpr (DOT) stream_dot_combine(part, sd);
 }
 
 // Launches kernel K with the plan's shared bytes, after letting K take them
@@ -300,21 +372,22 @@ __global__ void __launch_bounds__(kStreamThreads)
 template <auto K, typename T>
 static int stream_launch(int grid, int threads, long long shared, void* stream, const void* bands,
                          long long stride, const void* x, void* y, long long n,
-                         const StreamPlan& p) {
+                         const StreamPlan& p, const StreamDot<T>& sd) {
   const cudaError_t allowed = allow_shared<K>();
   if (allowed != cudaSuccess) return static_cast<int>(allowed);
   K<<<grid, threads, static_cast<size_t>(shared), static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(bands), stride, static_cast<const T*>(x), static_cast<T*>(y), n, p);
+      static_cast<const T*>(bands), stride, static_cast<const T*>(x), static_cast<T*>(y), n, p,
+      sd);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool DOT>
 static int launch_stream(const void* bands, long long stride, const void* x, void* y, long long n,
                          const long long* offsets, int ndiag, const long long* plan, int plan_len,
-                         int grid, void* stream) {
+                         int grid, const StreamDot<T>& sd, void* stream) {
   if (n < 0 || stride < n || ndiag < 1 || ndiag > kMaxDiags)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (n == 0) return 0;
+  if (n == 0 && !DOT) return 0;
   StreamPlan p;
   int threads = 0;
   if (!make_stream_plan<T>(&p, plan, plan_len, offsets, ndiag, n, grid, &threads))
@@ -326,13 +399,26 @@ static int launch_stream(const void* bands, long long stride, const void* x, voi
   for (int d = 0; d < ndiag; ++d)
     if (on_grid(static_cast<const T*>(bands) + d * stride)) p.band_vec |= 1u << d;
   if (ndiag == 5)
-    return stream_launch<dia_stream_kernel<T, 5>, T>(grid, threads, plan[2], stream, bands, stride,
-                                                  x, y, n, p);
+    return stream_launch<dia_stream_kernel<T, 5, DOT>, T>(grid, threads, plan[2], stream, bands,
+                                                          stride, x, y, n, p, sd);
   if (ndiag == 7)
-    return stream_launch<dia_stream_kernel<T, 7>, T>(grid, threads, plan[2], stream, bands, stride,
-                                                  x, y, n, p);
-  return stream_launch<dia_stream_kernel<T, 0>, T>(grid, threads, plan[2], stream, bands, stride, x,
-                                                y, n, p);
+    return stream_launch<dia_stream_kernel<T, 7, DOT>, T>(grid, threads, plan[2], stream, bands,
+                                                          stride, x, y, n, p, sd);
+  return stream_launch<dia_stream_kernel<T, 0, DOT>, T>(grid, threads, plan[2], stream, bands,
+                                                        stride, x, y, n, p, sd);
+}
+
+// dia_matvec_dot's launch: the product's, with one partial a block
+template <typename T>
+static int launch_stream_dot(const void* bands, long long stride, const void* x, void* y,
+                             long long n, const long long* offsets, int ndiag,
+                             const long long* plan, int plan_len, int grid, void* partials,
+                             long long partials_len, void* ticket, void* dot, void* stream) {
+  if (grid > partials_len) return static_cast<int>(cudaErrorInvalidValue);
+  const StreamDot<T> sd{static_cast<T*>(partials), static_cast<unsigned int*>(ticket),
+                        static_cast<T*>(dot)};
+  return launch_stream<T, true>(bands, stride, x, y, n, offsets, ndiag, plan, plan_len, grid, sd,
+                                stream);
 }
 
 }  // namespace cgx
@@ -345,15 +431,32 @@ extern "C" {
 int cgx_dia_matvec_stream_f32(const void* bands, long long stride, const void* x, void* y,
                               long long n, const long long* offsets, int ndiag,
                               const long long* plan, int plan_len, int grid, void* stream) {
-  return cgx::launch_stream<float>(bands, stride, x, y, n, offsets, ndiag, plan, plan_len, grid,
-                                   stream);
+  return cgx::launch_stream<float, false>(bands, stride, x, y, n, offsets, ndiag, plan, plan_len,
+                                          grid, {}, stream);
 }
 
 int cgx_dia_matvec_stream_f64(const void* bands, long long stride, const void* x, void* y,
                               long long n, const long long* offsets, int ndiag,
                               const long long* plan, int plan_len, int grid, void* stream) {
-  return cgx::launch_stream<double>(bands, stride, x, y, n, offsets, ndiag, plan, plan_len, grid,
-                                    stream);
+  return cgx::launch_stream<double, false>(bands, stride, x, y, n, offsets, ndiag, plan, plan_len,
+                                           grid, {}, stream);
+}
+
+// the same, and <x, y>: partials (at least grid of them), the ticket (0), the dot
+int cgx_dia_matvec_stream_dot_f32(const void* bands, long long stride, const void* x, void* y,
+                                  long long n, const long long* offsets, int ndiag,
+                                  const long long* plan, int plan_len, int grid, void* partials,
+                                  long long partials_len, void* ticket, void* dot, void* stream) {
+  return cgx::launch_stream_dot<float>(bands, stride, x, y, n, offsets, ndiag, plan, plan_len,
+                                       grid, partials, partials_len, ticket, dot, stream);
+}
+
+int cgx_dia_matvec_stream_dot_f64(const void* bands, long long stride, const void* x, void* y,
+                                  long long n, const long long* offsets, int ndiag,
+                                  const long long* plan, int plan_len, int grid, void* partials,
+                                  long long partials_len, void* ticket, void* dot, void* stream) {
+  return cgx::launch_stream_dot<double>(bands, stride, x, y, n, offsets, ndiag, plan, plan_len,
+                                        grid, partials, partials_len, ticket, dot, stream);
 }
 
 }  // extern "C"

@@ -37,46 +37,21 @@
 // first aligned column, the vectors, a scalar tail; x is then read a value at
 // a time.
 //
-// dense_matvec_dot (dense_row): one warp per row, in a grid-stride loop over
-// rows. Within a column tile the 32 lanes stride along the contiguous row
-// (coalesced loads), each lane sums its elements in order, a shuffle tree sums
-// the lanes, and lane 0 adds the tile sums in column-tile order in a register.
-// x is re-read by every row and comes from L2. The reference merged tile partials with atomicAdd;
-// there are no float atomics here: dense_matvec_dot writes x[i]*y[i] per row,
-// and the last block to take the integer ticket sums them per row tile and the
-// tile sums in order, so every result is bitwise repeatable. Bounds are tested
-// in the kernel, so A and x are read in place with no padded copy. No tensor
-// cores: their float path is TF32, which the solver's precision rule forbids.
+// dense_matvec_dot: the same kernel with a dot epilogue (DOT), so its y is
+// bitwise dense_matvec's. Where a row's sum is written, the block also writes
+// x[i]*y[i] (0 past n_cols); the last block to take the integer ticket sums
+// them per row tile (one warp a tile: lanes strided, then a shuffle tree) and
+// the tile sums in order, so every result is bitwise repeatable. The
+// reference merged tile partials with atomicAdd; there are no float atomics
+// here. Bounds are tested in the kernel, so A and x are read in place with no
+// padded copy. No tensor cores: their float path is TF32, which the solver's
+// precision rule forbids. The design before this one ran the dot on one warp a
+// row (lanes strided along each tile), which grouped a tile's products
+// otherwise than dense_matvec, so the two gave different y; it took 0.3189 ms
+// in double at N = 10,000 on an H100 (PERF.md).
 #include "common.cuh"
 
 namespace cgx {
-
-constexpr int kWarps = kThreads / 32;  // rows in flight per block
-constexpr long long kMaxRowBlocks = 65535;
-
-inline int row_grid(long long n_rows) {
-  long long blocks = (n_rows + kWarps - 1) / kWarps;
-  if (blocks < 1) blocks = 1;
-  if (blocks > kMaxRowBlocks) blocks = kMaxRowBlocks;
-  return static_cast<int>(blocks);
-}
-
-// y[row] by the grouping above; valid in lane 0. All 32 lanes must call it.
-template <typename T>
-__device__ __forceinline__ T dense_row(const T* __restrict__ a, const T* __restrict__ x,
-                                       long long n_cols, long long block_cols, long long row,
-                                       int lane) {
-  const T* __restrict__ arow = a + row * n_cols;
-  T acc = T(0);
-  for (long long c0 = 0; c0 < n_cols; c0 += block_cols) {
-    const long long c1 = c0 + block_cols < n_cols ? c0 + block_cols : n_cols;
-    T part = T(0);
-#pragma unroll 4
-    for (long long c = c0 + lane; c < c1; c += 32) part += arow[c] * x[c];
-    acc += warp_sum(part);
-  }
-  return acc;
-}
 
 constexpr int kDenseThreads = 512;  // cgx_torch.ops.matvec.DENSE_THREADS; one block an SM
 constexpr int kDenseUnits = 8;      // neighbouring tiles of a row a warp works on at once
@@ -187,12 +162,13 @@ struct Span {
 // warps take kDenseUnits neighbouring tiles of a row at a time, and write each
 // tile's sum to shared memory; then one thread a row adds them, in tile order, to
 // the row's running sum. ALIGNED: every row start, tile and chunk is 16-byte aligned.
-template <typename T, bool ALIGNED>
-__global__ void __launch_bounds__(kDenseThreads, 1)
-dense_matvec_persistent_kernel(const T* __restrict__ a, const T* __restrict__ x,
-                               T* __restrict__ y, long long n_rows, long long n_cols,
-                               long long block_cols, long long chunk_cols,
-                               long long rows_per_cta, int staged) {
+// DOT: where a row's sum is written, also prods[i] = x[i] * y[i] (0 past n_cols).
+template <typename T, bool ALIGNED, bool DOT>
+__device__ __forceinline__ void dense_rows(const T* __restrict__ a, const T* __restrict__ x,
+                                           T* __restrict__ y, long long n_rows,
+                                           long long n_cols, long long block_cols,
+                                           long long chunk_cols, long long rows_per_cta,
+                                           int staged, T* __restrict__ prods) {
   using V = typename Vec16<T>::type;
   constexpr int VN = Vec16<T>::n;
   constexpr int G = kDenseUnits;
@@ -209,7 +185,10 @@ dense_matvec_persistent_kernel(const T* __restrict__ a, const T* __restrict__ x,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
   const int mine = (lane & 16 ? 4 : 0) + (lane & 8 ? 2 : 0) + (lane & 4 ? 1 : 0);
   if (n_cols == 0)
-    for (long long r = threadIdx.x; r < rows; r += blockDim.x) y[r0 + r] = T(0);
+    for (long long r = threadIdx.x; r < rows; r += blockDim.x) {
+      y[r0 + r] = T(0);
+      if (DOT) prods[r0 + r] = T(0);
+    }
   for (long long k0 = 0; k0 < n_cols; k0 += chunk_cols) {
     const long long k1 = k0 + chunk_cols < n_cols ? k0 + chunk_cols : n_cols;
     const long long tiles = (k1 - k0 + block_cols - 1) / block_cols;
@@ -305,54 +284,63 @@ dense_matvec_persistent_kernel(const T* __restrict__ a, const T* __restrict__ x,
     for (long long r = threadIdx.x; r < rows; r += blockDim.x) {
       T acc = k0 == 0 ? T(0) : run[r];
       for (long long t = 0; t < tiles; ++t) acc += tsum[r * tiles + t];
-      if (k1 == n_cols)
+      if (k1 == n_cols) {
         y[r0 + r] = acc;
-      else
+        if (DOT) prods[r0 + r] = r0 + r < n_cols ? x[r0 + r] * acc : T(0);
+      } else {
         run[r] = acc;
+      }
     }
   }
 }
 
+// dense_matvec_dot's outputs and scratch (unused by dense_matvec).
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-dense_matvec_dot_kernel(const T* __restrict__ a, const T* __restrict__ x, T* __restrict__ y,
-                        T* __restrict__ prods, T* __restrict__ tile_sums,
-                        unsigned int* __restrict__ ticket, T* __restrict__ dot, long long n_rows,
-                        long long n_cols, long long block_rows, long long block_cols) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const long long stride = static_cast<long long>(gridDim.x) * kWarps;
-  for (long long row = static_cast<long long>(blockIdx.x) * kWarps + warp; row < n_rows;
-       row += stride) {
-    const T v = dense_row(a, x, n_cols, block_cols, row, lane);
-    if (lane == 0) {
-      y[row] = v;
-      prods[row] = row < n_cols ? x[row] * v : T(0);
+struct DenseDot {
+  T* prods;              // x[i] * y[i] a row
+  T* tile_sums;          // one a row tile
+  unsigned int* ticket;  // 0 at launch; the last block sets it back to 0
+  T* dot;
+  long long block_rows;
+};
+
+// y = A x on the persistent grid; with DOT also <x, y>: the last block to take
+// the ticket sums the products per row tile (a warp a tile) and the tile sums
+// in order.
+template <typename T, bool ALIGNED, bool DOT>
+__global__ void __launch_bounds__(kDenseThreads, 1)
+dense_matvec_persistent_kernel(const T* __restrict__ a, const T* __restrict__ x,
+                               T* __restrict__ y, long long n_rows, long long n_cols,
+                               long long block_cols, long long chunk_cols,
+                               long long rows_per_cta, int staged, DenseDot<T> dd) {
+  dense_rows<T, ALIGNED, DOT>(a, x, y, n_rows, n_cols, block_cols, chunk_cols, rows_per_cta,
+                              staged, dd.prods);
+  if constexpr (DOT) {
+    __threadfence();  // this block's products are visible before its ticket is taken
+    __syncthreads();
+    __shared__ bool is_last;
+    if (threadIdx.x == 0) is_last = atomicAdd(dd.ticket, 1u) == gridDim.x - 1;
+    __syncthreads();
+    if (!is_last) return;
+    __threadfence();
+    const volatile T* p = dd.prods;  // written by other SMs: bypass L1
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+    const long long tiles = (n_rows + dd.block_rows - 1) / dd.block_rows;
+    for (long long t = warp; t < tiles; t += nwarps) {
+      const long long r1 = (t + 1) * dd.block_rows < n_rows ? (t + 1) * dd.block_rows : n_rows;
+      T s = T(0);
+      for (long long i = t * dd.block_rows + lane; i < r1; i += 32) s += p[i];
+      s = warp_sum(s);
+      if (lane == 0) dd.tile_sums[t] = s;
     }
-  }
-  __threadfence();  // this block's products are visible before its ticket is taken
-  __syncthreads();
-  __shared__ bool is_last;
-  if (threadIdx.x == 0) is_last = atomicAdd(ticket, 1u) == gridDim.x - 1;
-  __syncthreads();
-  if (!is_last) return;
-  __threadfence();
-  const volatile T* p = prods;  // written by other SMs: bypass L1
-  const long long tiles = (n_rows + block_rows - 1) / block_rows;
-  for (long long t = warp; t < tiles; t += kWarps) {
-    const long long r1 = (t + 1) * block_rows < n_rows ? (t + 1) * block_rows : n_rows;
-    T s = T(0);
-    for (long long i = t * block_rows + lane; i < r1; i += 32) s += p[i];
-    s = warp_sum(s);
-    if (lane == 0) tile_sums[t] = s;
-  }
-  __syncthreads();  // the tile sums of all warps are visible to thread 0
-  if (threadIdx.x == 0) {
-    const volatile T* ts = tile_sums;
-    T d = T(0);
-    for (long long t = 0; t < tiles; ++t) d += ts[t];
-    *dot = d;
-    *ticket = 0u;
+    __syncthreads();  // the tile sums of all warps are visible to thread 0
+    if (threadIdx.x == 0) {
+      const volatile T* ts = dd.tile_sums;
+      T d = T(0);
+      for (long long t = 0; t < tiles; ++t) d += ts[t];
+      *dd.dot = d;
+      *dd.ticket = 0u;
+    }
   }
 }
 
@@ -364,14 +352,15 @@ static bool bad_shape(long long n_rows, long long n_cols, long long block_rows,
 // The plan of cgx_torch.ops.matvec.dense_plan. Refused unless the grid's row
 // ranges cover the rows, chunks hold whole tiles, x fits the shared bytes when
 // staged, and the aligned path's rows, tiles and pointers are 16-byte aligned.
-template <typename T>
+// With DOT the kernel also runs on n_rows = 0 (the dot is 0).
+template <typename T, bool DOT>
 static int launch_matvec(const void* a, const void* x, void* y, long long n_rows,
                          long long n_cols, long long block_cols, long long chunk_cols,
                          long long rows_per_cta, int staged, int aligned, int shared, int grid,
-                         void* stream) {
+                         DenseDot<T> dd, void* stream) {
   const long long sz = sizeof(T);
-  if (bad_shape(n_rows, n_cols, 1, block_cols) || grid < 1 || rows_per_cta < 1 ||
-      rows_per_cta * grid < n_rows || chunk_cols < 1 ||
+  if (bad_shape(n_rows, n_cols, DOT ? dd.block_rows : 1, block_cols) || grid < 1 ||
+      rows_per_cta < 1 || rows_per_cta * grid < n_rows || chunk_cols < 1 ||
       (chunk_cols < n_cols && chunk_cols % block_cols != 0) ||
       shared < dense_shared(chunk_cols, (chunk_cols + block_cols - 1) / block_cols,
                             rows_per_cta, sz, staged) ||
@@ -379,32 +368,25 @@ static int launch_matvec(const void* a, const void* x, void* y, long long n_rows
                    reinterpret_cast<unsigned long long>(a) % 16 != 0 ||
                    (!staged && reinterpret_cast<unsigned long long>(x) % 16 != 0))))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (n_rows == 0) return static_cast<int>(cudaSuccess);
+  if (n_rows == 0 && !DOT) return static_cast<int>(cudaSuccess);
   const auto launch = [&](auto kernel, cudaError_t allowed) {
     if (allowed != cudaSuccess) return static_cast<int>(allowed);
     kernel<<<grid, kDenseThreads, shared, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(a), static_cast<const T*>(x), static_cast<T*>(y), n_rows, n_cols,
-        block_cols, chunk_cols, rows_per_cta, staged);
+        block_cols, chunk_cols, rows_per_cta, staged, dd);
     return static_cast<int>(cudaGetLastError());
   };
-  return aligned ? launch(dense_matvec_persistent_kernel<T, true>,
-                          allow_shared<dense_matvec_persistent_kernel<T, true>>())
-                 : launch(dense_matvec_persistent_kernel<T, false>,
-                          allow_shared<dense_matvec_persistent_kernel<T, false>>());
+  return aligned ? launch(dense_matvec_persistent_kernel<T, true, DOT>,
+                          allow_shared<dense_matvec_persistent_kernel<T, true, DOT>>())
+                 : launch(dense_matvec_persistent_kernel<T, false, DOT>,
+                          allow_shared<dense_matvec_persistent_kernel<T, false, DOT>>());
 }
 
 template <typename T>
-static int launch_matvec_dot(const void* a, const void* x, void* y, void* prods, void* tile_sums,
-                             void* ticket, void* dot, long long n_rows, long long n_cols,
-                             long long block_rows, long long block_cols, void* stream) {
-  if (bad_shape(n_rows, n_cols, block_rows, block_cols))
-    return static_cast<int>(cudaErrorInvalidValue);
-  dense_matvec_dot_kernel<T>
-      <<<row_grid(n_rows), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const T*>(a), static_cast<const T*>(x), static_cast<T*>(y),
-          static_cast<T*>(prods), static_cast<T*>(tile_sums), static_cast<unsigned int*>(ticket),
-          static_cast<T*>(dot), n_rows, n_cols, block_rows, block_cols);
-  return static_cast<int>(cudaGetLastError());
+static DenseDot<T> dense_dot(void* prods, void* tile_sums, void* ticket, void* dot,
+                             long long block_rows) {
+  return DenseDot<T>{static_cast<T*>(prods), static_cast<T*>(tile_sums),
+                     static_cast<unsigned int*>(ticket), static_cast<T*>(dot), block_rows};
 }
 
 }  // namespace cgx
@@ -415,30 +397,40 @@ int cgx_dense_matvec_f32(const void* a, const void* x, void* y, long long n_rows
                          long long n_cols, long long block_cols, long long chunk_cols,
                          long long rows_per_cta, int staged, int aligned, int shared, int grid,
                          void* stream) {
-  return cgx::launch_matvec<float>(a, x, y, n_rows, n_cols, block_cols, chunk_cols, rows_per_cta,
-                                   staged, aligned, shared, grid, stream);
+  return cgx::launch_matvec<float, false>(a, x, y, n_rows, n_cols, block_cols, chunk_cols,
+                                          rows_per_cta, staged, aligned, shared, grid, {},
+                                          stream);
 }
 
 int cgx_dense_matvec_f64(const void* a, const void* x, void* y, long long n_rows,
                          long long n_cols, long long block_cols, long long chunk_cols,
                          long long rows_per_cta, int staged, int aligned, int shared, int grid,
                          void* stream) {
-  return cgx::launch_matvec<double>(a, x, y, n_rows, n_cols, block_cols, chunk_cols,
-                                    rows_per_cta, staged, aligned, shared, grid, stream);
+  return cgx::launch_matvec<double, false>(a, x, y, n_rows, n_cols, block_cols, chunk_cols,
+                                           rows_per_cta, staged, aligned, shared, grid, {},
+                                           stream);
 }
 
-int cgx_dense_matvec_dot_f32(const void* a, const void* x, void* y, void* prods, void* tile_sums,
-                             void* ticket, void* dot, long long n_rows, long long n_cols,
-                             long long block_rows, long long block_cols, void* stream) {
-  return cgx::launch_matvec_dot<float>(a, x, y, prods, tile_sums, ticket, dot, n_rows, n_cols,
-                                       block_rows, block_cols, stream);
+// dense_matvec's arguments, then the products (n_rows), the tile sums (one a
+// row tile), the ticket (0), the dot and the row tile.
+int cgx_dense_matvec_dot_f32(const void* a, const void* x, void* y, long long n_rows,
+                             long long n_cols, long long block_cols, long long chunk_cols,
+                             long long rows_per_cta, int staged, int aligned, int shared,
+                             int grid, void* prods, void* tile_sums, void* ticket, void* dot,
+                             long long block_rows, void* stream) {
+  return cgx::launch_matvec<float, true>(
+      a, x, y, n_rows, n_cols, block_cols, chunk_cols, rows_per_cta, staged, aligned, shared,
+      grid, cgx::dense_dot<float>(prods, tile_sums, ticket, dot, block_rows), stream);
 }
 
-int cgx_dense_matvec_dot_f64(const void* a, const void* x, void* y, void* prods, void* tile_sums,
-                             void* ticket, void* dot, long long n_rows, long long n_cols,
-                             long long block_rows, long long block_cols, void* stream) {
-  return cgx::launch_matvec_dot<double>(a, x, y, prods, tile_sums, ticket, dot, n_rows, n_cols,
-                                        block_rows, block_cols, stream);
+int cgx_dense_matvec_dot_f64(const void* a, const void* x, void* y, long long n_rows,
+                             long long n_cols, long long block_cols, long long chunk_cols,
+                             long long rows_per_cta, int staged, int aligned, int shared,
+                             int grid, void* prods, void* tile_sums, void* ticket, void* dot,
+                             long long block_rows, void* stream) {
+  return cgx::launch_matvec<double, true>(
+      a, x, y, n_rows, n_cols, block_cols, chunk_cols, rows_per_cta, staged, aligned, shared,
+      grid, cgx::dense_dot<double>(prods, tile_sums, ticket, dot, block_rows), stream);
 }
 
 }  // extern "C"

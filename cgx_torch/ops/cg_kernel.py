@@ -13,6 +13,14 @@ kernel's note says why the port does not). The host chains chunks until
 ``converged`` or ``k >= maxiter``, reading the packed scalars once per
 chunk, as cgx's ``while_loop`` does.
 
+The kernel has two designs, picked by :func:`resident_plan`:
+"resident" (state on chip across the chunk: x, r and Ap in registers,
+p, c and where room allows the bands in shared memory, one block an SM)
+where a block's vectors fit, else "global" (the state in device memory,
+the design before). Pass ``plan=GLOBAL_PLAN`` (or a plan of your own) to
+:func:`dia_cg_chunk` to force one; ``dia_cg_chunk.plan`` records the last
+CUDA call's.
+
 cgx has two TPU kernels for this, ``_dia_cg_vmem`` (``layout="1d"``) and
 ``_dia_cg_vmem2d`` (``layout="2d"``, vectors as (rows, cols) planes);
 they differ only in TPU layout, so one CUDA kernel over flat vectors
@@ -25,7 +33,8 @@ kernel or raises; on a CPU tensor it runs :func:`dia_cg_chunk_ref`.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence
+import functools
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -37,13 +46,83 @@ from cgx_torch.ops._util import (
     band_storage,
     check_operands,
     launch,
+    SHARED_OPTIN,
     resolve_device,
+    round_up,
+    sms_of,
 )
 from cgx_torch.ops.dia_spmv import _check, _offsets_arg, dia_matvec, dia_matvec_ref
 from cgx_torch.solver.cg import CGResult, as_vector
 
 LAYOUTS = ("1d", "2d")
 _PARTIALS = 3 * PARTIALS  # the kernel's <p, Ap>, <r, r> and <r, z> partials, one per block
+
+
+RES_THREADS = 512  # kResThreads of csrc/cg_kernel.cu: one block an SM
+# rows a thread keeps in registers (x, r and Ap each), by the vectors' dtype: the
+# kernel is built for these
+RES_ROWS_PER_THREAD = {torch.float32: (4, 8, 16), torch.float64: (4, 8)}
+RES_STATIC = 1024  # shared bytes kept for the kernel's static shared memory (the block sums)
+
+
+class ResidentPlan(NamedTuple):
+    """How the whole-solve kernel runs. ``design`` is "resident" or
+    "global". For the resident design: ``grid`` blocks (one an SM), each
+    on ``rows`` contiguous rows (the last on fewer), RES_THREADS threads
+    with ``rows_per_thread`` rows each in registers; the halo, ``left``
+    rows below a block and ``right`` above, that its products read;
+    ``bands_shared``: the block's bands in shared memory too; ``shared``
+    bytes a block (the bands where they are there, then p, and c with the
+    preconditioner, over the rows and halo)."""
+
+    design: str
+    grid: int
+    rows: int
+    rows_per_thread: int
+    left: int
+    right: int
+    bands_shared: bool
+    shared: int
+
+    def as_arg(self):
+        """The plan array of csrc/cg_kernel.cu launch_resident, and its length."""
+        vals = (RES_THREADS, self.rows, self.rows_per_thread, self.left, self.right,
+                int(self.bands_shared), self.shared)
+        return (ctypes.c_longlong * len(vals))(*vals), len(vals)
+
+
+GLOBAL_PLAN = ResidentPlan("global", 0, 0, 0, 0, 0, False, 0)  # its grid is set in C
+
+
+@functools.lru_cache(maxsize=64)
+def resident_plan(n: int, offsets: Tuple[int, ...], dtype: torch.dtype,
+                  bands_dtype: torch.dtype, precond: bool, sms: int) -> ResidentPlan:
+    """The whole-solve kernel's design on n rows. One block an SM (fewer
+    where n is smaller), each on ceil(n / sms) rows. The rule: "resident"
+    where a thread's rows fit the register arrays the kernel is built
+    for (RES_ROWS_PER_THREAD) and p (and c) over a block's rows and halo
+    fit its shared memory, the bands too where they also fit; else
+    "global". At N = 1,000,000 with 5 bands, 7,576 rows a block (16 a
+    thread): float32 bands and vectors take 189,824 bytes, with the
+    preconditioner 228,128, so both keep the bands on chip, as do bfloat16
+    bands; float64 vectors need 16 rows a thread and run "global"."""
+    offsets = tuple(int(o) for o in offsets)
+    item = torch.finfo(dtype).bits // 8
+    band_item = torch.finfo(bands_dtype).bits // 8
+    grid0 = max(1, min(sms, n))
+    rows = -(-n // grid0)
+    grid = -(-n // rows)
+    per_thread = next((r for r in RES_ROWS_PER_THREAD[dtype] if r * RES_THREADS >= rows), None)
+    if per_thread is None:
+        return GLOBAL_PLAN
+    left, right = max(0, -min(offsets)), max(0, max(offsets))
+    vectors = (rows + left + right) * item * (2 if precond else 1)
+    bands = round_up(len(offsets) * rows * band_item, 16)
+    for bands_shared, shared in ((True, bands + vectors), (False, vectors)):
+        if shared + RES_STATIC <= SHARED_OPTIN:
+            return ResidentPlan("resident", grid, rows, per_thread, left, right, bands_shared,
+                                shared)
+    return GLOBAL_PLAN
 
 
 def _dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -139,6 +218,53 @@ def dia_cg_chunk_ref(
     return torch.stack([rsold, conv, k, brk])
 
 
+def _check_chunk(bands, p, x, r, scal, offsets, layout) -> Tuple[int, ...]:
+    offsets = _check("dia_cg_chunk", bands, x, offsets, bf16_bands=True)
+    check_operands("dia_cg_chunk", {"p": p, "x": x, "r": r})
+    if layout not in LAYOUTS:
+        raise ValueError(f"unknown layout {layout!r}")
+    if not (isinstance(scal, torch.Tensor) and scal.shape == (4,) and scal.dtype == torch.float64
+            and scal.device == x.device and scal.is_contiguous()):
+        raise ValueError("dia_cg_chunk: scal must be a contiguous float64 (4,) tensor on x's device")
+    return offsets
+
+
+def _launch_chunk(bands, p, x, r, scal, offsets, tol, nearzero, maxiter, chunk, precond,
+                  plan: Optional[ResidentPlan], empty: bool = False) -> torch.Tensor:
+    """One launch of the kernel in ``plan``'s design (default
+    :func:`resident_plan`); returns the new scalars."""
+    d0 = _diag_index(offsets) if precond else -1
+    n = x.shape[0]
+    if plan is None:
+        plan = resident_plan(n, offsets, x.dtype, bands.dtype, bool(precond), sms_of(x.device))
+    partials = torch.empty(_PARTIALS, dtype=torch.float64, device=x.device)
+    out = torch.empty_like(scal)
+    suffix = BF16_BANDS_SUFFIX if bands.dtype == torch.bfloat16 else KERNEL_DTYPES[x.dtype]
+    common = (scal.data_ptr(), out.data_ptr(), n, _offsets_arg(offsets), len(offsets), d0,
+              float(tol), float(torch.tensor(nearzero, dtype=x.dtype)), float(maxiter), int(chunk),
+              int(precond))
+    if plan.design == "resident":
+        pub = torch.empty((6 if precond else 4) * n, dtype=x.dtype, device=x.device)
+        bar = torch.zeros(1, dtype=torch.int32, device=x.device)  # the grid barrier's count
+        arg, arg_len = plan.as_arg()
+        launch("cgx_dia_cg_resident", x, bands.data_ptr(), p.data_ptr(), x.data_ptr(),
+               r.data_ptr(), pub.data_ptr(), partials.data_ptr(), _PARTIALS, bar.data_ptr(),
+               *common, arg, arg_len, plan.grid, int(empty), suffix=suffix)
+        dia_cg_chunk.grid = plan.grid
+    else:
+        if empty:
+            raise ValueError("the sync floor is a launch of the resident design")
+        ap = torch.empty_like(x)
+        c = torch.empty_like(x) if precond else None
+        grid = ctypes.c_int(0)
+        launch("cgx_dia_cg_chunk", x, bands.data_ptr(), p.data_ptr(), x.data_ptr(), r.data_ptr(),
+               ap.data_ptr(), None if c is None else c.data_ptr(), partials.data_ptr(), _PARTIALS,
+               *common, ctypes.byref(grid), suffix=suffix)
+        dia_cg_chunk.grid = grid.value
+    dia_cg_chunk.plan = plan
+    return out
+
+
 def dia_cg_chunk(
     bands: torch.Tensor,
     p: torch.Tensor,
@@ -153,6 +279,7 @@ def dia_cg_chunk(
     chunk: int,
     precond: bool = False,
     layout: str = "1d",
+    plan: Optional[ResidentPlan] = None,
 ) -> torch.Tensor:
     """Up to ``chunk`` CG iterations in one launch of the whole-solve
     kernel. Advances p, x and r in place and returns the new packed
@@ -160,32 +287,15 @@ def dia_cg_chunk(
     ``layout`` names the cgx site the call stands for and picks the
     launch counter (``launches_bf16`` counts those with bfloat16 bands
     again); the kernel is the same. ``bands`` are in the vectors'
-    dtype, or bfloat16 under float32 vectors."""
-    offsets = _check("dia_cg_chunk", bands, x, offsets, bf16_bands=True)
-    check_operands("dia_cg_chunk", {"p": p, "x": x, "r": r})
-    if layout not in LAYOUTS:
-        raise ValueError(f"unknown layout {layout!r}")
-    if not (isinstance(scal, torch.Tensor) and scal.shape == (4,) and scal.dtype == torch.float64
-            and scal.device == x.device and scal.is_contiguous()):
-        raise ValueError("dia_cg_chunk: scal must be a contiguous float64 (4,) tensor on x's device")
-    d0 = _diag_index(offsets) if precond else -1
+    dtype, or bfloat16 under float32 vectors. On a CUDA tensor the
+    kernel runs ``plan``'s design (default :func:`resident_plan`)."""
+    offsets = _check_chunk(bands, p, x, r, scal, offsets, layout)
     if x.device.type == "cpu":
         out = dia_cg_chunk_ref(bands, p, x, r, scal, offsets=offsets, tol=tol, nearzero=nearzero,
                                maxiter=maxiter, chunk=chunk, precond=precond)
     else:
-        ap = torch.empty_like(x)
-        c = torch.empty_like(x) if precond else None
-        partials = torch.empty(_PARTIALS, dtype=torch.float64, device=x.device)
-        out = torch.empty_like(scal)
-        grid = ctypes.c_int(0)
-        launch("cgx_dia_cg_chunk", x, bands.data_ptr(), p.data_ptr(), x.data_ptr(), r.data_ptr(),
-               ap.data_ptr(), None if c is None else c.data_ptr(), partials.data_ptr(), _PARTIALS,
-               scal.data_ptr(), out.data_ptr(), x.shape[0], _offsets_arg(offsets), len(offsets),
-               d0, float(tol), float(torch.tensor(nearzero, dtype=x.dtype)), float(maxiter),
-               int(chunk), int(precond),
-               ctypes.byref(grid), suffix=(BF16_BANDS_SUFFIX if bands.dtype == torch.bfloat16
-                                           else KERNEL_DTYPES[x.dtype]))
-        dia_cg_chunk.grid = grid.value
+        out = _launch_chunk(bands, p, x, r, scal, offsets, tol, nearzero, maxiter, chunk, precond,
+                            plan)
     dia_cg_chunk.launches[layout] += 1
     if bands.dtype == torch.bfloat16:
         dia_cg_chunk.launches_bf16[layout] += 1
@@ -195,11 +305,27 @@ def dia_cg_chunk(
 dia_cg_chunk.launches = {layout: 0 for layout in LAYOUTS}
 dia_cg_chunk.launches_bf16 = {layout: 0 for layout in LAYOUTS}  # those with bfloat16 bands
 dia_cg_chunk.grid = None  # blocks of the last CUDA launch
+dia_cg_chunk.plan = None  # the ResidentPlan of the last CUDA launch
 
 
-def _solve(bands, b, *, offsets, tol, nearzero, maxiter, chunk, precond, layout) -> CGResult:
+def resident_sync_floor(bands, p, x, r, scal, *, offsets: Sequence[int], chunk: int,
+                        precond: bool = False, plan: Optional[ResidentPlan] = None) -> None:
+    """One launch of the resident design that runs ``chunk`` iterations of
+    its grid syncs and ordered sums only (no vector is read or written):
+    the fixed cost an on-chip design cannot go below, for
+    ``chip_smoke.py`` to time. CUDA only; counts no launch."""
+    offsets = _check_chunk(bands, p, x, r, scal, offsets, "1d")
+    if x.device.type != "cuda":
+        raise ValueError("resident_sync_floor: the sync floor is a measurement on the card")
+    _launch_chunk(bands, p, x, r, scal, offsets, 0.0, 1e-14, 10**9, chunk, precond, plan,
+                  empty=True)
+
+
+def _solve(bands, b, *, offsets, tol, nearzero, maxiter, chunk, precond, layout,
+           plan=None) -> CGResult:
     """cgx's _dia_cg_vmem set-up (cg_kernel.py:189-243) and its chunk
-    loop, from x0 = 0, on flat vectors."""
+    loop, from x0 = 0, on flat vectors; every chunk in ``plan``'s design
+    (default :func:`resident_plan`'s; checks pass ``GLOBAL_PLAN``)."""
     offsets = tuple(int(o) for o in offsets)
     if bands.dtype != b.dtype and not (bands.dtype == torch.bfloat16 and b.dtype == torch.float32):
         raise TypeError(f"bands are {bands.dtype} but b is {b.dtype}")
@@ -225,7 +351,8 @@ def _solve(bands, b, *, offsets, tol, nearzero, maxiter, chunk, precond, layout)
     _, converged, k, _ = scal.tolist()  # the one host read per chunk
     while converged == 0.0 and k < maxiter:
         scal = dia_cg_chunk(bands, p, x, r, scal, offsets=offsets, tol=tol, nearzero=nearzero,
-                            maxiter=maxiter, chunk=chunk, precond=precond, layout=layout)
+                            maxiter=maxiter, chunk=chunk, precond=precond, layout=layout,
+                            plan=plan)
         _, converged, k, _ = scal.tolist()
     return CGResult(
         x=x,

@@ -1,7 +1,9 @@
 """Banded (DIA) mat-vec: CUDA kernels B1 and B8 and their plain versions.
 
 Counterpart of ``cgx/ops/dia_spmv.py``: ``dia_matvec`` and
-``dia_matvec_dot`` (B1, ``cgx_torch/csrc/dia_spmv.cu``), and the
+``dia_matvec_dot`` (B1: on B8's kernel, with a dot epilogue for the
+second, where :func:`matvec_plan` places x's rings and n fills the card,
+else the grid-stride kernels of ``cgx_torch/csrc/dia_spmv.cu``), and the
 streaming forms ``dia_matvec_stream`` and ``dia_matvec_stream2d_planes``
 (B8, ``cgx_torch/csrc/dia_stream.cu``, one kernel with two entry points),
 with ``dia_matvec_stream2d`` and ``stream2d_band_planes``. Each source's
@@ -16,7 +18,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -83,26 +85,74 @@ def _offsets_arg(offsets):
     return (ctypes.c_longlong * len(offsets))(*offsets)
 
 
+class MatvecPlan(NamedTuple):
+    """How B1's two entries run: ``design`` "stream" (B8's kernel,
+    csrc/dia_stream.cu, on ``stream``, its :func:`stream_plan`) where x's
+    rings fit, else "grid" (csrc/dia_spmv.cu, one thread a row in a
+    grid-stride loop; ``stream`` None)."""
+
+    design: str
+    stream: Optional["StreamPlan"]
+
+
+GRID_PLAN = MatvecPlan("grid", None)  # the grid-stride design, which a caller may force
+
+
+def matvec_plan(n: int, offsets: Tuple[int, ...], dtype: torch.dtype, sms: int) -> MatvecPlan:
+    """B1's design on n rows: B8's staged-x kernel where
+    :func:`stream_plan` places x's rings (every 2D and 3D stencil the
+    solvers build) and n gives every SM a tile (n >= tile * sms: 135,168
+    rows with 1024-row tiles on 132 SMs), else the grid-stride kernels.
+    Below that B8 leaves SMs idle with 4 rows a thread: on an H100 at
+    N = 10,000 the grid-stride kernels took 2.5 and 3.9 us of device time
+    against B8's 4.5 and 6.4 (float64), at N = 1e6 B8 took 9.1 and 12.7
+    against 17.3 and 21.8 (float32; PERF.md, chip_smoke.py b1_sizes)."""
+    layout = _stream_layout(tuple(offsets), dtype)
+    if layout is None or n < layout[1] * sms:
+        return GRID_PLAN
+    return MatvecPlan("stream", stream_plan(n, tuple(offsets), dtype, sms))
+
+
+def _b1_plan(x: torch.Tensor, offsets, plan: Optional[MatvecPlan]) -> MatvecPlan:
+    return plan if plan is not None else matvec_plan(x.shape[0], offsets, x.dtype,
+                                                     sms_of(x.device))
+
+
 def dia_matvec(
-    bands: torch.Tensor, x: torch.Tensor, *, offsets: Sequence[int]
+    bands: torch.Tensor, x: torch.Tensor, *, offsets: Sequence[int],
+    plan: Optional[MatvecPlan] = None,
 ) -> torch.Tensor:
-    """``y = A x`` for banded A given as (ndiag, n) bands and offsets."""
+    """``y = A x`` for banded A given as (ndiag, n) bands and offsets.
+    On a CUDA tensor it runs the design of ``plan`` (default
+    :func:`matvec_plan`; pass :data:`GRID_PLAN` to force the grid-stride
+    kernel), recorded in ``dia_matvec.plan``."""
     offsets = _check("dia_matvec", bands, x, offsets)
     if x.device.type == "cpu":
         y = dia_matvec_ref(bands, x, offsets=offsets)
     else:
         y = torch.empty_like(x)
-        launch("cgx_dia_matvec", x, bands.data_ptr(), x.data_ptr(), y.data_ptr(),
-               x.shape[0], _offsets_arg(offsets), len(offsets))
+        plan = _b1_plan(x, offsets, plan)
+        if plan.design == "stream":  # B8's flat entry: the same function, bitwise
+            arg, arg_len = plan.stream.as_arg()
+            launch("cgx_dia_matvec_stream", x, bands.data_ptr(), x.shape[0], x.data_ptr(),
+                   y.data_ptr(), x.shape[0], _offsets_arg(offsets), len(offsets), arg, arg_len,
+                   plan.stream.grid)
+        else:
+            launch("cgx_dia_matvec", x, bands.data_ptr(), x.data_ptr(), y.data_ptr(),
+                   x.shape[0], _offsets_arg(offsets), len(offsets))
+        dia_matvec.plan = plan
     dia_matvec.launches += 1
     return y
 
 
 def dia_matvec_dot(
-    bands: torch.Tensor, x: torch.Tensor, *, offsets: Sequence[int]
+    bands: torch.Tensor, x: torch.Tensor, *, offsets: Sequence[int],
+    plan: Optional[MatvecPlan] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(A x, <x, A x>)`` in one pass over the bands; the dot is a 0-d
-    tensor on the device."""
+    tensor on the device, summed in the data type. ``plan`` as for
+    :func:`dia_matvec`; on B8's design the kernel is B8's with a dot
+    epilogue, so ``y`` is bitwise :func:`dia_matvec`'s."""
     offsets = _check("dia_matvec_dot", bands, x, offsets)
     if x.device.type == "cpu":
         y, dot = dia_matvec_dot_ref(bands, x, offsets=offsets)
@@ -111,9 +161,18 @@ def dia_matvec_dot(
         dot = torch.empty((), dtype=x.dtype, device=x.device)
         partials = torch.empty(PARTIALS, dtype=x.dtype, device=x.device)
         ticket = torch.zeros(1, dtype=torch.int32, device=x.device)
-        launch("cgx_dia_matvec_dot", x, bands.data_ptr(), x.data_ptr(), y.data_ptr(),
-               partials.data_ptr(), PARTIALS, ticket.data_ptr(), dot.data_ptr(),
-               x.shape[0], _offsets_arg(offsets), len(offsets))
+        plan = _b1_plan(x, offsets, plan)
+        if plan.design == "stream":
+            arg, arg_len = plan.stream.as_arg()
+            launch("cgx_dia_matvec_stream_dot", x, bands.data_ptr(), x.shape[0], x.data_ptr(),
+                   y.data_ptr(), x.shape[0], _offsets_arg(offsets), len(offsets), arg, arg_len,
+                   plan.stream.grid, partials.data_ptr(), PARTIALS, ticket.data_ptr(),
+                   dot.data_ptr())
+        else:
+            launch("cgx_dia_matvec_dot", x, bands.data_ptr(), x.data_ptr(), y.data_ptr(),
+                   partials.data_ptr(), PARTIALS, ticket.data_ptr(), dot.data_ptr(),
+                   x.shape[0], _offsets_arg(offsets), len(offsets))
+        dia_matvec_dot.plan = plan
     dia_matvec_dot.launches += 1
     return y, dot
 
@@ -170,6 +229,21 @@ def _clusters(offsets, tile: int, item: int, budget: int):
 
 
 @functools.lru_cache(maxsize=64)
+def _stream_layout(offsets: Tuple[int, ...], dtype: torch.dtype):
+    """``(threads, tile, clusters)`` of B8 for these offsets and dtype:
+    STREAM_THREADS threads (fewer where even one cluster a diagonal
+    outgrows the budget); None where no block size places x's rings."""
+    item = torch.finfo(dtype).bits // 8
+    budget = SM_SHARED // STREAM_BLOCKS_PER_SM[dtype] - 1024
+    for threads in (STREAM_THREADS, STREAM_THREADS // 2, STREAM_THREADS // 4):
+        tile = STREAM_ROWS * threads
+        groups = _clusters(offsets, tile, item, budget)
+        if groups is not None:
+            return threads, tile, groups
+    return None
+
+
+@functools.lru_cache(maxsize=64)
 def stream_plan(n: int, offsets: Tuple[int, ...], dtype: torch.dtype, sms: int) -> StreamPlan:
     """B8's plan on n rows: STREAM_THREADS threads a block (fewer where
     even one cluster a diagonal outgrows the budget), tiles of 4 rows a
@@ -179,14 +253,10 @@ def stream_plan(n: int, offsets: Tuple[int, ...], dtype: torch.dtype, sms: int) 
     (33,840 bytes with its mirror in float32, 67,680 in float64)."""
     item = torch.finfo(dtype).bits // 8
     per_sm = STREAM_BLOCKS_PER_SM[dtype]
-    budget = SM_SHARED // per_sm - 1024
-    for threads in (STREAM_THREADS, STREAM_THREADS // 2, STREAM_THREADS // 4):
-        tile = STREAM_ROWS * threads
-        groups = _clusters(offsets, tile, item, budget)
-        if groups is not None:
-            break
-    else:
+    layout = _stream_layout(tuple(offsets), dtype)
+    if layout is None:
         raise ValueError(f"B8 cannot stage x for offsets {offsets} in {dtype}")
+    threads, tile, groups = layout
     clusters, start = [], 0
     for lo, hi in groups:
         q = _ring(tile, lo, hi)
@@ -314,6 +384,8 @@ def dia_matvec_stream2d(
 
 dia_matvec.launches = 0
 dia_matvec_dot.launches = 0
+dia_matvec.plan = None  # MatvecPlan of the last CUDA launch
+dia_matvec_dot.plan = None
 dia_matvec_stream.launches = 0
 dia_matvec_stream2d_planes.launches = 0
 dia_matvec_stream.plan = None  # stream_plan of the last CUDA launch

@@ -12,8 +12,10 @@ matrix and any positive tile sizes are taken; nothing is padded.
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU
 tensor it runs the plain version beside it, which is also what the
 tests and ``chip_smoke.py`` compare the kernel with. Each wrapper
-counts its runs in ``.launches``. ``dense_matvec``'s kernel runs on the
-persistent grid of :func:`dense_plan`, which the CPU tests hold.
+counts its runs in ``.launches``. Both kernels run on the persistent
+grid of :func:`dense_plan`, which the CPU tests hold; ``dense_matvec_dot``
+is ``dense_matvec``'s kernel with a dot epilogue, so its ``y`` is
+bitwise ``dense_matvec``'s.
 """
 
 from __future__ import annotations
@@ -143,6 +145,17 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def _plan_of(a: torch.Tensor, x: torch.Tensor, block_cols: int) -> DensePlan:
+    """The persistent grid both dense kernels run on, for these operands."""
+    return dense_plan(a.shape[0], a.shape[1], block_cols, x.dtype, _sm_count(x.device.index),
+                      pointers_aligned=a.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0)
+
+
+def _plan_args(plan: DensePlan, block_cols: int) -> tuple:
+    return (block_cols, plan.chunk_cols, plan.rows_per_cta, int(plan.staging != "global"),
+            int(plan.aligned), plan.shared, plan.grid)
+
+
 def dense_matvec(
     a: torch.Tensor, x: torch.Tensor, *, block_rows: int = 256, block_cols: int = 512
 ) -> torch.Tensor:
@@ -153,11 +166,9 @@ def dense_matvec(
     else:
         n_rows, n_cols = a.shape
         y = torch.empty(n_rows, dtype=x.dtype, device=x.device)
-        plan = dense_plan(n_rows, n_cols, bc, x.dtype, _sm_count(x.device.index),
-                          pointers_aligned=a.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0)
+        plan = _plan_of(a, x, bc)
         launch("cgx_dense_matvec", x, a.data_ptr(), x.data_ptr(), y.data_ptr(), n_rows, n_cols,
-               bc, plan.chunk_cols, plan.rows_per_cta, int(plan.staging != "global"),
-               int(plan.aligned), plan.shared, plan.grid)
+               *_plan_args(plan, bc))
         dense_matvec.plan = plan
     dense_matvec.launches += 1
     return y
@@ -167,20 +178,23 @@ def dense_matvec_dot(
     a: torch.Tensor, x: torch.Tensor, *, block_rows: int = 256, block_cols: int = 512
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(A x, <x, A x>)`` in one pass over A; the dot is a 0-d tensor
-    on the device."""
+    on the device. The kernel is ``dense_matvec``'s on the same plan
+    with a dot epilogue, so ``y`` is bitwise ``dense_matvec``'s."""
     br, bc = _check("dense_matvec_dot", a, x, block_rows, block_cols)
     if x.device.type == "cpu":
         y, dot = dense_matvec_dot_ref(a, x, block_rows=br, block_cols=bc)
     else:
-        n_rows = a.shape[0]
+        n_rows, n_cols = a.shape
         y = torch.empty(n_rows, dtype=x.dtype, device=x.device)
         dot = torch.empty((), dtype=x.dtype, device=x.device)
         # per-row products, then one sum per row tile
         scratch = torch.empty(n_rows + -(-n_rows // br), dtype=x.dtype, device=x.device)
         ticket = torch.zeros(1, dtype=torch.int32, device=x.device)
-        launch("cgx_dense_matvec_dot", x, a.data_ptr(), x.data_ptr(), y.data_ptr(),
-               scratch.data_ptr(), scratch[n_rows:].data_ptr(), ticket.data_ptr(),
-               dot.data_ptr(), n_rows, a.shape[1], br, bc)
+        plan = _plan_of(a, x, bc)
+        launch("cgx_dense_matvec_dot", x, a.data_ptr(), x.data_ptr(), y.data_ptr(), n_rows,
+               n_cols, *_plan_args(plan, bc), scratch.data_ptr(), scratch[n_rows:].data_ptr(),
+               ticket.data_ptr(), dot.data_ptr(), br)
+        dense_matvec_dot.plan = plan
     dense_matvec_dot.launches += 1
     return y, dot
 
@@ -188,3 +202,4 @@ def dense_matvec_dot(
 dense_matvec.launches = 0
 dense_matvec.plan = None  # the DensePlan of the last CUDA launch
 dense_matvec_dot.launches = 0
+dense_matvec_dot.plan = None

@@ -16,9 +16,15 @@ Phases, one JSON object per line each:
    (N = 10,240,000), against their plain PyTorch versions on the same
    seeded inputs, with their times, the plain versions', a one-call
    PyTorch yardstick where there is one, and the least time the card
-   could take;
+   could take; B1's two designs (B8's staged-x kernel, which matvec_plan
+   picks, and the grid-stride one, forced) bitwise equal to each other
+   and to B8's flat entry, with the grid-stride design's times; then
+   both designs at N = 10,000, 90,000, 160,000 and 1,000,000 (lap2d_fd(100),
+   (300), (400), (1000)) in float64 and float32, bitwise, timed by CUDA
+   events and as device time;
 4. goldens: the fp64 flagship goldens of tests/test_golden.py through
-   the three-kernel loop, with its launch counts;
+   the three-kernel loop (B1 on the grid-stride design, which matvec_plan
+   picks at N = 10,000), with its launch counts;
 5. stream kernel: the streaming Chronopoulos-Gear kernels (split in
    float32 with float32 and with bfloat16 bands, and in float64; stacked
    in float32; the Neumann PCG in float32, in both designs: the wavefront
@@ -47,7 +53,8 @@ Phases, one JSON object per line each:
     and on lap2d_reference(1001) densified (N = 1,001, tiles 100 x 37:
     rows off the 16-byte grid), against their plain versions, with
     torch.mv as the yardstick; dense_matvec's plan (aligned or peeled,
-    the staging of x, the grid) and a bitwise repeat;
+    the staging of x, the grid), a bitwise repeat, and dense_matvec_dot's
+    y bitwise dense_matvec's (one kernel body on one plan);
 11. CLI, CUDA grammar: the reference's own run, lap2D_5pt_n100.mtx 1024
     16 true, in fp64 through the dense kernel, twice (bitwise equal),
     held to the lap2d_fd(100) goldens and the reference's gates;
@@ -55,19 +62,28 @@ Phases, one JSON object per line each:
     against the plain fp64 dense loop;
 13. CLI, fp32: the CUDA grammar with --precision fp32 against the plain
     fp32 loop;
-14. resident kernel: the whole-solve chunk kernel against its plain
-    version from one seeded state on the bands of lap2d_fd(1000)
-    (N = 1,000,000), float32, float64 and float32 under bfloat16 bands:
-    one iteration, and one 64-iteration chunk; then its ms per iteration
-    in both layouts against the HBM bound, the plain version's and the
-    peak device memory;
+14. resident kernel: the whole-solve chunk kernel in both designs (the
+    resident one resident_plan picks, and the global one, forced) against
+    its plain version from one seeded state on the bands of lap2d_fd(1000)
+    (N = 1,000,000), float32, float64 (the resident design on
+    lap2d_fd(500), where float64 vectors fit) and float32 under bfloat16
+    bands, with and without the preconditioner: one iteration, and one
+    64-iteration chunk; then its ms per iteration in both layouts and both
+    designs, and the resident design's sync floor (its grid syncs and
+    ordered sums alone), against the bound of one launch (the bands, p, x
+    and r read once, p, x and r written once, and the operations), the
+    global design's HBM traffic an iteration beside it, the plain
+    version's ms and the peak device memory;
 15. resident goldens: dia_cg_solve_vmem in float64 on lap2d_fd(100) and
-    lap2d_reference(10000) at tol 1e-10, twice each;
+    lap2d_reference(10000) at tol 1e-10, twice each in the resident
+    design, once in the global one (the same chunk loop, forced);
 16. resident path: the whole-solve kernel at N = 1,000,000 and 1,999,396
     in fp32, without and with the Neumann preconditioner, twice each,
     against the plain fp32 (P)CG loop and beside the three-kernel loop:
     through cgx_torch.solve where the budget routes it there, by a direct
     call where it no longer does; and one direct call with layout="1d";
+    the fp32 three-kernel loop (B1 on B8's design) beside them, its k
+    within 2% of the plain loop's;
 17. crossover: the whole-solve kernel against the streaming kernel, and
     its Neumann PCG against the streaming PCG, in us per iteration at
     N = 250,000, 1e6, 1,999,396 and 4e6, beside the three-kernel loop,
@@ -122,7 +138,8 @@ Phases, one JSON object per line each:
 
 The CLI phases call cgx_torch.cli.main.run, the body of the CLI's main,
 in this process. Then a "kernels" line for the ported kernels (every
-pallas_call site of cgx, with the replay kernel; "not_ported" is empty),
+pallas_call site of cgx, with the replay kernel; "not_ported" is empty;
+each site with two designs names the one that ran and the other's ms),
 and, last, the contract line {"ok": true, "device": {...}}. Any failed
 check raises, so the script exits non-zero and prints no result. It
 needs a CUDA device and imports neither JAX nor cgx.
@@ -202,6 +219,7 @@ DOT_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 CHUNK_RTOL = {torch.float32: 1e-4, torch.float64: 1e-12}
 RESIDENT_GRID = 1000  # lap2d_fd(1000): N = 1,000,000, BASELINE.json config 2
 RESIDENT_GRIDS = (1000, 1414)  # N = 1,000,000 and 1,999,396 (cgx/config.py:33-35)
+RESIDENT_F64_GRID = 500  # lap2d_fd(500), N = 250,000: float64 vectors fit B5's resident design
 CHUNK = 64  # iterations per launch of dia_cg_solve_vmem's default
 CROSSOVER_GRIDS = (500, 1000, 1414, 2000)  # N = 250,000 .. 4,000,000
 CROSSOVER_ITERS = 512
@@ -459,7 +477,111 @@ def kernel_cases(spec, problem: str, dia, dtype) -> dict:
         "dia_matvec_dot": lambda out: (x, out[0]),
         "fused_update_rs": lambda out: (out[1], out[1]),
     }
-    return measure_cases(spec, problem, dtype, n, cases, dot_terms)
+    records = measure_cases(spec, problem, dtype, n, cases, dot_terms)
+    records.update(b1_designs(spec, problem, bands, x, offsets, records))
+    return records
+
+
+def b1_designs(spec, problem: str, bands, x, offsets, records: dict) -> dict:
+    """B1's two designs on the same inputs: the one matvec_plan picks (B8's
+    staged-x kernel, with a dot epilogue for dia_matvec_dot) and the
+    grid-stride one, forced; y bitwise equal between them and to B8's flat
+    entry. Adds the grid design's ms to each record."""
+    plan = dia_spmv.matvec_plan(x.shape[0], offsets, x.dtype, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    grid = dia_spmv.GRID_PLAN
+    y_new = dia_spmv.dia_matvec(bands, x, offsets=offsets)
+    ran = [dia_spmv.dia_matvec.plan]
+    y_old = dia_spmv.dia_matvec(bands, x, offsets=offsets, plan=grid)
+    yd_new, d_new = dia_spmv.dia_matvec_dot(bands, x, offsets=offsets)
+    ran.append(dia_spmv.dia_matvec_dot.plan)
+    yd_old, d_old = dia_spmv.dia_matvec_dot(bands, x, offsets=offsets, plan=grid)
+    y_b8 = dia_spmv.dia_matvec_stream(bands, x, offsets=offsets)
+    sync()
+    same = {"matvec_new_vs_old": torch.equal(y_new, y_old),
+            "matvec_new_vs_b8": torch.equal(y_new, y_b8),
+            "dot_y_new_vs_old": torch.equal(yd_new, yd_old),
+            "dot_y_new_vs_matvec": torch.equal(yd_new, y_new)}
+    dot_scale = float((x * y_old).abs().sum())
+    rec = {"phase": "b1_designs", "problem": problem, "dtype": str(x.dtype), "design": plan.design,
+           "plan": plan.stream._asdict() if plan.stream else None, "bitwise": same,
+           "dot_new_vs_old_rel": abs(float(d_new) - float(d_old)) / dot_scale}
+    check(plan.design == "stream" and ran == [plan, plan], f"B1 {problem} {x.dtype}: ran {ran}")
+    check(all(same.values()), f"B1 {problem} {x.dtype}: designs differ: {same}")
+    check(rec["dot_new_vs_old_rel"] <= DOT_RTOL[x.dtype],
+          f"B1 {problem} {x.dtype}: dots {float(d_new)} and {float(d_old)}")
+    del y_new, y_old, yd_new, yd_old, y_b8
+    out = {}
+    for name, fn in (("dia_matvec", dia_spmv.dia_matvec), ("dia_matvec_dot",
+                                                          dia_spmv.dia_matvec_dot)):
+        rec[f"{name}_grid_ms"] = time_ms(lambda: fn(bands, x, offsets=offsets, plan=grid))
+        out[name] = {**records[name], "design": plan.design, "grid_ms": rec[f"{name}_grid_ms"]}
+    emit(rec)
+    return out
+
+
+def device_us(fn, kernel: str, calls: int = 200) -> float:
+    """Microseconds of device time a call of ``fn`` spends in kernels whose
+    name holds ``kernel``, from torch.profiler's CUDA events over ``calls``
+    back-to-back calls after a warm-up: at a few microseconds a call the
+    host's launch time, not the kernel's, sets CUDA-event time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(WARMUP):
+        fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        sync()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA and kernel in e.name]
+    check(len(us) == calls, f"profiled {len(us)} {kernel} kernels of {calls} calls")
+    return sum(us) / calls
+
+
+def phase_b1_sizes(spec) -> None:
+    """B1's two designs at the sizes its solver callers run it: N = 10,000
+    in float64 (the fp64 golden through the three-kernel loop) and N = 1e6
+    in float32 (the three-kernel loop beside the resident path), and on
+    either side of matvec_plan's line (a 1024-row tile an SM: N = 90,000
+    and 160,000), both dtypes at each: y bitwise between the designs, and
+    each entry's time by CUDA events and as device time."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for g in (100, 300, 400, RESIDENT_GRID):  # 10, 88, 157 and 977 tiles of 1024 rows
+        dia = lap2d_fd(g)
+        n, offsets = dia.shape[0], tuple(dia.offsets)
+        for dtype in (torch.float64, torch.float32):
+            bands = torch.as_tensor(dia.bands, dtype=dtype, device=DEV)
+            x = torch.as_tensor(np.random.default_rng(SEED).standard_normal(n), dtype=dtype,
+                                device=DEV)
+            stream = dia_spmv.MatvecPlan("stream", dia_spmv.stream_plan(n, offsets, dtype, sms))
+            designs = {"stream": stream, "grid": dia_spmv.GRID_PLAN}
+            ys = {d: dia_spmv.dia_matvec(bands, x, offsets=offsets, plan=p)
+                  for d, p in designs.items()}
+            yd = {d: dia_spmv.dia_matvec_dot(bands, x, offsets=offsets, plan=p)[0]
+                  for d, p in designs.items()}
+            sync()
+            bitwise = torch.equal(ys["stream"], ys["grid"]) and torch.equal(yd["stream"],
+                                                                            ys["stream"])
+            rec = {"phase": "b1_sizes", "problem": f"lap2d_fd({g})", "n": n,
+                   "dtype": str(dtype), "picked": dia_spmv.matvec_plan(n, offsets, dtype,
+                                                                       sms).design,
+                   "stream_grid": stream.stream.grid, "bitwise": bitwise,
+                   "bound_ms": bound_of(spec, dtype, (len(offsets) + 2) * n * (
+                       torch.finfo(dtype).bits // 8), 2 * len(offsets) * n)[0]}
+            for name, fn in (("dia_matvec", dia_spmv.dia_matvec),
+                             ("dia_matvec_dot", dia_spmv.dia_matvec_dot)):
+                for d, p in designs.items():
+                    def call(fn=fn, p=p):
+                        return fn(bands, x, offsets=offsets, plan=p)
+                    rec[f"{name}_{d}_ms"] = time_ms(call)
+                    rec[f"{name}_{d}_device_us"] = device_us(call, "dia_")
+            emit(rec)
+            check(bitwise, f"B1 lap2d_fd({g}) {dtype}: designs differ")
+            del bands, x, ys, yd
+            sync()
 
 
 def measure_cases(spec, problem: str, dtype, n: int, cases: dict, dot_terms: dict) -> dict:
@@ -539,16 +661,20 @@ def dense_kernel_cases(spec, problem: str, dia, dtype, tiles) -> dict:
     records = measure_cases(spec, f"{problem} dense {br}x{bc}", dtype, n, cases, dot_terms)
     y1 = matvec.dense_matvec(a, x, block_rows=br, block_cols=bc)
     y2 = matvec.dense_matvec(a, x, block_rows=br, block_cols=bc)
+    y3, _ = matvec.dense_matvec_dot(a, x, block_rows=br, block_cols=bc)
     sync()
     plan = matvec.dense_matvec.plan
     rec = {"phase": "dense_plan", "problem": problem, "dtype": str(dtype), "n": n,
-           "tiles": [br, bc], **plan._asdict(), "bitwise_repeat": torch.equal(y1, y2)}
+           "tiles": [br, bc], **plan._asdict(), "bitwise_repeat": torch.equal(y1, y2),
+           "dot_kernel_y_bitwise": torch.equal(y1, y3)}
     emit(rec)
     check(rec["bitwise_repeat"], f"dense_matvec {problem} {dtype}: two calls differ")
+    check(rec["dot_kernel_y_bitwise"] and matvec.dense_matvec_dot.plan == plan,
+          f"dense_matvec_dot {problem} {dtype}: y differs from dense_matvec's")
     check(plan.aligned == (n * torch.finfo(dtype).bits // 8 % 16 == 0
                            and bc * torch.finfo(dtype).bits // 8 % 16 == 0),
           f"dense_matvec {problem} {dtype}: plan {plan}")
-    del a, y1, y2
+    del a, y1, y2, y3
     return records
 
 
@@ -601,6 +727,8 @@ def phase_goldens() -> dict:
         check(launches["dia_matvec"] >= 1 and launches["dia_matvec_dot"] >= k + 1
               and launches["fused_update_rs"] >= k and launches["fused_axpby"] >= k,
               f"{problem}: the three-kernel loop missed a kernel: {launches} at k={k}")
+        check(dia_spmv.dia_matvec_dot.plan == dia_spmv.GRID_PLAN,  # below a tile an SM
+              f"{problem}: B1 ran {dia_spmv.dia_matvec_dot.plan}, not the grid-stride design")
     return counts
 
 
@@ -1041,10 +1169,26 @@ def phase_cli_fp32(spec, tmp: Path) -> None:
 
 
 def resident_words(ndiag: int, n: int, precond: bool) -> int:
-    """Words an iteration of the whole-solve kernel must move: the bands
-    once, p, x and r in and out; the preconditioner adds a band pass and
-    c out and back (csrc/cg_kernel.cu)."""
+    """Words an iteration of the whole-solve kernel's global design moves
+    through device memory: the bands once, p, x and r in and out; the
+    preconditioner adds a band pass and c out and back (csrc/cg_kernel.cu).
+    Kept beside :func:`resident_bound` for comparison: no design need
+    move it."""
     return (2 * ndiag + 8) * n if precond else (ndiag + 6) * n
+
+
+def resident_bound(spec, ndiag: int, n: int, band_bytes: int, precond: bool, iters: int,
+                   launches: int = 1):
+    """The least time of ``iters`` float32 iterations of the whole-solve
+    function in ``launches`` launches. Bytes: each launch reads the bands,
+    p, x and r once and writes p, x and r once; nothing else need leave
+    the chip. Operations an iteration a row: float32, Ap (2 ndiag), the
+    x, r and p updates (6), with the preconditioner c, Ac and z (2 ndiag
+    + 4); float64, the dots <p, Ap> and <r, r> (4), with <r, z> (6)."""
+    nbytes = launches * n * (ndiag * band_bytes + 6 * 4)
+    f32 = (4 * ndiag + 10 if precond else 2 * ndiag + 6) * n * iters
+    f64 = (6 if precond else 4) * n * iters
+    return bound_mixed(spec, nbytes, {torch.float32: f32, torch.float64: f64})
 
 
 def seeded_state(dia, dtype):
@@ -1065,82 +1209,123 @@ def chunk_call(fn, bands, state, offsets, chunk, precond, **kw):
                   chunk=chunk, precond=precond, **kw)
 
 
+def chunk_plan(design: str, n: int, offsets, dtype, bands_dtype, precond: bool):
+    """The whole-solve kernel's plan in ``design``: resident_plan's, which
+    must pick it, or the global design forced."""
+    if design == "global":
+        return cg_kernel.GLOBAL_PLAN
+    plan = cg_kernel.resident_plan(n, tuple(offsets), dtype, bands_dtype, precond,
+                                   torch.cuda.get_device_properties(0).multi_processor_count)
+    check(plan.design == "resident", f"resident_plan picks {plan} at N = {n}, {dtype}")
+    return plan
+
+
 def phase_resident_kernel(spec) -> dict:
-    """The whole-solve chunk kernel against its plain version from one
-    seeded state, then its time against the bound, in float32 (and under
-    bfloat16 bands with the preconditioner, as the refinement's inner runs
-    it). Returns the records of the kernels line for its four sites."""
-    dia = lap2d_fd(RESIDENT_GRID)
-    n, ndiag, offsets = dia.shape[0], len(dia.offsets), tuple(dia.offsets)
+    """The whole-solve chunk kernel in both designs against its plain
+    version from one seeded state (float32 and bfloat16 bands on
+    lap2d_fd(1000); float64 there in the global design and on
+    lap2d_fd(500) in the resident one, where its vectors fit), then its
+    time in both designs and the resident design's sync floor against the
+    bound, in float32 (and under bfloat16 bands with the preconditioner, as
+    the refinement's inner runs it). Returns the records of the kernels
+    line for its four sites."""
     errs = {}
     for dtype, bf16 in ((torch.float32, False), (torch.float64, False), (torch.float32, True)):
-        bands, state = seeded_state(dia, dtype)
-        if bf16:
-            bands = bands.to(torch.bfloat16)
-        for precond in (False, True):
-            for chunk, rtol in ((1, VEC_RTOL[dtype]), (CHUNK, CHUNK_RTOL[dtype])):
-                got, ref = [t.clone() for t in state], [t.clone() for t in state]
-                chunk_call(cg_kernel.dia_cg_chunk, bands, got, offsets, chunk, precond)
-                chunk_call(cg_kernel.dia_cg_chunk_ref, bands, ref, offsets, chunk, precond)
-                sync()
-                max_abs = max(float((g - f).abs().max()) for g, f in zip(got[:3], ref[:3]))
-                vec_rel = max(rel_err(g, f, f.abs().max()) for g, f in zip(got[:3], ref[:3]))
-                rsold_rel = rel_err(got[3][0], ref[3][0], ref[3][0].abs())
-                dot_tol = DOT_RTOL[dtype] if chunk == 1 else rtol
-                emit({"phase": "resident_kernel_check", "problem": f"lap2d_fd({RESIDENT_GRID})",
-                      "dtype": str(dtype), "bands_dtype": str(bands.dtype), "precond": precond,
-                      "iterations": chunk, "max_abs_err": max_abs, "vec_rel_err": vec_rel,
-                      "rsold_rel_err": rsold_rel, "vec_rtol": rtol, "rsold_rtol": dot_tol,
-                      "grid": cg_kernel.dia_cg_chunk.grid, "scalars": got[3].tolist(),
-                      "plain_scalars": ref[3].tolist()})
-                check(vec_rel <= rtol and rsold_rel <= dot_tol,
-                      f"chunk kernel {dtype} bf16={bf16} precond={precond} x{chunk}: vectors "
-                      f"{vec_rel}, rsold {rsold_rel}")
-                check(torch.equal(got[3][1:], ref[3][1:]),
-                      f"chunk kernel {dtype} bf16={bf16} precond={precond} x{chunk}: converged, k, "
-                      f"breakdown {got[3][1:].tolist()} against {ref[3][1:].tolist()}")
-                if dtype == torch.float32 and chunk == 1 and precond == bf16:
-                    errs[bf16] = max_abs
-        del bands, state
-        sync()
+        for design in ("resident", "global"):
+            g = RESIDENT_F64_GRID if (dtype == torch.float64 and design == "resident") \
+                else RESIDENT_GRID
+            dia = lap2d_fd(g)
+            n, offsets = dia.shape[0], tuple(dia.offsets)
+            bands, state = seeded_state(dia, dtype)
+            if bf16:
+                bands = bands.to(torch.bfloat16)
+            for precond in (False, True):
+                plan = chunk_plan(design, n, offsets, dtype, bands.dtype, precond)
+                for chunk, rtol in ((1, VEC_RTOL[dtype]), (CHUNK, CHUNK_RTOL[dtype])):
+                    got, ref = [t.clone() for t in state], [t.clone() for t in state]
+                    chunk_call(cg_kernel.dia_cg_chunk, bands, got, offsets, chunk, precond,
+                               plan=plan)
+                    chunk_call(cg_kernel.dia_cg_chunk_ref, bands, ref, offsets, chunk, precond)
+                    sync()
+                    max_abs = max(float((g_ - f).abs().max()) for g_, f in zip(got[:3], ref[:3]))
+                    vec_rel = max(rel_err(g_, f, f.abs().max()) for g_, f in zip(got[:3], ref[:3]))
+                    rsold_rel = rel_err(got[3][0], ref[3][0], ref[3][0].abs())
+                    dot_tol = DOT_RTOL[dtype] if chunk == 1 else rtol
+                    emit({"phase": "resident_kernel_check", "problem": f"lap2d_fd({g})",
+                          "design": design, "dtype": str(dtype), "bands_dtype": str(bands.dtype),
+                          "precond": precond, "iterations": chunk, "max_abs_err": max_abs,
+                          "vec_rel_err": vec_rel, "rsold_rel_err": rsold_rel, "vec_rtol": rtol,
+                          "rsold_rtol": dot_tol, "grid": cg_kernel.dia_cg_chunk.grid,
+                          "scalars": got[3].tolist(), "plain_scalars": ref[3].tolist()})
+                    check(cg_kernel.dia_cg_chunk.plan.design == design,
+                          f"chunk kernel ran {cg_kernel.dia_cg_chunk.plan}, not {design}")
+                    check(vec_rel <= rtol and rsold_rel <= dot_tol,
+                          f"chunk kernel {design} {dtype} bf16={bf16} precond={precond} x{chunk}: "
+                          f"vectors {vec_rel}, rsold {rsold_rel}")
+                    check(torch.equal(got[3][1:], ref[3][1:]),
+                          f"chunk kernel {design} {dtype} bf16={bf16} precond={precond} x{chunk}: "
+                          f"converged, k, breakdown {got[3][1:].tolist()} against "
+                          f"{ref[3][1:].tolist()}")
+                    if dtype == torch.float32 and chunk == 1 and precond == bf16 and \
+                            design == "resident":
+                        errs[bf16] = max_abs
+            del bands, state
+            sync()
 
     records = {}
     l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    dia = lap2d_fd(RESIDENT_GRID)
+    n, ndiag, offsets = dia.shape[0], len(dia.offsets), tuple(dia.offsets)
     for precond, bf16 in ((False, False), (True, False), (True, True)):
         base = torch.cuda.memory_allocated()
         bands, state = seeded_state(dia, torch.float32)
         if bf16:
             bands = bands.to(torch.bfloat16)
+        plan = chunk_plan("resident", n, offsets, torch.float32, bands.dtype, precond)
         torch.cuda.reset_peak_memory_stats()
         ms = {layout: time_ms(lambda: chunk_call(cg_kernel.dia_cg_chunk, bands, state, offsets,
                                                  CHUNK, precond, layout=layout), reps=10, burst=2)
               for layout in cg_kernel.LAYOUTS}
         peak = torch.cuda.max_memory_allocated() - base
+        global_ms = time_ms(lambda: chunk_call(cg_kernel.dia_cg_chunk, bands, state, offsets,
+                                               CHUNK, precond, plan=cg_kernel.GLOBAL_PLAN),
+                            reps=10, burst=2)
+        floor_ms = time_ms(lambda: cg_kernel.resident_sync_floor(
+            bands, *state[:3], state[3], offsets=offsets, chunk=CHUNK, precond=precond),
+            reps=10, burst=2)
         plain_ms = time_ms(lambda: chunk_call(cg_kernel.dia_cg_chunk_ref, bands, state, offsets,
                                               CHUNK, precond), reps=3, burst=1)
         band_bytes = 2 if bf16 else 4
-        nbytes = resident_words(ndiag, n, precond) * 4 - (4 - band_bytes) * ndiag * n * (
-            2 if precond else 1)
-        bound_iter, bound_by = bound_of(spec, torch.float32, nbytes, (2 * ndiag + 10) * n)
+        bound, bound_by = resident_bound(spec, ndiag, n, band_bytes, precond, CHUNK)
+        hbm_iter = (resident_words(ndiag, n, precond) * 4 - (4 - band_bytes) * ndiag * n * (
+            2 if precond else 1)) / spec["hbm_bytes_per_s"] * 1e3
         state_bytes = cg_kernel.resident_state_bytes(ndiag, n, band_bytes, 4, precond=precond)
         rec = {"phase": "resident_kernel", "problem": f"lap2d_fd({RESIDENT_GRID})", "n": n,
                "dtype": "float32", "bands_dtype": str(bands.dtype), "precond": precond,
-               "chunk": CHUNK, "grid": cg_kernel.dia_cg_chunk.grid,
+               "chunk": CHUNK, "design": plan.design, "plan": plan._asdict(),
                "ms_per_iter": {layout: t / CHUNK for layout, t in ms.items()},
-               "bound_ms_per_iter": bound_iter, "bound_by": bound_by,
-               "bound_share": {layout: bound_iter * CHUNK / t for layout, t in ms.items()},
+               "global_ms_per_iter": global_ms / CHUNK,
+               "sync_floor_ms_per_iter": floor_ms / CHUNK,
+               "syncs_per_iter": 3 if precond else 2,
+               "bound_ms": bound, "bound_by": bound_by,
+               "bound_share": {layout: bound / t for layout, t in ms.items()},
+               "global_bound_share": bound / global_ms,
+               "sync_floor_share": floor_ms / ms["2d"],
+               # the global design's traffic an iteration at the HBM rate, for comparison:
+               # above 100% where the state comes back from L2 or stays on chip
+               "hbm_per_iter_bound_ms": hbm_iter,
+               "hbm_per_iter_share": {layout: hbm_iter * CHUNK / t for layout, t in ms.items()},
+               "global_hbm_per_iter_share": hbm_iter * CHUNK / global_ms,
                "plain_ms_per_iter": plain_ms / CHUNK, "max_memory_allocated": peak,
                "resident_state_bytes": state_bytes, "l2_bytes": l2}
-        if max(rec["bound_share"].values()) > 1:
-            rec["why_above_bound"] = (
-                f"the {state_bytes / 1e6:.1f} MB state fits the card's {l2 / 1e6:.1f} MB L2, "
-                "so bands and vectors come back from L2, not from HBM as the bound assumes")
         emit(rec)
         if precond == bf16:  # fp32 bands without, bf16 bands with the preconditioner
             for name, layout in (BF16_SITES if bf16 else RESIDENT_SITES).items():
                 records[name] = {"max_abs_err": errs[bf16], "ms": ms[layout],
-                                 "plain_ms": plain_ms, "bound_ms": bound_iter * CHUNK,
-                                 "bound_by": bound_by,
+                                 "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+                                 "hbm_per_iter_bound_ms": hbm_iter * CHUNK,
+                                 "design": plan.design, "global_ms": global_ms,
+                                 "sync_floor_ms": floor_ms,
                                  "library_ms": None}  # no one PyTorch call runs a CG chunk
         del bands, state
         sync()
@@ -1148,27 +1333,39 @@ def phase_resident_kernel(spec) -> dict:
 
 
 def phase_resident_goldens() -> None:
-    """The fp64 goldens through the whole-solve kernel, twice each."""
+    """The fp64 goldens through the whole-solve kernel: twice in the design
+    resident_plan picks (the resident one), once in the global design."""
     for problem, dia in (("lap2d_fd(100)", lap2d_fd(100)),
                          ("lap2d_reference(10000)", lap2d_reference(10000))):
         b = source_term(dia.shape[0])
         op = as_operator(dia, torch.float64, device=DEV)
         b_dev = torch.as_tensor(b, dtype=torch.float64, device=DEV)
+        lo, hi = GOLDEN_K[problem]
         runs = []
-        for _ in range(2):
+        for plan in (None, None, cg_kernel.GLOBAL_PLAN):
             sync()
             t0 = time.perf_counter()
-            res = dia_cg_solve_vmem(op, b_dev, tol=1e-10, layout="2d", device=DEV)
-            runs.append((res, int(res.iterations), time.perf_counter() - t0))
-        (res, k, seconds), (res2, k2, _) = runs
+            if plan is None:
+                res = dia_cg_solve_vmem(op, b_dev, tol=1e-10, layout="2d", device=DEV)
+            else:  # the same chunk loop with every chunk forced to the global design
+                res = cg_kernel._solve(op.bands, b_dev, offsets=tuple(op.offsets), tol=1e-10,
+                                       nearzero=config.NEARZERO, maxiter=dia.shape[0],
+                                       chunk=64, precond=False, layout="2d", plan=plan)
+            runs.append((res, int(res.iterations), time.perf_counter() - t0,
+                         cg_kernel.dia_cg_chunk.plan))
+        (res, k, seconds, plan), (res2, k2, _, _), (res_g, k_g, seconds_g, _) = runs
         rel = true_rel(dia, res.x.cpu().numpy(), b)
+        rel_g = true_rel(dia, res_g.x.cpu().numpy(), b)
         bitwise = k == k2 and torch.equal(res.x.view(torch.int64), res2.x.view(torch.int64))
-        lo, hi = GOLDEN_K[problem]
         emit({"phase": "resident_golden", "problem": problem, "dtype": "float64", "k": k,
               "true_rel": rel, "bitwise_repeat": bitwise, "seconds": seconds,
-              "grid": cg_kernel.dia_cg_chunk.grid})
-        check(bool(res.converged) and lo <= k <= hi, f"resident {problem}: k={k} not in [{lo}, {hi}]")
-        check(rel < 1e-11, f"resident {problem}: true relative residual {rel}")
+              "design": plan.design, "grid": plan.grid, "rows": plan.rows,
+              "global_k": k_g, "global_true_rel": rel_g, "global_seconds": seconds_g})
+        check(plan.design == "resident", f"resident {problem}: ran {plan}")
+        for design, r_, k_, rel_ in (("resident", res, k, rel), ("global", res_g, k_g, rel_g)):
+            check(bool(r_.converged) and lo <= k_ <= hi,
+                  f"{design} {problem}: k={k_} not in [{lo}, {hi}]")
+            check(rel_ < 1e-11, f"{design} {problem}: true relative residual {rel_}")
         check(bitwise, f"resident {problem}: two runs differ")
 
 
@@ -1225,24 +1422,33 @@ def phase_resident_path(spec) -> dict:
                 op, b_dev, tol=tol, precond=pc, dot_precision=torch.float64, device=DEV))
             rel, rel_plain = rel64(res.x), rel64(plain.x)
             words = resident_words(ndiag, n, precond is not None)
+            n_launch = launches.get("dia_cg_vmem2d", 0) + launches.get("dia_cg_vmem", 0)
+            bound, _ = resident_bound(spec, ndiag, n, 4, precond is not None, k + 1,
+                                      max(1, n_launch))
             rec = {"phase": "resident_path", "problem": f"lap2d_fd({g})", "n": n,
                    "dtype": "float32", "precond": precond, "tol": tol, "k": k,
                    "through_solve": routed, "state_bytes": state,
                    "converged": bool(res.converged), "bitwise_repeat": bitwise,
                    "seconds": seconds, "us_per_iter": seconds / (k + 1) * 1e6,
-                   "bound_us_per_iter": words * 4 / spec["hbm_bytes_per_s"] * 1e6,
+                   "bound_us_per_iter": bound / (k + 1) * 1e3,
+                   "hbm_per_iter_bound_us": words * 4 / spec["hbm_bytes_per_s"] * 1e6,
                    "launches": launches, "grid": cg_kernel.dia_cg_chunk.grid,
                    "k_plain": k_plain, "plain_seconds": plain_seconds,
                    "plain_us_per_iter": plain_seconds / (k_plain + 1) * 1e6,
                    "true_rel": rel, "true_rel_plain": rel_plain,
                    "x_finite": bool(torch.isfinite(res.x).all())}
+            rec["design"] = cg_kernel.dia_cg_chunk.plan.design
             if precond is None:  # the three-kernel loop on the same problem
                 reset_launches()
                 loop, k_loop, loop_seconds = timed(lambda: dia_cg_solve_pallas(
                     op, b_dev, tol=tol, maxiter=n, device=DEV))
                 body = read_launches()["dia_matvec_dot"]
                 rec.update(k_loop=k_loop, loop_seconds=loop_seconds,
-                           loop_us_per_iter=loop_seconds / body * 1e6)
+                           loop_us_per_iter=loop_seconds / body * 1e6,
+                           loop_design=dia_spmv.dia_matvec_dot.plan.design,
+                           loop_true_rel=rel64(loop.x))
+                check(abs(k_loop - k_plain) <= 0.02 * k_plain,
+                      f"three-kernel loop {g}: k={k_loop} vs the plain loop's {k_plain}")
             emit(rec)
             chunks = -(-(k + 1) // CHUNK)
             check(rec["converged"] and rec["x_finite"] and res.x.shape == (n,),
@@ -1251,6 +1457,8 @@ def phase_resident_path(spec) -> dict:
                       if name not in ("dia_cg_vmem2d", "dia_matvec") and name in KERNELS and c}
             check(launches["dia_cg_vmem2d"] >= chunks and not others,
                   f"resident path {g} {precond} left the whole-solve kernel: {launches} at k={k}")
+            check(rec["design"] == ("resident" if g == RESIDENT_GRID else "global"),
+                  f"resident path {g} {precond}: the {rec['design']} design ran")
             check(bitwise, f"resident path {g} {precond}: two runs differ")
             check(abs(k - k_plain) <= 0.02 * k_plain,
                   f"resident path {g} {precond}: k={k} vs plain k={k_plain}")
@@ -1313,7 +1521,7 @@ def phase_crossover(spec) -> None:
         hbm_us = 1e6 / spec["hbm_bytes_per_s"]
         emit({"phase": "crossover", "problem": f"lap2d_fd({g})", "n": n, "state_bytes": state,
               "us_per_iter": us, "seconds": seconds, "resident_wins": wins,
-              "bound_us_per_iter": {"resident": resident_words(ndiag, n, False) * 4 * hbm_us,
+              "hbm_per_iter_bound_us": {"resident": resident_words(ndiag, n, False) * 4 * hbm_us,
                                     "stream": stream_bytes(ndiag, n, 2, 4, False) * hbm_us,
                                     "stream_pcg": stream_bytes(ndiag, n, 4, 4, True) * hbm_us}})
         lost = lost or not all(wins.values())
@@ -2113,6 +2321,7 @@ def main() -> int:
     spec = phase_device()
     phase_build()
     records = phase_kernels(spec)
+    phase_b1_sizes(spec)
     # each kernel's launches come from a path that runs it, counted from 0 just before it
     launches = {name: n for name, n in phase_goldens().items() if name in THREE_KERNEL}
     records.update(phase_stream_kernel(spec))
@@ -2153,7 +2362,10 @@ def main() -> int:
                         # the s-step sites' basis_plan design and the slab design's time,
                         # the PCG's pcg_plan design and the three-launch design's time
                         "design": rec.get("design"), "slab_ms": rec.get("slab_ms"),
-                        "three_ms": rec.get("three_ms")})
+                        "three_ms": rec.get("three_ms"), "grid_ms": rec.get("grid_ms"),
+                        "global_ms": rec.get("global_ms"),
+                        "sync_floor_ms": rec.get("sync_floor_ms"),
+                        "hbm_per_iter_bound_ms": rec.get("hbm_per_iter_bound_ms")})
     print(json.dumps({"kernels": kernels, "not_ported": NOT_PORTED}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -206,31 +206,81 @@ def _kernel_dot(u, v, blocks):
     return _block_sum(_thread_sums(parts, 1, blocks))[0]  # every block sums them in order
 
 
+def _block_sum512(v):  # (..., 512) thread values -> block_sum<double, 512> in thread 0
+    w = _warp_sum(v.reshape(v.shape[:-1] + (16, 32)))
+    return _warp_sum(np.concatenate([w, np.zeros(w.shape[:-1] + (16,))], -1))
+
+
+def _resident_dot(u, v, plan):
+    """<u, v> as the resident design sums it (csrc/cg_kernel.cu
+    dia_cg_resident_kernel): thread t of block b over its rows
+    b rows + t + 512 j in order, the block's sum, then in every block
+    (resident_total) lane l of one warp over partials l, l + 32, ... in
+    order, and the warp's tree."""
+    prod = np.zeros(plan.grid * plan.rows)
+    prod[:u.size] = u * v
+    per = plan.rows_per_thread * 512
+    rows = np.zeros((plan.grid, per))
+    rows[:, :plan.rows] = prod.reshape(plan.grid, plan.rows)
+    acc = np.zeros((plan.grid, 512))
+    for j in range(plan.rows_per_thread):
+        acc = acc + rows[:, j * 512:(j + 1) * 512]
+    parts = np.zeros(32 * -(-plan.grid // 32))
+    parts[:plan.grid] = _block_sum512(acc)
+    lanes = np.zeros(32)
+    for c in range(parts.size // 32):
+        lanes = lanes + parts[32 * c:32 * (c + 1)]
+    return _warp_sum(lanes)
+
+
+def _replay(dia, dot, rsold):
+    """The float64 recurrence with the given dot; returns (k, x)."""
+    n = dia.shape[0]
+    b = source_term(n)
+    x, r, p = np.zeros(n), b.copy(), b.copy()
+    k = 0
+    while k < n:
+        ap = dia.mat_vec(p)
+        conj = dot(p, ap)
+        alpha = rsold / max(conj, rsold * 1e-14)
+        x, r = x + alpha * p, r - alpha * ap
+        rr = dot(r, r)
+        if np.sqrt(rr) < 1e-10:
+            break
+        p, rsold, k = r + (rr / rsold) * p, rr, k + 1
+    return k, x
+
+
 @pytest.mark.parametrize("gen,arg,window", [(lap2d_fd, 100, (485, 491)),
                                             (lap2d_reference, 10_000, (604, 610))])
 def test_kernel_order_replay_keeps_the_golden_counts(gen, arg, window):
-    """The float64 recurrence with the kernel's dot order at N = 10,000
+    """The float64 recurrence with each design's dot order at N = 10,000
+    converges inside the golden window: the global design's
     (ceil(N / 256) = 40 blocks of 250 rows, fewer than fit on an H100)
-    converges inside the golden window: the count is bimodal in the
-    dots' rounding (460 against 488 on the three-kernel path, ROADMAP C)."""
+    and the resident design's (resident_plan: 132 blocks of 76 rows, 512
+    threads). The count is bimodal in the dots' rounding (460 against 488
+    on the three-kernel path, ROADMAP C)."""
     dia = gen(arg)
     n = dia.shape[0]
     blocks = -(-n // THREADS)
     b = source_term(n)
-    x, r, p = np.zeros(n), b.copy(), b.copy()
-    rsold = _kernel_dot(b, b, blocks)
-    k = 0
-    while k < n:
-        ap = dia.mat_vec(p)
-        conj = _kernel_dot(p, ap, blocks)
-        alpha = rsold / max(conj, rsold * 1e-14)
-        x, r = x + alpha * p, r - alpha * ap
-        rr = _kernel_dot(r, r, blocks)
-        if np.sqrt(rr) < 1e-10:
-            break
-        p, rsold, k = r + (rr / rsold) * p, rr, k + 1
-    assert window[0] <= k <= window[1]
-    assert np.linalg.norm(dia.mat_vec(x) - b) / np.linalg.norm(b) < 1e-11
+    plan = cg_kernel.resident_plan(n, tuple(dia.offsets), torch.float64, torch.float64, False,
+                                   132)
+    assert (plan.design, plan.grid, plan.rows) == ("resident", 132, 76)
+    runs = [_replay(dia, lambda u, v: _kernel_dot(u, v, blocks), _kernel_dot(b, b, blocks)),
+            _replay(dia, lambda u, v: _resident_dot(u, v, plan), float(np.sum(b * b)))]
+    for k, x in runs:
+        assert window[0] <= k <= window[1]
+        assert np.linalg.norm(dia.mat_vec(x) - b) / np.linalg.norm(b) < 1e-11
+
+
+def test_resident_dot_order_sums_every_product_once():
+    """On integers (exact in float64) the replayed order gives the plain
+    sum, with one row a thread and with several."""
+    for n in (10_000, 1_000_000):
+        plan = cg_kernel.resident_plan(n, (-1, 0, 1), torch.float32, torch.float32, False, 132)
+        u = np.arange(1, n + 1, dtype=np.float64)
+        assert _resident_dot(u, np.ones(n), plan) == u.sum()
 
 
 # --- the plain version's own contract ------------------------------------

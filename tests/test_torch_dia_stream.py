@@ -283,3 +283,152 @@ def test_stream_plan_at_main_shape():
     assert [c[:2] for c in far.clusters] == [(-5_000_000, -5_000_000), (-1, 1),
                                             (5_000_000, 5_000_000)]
     assert far.diag_cluster == (0, 1, 1, 1, 2)
+
+
+# --- B1 on B8's design: the plan and the dot's order ---------------------------
+
+
+def test_b1_plan_takes_b8_at_the_solvers_shapes():
+    """dia_matvec and dia_matvec_dot run B8's kernel on stream_plan
+    wherever x's rings fit and n gives every SM a 1024-row tile (the main
+    size, the resident size, a 7-point stencil of 157 tiles), else the
+    grid-stride kernels (the three-kernel loop's fp64 goldens, 10 tiles;
+    a 7-point stencil of 108); GRID_PLAN forces the grid-stride kernels;
+    on the CPU a plan changes nothing."""
+    for n, offs, dtype, design in (
+            (10_000, (-100, -1, 0, 1, 100), torch.float64, "grid"),
+            (135_167, (-367, -1, 0, 1, 367), torch.float32, "grid"),
+            (135_168, (-367, -1, 0, 1, 367), torch.float32, "stream"),
+            (1_000_000, (-1000, -1, 0, 1, 1000), torch.float32, "stream"),
+            (10_240_000, (-3200, -1, 0, 1, 3200), torch.float32, "stream"),
+            (110_592, (-2304, -48, -1, 0, 1, 48, 2304), torch.float32, "grid"),
+            (157_464, (-2916, -54, -1, 0, 1, 54, 2916), torch.float64, "stream")):
+        plan = dia_spmv.matvec_plan(n, offs, dtype, 132)
+        assert plan == (dia_spmv.GRID_PLAN if design == "grid" else dia_spmv.MatvecPlan(
+            "stream", dia_spmv.stream_plan(n, offs, dtype, 132)))
+    assert dia_spmv.GRID_PLAN.design == "grid" and dia_spmv.GRID_PLAN.stream is None
+    dia, x = _problem("lap2d_fd", 20)
+    offs, bands, xt = tuple(dia.offsets), torch.as_tensor(dia.bands), torch.as_tensor(x)
+    want = dia_spmv.dia_matvec_dot_ref(bands, xt, offsets=offs)
+    for plan in (None, dia_spmv.GRID_PLAN):
+        assert torch.equal(dia_spmv.dia_matvec(bands, xt, offsets=offs, plan=plan), want[0])
+        y, d = dia_spmv.dia_matvec_dot(bands, xt, offsets=offs, plan=plan)
+        assert torch.equal(y, want[0]) and torch.equal(d, want[1])
+
+
+def _tree32(v):  # (..., 32) -> warp_sum's shuffle tree (common.cuh)
+    for o in (16, 8, 4, 2, 1):
+        v = v[..., :o] + v[..., o:2 * o]
+    return v[..., 0]
+
+
+def _any_block_sum(v):
+    """(..., threads) -> csrc/dia_stream.cu any_block_sum (and common.cuh
+    block_sum at 256 threads): a tree a warp, then the warps' sums, padded
+    to 32, in a tree."""
+    w = _tree32(v.reshape(v.shape[:-1] + (v.shape[-1] // 32, 32)))
+    pad = np.zeros(w.shape[:-1] + (32 - w.shape[-1],), dtype=v.dtype)
+    return _tree32(np.concatenate([w, pad], -1))
+
+
+def _last_block(parts, threads):
+    """The last block's sum of the partials in index order: thread j adds
+    partials j, j + threads, ..., then the block sum."""
+    cols = -(-parts.size // threads)
+    m = np.zeros(cols * threads, dtype=parts.dtype)
+    m[:parts.size] = parts
+    acc = np.zeros(threads, dtype=parts.dtype)
+    for c in range(cols):
+        acc = acc + m[c * threads:(c + 1) * threads]
+    return _any_block_sum(acc)
+
+
+def b8_dot(plan, prods):
+    """<x, y> as dia_matvec_dot on B8's plan sums x[i] y[i]: a thread
+    over its four rows, tile after tile of its block, in the data type;
+    a block sum; the partials in index order in the last block."""
+    tile, threads, per = plan.tile, plan.threads, plan.tiles_per_block
+    m = np.zeros(plan.grid * per * tile, dtype=prods.dtype)
+    m[:prods.size] = prods
+    m = m.reshape(plan.grid, per, threads, 4)
+    acc = np.zeros((plan.grid, threads), dtype=prods.dtype)
+    for k in range(per):
+        for e in range(4):
+            acc = acc + m[:, k, :, e]
+    return _last_block(_any_block_sum(acc), threads)
+
+
+def grid_stride_dot(prods, threads=256, max_blocks=1024):
+    """<r, r> as fused_update_rs sums it (csrc/axpy.cu, common.cuh): a
+    grid-stride loop over grid_for(n) blocks, a block sum, the partials
+    in index order in the last block."""
+    grid = max(1, min(max_blocks, -(-prods.size // threads)))
+    stride = grid * threads
+    m = np.zeros(-(-prods.size // stride) * stride, dtype=prods.dtype)
+    m[:prods.size] = prods
+    acc = np.zeros(stride, dtype=prods.dtype)
+    for c in range(m.size // stride):
+        acc = acc + m[c * stride:(c + 1) * stride]
+    return _last_block(_any_block_sum(acc.reshape(grid, threads)), threads)
+
+
+def _three_kernel_replay(dia, conj_dot):
+    """(k, x) of the float64 three-kernel loop at tol 1e-10 with <p, Ap>
+    summed by ``conj_dot`` and <r, r> in fused_update_rs's order (the
+    start <r, r>, torch.sum on the card, is numpy's pairwise sum here)."""
+    n = dia.shape[0]
+    b = gen.source_term(n)
+    x, r, p = np.zeros(n), b.copy(), b.copy()
+    rsold = float(np.sum(r * r))
+    k = 0
+    while k < n:
+        ap = dia.mat_vec(p)
+        conj = conj_dot(p * ap)
+        alpha = rsold / max(conj, rsold * 1e-14)
+        x, r = x + alpha * p, r - alpha * ap
+        rr = grid_stride_dot(r * r)
+        if np.sqrt(rr) < 1e-10:
+            break
+        p, rsold, k = (rr / rsold) * p + r, rr, k + 1
+    return k, x, b
+
+
+@pytest.mark.parametrize("make,g,window", [("lap2d_fd", 100, (485, 491)),
+                                           ("lap2d_reference", 10_000, (604, 610))])
+def test_b1_dot_order_replay_keeps_the_golden_counts(make, g, window):
+    """The float64 three-kernel loop with <p, Ap> in dia_matvec_dot's
+    order on B8's plan (10 blocks of one 1024-row tile at N = 10,000,
+    as a caller forcing that design runs it) and <r, r> in
+    fused_update_rs's converges inside the golden window with the
+    reference's quality."""
+    dia = getattr(gen, make)(g)
+    plan = dia_spmv.stream_plan(dia.shape[0], tuple(dia.offsets), torch.float64, 132)
+    assert (plan.grid, plan.tiles_per_block) == (10, 1)
+    k, x, b = _three_kernel_replay(dia, lambda prods: b8_dot(plan, prods))
+    assert window[0] <= k <= window[1]
+    assert np.linalg.norm(dia.mat_vec(x) - b) / np.linalg.norm(b) < 1e-11
+
+
+@pytest.mark.parametrize("make,g,window", [("lap2d_fd", 100, (485, 491)),
+                                           ("lap2d_reference", 10_000, (604, 610))])
+def test_b1_grid_dot_order_replay_keeps_the_golden_counts(make, g, window):
+    """The same with <p, Ap> in the grid-stride dia_matvec_dot's order
+    (csrc/dia_spmv.cu: grid_for(n) blocks, a block sum, the last block's
+    ticket), the design matvec_plan picks at N = 10,000."""
+    dia = getattr(gen, make)(g)
+    assert dia_spmv.matvec_plan(dia.shape[0], tuple(dia.offsets), torch.float64,
+                                132) == dia_spmv.GRID_PLAN
+    k, x, b = _three_kernel_replay(dia, grid_stride_dot)
+    assert window[0] <= k <= window[1]
+    assert np.linalg.norm(dia.mat_vec(x) - b) / np.linalg.norm(b) < 1e-11
+
+
+def test_b8_dot_order_sums_every_product_once():
+    """The replayed orders sum each product once: on integers (exact in
+    float64) they give the plain sum, at a ragged n and with blocks of
+    several tiles."""
+    prods = np.arange(1, 50_001, dtype=np.float64)
+    for sms in (1, 132):
+        plan = dia_spmv.stream_plan(prods.size, (-7, 0, 7), torch.float64, sms)
+        assert b8_dot(plan, prods) == prods.sum()
+    assert grid_stride_dot(prods) == prods.sum()

@@ -17,6 +17,8 @@ from cgx.mats.containers import COOMatrix, CSRMatrix, ELLMatrix
 from cgx.mats.generators import lap2d_fd, lap2d_reference
 from cgx_torch.ops import matvec
 
+import test_torch_dense_walk as walk
+
 # fp64: each product rounds once on both sides and only the order of the
 # sums differs; fp32: the Pallas kernel traces under jax's x64-off mode
 RTOL = {np.float64: 1e-12, np.float32: 1e-5}
@@ -284,3 +286,32 @@ def test_dense_plan_aligned_or_peeled(n, block_cols, dtype, aligned):
     assert matvec.dense_plan(n, n, block_cols, dtype, H100_SMS).aligned is aligned
     assert matvec.dense_plan(n, n, block_cols, dtype, H100_SMS,
                              pointers_aligned=False).aligned is False
+
+
+# --- both dense kernels' summation grouping, walked in torch ----------------
+# (the walks live in tests/test_torch_dense_walk.py, which imports no JAX, so
+# that its CUDA cases hold the card's kernels to them)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", walk.CASES)
+def test_dense_kernels_share_one_grouping(case, dtype):
+    """dense_matvec's y by the lane model (persistent_walk) is bitwise the
+    y that a line-by-line walk of dense_matvec_dot's kernel forms
+    (kernel_walk: spans, vdot, peeled_part, transpose_sum8's shuffles,
+    the running sums), on and off the 16-byte grid; the walk's dot agrees
+    with the plain version; the one-warp-a-row grouping it replaced gives
+    another y on random matrices. The CUDA cases of
+    test_torch_dense_walk.py hold the card's kernels bitwise to the walk."""
+    a, x, br, bc = walk.case_inputs(case, dtype)
+    plan = matvec.dense_plan(a.shape[0], a.shape[1], bc, dtype, H100_SMS)
+    y1 = walk.persistent_walk(a, x, bc, plan)  # dense_matvec
+    y2, d = walk.kernel_walk(a, x, br, bc, plan)  # dense_matvec_dot
+    assert torch.equal(y1, y2)
+    want_y, want_d = matvec.dense_matvec_dot_ref(a, x, block_rows=br, block_cols=bc)
+    rtol = 1e-5 if dtype == torch.float32 else 1e-12
+    assert float((y1 - want_y).abs().max()) <= rtol * float(want_y.abs().max())
+    m = min(a.shape)
+    assert abs(float(d - want_d)) <= rtol * float((x[:m] * want_y[:m]).abs().sum())
+    if not case.startswith("lap2d") and bc > 1:
+        assert not torch.equal(walk.row_walk(a, x, bc), y1)

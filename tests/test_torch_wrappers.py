@@ -10,6 +10,7 @@ import pytest
 import torch
 
 import cgx_torch
+from cgx_torch.config import NEARZERO
 from cgx_torch.mats.generators import lap2d_fd, lap2d_reference, source_term
 from cgx_torch.ops import axpy, cg_kernel, dia_spmv, matvec
 
@@ -257,6 +258,63 @@ def test_cuda_chunk_kernel_matches_plain(cuda, g, dtype, precond):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("precond", [False, True])
+@pytest.mark.parametrize("dtype,bf16", [(torch.float32, False), (torch.float64, False),
+                                        (torch.float32, True)])
+@pytest.mark.parametrize("g", [30, 100, 700])  # halos within a block, across two, and wide
+def test_cuda_chunk_designs_match_plain(cuda, g, dtype, bf16, precond):
+    """Both designs of the whole-solve kernel (resident_plan's and the
+    global one, forced) against the plain version, as above; the resident
+    design is the one the plan picks at these sizes."""
+    dia = lap2d_fd(g)
+    bands, state = _chunk_state(dia, dtype, cuda)
+    if bf16:
+        bands = bands.to(torch.bfloat16)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    resident = cg_kernel.resident_plan(dia.shape[0], tuple(dia.offsets), dtype, bands.dtype,
+                                       precond, sms)
+    assert resident.design == "resident"
+    for plan in (resident, cg_kernel.GLOBAL_PLAN):
+        for chunk, rtol in ((1, 1e-6 if dtype == torch.float32 else 1e-14),
+                            (64, 1e-4 if dtype == torch.float32 else 1e-12)):
+            got, ref = [t.clone() for t in state], [t.clone() for t in state]
+            kw = dict(offsets=dia.offsets, tol=0.0, nearzero=1e-14, maxiter=10**6, chunk=chunk,
+                      precond=precond)
+            s_got = cg_kernel.dia_cg_chunk(bands, *got, plan=plan, **kw)
+            s_ref = cg_kernel.dia_cg_chunk_ref(bands, *ref, **kw)
+            torch.cuda.synchronize()
+            assert cg_kernel.dia_cg_chunk.plan == plan
+            for a, w in zip(got[:3], ref[:3]):
+                assert float((a - w).abs().max()) <= rtol * float(w.abs().max())
+            assert torch.equal(s_got[1:], s_ref[1:])
+            assert abs(float(s_got[0] - s_ref[0])) <= rtol * abs(float(s_ref[0]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("make", [lambda: lap2d_fd(300), lambda: lap2d_reference(1001)])
+def test_cuda_b1_designs_bitwise(cuda, make, dtype):
+    """B1 on B8's design and on the grid-stride one give bitwise B8's y;
+    their dots agree to the data type's rounding."""
+    dia = make()
+    offs = tuple(dia.offsets)
+    bands = torch.as_tensor(dia.bands, dtype=dtype, device=cuda)
+    x = torch.as_tensor(np.random.default_rng(3).standard_normal(dia.shape[0]), dtype=dtype,
+                        device=cuda)
+    want = dia_spmv.dia_matvec_stream(bands, x, offsets=offs)
+    grid = dia_spmv.GRID_PLAN  # what matvec_plan picks at these sizes, below a tile an SM
+    stream = dia_spmv.MatvecPlan("stream", dia_spmv.stream_plan(
+        dia.shape[0], offs, dtype, torch.cuda.get_device_properties(0).multi_processor_count))
+    ys = [dia_spmv.dia_matvec(bands, x, offsets=offs, plan=p) for p in (None, stream, grid)]
+    (y1, d1), (y2, d2) = (dia_spmv.dia_matvec_dot(bands, x, offsets=offs, plan=p)
+                          for p in (stream, grid))
+    torch.cuda.synchronize()
+    assert all(torch.equal(y, want) for y in (*ys, y1, y2))
+    rtol = 1e-5 if dtype == torch.float32 else 1e-12
+    assert abs(float(d1 - d2)) <= rtol * float((x * want).abs().sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precond", [False, True])
 def test_cuda_resident_solves_repeat_bitwise(cuda, precond):
     """Two solves through the whole-solve kernel are bitwise equal, and the
     fp32 count is the plain fp32 loop's (fp64 dots, the kernel's arithmetic)."""
@@ -294,10 +352,15 @@ def test_cuda_resident_fp64_golden(cuda):
     dia = lap2d_fd(100)
     b = source_term(dia.shape[0])
     op = cgx_torch.as_operator(dia, torch.float64, device=cuda)
-    res = cgx_torch.dia_cg_solve_vmem(op, b, tol=1e-10, layout="2d", device=cuda)
-    assert bool(res.converged) and 485 <= int(res.iterations) <= 491
-    x = res.x.cpu().numpy()
-    assert np.linalg.norm(dia.mat_vec(x) - b) / np.linalg.norm(b) < 1e-11
+    b_dev = torch.as_tensor(b, dtype=torch.float64, device=cuda)
+    for plan in (None, cg_kernel.GLOBAL_PLAN):  # the resident design, then the global one
+        res = cg_kernel._solve(op.bands, b_dev, offsets=tuple(op.offsets), tol=1e-10,
+                               nearzero=NEARZERO, maxiter=dia.shape[0], chunk=64, precond=False,
+                               layout="2d", plan=plan)
+        assert cg_kernel.dia_cg_chunk.plan.design == ("global" if plan else "resident")
+        assert bool(res.converged) and 485 <= int(res.iterations) <= 491
+        x = res.x.cpu().numpy()
+        assert np.linalg.norm(dia.mat_vec(x) - b) / np.linalg.norm(b) < 1e-11
 
 
 # --- the streaming kernels (B4, B7, B6) ----------------------------------
