@@ -23,6 +23,7 @@ from cgx_torch.mats.generators import (
     poisson3d_var,
     source_term,
 )
+from cgx_torch.mats.device import lap2d_operator, lap3d_operator, source_term_device
 from cgx_torch.ops.cg_kernel import dia_cg_solve_vmem
 from cgx_torch.ops.cg_stream import dia_cg_solve_stream, dia_cg_solve_stream_pcg
 from cgx_torch.ops.dia_powers import dia_sstep_basis
@@ -32,6 +33,7 @@ from cgx_torch.parallel import ShardedCGSolver, make_mesh, make_sharded_solver, 
 from cgx_torch.solver.api import solve
 from cgx_torch.solver.cg import CGResult, cg_solve
 from cgx_torch.solver.fast import dia_cg_solve_pallas
+from cgx_torch.solver.multigrid import MGPreconditioner, mg_preconditioner
 from cgx_torch.solver.pipelined import pipelined_cg_solve
 from cgx_torch.solver.operators import (
     CsrOperator,
@@ -44,6 +46,7 @@ from cgx_torch.solver.operators import (
     operator_from_cgx,
     operator_from_numpy,
 )
+from cgx_torch.solver.precond import block_jacobi, jacobi, neumann_banded
 from cgx_torch.solver.refine import RefineResult, iterative_refinement, refine_fixed_sweeps
 from cgx_torch.solver.sstep import sstep_cg_solve
 

@@ -35,9 +35,14 @@ Where the port differs from cgx's CLI, by design:
 ``--method pipelined`` and ``--method sstep`` run as cgx branches them
 (cli/main.py:341-377), the latter with ``--sstep-s``, ``--sstep-basis``,
 ``--sstep-powers`` and ``--sstep-replace-every`` passed through.
-``--precond jacobi`` and ``neumann`` run as cgx builds them
-(cli/main.py:285-340; neumann on a non-banded operator falls back to
-jacobi with a warning), and the ``[STEP k]`` line then shows
+``--precond jacobi|block_jacobi|neumann|chebyshev|mg`` run as cgx builds
+them (cli/main.py:285-340): ``block_jacobi`` with
+``--precond-block-size`` (default min(32, N)), ``chebyshev`` degree 3 on
+Lanczos bounds, ``mg`` a 2-D V-cycle with ``--mg-smoother`` and
+``--mg-cycle`` (fp32 under ``--precision fp64`` runs the cycle in fp32);
+``mg`` needs a banded operator (``--format dia``) and otherwise prints an
+error and returns 1; neumann on a non-banded operator falls back to
+jacobi with a warning. The ``[STEP k]`` line then shows
 ``residual_norm``, as cgx's does (cli/main.py:398-406).
 
 ``--devices P`` (P > 1) runs the sharded route
@@ -51,10 +56,11 @@ torchrun's environment if it is not yet (NCCL on the card, gloo with
 ``--device cpu``), and destroyed again at the end. Rank 0 alone prints
 and appends the CSV row, whose ``psize`` is P.
 
-``--precond block_jacobi``, ``chebyshev`` (A7) and ``mg`` (A10),
-``--method gvpipe`` and ``chebyshev`` (A11), ``--method sstep`` with
-``--devices`` (A14) and ``--precision bf16`` (A6) raise
-``NotImplementedError`` naming their ROADMAP item.
+``--method gvpipe`` and ``chebyshev`` (A11), ``--method sstep`` or
+``--precond mg`` with ``--devices`` (A14), ``--precond block_jacobi`` or
+``chebyshev`` with ``--devices`` (the sharded part of A7) and
+``--precision bf16`` (A6) raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -73,14 +79,15 @@ from cgx_torch.mats.containers import COOMatrix, CSRMatrix, DIAMatrix, ELLMatrix
 from cgx_torch.mats.generators import lap2d_reference, source_term
 from cgx_torch.ops._util import resolve_device
 from cgx_torch.solver.cg import CGResult, cg_solve
+from cgx_torch.solver.chebyshev import spectral_bounds
+from cgx_torch.solver.multigrid import mg_preconditioner
 from cgx_torch.solver.operators import DiaOperator, PallasDenseOperator, as_operator
 from cgx_torch.solver.pipelined import pipelined_cg_solve
-from cgx_torch.solver.precond import jacobi, neumann_banded
+from cgx_torch.solver.precond import block_jacobi, chebyshev_poly, jacobi, neumann_banded
 from cgx_torch.solver.sstep import sstep_cg_solve
 
 DEFAULT_TILES = (256, 512)  # dense_matvec's static defaults (cgx/bench/autotune.py:38)
 _DTYPES = {"fp64": torch.float64, "fp32": torch.float32}
-_UNPORTED_PRECOND = {"block_jacobi": "A7", "chebyshev": "A7", "mg": "A10"}
 
 
 def _build_parser() -> argparse.ArgumentParser:
@@ -140,8 +147,6 @@ def run(argv=None) -> Run:
     pos = args.positionals
     if args.precision == "bf16":
         raise _unported("--precision bf16 (bf16 storage, ROADMAP A6)")
-    if args.precond in _UNPORTED_PRECOND:
-        raise _unported(f"--precond {args.precond} (ROADMAP {_UNPORTED_PRECOND[args.precond]})")
     if args.method in ("gvpipe", "chebyshev"):
         raise _unported(f"--method {args.method} (ROADMAP A11)")
     dev = resolve_device(args.device)
@@ -211,9 +216,13 @@ def run(argv=None) -> Run:
 
         _build.load()  # nvcc runs here, not inside the timed solve
         torch.cuda.synchronize(dev)
+    if args.precond == "mg" and not isinstance(op, DiaOperator) and not isinstance(host,
+                                                                                 DIAMatrix):
+        print("error: --precond mg needs a banded grid operator (--format dia)", file=sys.stderr)
+        return Run(1)
 
     t1 = time.perf_counter()
-    pc = _precond(args.precond, op, host, dtype, dev)
+    pc = _precond(args, op, host, n, dtype, dev)
     if args.method == "pipelined":
         res = pipelined_cg_solve(op, b, tol=tol, maxiter=maxiter, history=args.history,
                                  precond=pc, device=dev)
@@ -233,18 +242,34 @@ def run(argv=None) -> Run:
     return Run(0, op, res, elapsed, row)
 
 
-def _precond(name: Optional[str], op, host, dtype, dev):
+def _precond(args, op, host, n: int, dtype, dev):
     """The single-device preconditioner of ``--precond`` (cgx
-    cli/main.py:285-340): jacobi, or neumann on a banded operator (two
-    sweeps, as ``solve`` builds it; jacobi with a warning otherwise)."""
+    cli/main.py:285-340): jacobi; block_jacobi; chebyshev; mg on the
+    banded operator (or the host DIA matrix), 2-D, its cycle in fp32 when
+    ``--mg-cycle fp32`` meets ``--precision fp64``; neumann on a banded
+    operator (two sweeps, as ``solve`` builds it; jacobi with a warning
+    otherwise)."""
+    name = args.precond
     if name is None:
         return None
     base = op if hasattr(op, "diagonal") else as_operator(host, dtype=dtype, device=dev)
-    if name == "neumann" and isinstance(base, DiaOperator):
+    if name == "jacobi":
+        return jacobi(base.diagonal())
+    if name == "block_jacobi":
+        return block_jacobi(base, args.precond_block_size or min(32, n), dtype=dtype)
+    if name == "chebyshev":
+        lo, hi = spectral_bounds(base, n)
+        return chebyshev_poly(base.matvec, lo, hi, degree=3)
+    if name == "mg":
+        src = base if isinstance(base, DiaOperator) else host
+        if args.mg_cycle == "fp32" and args.precision == "fp64":
+            return mg_preconditioner(src, smoother=args.mg_smoother, dtype=torch.float32,
+                                     device=dev).apply_mixed
+        return mg_preconditioner(src, smoother=args.mg_smoother, device=dev).apply
+    if isinstance(base, DiaOperator):
         return neumann_banded(base.bands, base.offsets, sweeps=2)
-    if name == "neumann":
-        print("warning: --precond neumann needs a banded operator; falling back to jacobi",
-              file=sys.stderr)
+    print("warning: --precond neumann needs a banded operator; falling back to jacobi",
+          file=sys.stderr)
     return jacobi(base.diagonal())
 
 
@@ -285,6 +310,8 @@ def _run_sharded(args, host, b_np, n: int, tol: float, maxiter, fmt: str, dev, c
 
     if args.method == "sstep":
         raise _unported("--method sstep with --devices (the sharded s-step, ROADMAP A14)")
+    if args.precond == "mg":
+        raise _unported("--precond mg with --devices (mg_sharded, ROADMAP A14)")
     own_group = not dist.is_initialized()
     if own_group:
         if "WORLD_SIZE" not in os.environ and "SLURM_NTASKS" not in os.environ:

@@ -59,13 +59,14 @@ class SolveConfig:
     large_banded: str = "stream"
     # "reference", "pipelined" (Chronopoulos-Gear) or "sstep" (s-step CG,
     # with the sstep_* fields below); "gvpipe" and "chebyshev" (A11) are
-    # not ported yet. The other fields below select paths that are not
-    # ported yet, but for precond; they keep cgx's defaults so that a cgx
-    # configuration reads the same.
+    # not ported yet. Of the fields below, check_every, multi_rhs and
+    # gv_replace_every select no ported path yet; they keep cgx's
+    # defaults so that a cgx configuration reads the same.
     method: str = "reference"
-    # None, "jacobi" or "neumann" (with use_pallas: the whole-solve
-    # kernel's in-kernel Neumann PCG); "block_jacobi", "chebyshev" (A7)
-    # and "mg" (A10) are not ported yet.
+    # None, "jacobi", "neumann" (with use_pallas: the whole-solve
+    # kernel's in-kernel Neumann PCG), "block_jacobi" (blocks of
+    # precond_block_size rows), "chebyshev" (degree 3) or "mg" (a V-cycle
+    # with mg_smoother, in mg_cycle_precision).
     precond: Optional[str] = None
     precond_block_size: Optional[int] = None
     mg_smoother: str = "richardson"

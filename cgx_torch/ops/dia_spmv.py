@@ -42,13 +42,14 @@ def dia_matvec_ref(
     bands: torch.Tensor, x: torch.Tensor, *, offsets: Sequence[int]
 ) -> torch.Tensor:
     """Plain ``y = A x``: shifted AXPYs over a zero-padded ``x``, the
-    zero-outside-``[0, n)`` semantics of ``cgx.solver.operators.banded_matvec``."""
+    zero-outside-``[0, n)`` semantics of ``cgx.solver.operators.banded_matvec``.
+    ``x`` may carry leading batch dimensions (the multigrid probes)."""
     n = bands.shape[1]
     pad = max(max(abs(o) for o in offsets), 1)
     xp = F.pad(x, (pad, pad))
     y = torch.zeros_like(x)
     for d, off in enumerate(offsets):
-        y = y + bands[d] * xp[pad + off : pad + off + n]
+        y = y + bands[d] * xp[..., pad + off : pad + off + n]
     return y
 
 

@@ -69,7 +69,9 @@ PLANE_ROWS, PLANE_COLS = 256, 512
 
 _UNPORTED_METHODS = {"sstep": "the sharded s-step, ROADMAP A14",
                      "gvpipe": "ROADMAP A11", "chebyshev": "ROADMAP A11"}
-_UNPORTED_PRECONDS = {"block_jacobi": "ROADMAP A7", "chebyshev": "ROADMAP A7"}
+# ported on one device; the sharded route's part of A7 is still to come
+_UNPORTED_PRECONDS = {"block_jacobi": "block-Jacobi's sharded apply, ROADMAP A7",
+                      "chebyshev": "the sharded Chebyshev polynomial, ROADMAP A7"}
 
 
 def _unported(what: str) -> NotImplementedError:
@@ -399,8 +401,8 @@ def make_sharded_solver(
       dot_precision: dtype the dots accumulate in (float64 for float32
         vectors); default the vectors'.
       precond: None, ``"jacobi"`` or ``"neumann"``; ``jacobi=True`` is an
-        alias of ``"jacobi"``. ``"block_jacobi"`` and ``"chebyshev"`` (A7)
-        raise.
+        alias of ``"jacobi"``. ``"block_jacobi"`` and ``"chebyshev"`` (the
+        sharded part of A7) raise; they run on one device.
       dense_fp64: ``"emulated"`` (fp64 ``torch.matmul``) or, as in cgx,
         ``"ozaki"``, and ``"auto"`` where it resolves to Ozaki (a dense
         fp64 shard on CUDA): those raise (A12).

@@ -33,10 +33,14 @@ Dispatch (cgx api.py:322-403):
   (:mod:`cgx_torch.solver.refine`);
 - ``n_devices > 1`` or ``mesh=`` runs the sharded route on
   ``torch.distributed`` (:mod:`cgx_torch.parallel.sharded_cg`), with
-  ``strategy``; there ``precond="mg"`` (A10), ``precision="mixed"`` and
-  ``method="sstep"`` (A14) raise;
+  ``strategy``; there ``precond="mg"``, ``precision="mixed"`` and
+  ``method="sstep"`` (A14) raise, and so do ``"block_jacobi"`` and
+  ``"chebyshev"`` (the sharded part of A7);
 - everything else that is ported runs the plain reference loop, with
-  the configured preconditioner;
+  the configured preconditioner: ``jacobi``, ``neumann``,
+  ``block_jacobi`` (``precond_block_size``, default min(32, N)),
+  ``chebyshev`` (degree 3 on Lanczos bounds) or ``mg`` (a V-cycle, with
+  ``mg_smoother`` and ``mg_cycle_precision``);
 - what is not ported yet raises ``NotImplementedError`` naming its
   ROADMAP item, rather than running some other path.
 """
@@ -55,9 +59,11 @@ from cgx_torch.ops._util import resolve_device
 from cgx_torch.ops.cg_kernel import dia_cg_solve_vmem, resident_state_bytes
 from cgx_torch.ops.cg_stream import dia_cg_solve_stream, dia_cg_solve_stream_pcg
 from cgx_torch.solver.cg import CGResult, as_vector, cg_solve
+from cgx_torch.solver.chebyshev import spectral_bounds
+from cgx_torch.solver.multigrid import infer_grid_ndim, mg_preconditioner
 from cgx_torch.solver.operators import DiaOperator, as_operator
 from cgx_torch.solver.pipelined import pipelined_cg_solve
-from cgx_torch.solver.precond import jacobi, neumann_banded
+from cgx_torch.solver.precond import block_jacobi, chebyshev_poly, jacobi, neumann_banded
 from cgx_torch.solver.refine import iterative_refinement, refine_fixed_sweeps
 from cgx_torch.solver.sstep import sstep_cg_solve
 
@@ -66,11 +72,6 @@ _UNPORTED_PRECISION = {
     "bf16": "bf16 vectors (ROADMAP A6)",
     "tw": "triple-word refinement (ROADMAP A12)",
 }
-_UNPORTED_PRECOND = {
-    "block_jacobi": "A7",
-    "chebyshev": "A7",
-    "mg": "A10",
-}
 
 
 def _unported(what: str):
@@ -78,17 +79,32 @@ def _unported(what: str):
 
 
 def _build_precond(cfg: SolveConfig, op):
-    """The configured preconditioner's ``apply`` (cgx api.py:39-79)."""
+    """The configured preconditioner's ``apply`` (cgx api.py:39-79).
+    ``"mg"`` builds a V-cycle on the operator's grid (2-D or 3-D by
+    :func:`infer_grid_ndim`); ``mg_cycle_precision="fp32"`` under an fp64
+    operator runs the cycle in fp32 (``apply_mixed``)."""
     if cfg.precond is None:
         return None
+    n = op.shape[0]
     if cfg.precond == "jacobi":
         return jacobi(op.diagonal())
+    if cfg.precond == "block_jacobi":
+        return block_jacobi(op, cfg.precond_block_size or min(32, n), dtype=op.dtype)
     if cfg.precond == "neumann":
         if not isinstance(op, DiaOperator):
             raise ValueError("precond='neumann' needs a banded operator")
         return neumann_banded(op.bands, op.offsets, sweeps=2)
-    if cfg.precond in _UNPORTED_PRECOND:
-        raise _unported(f"precond={cfg.precond!r} (ROADMAP {_UNPORTED_PRECOND[cfg.precond]})")
+    if cfg.precond == "chebyshev":
+        lo, hi = spectral_bounds(op, n)
+        return chebyshev_poly(op.matvec, lo, hi, degree=3)
+    if cfg.precond == "mg":
+        if not isinstance(op, DiaOperator):
+            raise ValueError("precond='mg' needs a banded grid operator")
+        nd = infer_grid_ndim(n, op.offsets)
+        if cfg.mg_cycle_precision == "fp32" and op.dtype == torch.float64:
+            return mg_preconditioner(op, ndim=nd, smoother=cfg.mg_smoother,
+                                     dtype=torch.float32).apply_mixed
+        return mg_preconditioner(op, ndim=nd, smoother=cfg.mg_smoother).apply
     raise ValueError(f"unknown precond {cfg.precond!r}")
 
 
@@ -173,7 +189,7 @@ def _solve_sharded(mat, b, cfg: SolveConfig, method: str, dev: torch.device, *, 
     from cgx_torch.parallel.sharded_cg import sharded_cg_solve
 
     if cfg.precond == "mg":
-        raise _unported("precond='mg' on the sharded route (mg_sharded, ROADMAP A10)")
+        raise _unported("precond='mg' on the sharded route (mg_sharded, ROADMAP A14)")
     if cfg.precision == "mixed":
         raise _unported("precision='mixed' on the sharded route (sharded_refine_fixed_sweeps, "
                         "ROADMAP A14)")

@@ -22,10 +22,14 @@ cg.py:93-131) ``z = M^-1 r`` takes the place of ``r`` in ``p`` and in
 
 No host sync per iteration: every scalar (alpha, beta, rsold, k,
 converged, breakdown) stays on the device as a 0-d tensor, and the host
-reads ``converged`` once per ``_CHUNK`` iterations. An iteration that
-runs after convergence inside a chunk is frozen: alpha is 0, and ``p``,
-``rsold``, ``k`` and the history keep their values, so the result does
-not depend on the chunk size. :func:`run_recurrence` is shared with the
+reads ``converged`` once per ``_CHUNK`` iterations. With a
+preconditioner the chunks grow 1, 2, 4, ... up to ``_CHUNK``, so that a
+solve of a few iterations (a multigrid-preconditioned one converges in
+about 8) runs at most about as many frozen iterations as live ones, each
+of which still applies the preconditioner. An iteration that runs after
+convergence inside a chunk is frozen: alpha is 0, and ``p``, ``rsold``,
+``k`` and the history keep their values, so the result does not depend
+on the chunk size. :func:`run_recurrence` is shared with the
 three-kernel loop of :mod:`cgx_torch.solver.fast`.
 """
 
@@ -101,8 +105,10 @@ def run_recurrence(
     hist = torch.full((history + 1,), float("nan"), dtype=rr0.dtype, device=dev)
 
     done = 0
+    chunk = _CHUNK if precond is None else 1
     while done < maxiter and not bool(converged):  # the one host sync per chunk
-        for _ in range(min(_CHUNK, maxiter - done)):
+        steps = min(chunk, maxiter - done)
+        for _ in range(steps):
             if marks is not None:
                 marks.next_iteration()
             active = ~converged
@@ -123,7 +129,8 @@ def run_recurrence(
             k = torch.where(keep, k, k + 1)
             rsnew = torch.where(active, rr, rsnew)
             converged = converged | conv
-        done += min(_CHUNK, maxiter - done)
+        done += steps
+        chunk = min(2 * chunk, _CHUNK)
     if marks is not None:
         marks.end_loop()
     return CGResult(

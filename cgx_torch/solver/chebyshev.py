@@ -14,8 +14,9 @@ NumPy start vector: at N = 10,240,000 the host's 64 steps keep a
 (64, N) float64 basis (5.2 GB) and move about 340 GB through the full
 reorthogonalisation, which the card does in a fraction of a second.
 The two paths agree to rounding (``tests/test_torch_sstep.py`` holds
-them to 1e-12 relative). ``chebyshev_solve`` itself is not ported yet
-(ROADMAP A11).
+them to 1e-12 relative). :func:`host_spectral_bounds` is the host path
+for a host DIA matrix (the coarsest level of a multigrid hierarchy).
+``chebyshev_solve`` itself is not ported yet (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -46,10 +47,13 @@ def _host_dia(op: DiaOperator) -> DIAMatrix:
 
 
 def host_matvec(op):
-    """A NumPy float64 mat-vec for an operator: a banded one's bands in
-    float64 on the host (cgx's), any other through its ``.matvec``."""
+    """A NumPy float64 mat-vec for an operator or a host DIA matrix: a
+    banded operator's bands in float64 on the host (cgx's), the matrix's
+    own ``mat_vec``, any other operator through its ``.matvec``."""
     if isinstance(op, DiaOperator):
         return _host_dia(op).mat_vec
+    if isinstance(op, DIAMatrix):
+        return op.mat_vec
     dev = getattr(op, "device", torch.device("cpu"))
     return lambda x: op.matvec(torch.as_tensor(x, dtype=op.dtype, device=dev)).to(
         "cpu", torch.float64).numpy()
@@ -133,6 +137,22 @@ def lanczos_bounds(
     if lmin <= 0:
         lmin = lmin_floor_ratio * lmax
     return lmin, lmax
+
+
+def host_spectral_bounds(
+    mat, *, m: int = 64, lmin_floor_ratio: float = 1e-4
+) -> Tuple[float, float]:
+    """``(lmin, lmax)`` of a host DIA matrix, on the host in NumPy (cgx's
+    ``host_spectral_bounds``): Lanczos (:func:`lanczos_bounds`) at both
+    ends, then the Gershgorin bounds where they are sharper (lmin raised
+    to the Gershgorin floor, lmax clamped to its ceiling) when there is a
+    main diagonal."""
+    lmin, lmax = lanczos_bounds(host_matvec(mat), mat.shape[0], m=m,
+                                lmin_floor_ratio=lmin_floor_ratio)
+    if 0 not in tuple(mat.offsets):
+        return lmin, lmax
+    g_lo, g_hi = gershgorin_bounds(mat)
+    return max(lmin, g_lo), min(lmax, g_hi)
 
 
 def spectral_bounds(

@@ -23,7 +23,8 @@ this loop is the plain version they are held against. Breakdown
 
 As in :mod:`cgx_torch.solver.cg`, ``k``, ``converged`` and
 ``breakdown`` stay on the device; the host reads ``converged`` once per
-``_CHUNK`` iterations, and an iteration after convergence inside a
+``_CHUNK`` iterations (with a preconditioner after chunks of 1, 2, 4,
+... up to ``_CHUNK``, as there), and an iteration after convergence inside a
 chunk is frozen (every vector, ``k``, ``gamma_old``, ``alpha_old`` and
 the history keep their values), so the result does not depend on the
 chunk size.
@@ -88,8 +89,10 @@ def pipelined_cg_loop(
     hist = torch.full((history + 1,), float("nan"), dtype=acc, device=dev)
 
     done = 0
+    chunk = _CHUNK if precond is None else 1
     while done < maxiter and not bool(converged):  # the one host sync per chunk
-        for _ in range(min(_CHUNK, maxiter - done)):
+        steps = min(chunk, maxiter - done)
+        for _ in range(steps):
             if marks is not None:
                 marks.next_iteration()
             if precond is None:
@@ -122,7 +125,8 @@ def pipelined_cg_loop(
             a_old = torch.where(upd, alpha.to(acc), a_old)
             k = torch.where(upd, k + 1, k)
             converged = converged | conv_now
-        done += min(_CHUNK, maxiter - done)
+        done += steps
+        chunk = min(2 * chunk, _CHUNK)
     if marks is not None:
         marks.end_loop()
     # the final <r, r> through the loop's reduction: a sharded solve's is global

@@ -134,7 +134,22 @@ Phases, one JSON object per line each:
     none, the collectives of every iteration from the recorder; then a
     profile over 256 iterations (B8, NCCL, the rest, the idle share);
 26. sharded goldens: the fp64 goldens through the sharded route with B8
-    forced, twice each.
+    forced, twice each;
+27. mg main: MG-PCG on cgx's flagship problem, lap2d_operator(3200) and
+    source_term_device built on the card (N = 10,240,000, fp64, tol
+    1e-10 ||b||), through solve(precond="mg") with an fp32 and an fp64
+    cycle, twice each (bitwise), the hierarchy built on the card by band
+    probing; the build timed apart with its peak device memory, the
+    V-cycles applied (at most 2k + 2), a profile (launches a loop
+    iteration, idle share) and one cycle's device time by level; B4's main
+    path beside it. No hand-written kernel runs on this path: cgx's cycle
+    is XLA code, and the port's is plain torch;
+28. mg goldens: MG-PCG on lap2d_fd(100), (130) (the Chebyshev coarsest)
+    and lap3d_fd(128), fp64, Richardson and GS, V and W (but GS W in 3-D),
+    k on the card against the same solve on this machine's CPU; then
+    lap2d_fd(256)'s device Galerkin build against the host build;
+29. precond paths: solve(precond="block_jacobi") and "chebyshev" on
+    lap2d_fd(1000), fp64, and the CLI with --precond mg --mg-cycle fp32.
 
 The CLI phases call cgx_torch.cli.main.run, the body of the CLI's main,
 in this process. Then a "kernels" line for the ported kernels (every
@@ -181,6 +196,7 @@ from cgx_torch import (
     solve,
 )
 from cgx_torch.cli import main as cli
+from cgx_torch.mats.device import lap2d_operator, source_term_device
 from cgx_torch.parallel import make_mesh, make_sharded_solver
 from cgx_torch.parallel import sharded_cg as sc
 from cgx_torch.mats.generators import (
@@ -193,7 +209,9 @@ from cgx_torch.mats.generators import (
 from cgx_torch.ops import axpy, cg_kernel, cg_stream, dia_powers, dia_spmv, matvec
 from cgx_torch.ops import sstep_stream as ss
 from cgx_torch.ops._util import f32_exact
+from cgx_torch.solver import api
 from cgx_torch.solver.chebyshev import device_matvec, host_matvec, lanczos_bounds, spectral_bounds
+from cgx_torch.solver.multigrid import infer_grid_ndim, mg_preconditioner
 from cgx_torch.solver.precond import neumann_banded
 from cgx_torch.solver.sstep import newton_shifts, sstep_cg_solve
 from cgx_torch.utils import collectives
@@ -339,6 +357,16 @@ DENSE_PROBLEMS = [
     ("lap2d_reference(1001)", lambda: lap2d_reference(1001), (100, 37)),
 ]
 MPI_N = 16384  # the reference's largest MPI size (the 16384 key of plots.ipynb's ALPHAS)
+MG_CYCLES = ("fp32", "fp64")  # bench.py's fp64_mg_mixed, then the full-fp64 cycle
+MG_GOLDENS = [("lap2d_fd(100)", lambda: lap2d_fd(100)),  # bench.py's primary problem
+              ("lap2d_fd(130)", lambda: lap2d_fd(130)),  # 130 -> 65: the Chebyshev coarsest
+              ("lap3d_fd(128)", lambda: lap3d_fd(128))]  # 3-D: 81- and 125-band coarse levels
+MG_CONFIGS = (("richardson", "v"), ("richardson", "w"), ("gs", "v"), ("gs", "w"))
+# lap3d_fd(128)'s GS W-cycle visits its 27-colour 125-band levels 4 and 8 times: about
+# 370,000 launches a cycle, minutes on the host for the card and for its CPU twin
+MG_SKIP = {("lap3d_fd(128)", "gs", "w")}
+MG_PROBE_GRID = 256  # device against host Galerkin build
+PRECOND_GRID = 1000  # lap2d_fd(1000): N = 1,000,000
 STEP = re.compile(r"\[STEP (\d+)\] residual = ([0-9.e+-]+), \|\|x\|\| = ([0-9.e+-]+), "
                   r"\|\|Ax - b\|\|/\|\|b\|\| = ([0-9.e+-]+|nan)")
 
@@ -2317,6 +2345,348 @@ def phase_sharded_goldens(mesh) -> None:
         check(b8 >= 2 * (k + 1), f"sharded {problem}: {b8} B8 launches for k={k}")
 
 
+def no_kernel_launched(launches: dict, where: str) -> None:
+    """The multigrid and preconditioner paths run plain torch (cgx's are
+    XLA code): none of the hand-written kernels may launch there."""
+    ran = {name: c for name, c in launches.items() if c}
+    check(not ran, f"{where}: a hand-written kernel ran: {ran}")
+
+
+def device_profile(fn) -> tuple:
+    """(device events, device busy us, wall us) of one call of ``fn`` under
+    torch.profiler, its result read before the clock stops. A lead kernel
+    opens the trace, which may miss its first kernel; it is not counted."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)  # the lead
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    cuda = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and "spin" not in e.name and "sleep" not in e.name]
+    return len(cuda), sum(e.time_range.elapsed_us() for e in cuda), wall_us
+
+
+def level_split(mg, r0) -> list:
+    """One cycle's device time by level: level L's subtree
+    (``_vcycle(L, r_L)``, r_L the restriction of r0) profiled on its own,
+    level L's time its subtree's less level L+1's. Returns [(us, events)]."""
+    r_levels = [r0]
+    for g in mg.grids[:-1]:
+        r_levels.append(mg._restrict_bilinear(r_levels[-1], g, mg.ndim))
+    subtree = []
+    for level, r_l in enumerate(r_levels):
+        mg._vcycle(level, r_l)  # warm
+        events, busy_us, _ = device_profile(lambda: mg._vcycle(level, r_l))
+        subtree.append((busy_us, events))
+    return [(subtree[i][0] - subtree[i + 1][0], subtree[i][1] - subtree[i + 1][1])
+            for i in range(len(subtree) - 1)] + [subtree[-1]]
+
+
+def two_sum(a, b):
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def two_prod(a, b):
+    """a * b as an unevaluated sum (p, e), by Dekker's split (separate
+    torch ops, so no multiply-add contracts them)."""
+    def split(v):
+        c = 134217729.0 * v  # 2^27 + 1
+        hi = c - (c - v)
+        return hi, v - hi
+    p = a * b
+    ah, al = split(a)
+    bh, bl = split(b)
+    return p, ((ah * bh - p) + ah * bl + al * bh) + al * bl
+
+
+def true_rel_compensated(bands, offsets, x, b) -> float:
+    """||A x - b|| / ||b|| with each row's residual summed error-free
+    (TwoProd and TwoSum in float64), so that the figure is the residual
+    of the computed x and not the rounding of its evaluation: at N =
+    10,240,000 an fp64 evaluation errs by about eps ||A|| ||x|| / ||b||,
+    near 1e-10 (cgx gates its flagship on a triple-word evaluation for
+    that reason, bench.py:65-71)."""
+    n = x.shape[0]
+    pad = max(abs(int(o)) for o in offsets)
+    xp = torch.nn.functional.pad(x, (pad, pad))
+    s, err = -b, torch.zeros_like(b)
+    for d, off in enumerate(offsets):
+        p, pe = two_prod(bands[d], xp[pad + off:pad + off + n])
+        s, se = two_sum(s, p)
+        err = err + (se + pe)
+    return float(torch.linalg.norm(s + err) / torch.linalg.norm(b))
+
+
+def counted(pc):
+    """``pc`` with a count of its applications."""
+    calls = [0]
+
+    def apply(r):
+        calls[0] += 1
+        return pc(r)
+    return apply, calls
+
+
+def phase_mg_main(spec, b4: dict) -> None:
+    """MG-PCG on cgx's flagship problem, uncut: lap2d_operator(3200) and
+    source_term_device built on the card, N = 10,240,000, fp64, tol
+    1e-10 ||b||, through solve(precond="mg") with an fp32 cycle (bench.py's
+    fp64_mg_mixed) and an fp64 one, twice each (bitwise); the hierarchy
+    built by band probing on the card (galerkin_setup "auto"). Then the
+    same build timed apart, with its peak device memory, the solve from it
+    (bitwise solve()'s) with its V-cycles counted (at most 2k + 2), a
+    profile of that solve (launches a loop iteration, idle share), and one
+    cycle's device time split by level. B4's main path (fp32 answer)
+    beside.
+
+    The true residual is evaluated error-free. At this size fp64 leaves a
+    floor near 1e-10 (||x|| / ||b|| is about 3e5, so eps ||A|| ||x|| /
+    ||b|| is 2.7e-10, bench.py:65-71), so it is held to the larger of
+    1e-10 and twice the floor the reference recurrence itself reaches
+    there: plain fp64 CG (the three-kernel loop) at the same tolerance."""
+    n = GRID * GRID
+    op = lap2d_operator(GRID, torch.float64, device=DEV)
+    b = source_term_device(n, device=DEV)
+    bnorm = float(torch.linalg.norm(b))
+    tol = 1e-10 * bnorm
+
+    def true_rel(x):
+        return float(torch.linalg.norm(
+            dia_spmv.dia_matvec_ref(op.bands, x, offsets=op.offsets) - b) / bnorm)
+
+    plain, k_plain, plain_seconds = timed(lambda: dia_cg_solve_pallas(op, b, tol=tol,
+                                                                      device=DEV))
+    check(bool(plain.converged), "mg_main: the plain fp64 loop did not converge")
+    floor = true_rel_compensated(op.bands, op.offsets, plain.x, b)
+    del plain
+    for cycle in MG_CYCLES:
+        cfg = SolveConfig(precision="fp64", precond="mg", mg_cycle_precision=cycle,
+                          tolerance=tol)
+        runs = []
+        for _ in range(2):
+            reset_launches()
+            res, k, seconds = timed(lambda: solve(op, b, cfg, device=DEV))
+            runs.append((res, k, seconds, read_launches()))
+        (res, k, seconds, launches), (res2, k2, seconds2, _) = runs
+        bitwise = k == k2 and torch.equal(res.x.view(torch.int64), res2.x.view(torch.int64))
+        del res2, runs
+        rel = true_rel_compensated(op.bands, op.offsets, res.x, b)
+        rel_fp64 = true_rel(res.x)
+        no_kernel_launched(launches, f"mg {cycle} cycle")
+
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        pc = api._build_precond(cfg, op)  # the build solve() makes
+        sync()
+        setup_seconds = time.perf_counter() - t0
+        peak_build = torch.cuda.max_memory_allocated() - base
+        mg = pc.__self__
+        apply, calls = counted(pc)
+        again, k_again, solve_seconds = timed(
+            lambda: cg_solve(op, b, tol=tol, precond=apply, device=DEV))
+        vcycles = calls[0]
+        same = k_again == k and torch.equal(again.x.view(torch.int64), res.x.view(torch.int64))
+        del again
+        calls[0] = 0
+        events, busy_us, wall_us = device_profile(
+            lambda: int(cg_solve(op, b, tol=tol, precond=apply, device=DEV).iterations))
+        loop_iters = calls[0] - 1  # the start applies it once, every loop iteration once
+        split = level_split(mg, b.to(mg.dtype))
+        levels = [{"grid": g, "bands": len(o.offsets) if o is not None else None,
+                   "solve": "smooth" if o is not None else (
+                       "dense inverse" if mg.coarsest_inv is not None else "Chebyshev 40"),
+                   "device_us": us, "device_events": ev}
+                  for g, o, (us, ev) in zip(mg.grids, [mg.fine] + mg.coarse_ops + [None], split)]
+        rec = {"phase": "mg_main", "problem": f"lap2d_operator({GRID})", "n": n,
+               "precision": "fp64", "cycle_precision": cycle, "tol": tol, "k": k,
+               "converged": bool(res.converged), "true_rel": rel,
+               "true_rel_fp64_evaluation": rel_fp64, "x_norm": float(torch.linalg.norm(res.x)),
+               "b_norm": bnorm, "k_plain": k_plain, "plain_seconds": plain_seconds,
+               "true_rel_plain": floor,
+               "bitwise_repeat": bitwise, "seconds": seconds, "seconds_repeat": seconds2,
+               "setup_seconds": setup_seconds,
+               "solve_seconds": solve_seconds, "solve_bitwise_solve": same,
+               "galerkin_setup": mg.galerkin_setup, "peak_build_bytes": peak_build,
+               "vcycles": vcycles, "vcycles_cap": 2 * k + 2, "levels": levels,
+               "vcycle_device_us": sum(us for us, _ in split),
+               "profile_loop_iterations": loop_iters,
+               "device_events": events, "device_events_per_iter": events / loop_iters,
+               "device_busy_us_per_iter": busy_us / loop_iters,
+               "profiled_wall_us_per_iter": wall_us / loop_iters,
+               "idle_share_profiled": 1 - busy_us / wall_us,
+               "idle_share": 1 - busy_us / (solve_seconds * 1e6),  # the same solve unprofiled
+               "b4_seconds": b4["seconds"], "b4_k": b4["k"], "b4_true_rel": b4["true_rel"],
+               "x_finite": bool(torch.isfinite(res.x).all())}
+        emit(rec)
+        where = f"mg_main ({cycle} cycle)"
+        check(rec["converged"] and rec["x_finite"] and res.x.shape == (n,),
+              f"{where}: did not converge to a finite x")
+        check(rel < max(1e-10, 2 * floor),
+              f"{where}: true relative residual {rel}, the plain fp64 loop's {floor}")
+        check(bitwise and same, f"{where}: two solve() runs bitwise {bitwise}, the solve from "
+              f"the separate build bitwise {same}")
+        check(mg.galerkin_setup == "device", f"{where}: the {mg.galerkin_setup} Galerkin build ran")
+        check(vcycles <= 2 * k + 2, f"{where}: {vcycles} V-cycles for k={k}")
+        del res, pc, mg, apply
+        sync()
+
+
+def mg_cpu_twin(dia, ndim: int, setup: str):
+    """The CPU counterpart of the card's hierarchy: one build (the card's
+    Galerkin setup, GS colours included) whose smoother and cycle are set
+    per configuration. Both are read only by the apply, so a variant is
+    the preconditioner a fresh build with them makes, at one build's cost
+    (the 3-D probe build takes tens of seconds on the host's cores)."""
+    import copy
+
+    op = as_operator(dia, torch.float64, device="cpu")
+    base = mg_preconditioner(op, ndim=ndim, smoother="gs", galerkin_setup=setup)
+
+    def variant(smoother, cycle):
+        mg = copy.copy(base)
+        mg.smoother, mg.cycle = smoother, cycle
+        return mg
+    return op, variant
+
+
+def phase_mg_goldens() -> None:
+    """MG-PCG goldens, fp64, tol 1e-10 ||b||: lap2d_fd(100), (130) (the
+    Chebyshev coarsest) and lap3d_fd(128) (3-D, 81- and 125-band levels),
+    Richardson and GS, V and W (less MG_SKIP): k on the card equal to the
+    same solve's on this machine's CPU or within 1, the true residual
+    below 1e-10, no hand-written kernel. Then the device Galerkin build of
+    lap2d_fd(256) against the host build, band by band, within 1e-12."""
+    for problem, make in MG_GOLDENS:
+        dia = make()
+        n = dia.shape[0]
+        ndim = infer_grid_ndim(n, dia.offsets)
+        b = source_term(n)
+        tol = 1e-10 * float(np.linalg.norm(b))
+        op = as_operator(dia, torch.float64, device=DEV)
+        b_dev = torch.as_tensor(b, dtype=torch.float64, device=DEV)
+        twin = None
+        for smoother, cycle in MG_CONFIGS:
+            if (problem, smoother, cycle) in MG_SKIP:
+                continue
+            sync()
+            reset_launches()
+            t0 = time.perf_counter()
+            mg = mg_preconditioner(op, ndim=ndim, smoother=smoother, cycle=cycle)
+            setup_seconds = time.perf_counter() - t0
+            res, k, seconds = timed(lambda: cg_solve(op, b_dev, tol=tol, precond=mg.apply,
+                                                      device=DEV))
+            launches = read_launches()
+            if twin is None:
+                t0 = time.perf_counter()
+                op_cpu, twin = mg_cpu_twin(dia, ndim, mg.galerkin_setup)
+                twin_setup = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            cpu = cg_solve(op_cpu, b, tol=tol, precond=twin(smoother, cycle).apply, device="cpu")
+            k_cpu = int(cpu.iterations)
+            rel = true_rel_compensated(op.bands, op.offsets, res.x, b_dev)
+            emit({"phase": "mg_golden", "problem": problem, "ndim": ndim, "smoother": smoother,
+                  "cycle": cycle, "k": k, "k_cpu": k_cpu, "converged": bool(res.converged),
+                  "true_rel": rel, "true_rel_cpu": true_rel(dia, cpu.x.numpy(), b),
+                  "grids": mg.grids, "bands": [len(o.offsets) for o in mg.coarse_ops],
+                  "coarsest": "dense inverse" if mg.coarsest_inv is not None else "Chebyshev 40",
+                  "galerkin_setup": mg.galerkin_setup, "setup_seconds": setup_seconds,
+                  "seconds": seconds, "cpu_setup_seconds": twin_setup,
+                  "cpu_seconds": time.perf_counter() - t0})
+            where = f"mg golden {problem} {smoother} {cycle}"
+            check(bool(res.converged) and bool(cpu.converged), f"{where}: did not converge")
+            check(abs(k - k_cpu) <= 1, f"{where}: k={k} on the card, {k_cpu} on the CPU")
+            check(rel < 1e-10, f"{where}: true relative residual {rel}")
+            no_kernel_launched(launches, where)
+            del res, mg, cpu
+            sync()
+
+    dia = lap2d_fd(MG_PROBE_GRID)
+    op = as_operator(dia, torch.float64, device=DEV)
+    dev = mg_preconditioner(op, galerkin_setup="device")
+    host = mg_preconditioner(op, galerkin_setup="host")
+    worst = 0.0
+    check(dev.grids == host.grids, f"probe grids {dev.grids} against host {host.grids}")
+    for od, oh in zip(dev.coarse_ops, host.coarse_ops):
+        check(od.offsets == oh.offsets, f"probe offsets {od.offsets} against host {oh.offsets}")
+        for bd, bh in zip(od.bands, oh.bands):
+            worst = max(worst, float((bd - bh).abs().max() / bh.abs().max()))
+    inv_err = float((dev.coarsest_inv - host.coarsest_inv).abs().max()
+                    / host.coarsest_inv.abs().max())
+    emit({"phase": "mg_probe_vs_host", "problem": f"lap2d_fd({MG_PROBE_GRID})",
+          "grids": dev.grids, "bands": [len(o.offsets) for o in dev.coarse_ops],
+          "max_band_rel_err": worst, "coarsest_inverse_rel_err": inv_err})
+    check(worst <= 1e-12, f"device Galerkin bands off the host's by {worst} (relative)")
+    check(inv_err <= 1e-12, f"coarsest inverse off the host's by {inv_err} (relative)")
+
+
+def phase_precond_paths(tmp: Path) -> None:
+    """solve(precond="block_jacobi") and solve(precond="chebyshev") on
+    lap2d_fd(1000), fp64, tol 1e-10 ||b||: k, seconds and the true
+    residual (error-free), held to the larger of 1e-10 and twice the
+    plain fp64 loop's at the same tolerance (the three-kernel loop, timed
+    beside them: a few thousand iterations leave a floor above 1e-10
+    there); then the CLI in this process with --precond mg --mg-cycle
+    fp32 on lap2D_5pt_n100.mtx (DIA), at the CLI's absolute tolerance.
+    The two preconditioned solves and the CLI launch no hand-written
+    kernel."""
+    dia = lap2d_fd(PRECOND_GRID)
+    n = dia.shape[0]
+    b = source_term(n)
+    tol = 1e-10 * float(np.linalg.norm(b))
+    op = as_operator(dia, torch.float64, device=DEV)
+    b_dev = torch.as_tensor(b, dtype=torch.float64, device=DEV)
+    plain, k_plain, plain_seconds = timed(lambda: dia_cg_solve_pallas(op, b_dev, tol=tol,
+                                                                      device=DEV))
+    floor = true_rel_compensated(op.bands, op.offsets, plain.x, b_dev)
+    emit({"phase": "precond_path", "precond": None, "problem": f"lap2d_fd({PRECOND_GRID})",
+          "n": n, "precision": "fp64", "tol": tol, "k": k_plain,
+          "converged": bool(plain.converged), "seconds": plain_seconds,
+          "us_per_iter": plain_seconds / k_plain * 1e6, "true_rel": floor})
+    check(bool(plain.converged), "precond paths: the plain fp64 loop did not converge")
+    del plain
+    for name in ("block_jacobi", "chebyshev"):
+        cfg = SolveConfig(precision="fp64", precond=name, tolerance=tol)
+        reset_launches()
+        res, k, seconds = timed(lambda: solve(op, b_dev, cfg, device=DEV))
+        launches = read_launches()
+        rel = true_rel_compensated(op.bands, op.offsets, res.x, b_dev)
+        emit({"phase": "precond_path", "precond": name, "problem": f"lap2d_fd({PRECOND_GRID})",
+              "n": n, "precision": "fp64", "tol": tol, "k": k, "converged": bool(res.converged),
+              "seconds": seconds, "us_per_iter": seconds / max(k, 1) * 1e6, "true_rel": rel})
+        check(bool(res.converged) and rel < max(1e-10, 2 * floor),
+              f"precond={name}: converged {bool(res.converged)}, true relative residual {rel}, "
+              f"the plain fp64 loop's {floor}")
+        no_kernel_launched(launches, f"precond={name}")
+        del res
+        sync()
+
+    mtx = tmp / "lap2D_5pt_n100.mtx"
+    lap2d_fd_coo_lower(100).write(mtx, comment=" 2D 5-point Laplacian, 100x100 grid")
+    out = tmp / "mg.txt"
+    argv = [str(mtx), "1024", "16", "false", str(out), "--format", "dia", "--precond", "mg",
+            "--mg-cycle", "fp32"]
+    run, m, launches = cli_run(argv)
+    k, rel = int(m.group(1)), float(m.group(4))
+    row = out.read_text().splitlines()[0].split(",")
+    emit({"phase": "precond_cli", "argv": argv[5:], "k": k, "step_line": m.group(0),
+          "csv_row": run.csv_row, "seconds": run.seconds,
+          "converged": bool(run.result.converged), "true_rel": rel})
+    check(bool(run.result.converged) and rel < 1e-10,
+          f"CLI --precond mg: converged {bool(run.result.converged)}, true residual {rel}")
+    check(row[:2] == ["1024", "16"] and float(row[2]) > 0, f"CLI --precond mg: CSV row {row}")
+    no_kernel_launched(launches, "CLI --precond mg")
+
+
 def main() -> int:
     spec = phase_device()
     phase_build()
@@ -2351,6 +2721,10 @@ def main() -> int:
     with nccl_mesh() as mesh:
         launches.update(phase_sharded(spec, mesh, b4_main))
         phase_sharded_goldens(mesh)
+    phase_mg_main(spec, b4_main)
+    phase_mg_goldens()
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_precond_paths(Path(tmp))
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         rec = records[name]

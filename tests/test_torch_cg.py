@@ -115,22 +115,67 @@ def test_maxiter_caps_without_convergence():
 def test_chunk_size_invariance(monkeypatch, maxiter):
     """The host reads `converged` once per chunk; iterations run after
     convergence inside a chunk are frozen, so chunk 1 and chunk 32 give
-    bitwise the same result."""
+    bitwise the same result; so do chunk 1 and the growing chunks (1, 2,
+    4, ... 32) of a preconditioned solve, here a multigrid one."""
+    from cgx_torch.solver.multigrid import mg_preconditioner
+
     dia = lap2d_fd(16)
     b = source_term(dia.shape[0])
-    results = []
-    for chunk in (1, 32):
-        monkeypatch.setattr(ct_cg, "_CHUNK", chunk)
-        results.append(cgx_torch.cg_solve(_op(dia), b, tol=1e-6, maxiter=maxiter, history=64,
-                                          device="cpu"))
-    one, many = results
-    for field in one._fields:
-        a, c = getattr(one, field), getattr(many, field)
-        assert a.dtype == c.dtype and a.shape == c.shape, field
-        if a.is_floating_point():
-            assert torch.equal(a.view(torch.int64), c.view(torch.int64)), field  # bits, NaNs too
-        else:
-            assert torch.equal(a, c), field
+    mg = mg_preconditioner(_op(dia))
+    for precond, tol in ((None, 1e-6), (mg.apply, 1e-10)):
+        results = []
+        for chunk in (1, 32):
+            monkeypatch.setattr(ct_cg, "_CHUNK", chunk)
+            results.append(cgx_torch.cg_solve(_op(dia), b, tol=tol, maxiter=maxiter, history=64,
+                                              precond=precond, device="cpu"))
+        one, many = results
+        for field in one._fields:
+            a, c = getattr(one, field), getattr(many, field)
+            assert a.dtype == c.dtype and a.shape == c.shape, field
+            if a.is_floating_point():
+                assert torch.equal(a.view(torch.int64), c.view(torch.int64)), field  # bits, NaNs
+            else:
+                assert torch.equal(a, c), field
+
+
+@pytest.mark.parametrize("precond", [None, "jacobi", "mg"])
+def test_frozen_iterations_follow_the_chunk_schedule(precond):
+    """Loop iterations run (each applies the preconditioner once, after one
+    application at the start): 32 ceil((k+1)/32) without a preconditioner;
+    with one the chunks grow 1, 2, 4, ... 32, and no chunk is longer than
+    the iterations before it plus one, which caps the applications at
+    2k + 2 (an MG-PCG solve of about 8 iterations would apply 33 at a
+    fixed 32)."""
+    from cgx_torch.solver.multigrid import mg_preconditioner
+
+    dia = lap2d_fd(64)
+    b = source_term(dia.shape[0])
+    op = _op(dia)
+    calls = []
+    base = {None: None, "jacobi": cgx_torch.solver.precond.jacobi(op.diagonal()),
+            "mg": mg_preconditioner(op).apply}[precond]
+    mvs = []
+
+    def counted_mv(v):
+        mvs.append(1)
+        return op.matvec(v)
+
+    def counted_pc(r):
+        calls.append(1)
+        return base(r)
+
+    res = cgx_torch.cg_solve(counted_mv, b, tol=1e-10 * np.linalg.norm(b),
+                             precond=None if base is None else counted_pc, device="cpu")
+    k = int(res.iterations)
+    assert bool(res.converged)
+    if precond is None:
+        assert len(mvs) - 1 == 32 * -(-(k + 1) // 32)
+    else:
+        run, chunk = 0, 1
+        while run < k + 1:
+            run, chunk = run + chunk, min(2 * chunk, 32)
+        assert len(mvs) - 1 == run and len(calls) == run + 1
+        assert len(calls) <= 2 * k + 2
 
 
 def test_fp32_with_fp64_dots_matches_cgx():

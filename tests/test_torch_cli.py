@@ -1,7 +1,8 @@
 """The port's CLI (``cgx_torch.cli.main``) against cgx's
 (``cgx.cli.main``) with the same arguments, on the CPU: both grammars,
 every ``--format``, the ``[STEP k]`` line, the CSV rows, ``std::stoi``
-parity, the usage message, and the flags whose paths are not ported.
+parity, the usage message, the preconditioners, and the flags whose
+paths are not ported.
 
 Tolerances are set above the fp64 floor (1e-6 absolute, against
 ``||b||`` near 1e5), where the two packages' iteration counts agree
@@ -158,16 +159,51 @@ def test_host_conversions_match_cgx(fmt):
 
 @pytest.mark.parametrize(
     "extra,item",
-    # --devices and --precond jacobi|neumann run now (test_torch_cli_sharded.py); these raise
-    [(["--devices", "4", "--method", "sstep"], "A14"), (["--precond", "block_jacobi"], "A7"),
-     (["--method", "gvpipe"], "A11"), (["--precision", "bf16"], "A6"),
-     (["--precond", "mg"], "A10"), (["--precond", "chebyshev"], "A7")],
-    ids=["devices", "precond", "method", "bf16", "mg", "chebyshev"],
+    # --devices and --precond run now (test_torch_cli_sharded.py, below); these raise
+    [(["--devices", "4", "--method", "sstep"], "A14"), (["--method", "gvpipe"], "A11"),
+     (["--precision", "bf16"], "A6"), (["--devices", "4", "--precond", "mg"], "A14")],
+    ids=["devices", "method", "bf16", "devices_mg"],
 )
 def test_unported_flags_raise_naming_their_item(extra, item, tmp_path):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         ctcli.main(["64", str(tmp_path / "o.txt"), "--device", "cpu"] + extra)
     assert not (tmp_path / "o.txt").exists()
+
+
+@pytest.mark.parametrize(
+    "extra",
+    [["--precond", "block_jacobi"], ["--precond", "mg"], ["--precond", "chebyshev"],
+     ["--precond", "block_jacobi", "--precond-block-size", "24"],
+     ["--precond", "mg", "--mg-smoother", "gs"], ["--precond", "mg", "--mg-cycle", "fp32"]],
+    ids=["precond", "mg", "chebyshev", "block_size", "mg_gs", "mg_fp32_cycle"],
+)
+def test_precond_flags_match_cgx(extra, tmp_path, capsys):
+    """--precond block_jacobi|chebyshev|mg with their options (cgx
+    cli/main.py:285-340) on lap2d_fd(24) through the CUDA grammar, DIA,
+    fp64 at 1e-6: the [STEP k] line (k equal; within 1 for the fp32
+    cycle) and the CSV row."""
+    path = tmp_path / "lap24.mtx"
+    lap2d_fd_coo_lower(24).write(path)
+    (w_out, w_row), (g_out, g_row) = _both(
+        [str(path), "1024", "16", "false", "OUT", "--format", "dia", "--tol", "1e-6"] + extra,
+        tmp_path, capsys)
+    wk, wres, wx, wrel = _step(w_out)
+    gk, gres, gx, grel = _step(g_out)
+    assert abs(gk - wk) <= (1 if "fp32" in extra else 0)
+    assert gx == pytest.approx(wx, rel=1e-9)
+    assert grel < 1e-8 and wrel < 1e-8
+    assert g_row[:2] == w_row[:2] == ["1024", "16"] and float(g_row[2]) > 0
+
+
+def test_precond_mg_needs_a_banded_operator(tmp_path, capsys):
+    """--precond mg on the default dense format: cgx's error, exit code 1
+    and no CSV row, from both CLIs."""
+    for name, call in (("cgx", climod.main),
+                       ("port", lambda a: ctcli.main(a + ["--device", "cpu"]))):
+        out = tmp_path / f"{name}.txt"
+        assert call(["64", str(out), "--precond", "mg"]) == 1, name
+        assert "needs a banded grid operator" in capsys.readouterr().err
+        assert not out.exists()
 
 
 def test_default_device_needs_cuda(tmp_path):

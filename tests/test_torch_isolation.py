@@ -35,7 +35,9 @@ def test_import_pulls_in_neither_jax_nor_cgx():
                                     "cgx_torch.ops.tw32", "cgx_torch.parallel",
                                     "cgx_torch.parallel.sharded_cg",
                                     "cgx_torch.parallel.multihost",
-                                    "cgx_torch.utils.collectives"])
+                                    "cgx_torch.utils.collectives",
+                                    "cgx_torch.solver.multigrid", "cgx_torch.solver.precond",
+                                    "cgx_torch.mats.device"])
 def test_module_import_pulls_in_neither_jax_nor_cgx_nor_a_build(module):
     code = (f"import {module}, sys, cgx_torch; "
             "assert 'jax' not in sys.modules and 'cgx' not in sys.modules, "
@@ -71,9 +73,16 @@ def _flag_recorder(seen):
     return matvec
 
 
-def test_solver_loops_run_at_full_float32():
+def test_solver_loops_run_at_full_float32(monkeypatch):
     """Inside the loop TF32 is off and matmul precision is "highest",
-    whatever the caller set; the caller's settings come back after."""
+    whatever the caller set; the caller's settings come back after. The
+    float32 products of the preconditioners (the multigrid coarsest
+    inverse and alias merge, block-Jacobi's batched inverses) run so even
+    when applied outside a loop."""
+    from cgx_torch.mats.device import lap2d_operator
+    from cgx_torch.solver.multigrid import mg_preconditioner
+    from cgx_torch.solver.precond import block_jacobi
+
     old = torch.get_float32_matmul_precision()
     torch.set_float32_matmul_precision("medium")  # TF32 on
     try:
@@ -86,5 +95,25 @@ def test_solver_loops_run_at_full_float32():
             assert all(s == (False, "highest") for s in seen), seen
             assert torch.backends.cuda.matmul.allow_tf32
             assert torch.get_float32_matmul_precision() == "medium"
+
+        seen = []
+        matmul = torch.matmul
+
+        def recorded(*args, **kwargs):
+            seen.append((torch.backends.cuda.matmul.allow_tf32,
+                         torch.get_float32_matmul_precision()))
+            return matmul(*args, **kwargs)
+
+        monkeypatch.setattr(torch, "matmul", recorded)
+        op = lap2d_operator(16, torch.float32, device="cpu")
+        r = torch.ones(256, dtype=torch.float32)
+        for pc in (mg_preconditioner(op, galerkin_setup="device").apply,
+                   block_jacobi(op, 16, dtype=torch.float32)):
+            assert torch.isfinite(pc(r)).all()
+        res = cgx_torch.solve(op, r, cgx_torch.SolveConfig(precision="fp32", precond="mg",
+                                                           tolerance=1e-4), device="cpu")
+        assert bool(res.converged) and len(seen) >= 4  # merge, coarsest, blocks, the loop's
+        assert all(s == (False, "highest") for s in seen), seen
+        assert torch.get_float32_matmul_precision() == "medium"
     finally:
         torch.set_float32_matmul_precision(old)
