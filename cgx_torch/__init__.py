@@ -28,6 +28,7 @@ from cgx_torch.ops.cg_kernel import dia_cg_solve_vmem
 from cgx_torch.ops.cg_stream import dia_cg_solve_stream, dia_cg_solve_stream_pcg
 from cgx_torch.ops.dia_powers import dia_sstep_basis
 from cgx_torch.ops.matvec import dense_matvec, dense_matvec_dot
+from cgx_torch.ops.ozaki import OzakiDenseOperator, ozaki_matvec
 from cgx_torch.ops.sstep_stream import dia_sstep_stream_solve
 from cgx_torch.parallel import ShardedCGSolver, make_mesh, make_sharded_solver, sharded_cg_solve
 from cgx_torch.solver.api import solve
@@ -47,7 +48,16 @@ from cgx_torch.solver.operators import (
     operator_from_numpy,
 )
 from cgx_torch.solver.precond import block_jacobi, jacobi, neumann_banded
-from cgx_torch.solver.refine import RefineResult, iterative_refinement, refine_fixed_sweeps
+from cgx_torch.solver.refine import (
+    DDRefineResult,
+    RefineResult,
+    TWRefineResult,
+    iterative_refinement,
+    refine_fixed_sweeps,
+    refine_pcg_sweeps,
+    refine_pcg_sweeps_dd,
+    refine_pcg_sweeps_tw,
+)
 from cgx_torch.solver.sstep import sstep_cg_solve
 
 __version__ = "0.1.0"

@@ -54,13 +54,14 @@ per rank, as cgx's ``--devices`` does on one host (cli/main.py:197-240):
 P must equal the world size. The process group is initialized from
 torchrun's environment if it is not yet (NCCL on the card, gloo with
 ``--device cpu``), and destroyed again at the end. Rank 0 alone prints
-and appends the CSV row, whose ``psize`` is P.
+and appends the CSV row, whose ``psize`` is P. ``--precond
+jacobi|block_jacobi|neumann|chebyshev`` run there too, ``block_jacobi``
+with ``--precond-block-size`` (default min(32, the shard size), a
+divisor of the shard size).
 
 ``--method gvpipe`` and ``chebyshev`` (A11), ``--method sstep`` or
-``--precond mg`` with ``--devices`` (A14), ``--precond block_jacobi`` or
-``chebyshev`` with ``--devices`` (the sharded part of A7) and
-``--precision bf16`` (A6) raise ``NotImplementedError`` naming their
-ROADMAP item.
+``--precond mg`` with ``--devices`` (A14) and ``--precision bf16`` (A6)
+raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -333,7 +334,8 @@ def _run_sharded(args, host, b_np, n: int, tol: float, maxiter, fmt: str, dev, c
         dist.barrier()
         t1 = time.perf_counter()
         res = sharded_cg_solve(host_mat, b_host, mesh=mesh, strategy=args.strategy,
-                               method=args.method, precond=args.precond, tol=tol,
+                               method=args.method, precond=args.precond,
+                               precond_block_size=args.precond_block_size, tol=tol,
                                maxiter=maxiter, history=args.history)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)

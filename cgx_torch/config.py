@@ -45,9 +45,11 @@ class SolveConfig:
     nearzero: float = NEARZERO
     # Residual-history trace length (0 disables the trace buffer).
     history: int = 0
-    # "fp64", "fp32" (dots accumulate in fp64) or "mixed" (fp64
+    # "fp64", "fp32" (dots accumulate in fp64), "mixed" (fp64
     # refinement sweeps around fp32 inner solves; tolerance relative to
-    # ||b||). "bf16" (ROADMAP A6) and "tw" (A12) are not ported yet.
+    # ||b||) or "tw" (triple-word float32 sweeps around an fp32 MG-PCG
+    # inner; tolerance relative to ||b||, judged on the tw-evaluated true
+    # residual). "bf16" (ROADMAP A6) is not ported yet.
     precision: str = "fp64"
     # Banded fp32 problems run the whole-solve kernel within
     # RESIDENT_BUDGET_BYTES, and above it the path large_banded names
@@ -74,6 +76,9 @@ class SolveConfig:
     check_every: int = 32
     sstep_s: int = 4
     sstep_basis: str = "chebyshev"
+    # Dense fp64 operators: "auto" and "emulated" keep the fp64 product
+    # (the H100's fp64 is native, so cgx's "auto" = Ozaki on an
+    # accelerator does not carry over), "ozaki" runs the int8 slices.
     dense_fp64: str = "auto"
     local_kernel: str = "auto"
     sstep_replace_every: Optional[int] = None

@@ -35,7 +35,11 @@ Strategies (cgx's):
 
 The methods are ``reference`` (two all-reduces an iteration) and
 ``pipelined`` (Chronopoulos-Gear: one all-reduce of two dots, three with
-a preconditioner), with no preconditioner, ``jacobi`` or ``neumann``.
+a preconditioner), with no preconditioner, ``jacobi``, ``block_jacobi``
+(the shard's diagonal blocks inverted once, applied as one local batched
+product: no collective), ``neumann`` or ``chebyshev`` (degree 3, three
+strategy mat-vecs an application). A dense fp64 operator takes cgx's
+Ozaki int8 slices under ``dense_fp64="ozaki"`` (allgather only).
 What is not ported yet raises ``NotImplementedError`` naming its ROADMAP
 item. Operations that cgx leaves to XLA are plain torch here.
 """
@@ -51,13 +55,16 @@ import torch.nn.functional as F
 from cgx_torch.config import DEFAULT_TOLERANCE, NEARZERO
 from cgx_torch.mats.containers import COOMatrix, CSRMatrix, DenseMatrix, DIAMatrix, ELLMatrix
 from cgx_torch.ops import dia_spmv
+from cgx_torch.ops.ozaki import _ozaki_apply, _pad_cols, build_slices_np
 from cgx_torch.ops._util import f32_exact
 from cgx_torch.ops.reduce import vdot
 from cgx_torch.parallel.mesh import ROWS_AXIS, Mesh, local_device, make_mesh
 from cgx_torch.parallel.partition import pad_bands, pad_dense, pad_vector, padded_size
 from cgx_torch.solver.cg import CGResult, cg_loop
+from cgx_torch.solver.chebyshev import host_spectral_bounds
 from cgx_torch.solver.operators import CsrOperator, EllOperator, _torch_dtype
 from cgx_torch.solver.pipelined import pipelined_cg_loop
+from cgx_torch.solver.precond import chebyshev_poly, diag_blocks, invert_spd_blocks
 from cgx_torch.utils import collectives
 
 # Per-shard rows from which "auto" streams the local banded product through
@@ -69,9 +76,8 @@ PLANE_ROWS, PLANE_COLS = 256, 512
 
 _UNPORTED_METHODS = {"sstep": "the sharded s-step, ROADMAP A14",
                      "gvpipe": "ROADMAP A11", "chebyshev": "ROADMAP A11"}
-# ported on one device; the sharded route's part of A7 is still to come
-_UNPORTED_PRECONDS = {"block_jacobi": "block-Jacobi's sharded apply, ROADMAP A7",
-                      "chebyshev": "the sharded Chebyshev polynomial, ROADMAP A7"}
+PRECONDS = (None, "jacobi", "block_jacobi", "neumann", "chebyshev")
+CHEBYSHEV_DEGREE = 3  # cgx's sharded polynomial (sharded_cg.py:794)
 
 
 def _unported(what: str) -> NotImplementedError:
@@ -100,6 +106,21 @@ class _DenseAllGather:
 
     def __call__(self, p_loc):
         return torch.matmul(self.a_loc, collectives.all_gather(p_loc, self.mesh))
+
+
+class _DenseOzakiAllGather:
+    """Dense fp64 rows as Ozaki int8 slices (cgx's ``_DenseOzakiAllGather``):
+    p gathered, the local rows applied by :func:`cgx_torch.ops.ozaki.
+    _ozaki_apply`; the same collectives as :class:`_DenseAllGather`."""
+
+    def __init__(self, mesh: Mesh, c_loc: torch.Tensor, sigma_loc: torch.Tensor,
+                 num_slices: int = 8):
+        self.mesh, self.c_loc, self.sigma_loc = mesh, c_loc, sigma_loc
+        self.num_slices = num_slices
+
+    def __call__(self, p_loc):
+        return _ozaki_apply(self.c_loc, self.sigma_loc, collectives.all_gather(p_loc, self.mesh),
+                            num_slices=self.num_slices)
 
 
 class _DenseReduceScatter:
@@ -251,6 +272,20 @@ class _JacobiPrecond:
         return self.inv_diag * r
 
 
+class _BlockJacobiPrecond:
+    """``z = blockdiag(A)^-1 r`` on the shard's own blocks (cgx's
+    ``_TreeBlockJacobiPrecond``): one local batched product ``(nb_loc, m,
+    m) @ (nb_loc, m)``, no collective, since no block straddles a shard.
+    The solver loops run it at full float32."""
+
+    def __init__(self, inv_blocks: torch.Tensor):
+        self.inv = inv_blocks
+
+    def __call__(self, r):
+        nb, m, _ = self.inv.shape
+        return torch.matmul(self.inv, r.reshape(nb, m, 1)).reshape(r.shape)
+
+
 # ---------------------------------------------------------------------------
 # Building the operator
 # ---------------------------------------------------------------------------
@@ -300,9 +335,7 @@ def _build_op(mat, n: int, n_pad: int, n_loc: int, mesh: Mesh, dtype: torch.dtyp
         else:
             raise ValueError(f"strategy {strategy!r} not supported for DIA matrices")
         diag = mat.bands[list(mat.offsets).index(0)]
-    elif isinstance(mat, (CSRMatrix, COOMatrix)):
-        if isinstance(mat, COOMatrix):
-            mat = CSRMatrix.from_coo(mat)
+    elif isinstance(mat, CSRMatrix):
         if strategy not in ("auto", "allgather"):
             raise ValueError(f"strategy {strategy!r} not supported for CSR matrices")
         strategy = "allgather"
@@ -336,17 +369,24 @@ def _build_op(mat, n: int, n_pad: int, n_loc: int, mesh: Mesh, dtype: torch.dtyp
             raise ValueError("matrix must be square")
         if dense_fp64 not in ("emulated", "ozaki", "auto"):
             raise ValueError(f"unknown dense_fp64 {dense_fp64!r}")
-        # cgx: "auto" is Ozaki's int8 slices on an accelerator (sharded_cg.py:1241-1244)
-        if dtype == torch.float64 and (dense_fp64 == "ozaki" or (dense_fp64 == "auto"
-                                                                 and dev.type == "cuda")):
-            raise _unported("dense_fp64='ozaki' (the Ozaki dense route, ROADMAP A12)")
-        a_loc = torch.tensor(pad_dense(a.astype(np_dt), n_pad)[lo:hi], device=dev)
-        if strategy in ("auto", "allgather"):
-            strategy, mv = "allgather", _DenseAllGather(mesh, a_loc)
-        elif strategy == "reducescatter":
-            mv = _DenseReduceScatter(mesh, a_loc)
+        # "auto" keeps the fp64 product: the H100's fp64 is native (cgx's "auto"
+        # takes Ozaki on an accelerator, sharded_cg.py:1241-1244, for the TPU's
+        # emulated fp64)
+        if dtype == torch.float64 and dense_fp64 == "ozaki":
+            if strategy not in ("auto", "allgather"):
+                raise ValueError("dense_fp64='ozaki' supports the allgather strategy")
+            c, sigma = build_slices_np(pad_dense(a, n_pad))
+            c_loc = _pad_cols(torch.tensor(np.ascontiguousarray(c[:, lo:hi]), device=dev))
+            strategy, mv = "allgather", _DenseOzakiAllGather(
+                mesh, c_loc, torch.tensor(sigma[lo:hi], device=dev))
         else:
-            raise ValueError(f"strategy {strategy!r} not supported for dense matrices")
+            a_loc = torch.tensor(pad_dense(a.astype(np_dt), n_pad)[lo:hi], device=dev)
+            if strategy in ("auto", "allgather"):
+                strategy, mv = "allgather", _DenseAllGather(mesh, a_loc)
+            elif strategy == "reducescatter":
+                mv = _DenseReduceScatter(mesh, a_loc)
+            else:
+                raise ValueError(f"strategy {strategy!r} not supported for dense matrices")
         diag = np.diagonal(a)
     return mv, diag, strategy, kernel
 
@@ -372,6 +412,8 @@ def make_sharded_solver(
     dot_precision=None,
     jacobi: bool = False,
     precond: Optional[str] = None,
+    precond_block_size: Optional[int] = None,
+    bounds: Optional[tuple] = None,
     dense_fp64: str = "emulated",
     local_kernel: str = "auto",
     axis_name: str = ROWS_AXIS,
@@ -400,22 +442,30 @@ def make_sharded_solver(
       maxiter: iteration cap; defaults to N.
       dot_precision: dtype the dots accumulate in (float64 for float32
         vectors); default the vectors'.
-      precond: None, ``"jacobi"`` or ``"neumann"``; ``jacobi=True`` is an
-        alias of ``"jacobi"``. ``"block_jacobi"`` and ``"chebyshev"`` (the
-        sharded part of A7) raise; they run on one device.
-      dense_fp64: ``"emulated"`` (fp64 ``torch.matmul``) or, as in cgx,
-        ``"ozaki"``, and ``"auto"`` where it resolves to Ozaki (a dense
-        fp64 shard on CUDA): those raise (A12).
+      precond: None, ``"jacobi"`` (local), ``"block_jacobi"`` (a DIA or
+        dense matrix: the diagonal blocks inverted once on the host, each
+        shard's applied by one local batched product, no collective),
+        ``"neumann"`` (degree 1: one more strategy mat-vec) or
+        ``"chebyshev"`` (degree 3: three strategy mat-vecs, on ``bounds``);
+        ``jacobi=True`` is an alias of ``"jacobi"``.
+      precond_block_size: block-Jacobi's rows a block; default min(32,
+        the shard size). It must divide the shard size: no block may
+        straddle two shards.
+      bounds: ``(lmin, lmax)`` of the Chebyshev preconditioner; default
+        :func:`cgx_torch.solver.chebyshev.host_spectral_bounds` of ``mat``.
+      dense_fp64: a dense fp64 operator's product: ``"emulated"`` and
+        ``"auto"`` the fp64 ``torch.matmul`` (the H100's fp64 is native),
+        ``"ozaki"`` cgx's int8 slices (:mod:`cgx_torch.ops.ozaki`), under
+        the allgather strategy.
       local_kernel: ``"auto"``, ``"xla"`` or ``"stream2d"``, the local
         product of the halo strategy (see :func:`_resolve_local_kernel`).
       axis_name: the name of the mesh's axis, when the mesh is made here.
       device: where this rank computes; default the mesh's
         (``cuda:LOCAL_RANK`` unless the mesh was made for the CPU).
 
-    cgx's options of the s-step, gvpipe and Chebyshev methods and of the
-    block-Jacobi preconditioner (``bounds``, ``check_every``,
-    ``precond_block_size``, ``sstep_*``, ``gv_replace_every``) come with
-    those methods (A7, A11, A14).
+    cgx's options of the s-step, gvpipe and Chebyshev methods
+    (``check_every``, ``sstep_*``, ``gv_replace_every``) come with those
+    methods (A11, A14).
 
     N is padded to a multiple of the mesh size with zero rows; padded
     entries of b, x, r and p stay exactly zero through every iteration.
@@ -426,10 +476,7 @@ def make_sharded_solver(
         raise ValueError(f"unknown method {method!r}")
     if jacobi and precond is None:
         precond = "jacobi"
-    if precond in _UNPORTED_PRECONDS:
-        raise _unported(f"precond={precond!r} on the sharded route "
-                        f"({_UNPORTED_PRECONDS[precond]})")
-    if precond not in (None, "jacobi", "neumann"):
+    if precond not in PRECONDS:
         raise ValueError(f"unknown precond {precond!r}")
     if mesh is None:
         mesh = make_mesh(n_devices, device="cuda" if device is None else device,
@@ -441,13 +488,29 @@ def make_sharded_solver(
     n = int(n)
     n_pad = padded_size(n, mesh.size)
     n_loc = n_pad // mesh.size
+    if isinstance(mat, COOMatrix):
+        mat = CSRMatrix.from_coo(mat)
     mv, diag, strategy, kernel = _build_op(mat, n, n_pad, n_loc, mesh, dtype, dev, strategy,
                                            dense_fp64, local_kernel)
+    lo = mesh.rank * n_loc
     pc = None
-    if precond is not None:
+    if precond == "block_jacobi":  # cgx sharded_cg.py:754-778
+        if not (isinstance(mat, (DIAMatrix, DenseMatrix))
+                or (isinstance(mat, np.ndarray) and mat.ndim == 2)):
+            raise ValueError("precond='block_jacobi' needs a DIA or dense matrix")
+        m_bj = precond_block_size or min(32, n_loc)
+        if n_loc % m_bj != 0:
+            raise ValueError(f"precond_block_size {m_bj} must divide the shard size {n_loc} "
+                             "(blocks may not straddle shards)")
+        inv_blocks = invert_spd_blocks(diag_blocks(mat, m_bj, n_rows=n_pad))
+        pc = _BlockJacobiPrecond(torch.tensor(
+            inv_blocks[lo // m_bj: (lo + n_loc) // m_bj].astype(_np_dtype(dtype)), device=dev))
+    elif precond == "chebyshev":  # cgx sharded_cg.py:790-795
+        lmin, lmax = bounds if bounds is not None else host_spectral_bounds(mat)
+        pc = chebyshev_poly(mv, float(lmin), float(lmax), degree=CHEBYSHEV_DEGREE)
+    elif precond is not None:
         inv = np.zeros(n_pad, dtype=_np_dtype(dtype))
         inv[:n] = 1.0 / np.asarray(diag, dtype=_np_dtype(dtype))
-        lo = mesh.rank * n_loc
         inv_loc = torch.tensor(inv[lo: lo + n_loc], device=dev)
         pc = _JacobiPrecond(inv_loc) if precond == "jacobi" else _NeumannPrecond(mv, inv_loc)
     dot_precision = _torch_dtype(dot_precision, None)

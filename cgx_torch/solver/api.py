@@ -31,11 +31,14 @@ Dispatch (cgx api.py:322-403):
   ``sstep_s <= 6``, else the plain basis;
 - ``precision="mixed"`` runs fp64 refinement around fp32 inner solves
   (:mod:`cgx_torch.solver.refine`);
+- ``precision="tw"`` runs triple-word float32 refinement sweeps around an
+  fp32 MG-PCG inner (:func:`_solve_tw`), on one device;
+- a dense fp64 operator runs as ``cfg.dense_fp64`` says
+  (:func:`_maybe_ozaki`): the fp64 product, or the Ozaki int8 slices;
 - ``n_devices > 1`` or ``mesh=`` runs the sharded route on
   ``torch.distributed`` (:mod:`cgx_torch.parallel.sharded_cg`), with
-  ``strategy``; there ``precond="mg"``, ``precision="mixed"`` and
-  ``method="sstep"`` (A14) raise, and so do ``"block_jacobi"`` and
-  ``"chebyshev"`` (the sharded part of A7);
+  ``strategy``; there ``precond="mg"``, ``precision="mixed"``,
+  ``precision="tw"`` and ``method="sstep"`` (A14) raise;
 - everything else that is ported runs the plain reference loop, with
   the configured preconditioner: ``jacobi``, ``neumann``,
   ``block_jacobi`` (``precond_block_size``, default min(32, N)),
@@ -56,22 +59,20 @@ from cgx_torch import config as settings
 from cgx_torch.config import SolveConfig
 from cgx_torch.mats.containers import COOMatrix, CSRMatrix, DenseMatrix, DIAMatrix, ELLMatrix
 from cgx_torch.ops._util import resolve_device
+from cgx_torch.ops.ozaki import OzakiDenseOperator
 from cgx_torch.ops.cg_kernel import dia_cg_solve_vmem, resident_state_bytes
 from cgx_torch.ops.cg_stream import dia_cg_solve_stream, dia_cg_solve_stream_pcg
 from cgx_torch.solver.cg import CGResult, as_vector, cg_solve
 from cgx_torch.solver.chebyshev import spectral_bounds
 from cgx_torch.solver.multigrid import infer_grid_ndim, mg_preconditioner
-from cgx_torch.solver.operators import DiaOperator, as_operator
+from cgx_torch.solver.operators import DenseOperator, DiaOperator, as_operator
 from cgx_torch.solver.pipelined import pipelined_cg_solve
 from cgx_torch.solver.precond import block_jacobi, chebyshev_poly, jacobi, neumann_banded
-from cgx_torch.solver.refine import iterative_refinement, refine_fixed_sweeps
+from cgx_torch.solver.refine import iterative_refinement, refine_fixed_sweeps, refine_pcg_sweeps_tw
 from cgx_torch.solver.sstep import sstep_cg_solve
 
 _DTYPES = {"fp64": torch.float64, "fp32": torch.float32}
-_UNPORTED_PRECISION = {
-    "bf16": "bf16 vectors (ROADMAP A6)",
-    "tw": "triple-word refinement (ROADMAP A12)",
-}
+_UNPORTED_PRECISION = {"bf16": "bf16 vectors (ROADMAP A6)"}
 
 
 def _unported(what: str):
@@ -160,6 +161,66 @@ def _solve_mixed(mat, b, cfg: SolveConfig, method: str, dev: torch.device) -> CG
     )
 
 
+def _solve_tw(mat, b, cfg: SolveConfig, method: str, dev: torch.device, *,
+              sharded: bool) -> CGResult:
+    """precision="tw" (cgx api.py:471-561): triple-word float32 refinement
+    sweeps (:func:`cgx_torch.solver.refine.refine_pcg_sweeps_tw`) around an
+    fp32 inner: MG-PCG (an fp32 V-cycle) where the banded operator decodes
+    on a grid, else, with ``precond=None``, plain fp32 CG. ``cfg.tolerance``
+    is relative to ||b||, judged on the tw-evaluated true residual;
+    ``cfg.maxiter`` caps each inner solve (80 with MG, else N)."""
+    if method != "reference":
+        raise ValueError("precision='tw' runs the reference recurrence")
+    if cfg.precond not in (None, "mg"):
+        raise ValueError(f"precision='tw' supports precond=None or 'mg' (got {cfg.precond!r})")
+    if sharded:
+        raise _unported("precision='tw' on the sharded route (tw_sharded, ROADMAP A14)")
+    if isinstance(mat, DIAMatrix):
+        op64 = as_operator(mat, torch.float64, device=dev)
+    elif isinstance(mat, DiaOperator):
+        op64 = DiaOperator(mat.bands.to(torch.float64), tuple(mat.offsets))
+    else:
+        raise TypeError(f"precision='tw' needs a banded operator, got {type(mat)}")
+    b64 = as_vector(b, dev, "b", torch.float64)
+    pc = None
+    try:
+        nd = infer_grid_ndim(op64.shape[0], op64.offsets)
+        pc = mg_preconditioner(op64, ndim=nd, smoother=cfg.mg_smoother,
+                               dtype=torch.float32).apply
+    except ValueError:
+        if cfg.precond == "mg":
+            raise  # a non-grid operator: the plain fp32 inner only without "mg"
+    inner_maxiter = cfg.maxiter if cfg.maxiter else (80 if pc is not None else b64.shape[0])
+    res = refine_pcg_sweeps_tw(op64, b64, precond=pc, rtol=cfg.tolerance,
+                               inner_maxiter=int(inner_maxiter), device=dev)
+    return CGResult(
+        x=res.x,
+        iterations=torch.tensor(res.outer_iterations, dtype=torch.int32, device=dev),
+        residual_norm=res.residual_norm,
+        converged=res.converged,
+        rsold=res.residual_norm ** 2,
+        history=torch.zeros((0,), dtype=torch.float64, device=dev),
+        breakdown=torch.zeros((), dtype=torch.bool, device=dev),
+    )
+
+
+def _maybe_ozaki(op, cfg: SolveConfig):
+    """A dense fp64 operator as ``cfg.dense_fp64`` says (cgx api.py:564-582):
+    ``"ozaki"`` slices it into an :class:`~cgx_torch.ops.ozaki.
+    OzakiDenseOperator`; ``"emulated"`` and ``"auto"`` keep the fp64
+    product. cgx's ``"auto"`` takes Ozaki on an accelerator because fp64
+    is emulated on the TPU; on the H100, as on the CPU, fp64 is hardware
+    and slicing would only slow it (a departure by design, ``ROADMAP.md``
+    §C). Anything else raises, as cgx does."""
+    if not isinstance(op, DenseOperator) or op.dtype != torch.float64:
+        return op
+    if cfg.dense_fp64 in ("auto", "emulated"):
+        return op
+    if cfg.dense_fp64 != "ozaki":
+        raise ValueError(f"unknown dense_fp64 mode {cfg.dense_fp64!r}")
+    return OzakiDenseOperator.from_dense(op.a)
+
+
 def _host_matrix(mat):
     """The host form of ``mat`` for the sharded route, which cuts its
     own row blocks (cgx's ``_to_host``): containers and ndarrays as they
@@ -198,14 +259,12 @@ def _solve_sharded(mat, b, cfg: SolveConfig, method: str, dev: torch.device, *, 
     if cfg.precision not in _DTYPES:
         raise ValueError(f"unknown precision {cfg.precision!r}")
     b_np = (b.detach().cpu().numpy() if isinstance(b, torch.Tensor) else np.asarray(b))
-    if b_np.ndim == 2:
-        raise _unported("multi-RHS solves of a 2-D b (ROADMAP A11)")
     b_np = b_np.astype(np.float64 if cfg.precision == "fp64" else np.float32)
     if x0 is not None:
         x0 = x0.detach().cpu().numpy() if isinstance(x0, torch.Tensor) else np.asarray(x0)
     return sharded_cg_solve(
         _host_matrix(mat), b_np, x0=x0, mesh=mesh, n_devices=n_devices, strategy=strategy,
-        method=method, precond=cfg.precond,
+        method=method, precond=cfg.precond, precond_block_size=cfg.precond_block_size,
         tol=cfg.tolerance, maxiter=b_np.shape[0] if cfg.maxiter is None else cfg.maxiter,
         nearzero=cfg.nearzero, history=cfg.history,
         dot_precision=None if cfg.precision == "fp64" else torch.float64,
@@ -235,13 +294,17 @@ def solve(
     cfg = config or SolveConfig()
     method = cfg.method if method is None else method
     dev = resolve_device(device)
-    if (n_devices is not None and n_devices > 1) or mesh is not None:
-        return _solve_sharded(mat, b, cfg, method, dev, n_devices=n_devices, mesh=mesh,
-                              strategy=strategy, x0=x0)
-    if x0 is not None and cfg.precision == "mixed":
-        raise ValueError("precision='mixed' manages its own inner starts; x0 is not supported")
+    if x0 is not None and cfg.precision in ("mixed", "tw"):
+        raise ValueError(f"precision={cfg.precision!r} manages its own inner starts; x0 is "
+                         "not supported there")
     if np.ndim(b) == 2:
         raise _unported("multi-RHS solves of a 2-D b (ROADMAP A11)")
+    sharded = (n_devices is not None and n_devices > 1) or mesh is not None
+    if cfg.precision == "tw":
+        return _solve_tw(mat, b, cfg, method, dev, sharded=sharded)
+    if sharded:
+        return _solve_sharded(mat, b, cfg, method, dev, n_devices=n_devices, mesh=mesh,
+                              strategy=strategy, x0=x0)
     if cfg.precision == "mixed":
         return _solve_mixed(mat, b, cfg, method, dev)
     if cfg.precision in _UNPORTED_PRECISION:
@@ -257,6 +320,7 @@ def solve(
     dot_precision = torch.float64 if dtype != torch.float64 else None
 
     op = mat if hasattr(mat, "matvec") else as_operator(mat, dtype=dtype, device=dev)
+    op = _maybe_ozaki(op, cfg)
     b_dev = as_vector(b, dev, "b", dtype)
     n = b_dev.shape[0]
     maxiter = n if cfg.maxiter is None else cfg.maxiter

@@ -15,7 +15,8 @@ NumPy start vector: at N = 10,240,000 the host's 64 steps keep a
 reorthogonalisation, which the card does in a fraction of a second.
 The two paths agree to rounding (``tests/test_torch_sstep.py`` holds
 them to 1e-12 relative). :func:`host_spectral_bounds` is the host path
-for a host DIA matrix (the coarsest level of a multigrid hierarchy).
+for a host matrix (the coarsest level of a multigrid hierarchy, the
+sharded route's Chebyshev preconditioner).
 ``chebyshev_solve`` itself is not ported yet (ROADMAP A11).
 """
 
@@ -26,18 +27,32 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from cgx_torch.mats.containers import DIAMatrix
+from cgx_torch.mats.containers import CSRMatrix, DenseMatrix, DIAMatrix, ELLMatrix
 from cgx_torch.ops.dia_spmv import dia_matvec_ref
 from cgx_torch.solver.operators import DiaOperator
 
 
-def gershgorin_bounds(mat: DIAMatrix) -> Tuple[float, float]:
-    """Gershgorin disc bounds of a host DIA matrix with a main diagonal
-    (cgx's DIA branch): ``(min_i a_ii - sum_j |a_ij|, max_i a_ii +
-    sum_j |a_ij|)``."""
-    d0 = mat.offsets.index(0)
-    diag = mat.bands[d0]
-    off = sum(np.abs(mat.bands[d]) for d in range(len(mat.offsets)) if d != d0)
+def gershgorin_bounds(mat) -> Tuple[float, float]:
+    """Gershgorin disc bounds of a host matrix (cgx's): ``(min_i a_ii -
+    sum_j |a_ij|, max_i a_ii + sum_j |a_ij|)`` for a DIA matrix with a
+    main diagonal, an ELL matrix, a dense container or a 2-D ndarray;
+    ``ValueError`` for anything else."""
+    if isinstance(mat, DIAMatrix):
+        d0 = mat.offsets.index(0)  # ValueError without a main diagonal
+        diag = mat.bands[d0]
+        off = sum(np.abs(mat.bands[d]) for d in range(len(mat.offsets)) if d != d0)
+    elif isinstance(mat, ELLMatrix):
+        on_diag = mat.indices == np.arange(mat.shape[0])[:, None]
+        diag = np.where(on_diag, mat.values, 0.0).sum(axis=1)
+        off = np.abs(np.where(on_diag, 0.0, mat.values)).sum(axis=1)
+    elif isinstance(mat, (DenseMatrix, np.ndarray)):
+        a = mat.a if isinstance(mat, DenseMatrix) else mat
+        if a.ndim != 2:
+            raise ValueError(f"no Gershgorin bounds for a {a.ndim}-D array")
+        diag = np.diagonal(a)
+        off = np.abs(a).sum(axis=1) - np.abs(diag)
+    else:
+        raise ValueError(f"no Gershgorin bounds for {type(mat)}")
     return float((diag - off).min()), float((diag + off).max())
 
 
@@ -47,12 +62,22 @@ def _host_dia(op: DiaOperator) -> DIAMatrix:
 
 
 def host_matvec(op):
-    """A NumPy float64 mat-vec for an operator or a host DIA matrix: a
-    banded operator's bands in float64 on the host (cgx's), the matrix's
-    own ``mat_vec``, any other operator through its ``.matvec``."""
+    """A NumPy float64 mat-vec for an operator or a host matrix (cgx's): a
+    banded operator's bands in float64 on the host, a CSR matrix's rows
+    summed by ``bincount``, a dense matrix's product, a DIA or ELL
+    matrix's own ``mat_vec``, any other operator through its
+    ``.matvec``."""
     if isinstance(op, DiaOperator):
         return _host_dia(op).mat_vec
-    if isinstance(op, DIAMatrix):
+    if isinstance(op, CSRMatrix):  # its mat_vec loops over rows in Python
+        row_ids = np.repeat(np.arange(op.shape[0]), np.diff(op.indptr))
+        values, indices = np.asarray(op.values, np.float64), np.asarray(op.indices)
+        return lambda x: np.bincount(row_ids, weights=values * x[indices],
+                                     minlength=op.shape[0])
+    if isinstance(op, (DenseMatrix, np.ndarray)):
+        a = np.asarray(op.a if isinstance(op, DenseMatrix) else op, np.float64)
+        return lambda x: a @ x
+    if isinstance(op, (DIAMatrix, ELLMatrix)):
         return op.mat_vec
     dev = getattr(op, "device", torch.device("cpu"))
     return lambda x: op.matvec(torch.as_tensor(x, dtype=op.dtype, device=dev)).to(
@@ -142,16 +167,17 @@ def lanczos_bounds(
 def host_spectral_bounds(
     mat, *, m: int = 64, lmin_floor_ratio: float = 1e-4
 ) -> Tuple[float, float]:
-    """``(lmin, lmax)`` of a host DIA matrix, on the host in NumPy (cgx's
+    """``(lmin, lmax)`` of a host matrix, on the host in NumPy (cgx's
     ``host_spectral_bounds``): Lanczos (:func:`lanczos_bounds`) at both
     ends, then the Gershgorin bounds where they are sharper (lmin raised
-    to the Gershgorin floor, lmax clamped to its ceiling) when there is a
-    main diagonal."""
+    to the Gershgorin floor, lmax clamped to its ceiling) where the
+    matrix has them (:func:`gershgorin_bounds`)."""
     lmin, lmax = lanczos_bounds(host_matvec(mat), mat.shape[0], m=m,
                                 lmin_floor_ratio=lmin_floor_ratio)
-    if 0 not in tuple(mat.offsets):
+    try:
+        g_lo, g_hi = gershgorin_bounds(mat)
+    except ValueError:  # no main diagonal, or a format without them (CSR)
         return lmin, lmax
-    g_lo, g_hi = gershgorin_bounds(mat)
     return max(lmin, g_lo), min(lmax, g_hi)
 
 

@@ -149,7 +149,32 @@ Phases, one JSON object per line each:
     k on the card against the same solve on this machine's CPU; then
     lap2d_fd(256)'s device Galerkin build against the host build;
 29. precond paths: solve(precond="block_jacobi") and "chebyshev" on
-    lap2d_fd(1000), fp64, and the CLI with --precond mg --mg-cycle fp32.
+    lap2d_fd(1000), fp64, and the CLI with --precond mg --mg-cycle fp32;
+30. sharded preconditioners (inside phase 25's NCCL group of one rank):
+    solve(mesh=) with precond="block_jacobi" and "chebyshev" on
+    lap2d_fd(1000), fp64, tol 1e-10 ||b||, k within 1 of the same solve
+    on one device, the true residual (error-free) below the larger of
+    1e-10 and twice the plain fp64 loop's, block-Jacobi's collectives
+    point Jacobi's;
+31. tw main: bench.py's secondary flagship, uncut: solve(lap2d_operator(
+    3200), source_term_device(N), precision="tw", precond="mg",
+    tolerance=3e-11), N = 10,240,000, then refine_pcg_sweeps_tw with
+    bench.py's arguments around an fp32 V-cycle built once, twice
+    (the words bitwise), the build timed apart with its peak memory, the
+    solve's peak memory, V-cycles, a profile of its first sweep
+    (launches, device ms, idle share); the tw-evaluated true relative
+    residual and a host np.longdouble referee of w0 + w1 + w2, both
+    below 1e-10;
+32. dd main: the same problem, inner and arguments through
+    refine_pcg_sweeps_dd (the H100's fp64 is IEEE, so double-double is
+    valid there), the same gate on its dd-evaluated residual and its
+    longdouble referee;
+33. ozaki dense: lap2D_5pt_n100.mtx densified (N = 10,000, fp64): the
+    int8 product (torch._int_mm) bitwise its float64 plain version, the
+    Ozaki mat-vec within 1e-14 of torch.mv relative to each dot's mass,
+    solve(dense_fp64="ozaki") at tol 1e-10 (k in the golden's window,
+    true residual below 1e-11), "auto" resolving to the plain operator;
+    ms of an Ozaki mat-vec beside B3 and torch.mv.
 
 The CLI phases call cgx_torch.cli.main.run, the body of the CLI's main,
 in this process. Then a "kernels" line for the ported kernels (every
@@ -206,13 +231,21 @@ from cgx_torch.mats.generators import (
     lap3d_fd,
     source_term,
 )
-from cgx_torch.ops import axpy, cg_kernel, cg_stream, dia_powers, dia_spmv, matvec
+from cgx_torch.ops import axpy, cg_kernel, cg_stream, dia_powers, dia_spmv, matvec, ozaki
 from cgx_torch.ops import sstep_stream as ss
 from cgx_torch.ops._util import f32_exact
+from cgx_torch.ops.dd import two_prod, two_sum
 from cgx_torch.solver import api
-from cgx_torch.solver.chebyshev import device_matvec, host_matvec, lanczos_bounds, spectral_bounds
+from cgx_torch.solver.chebyshev import (
+    device_matvec,
+    host_matvec,
+    host_spectral_bounds,
+    lanczos_bounds,
+    spectral_bounds,
+)
 from cgx_torch.solver.multigrid import infer_grid_ndim, mg_preconditioner
 from cgx_torch.solver.precond import neumann_banded
+from cgx_torch.solver.refine import refine_pcg_sweeps_dd, refine_pcg_sweeps_tw
 from cgx_torch.solver.sstep import newton_shifts, sstep_cg_solve
 from cgx_torch.utils import collectives
 
@@ -367,6 +400,11 @@ MG_CONFIGS = (("richardson", "v"), ("richardson", "w"), ("gs", "v"), ("gs", "w")
 MG_SKIP = {("lap3d_fd(128)", "gs", "w")}
 MG_PROBE_GRID = 256  # device against host Galerkin build
 PRECOND_GRID = 1000  # lap2d_fd(1000): N = 1,000,000
+TW_GATE = 1e-10  # bench.py's SECONDARY_REL_GATE: the true relative residual
+# bench.py's refine_pcg_sweeps_tw arguments (bench.py:140-144); solve(precision="tw") the same
+TW_KW = dict(sweeps=16, rtol=3e-11, inner_tol=1e-6, inner_maxiter=80)
+OZAKI_GRID = 100  # lap2D_5pt_n100.mtx, the reference's dense regime
+OZAKI_MASS_RTOL = 1e-14  # tests/test_ozaki.py's bound, relative to |A| |x|
 STEP = re.compile(r"\[STEP (\d+)\] residual = ([0-9.e+-]+), \|\|x\|\| = ([0-9.e+-]+), "
                   r"\|\|Ax - b\|\|/\|\|b\|\| = ([0-9.e+-]+|nan)")
 
@@ -2388,25 +2426,6 @@ def level_split(mg, r0) -> list:
             for i in range(len(subtree) - 1)] + [subtree[-1]]
 
 
-def two_sum(a, b):
-    s = a + b
-    bb = s - a
-    return s, (a - (s - bb)) + (b - bb)
-
-
-def two_prod(a, b):
-    """a * b as an unevaluated sum (p, e), by Dekker's split (separate
-    torch ops, so no multiply-add contracts them)."""
-    def split(v):
-        c = 134217729.0 * v  # 2^27 + 1
-        hi = c - (c - v)
-        return hi, v - hi
-    p = a * b
-    ah, al = split(a)
-    bh, bl = split(b)
-    return p, ((ah * bh - p) + ah * bl + al * bh) + al * bl
-
-
 def true_rel_compensated(bands, offsets, x, b) -> float:
     """||A x - b|| / ||b|| with each row's residual summed error-free
     (TwoProd and TwoSum in float64), so that the figure is the residual
@@ -2687,6 +2706,266 @@ def phase_precond_paths(tmp: Path) -> None:
     no_kernel_launched(launches, "CLI --precond mg")
 
 
+def phase_sharded_precond(mesh) -> None:
+    """The sharded route's block-Jacobi and Chebyshev preconditioners on
+    the NCCL group of one rank: solve(lap2d_fd(1000), fp64, tol 1e-10
+    ||b||, mesh=mesh) against the same solve on one device (k within 1),
+    the true residual (error-free) held to the larger of 1e-10 and twice
+    the plain fp64 loop's (the few thousand iterations leave a floor
+    above 1e-10 there, phase 29), block-Jacobi's collectives an iteration
+    point Jacobi's (its apply is local), no hand-written kernel (fp64
+    shards take the plain local product)."""
+    dia = lap2d_fd(PRECOND_GRID)
+    n, g = dia.shape[0], PRECOND_GRID
+    b = source_term(n)
+    tol = 1e-10 * float(np.linalg.norm(b))
+    op = as_operator(dia, torch.float64, device=DEV)
+    b_dev = torch.as_tensor(b, dtype=torch.float64, device=DEV)
+    plain, k_plain, _ = timed(lambda: dia_cg_solve_pallas(op, b_dev, tol=tol, device=DEV))
+    floor = true_rel_compensated(op.bands, op.offsets, plain.x, b_dev)
+    del plain
+    jacobi_sig = [("ppermute", 1, g), ("ppermute", 1, g), ("psum", 1, 1), ("psum", 2, 2)]
+    t0 = time.perf_counter()
+    host_spectral_bounds(dia)  # what the sharded Chebyshev's set-up runs on the host
+    bounds_seconds = time.perf_counter() - t0
+    for name in ("block_jacobi", "chebyshev"):
+        cfg = SolveConfig(precision="fp64", precond=name, tolerance=tol)
+        single, k_single, single_seconds = timed(lambda: solve(op, b_dev, cfg, device=DEV))
+        del single
+        reset_launches()
+        with collectives.capture() as cap:
+            res, k, seconds = timed(lambda: solve(dia, b, cfg, mesh=mesh, device=DEV))
+        launches = read_launches()
+        sig = cap.signature(0)
+        rel = true_rel_compensated(op.bands, op.offsets, res.x, b_dev)
+        emit({"phase": "sharded_precond", "precond": name, "problem": f"lap2d_fd({g})", "n": n,
+              "precision": "fp64", "world": mesh.size, "backend": dist.get_backend(mesh.group),
+              "tol": tol, "k": k, "k_single": k_single, "converged": bool(res.converged),
+              "seconds": seconds, "single_seconds": single_seconds,
+              "host_bounds_seconds": bounds_seconds if name == "chebyshev" else 0.0,
+              "us_per_iter": seconds / max(k, 1) * 1e6, "true_rel": rel,
+              "true_rel_plain": floor, "k_plain": k_plain, "signature_iter": sig["iter"],
+              "signature_uniform": sig["uniform"]})
+        where = f"sharded precond={name}"
+        check(bool(res.converged) and rel < max(TW_GATE, 2 * floor),
+              f"{where}: converged {bool(res.converged)}, true relative residual {rel}, the "
+              f"plain fp64 loop's {floor}")
+        check(abs(k - k_single) <= 1, f"{where}: k={k}, one device k={k_single}")
+        if name == "block_jacobi":
+            check(sig["iter"] == jacobi_sig and sig["uniform"],
+                  f"{where}: collectives an iteration {sig['iter']}")
+        no_kernel_launched(launches, where)
+        del res
+        sync()
+
+
+def ld_true_rel(bands: torch.Tensor, offsets, words, b: torch.Tensor) -> float:
+    """||b - A x|| / ||b|| on the host in np.longdouble (x86 80-bit, eps
+    about 5.4e-20), x the sum of its words (a triple or a pair) in
+    longdouble: the referee of the extended-precision routes
+    (tests/test_tw32.py:126-150)."""
+    x = sum(w.cpu().numpy().astype(np.longdouble) for w in words)
+    bl = b.cpu().numpy().astype(np.longdouble)
+    r = bl.copy()
+    n = bl.shape[0]
+    for d, off in enumerate(offsets):
+        i0, i1 = max(0, -off), min(n, n - off)
+        r[i0:i1] -= bands[d, i0:i1].cpu().numpy().astype(np.longdouble) * x[i0 + off:i1 + off]
+    return float(np.sqrt(np.sum(r * r)) / np.sqrt(np.sum(bl * bl)))
+
+
+def refine_run(fn) -> tuple:
+    """(result, seconds to its residual on the host, peak device bytes
+    above the start) of one refinement call."""
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    res = fn()
+    float(res.residual_norm)  # waits for the last sweep
+    return res, time.perf_counter() - t0, torch.cuda.max_memory_allocated() - base
+
+
+def bitwise_words(u, v) -> bool:
+    return all(torch.equal(a.view(torch.int32 if a.dtype == torch.float32 else torch.int64),
+                           b.view(torch.int32 if b.dtype == torch.float32 else torch.int64))
+               for a, b in zip(u, v))
+
+
+def refine_record(kind: str, op, b, apply, calls, words, sweep_fn) -> dict:
+    """Two runs of ``sweep_fn(sweeps)`` from one built hierarchy
+    (``apply``, counted by ``calls``), their words bitwise, the first
+    one's residuals (its own extended-precision one, the longdouble
+    referee, and an fp64 evaluation of its fp64 view, error-free), its
+    V-cycles and peak memory, then a profile of its first sweep alone
+    (launches, device time, idle share; a whole run holds about 60,000
+    kernels, one sweep keeps the trace short)."""
+    bnorm = float(torch.linalg.norm(b))
+    calls[0] = 0
+    full = TW_KW["sweeps"]
+    (r1, seconds, peak) = refine_run(lambda: sweep_fn(full))
+    (r2, seconds2, _) = refine_run(lambda: sweep_fn(full))
+    vcycles = calls[0] // 2
+    sweeps, inner = r1.outer_iterations, int(r1.inner_iterations[0])
+    first, first_seconds, _ = refine_run(lambda: sweep_fn(1))
+    events, busy_us, wall_us = device_profile(lambda: float(sweep_fn(1).residual_norm))
+    rec = {"problem": f"lap2d_operator({GRID})", "n": b.shape[0], "kw": TW_KW,
+           "converged": bool(r1.converged), "sweeps": sweeps, "inner_iterations": inner,
+           "vcycles": vcycles, "own_true_rel": float(r1.residual_norm) / bnorm,
+           "referee_true_rel": ld_true_rel(op.bands, op.offsets, words(r1), b),
+           "fp64_view_true_rel": true_rel_compensated(op.bands, op.offsets, r1.x, b),
+           "residual_history": [float(h) / bnorm for h in r1.residual_history[:sweeps]],
+           "bitwise_repeat": sweeps == r2.outer_iterations and bitwise_words(words(r1),
+                                                                              words(r2)),
+           "seconds": seconds, "seconds_repeat": seconds2, "peak_solve_bytes": peak,
+           "first_sweep_inner_iterations": int(first.inner_iterations[0]),
+           "first_sweep_seconds": first_seconds, "first_sweep_device_events": events,
+           "first_sweep_device_ms": busy_us / 1e3,
+           "first_sweep_profiled_wall_ms": wall_us / 1e3,
+           "idle_share_profiled": 1 - busy_us / wall_us,
+           "idle_share": 1 - busy_us / (first_seconds * 1e6),  # the same sweep unprofiled
+           "x_finite": all(bool(torch.isfinite(w).all()) for w in words(r1))}
+    where = f"{kind}_main"
+    check(rec["converged"] and rec["x_finite"], f"{where}: did not converge to a finite x")
+    check(rec["own_true_rel"] < TW_GATE and rec["referee_true_rel"] < TW_GATE,
+          f"{where}: true relative residual {rec['own_true_rel']} ({kind}), "
+          f"{rec['referee_true_rel']} (longdouble referee)")
+    check(rec["bitwise_repeat"], f"{where}: two runs differ")
+    return rec
+
+
+def phase_tw_main() -> tuple:
+    """bench.py's secondary flagship on the card, uncut: lap2d_operator(3200)
+    and source_term_device (N = 10,240,000), triple-word float32 sweeps
+    around an fp32 MG-PCG inner, gated on the true relative residual below
+    1e-10 (below fp64's evaluation floor there). First through solve(
+    precision="tw", precond="mg", tolerance=3e-11), which builds its own
+    hierarchy; then refine_pcg_sweeps_tw with bench.py's arguments around
+    a hierarchy built once (timed apart, with its peak memory), twice
+    (the words bitwise), and profiled. No hand-written kernel runs: cgx's
+    sweeps and V-cycle are XLA code. Returns the operator, b, the built
+    hierarchy and the record, for the dd phase."""
+    n = GRID * GRID
+    op = lap2d_operator(GRID, torch.float64, device=DEV)
+    b = source_term_device(n, device=DEV)
+    bnorm = float(torch.linalg.norm(b))
+    reset_launches()
+    res, k_solve, solve_call_seconds = timed(lambda: solve(
+        op, b, SolveConfig(precision="tw", precond="mg", tolerance=TW_KW["rtol"]), device=DEV))
+    launches = read_launches()
+    solve_rec = {"k": k_solve, "converged": bool(res.converged),
+                 "own_true_rel": float(res.residual_norm) / bnorm,
+                 "seconds": solve_call_seconds}
+    check(solve_rec["converged"] and solve_rec["own_true_rel"] < TW_GATE,
+          f"tw solve(): {solve_rec}")
+    no_kernel_launched(launches, "tw solve()")
+    del res
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    mg = mg_preconditioner(op, dtype=torch.float32)
+    sync()
+    setup_seconds = time.perf_counter() - t0
+    peak_build = torch.cuda.max_memory_allocated() - base
+    apply, calls = counted(mg.apply)
+    reset_launches()
+    kw = {k: v for k, v in TW_KW.items() if k != "sweeps"}
+    rec = refine_record("tw", op, b, apply, calls, lambda r: r.x_words,
+                        lambda sweeps: refine_pcg_sweeps_tw(op, b, precond=apply, sweeps=sweeps,
+                                                            device=DEV, **kw))
+    no_kernel_launched(read_launches(), "refine_pcg_sweeps_tw")
+    rec = {"phase": "tw_main", **rec, "setup_seconds": setup_seconds,
+           "peak_build_bytes": peak_build, "galerkin_setup": mg.galerkin_setup,
+           "time_to_solution_seconds": setup_seconds + rec["seconds"], "solve": solve_rec}
+    emit(rec)
+    check(solve_rec["k"] == rec["sweeps"],
+          f"tw: solve() took {solve_rec['k']} sweeps, the built hierarchy {rec['sweeps']}")
+    return op, b, apply, calls, rec
+
+
+def phase_dd_main(op, b, apply, calls, tw: dict) -> None:
+    """The same problem, inner and arguments through refine_pcg_sweeps_dd:
+    double-double fp64 sweeps, valid on the H100's IEEE fp64 (cgx measured
+    them degraded on its TPU), under the same gate on the dd-evaluated
+    residual and its longdouble referee; beside tw_main's numbers."""
+    reset_launches()
+    kw = {k: v for k, v in TW_KW.items() if k != "sweeps"}
+    rec = refine_record("dd", op, b, apply, calls, lambda r: (r.x_hi, r.x_lo),
+                        lambda sweeps: refine_pcg_sweeps_dd(op, b, precond=apply, sweeps=sweeps,
+                                                            device=DEV, **kw))
+    no_kernel_launched(read_launches(), "refine_pcg_sweeps_dd")
+    emit({"phase": "dd_main", **rec, "tw_sweeps": tw["sweeps"],
+          "tw_referee_true_rel": tw["referee_true_rel"], "tw_seconds": tw["seconds"],
+          "reaches_tw": rec["referee_true_rel"] < TW_GATE and rec["sweeps"] <= tw["sweeps"]})
+
+
+def phase_ozaki_dense() -> None:
+    """The Ozaki dense operator on the reference's dense regime:
+    lap2D_5pt_n100.mtx densified on the card (N = 10,000, fp64). The one
+    int8 product (torch._int_mm) of A's slices and b's bitwise its float64
+    plain version; OzakiDenseOperator.matvec within 1e-14 of torch.mv
+    relative to each dot's mass; solve(dense_fp64="ozaki") at the
+    golden's tolerance (k in its window, true residual below 1e-11, no
+    hand-written kernel); "auto" the plain fp64 operator on CUDA; the ms
+    of an Ozaki mat-vec beside B3's fp64 dense_matvec and torch.mv."""
+    dia = lap2d_fd(OZAKI_GRID)
+    n = dia.shape[0]
+    dense = densify_on_device(as_operator(dia, torch.float64, device=DEV))
+    a = dense.a
+    b = torch.as_tensor(source_term(n), dtype=torch.float64, device=DEV)
+    c, sigma = ozaki._build_slices(a, 8)
+    d, _ = ozaki._slice_vector(b[:, None], 8)
+    c_cat, d_cat = ozaki._int8_operands(c, d)
+    p = ozaki.int8_matmul(c_cat, d_cat)
+    p_ref = ozaki.int8_matmul_ref(c_cat, d_cat)
+    int_mm_bitwise = torch.equal(p, p_ref)
+    int_mm_ms = time_ms(lambda: ozaki.int8_matmul(c_cat, d_cat))
+    del c, sigma, d, p, p_ref
+    sync()
+    t0 = time.perf_counter()
+    op = ozaki.OzakiDenseOperator.from_dense(a)
+    sync()
+    slice_seconds = time.perf_counter() - t0
+    x = torch.as_tensor(np.random.default_rng(SEED).standard_normal(n) * 1e6,
+                        dtype=torch.float64, device=DEV)
+    y, y_ref = op.matvec(x), torch.mv(a, x)
+    mv_err = float(torch.max((y - y_ref).abs() / torch.mv(a.abs(), x.abs())))
+    times = {"ozaki_matvec_ms": time_ms(lambda: op.matvec(x)),
+             "b3_dense_matvec_ms": time_ms(lambda: matvec.dense_matvec(a, x)),
+             "torch_mv_ms": time_ms(lambda: torch.mv(a, x))}
+    del op, y, y_ref
+    sync()
+    tol = 1e-10  # the golden's absolute tolerance (tests/test_golden.py:73-131)
+    results = {}
+    for mode in ("ozaki", "auto"):
+        reset_launches()
+        res, k, seconds = timed(lambda: solve(dense, b, SolveConfig(
+            precision="fp64", dense_fp64=mode, tolerance=tol), device=DEV))
+        results[mode] = {"k": k, "converged": bool(res.converged), "seconds": seconds,
+                         "true_rel": float(torch.linalg.norm(torch.mv(a, res.x) - b)
+                                           / torch.linalg.norm(b)),
+                         "launches": {k_: c_ for k_, c_ in read_launches().items() if c_}}
+        del res
+    auto_plain = api._maybe_ozaki(dense, SolveConfig()) is dense
+    lo, hi = GOLDEN_K["lap2d_fd(100)"]
+    rec = {"phase": "ozaki_dense", "problem": f"lap2d_fd({OZAKI_GRID}) dense", "n": n,
+           "int_mm_shape": [list(c_cat.shape), list(d_cat.shape)],
+           "int_mm_bitwise_plain": int_mm_bitwise, "int_mm_ms": int_mm_ms,
+           "slice_seconds": slice_seconds, "matvec_max_err_over_mass": mv_err, **times,
+           "solve": results, "golden_k": [lo, hi], "auto_is_plain": auto_plain}
+    emit(rec)
+    check(int_mm_bitwise, "ozaki: torch._int_mm differs from its float64 plain version")
+    check(mv_err < OZAKI_MASS_RTOL, f"ozaki: mat-vec off torch.mv by {mv_err} of the mass")
+    oz = results["ozaki"]
+    check(oz["converged"] and lo <= oz["k"] <= hi and oz["true_rel"] < 1e-11,
+          f"ozaki: solve(dense_fp64='ozaki') {oz}")
+    check(auto_plain and results["auto"]["converged"], "ozaki: 'auto' is not the plain operator")
+    no_kernel_launched(oz["launches"], "solve(dense_fp64='ozaki')")
+    del dense, a, c_cat, d_cat
+    sync()
+
+
 def main() -> int:
     spec = phase_device()
     phase_build()
@@ -2721,10 +3000,16 @@ def main() -> int:
     with nccl_mesh() as mesh:
         launches.update(phase_sharded(spec, mesh, b4_main))
         phase_sharded_goldens(mesh)
+        phase_sharded_precond(mesh)
     phase_mg_main(spec, b4_main)
     phase_mg_goldens()
     with tempfile.TemporaryDirectory() as tmp:
         phase_precond_paths(Path(tmp))
+    op, b, apply, calls, tw = phase_tw_main()
+    phase_dd_main(op, b, apply, calls, tw)
+    del op, b, apply
+    sync()
+    phase_ozaki_dense()
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         rec = records[name]

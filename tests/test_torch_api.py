@@ -149,7 +149,8 @@ def test_precond_without_pallas_matches_cgx(problem, precond, precision):
     "cfg,kwargs",
     [
         (SolveConfig(precision="bf16"), {}),
-        (SolveConfig(precision="tw"), {}),
+        # precision="tw" runs on one device since ROADMAP A12; the sharded one is A14's
+        (SolveConfig(precision="tw"), {"mesh": object()}),
         # the sharded route runs since ROADMAP A14 landed; what it does not port yet raises
         (SolveConfig(method="sstep"), {"n_devices": 4}),
         (SolveConfig(precond="mg"), {"mesh": object()}),
@@ -214,9 +215,9 @@ def test_mg_needs_a_banded_operator(problem):
 @pytest.mark.parametrize(
     "cfg,item",
     [(SolveConfig(method="sstep"), "A14"), (SolveConfig(precond="mg"), "A14"),
-     (SolveConfig(precision="mixed"), "A14"), (SolveConfig(precond="block_jacobi"), "A7"),
+     (SolveConfig(precision="mixed"), "A14"), (SolveConfig(precision="tw"), "A14"),
      (SolveConfig(method="gvpipe"), "A11")],
-    ids=["sstep", "mg", "mixed", "block_jacobi", "gvpipe"],
+    ids=["sstep", "mg", "mixed", "tw", "gvpipe"],
 )
 def test_sharded_unported_options_name_their_item(problem, cfg, item):
     dia, b = problem
@@ -227,7 +228,7 @@ def test_sharded_unported_options_name_their_item(problem, cfg, item):
 
 @pytest.mark.parametrize("precision", ["fp64", "fp32"])
 @pytest.mark.parametrize("method", ["reference", "pipelined"])
-@pytest.mark.parametrize("precond", [None, "jacobi", "neumann"])
+@pytest.mark.parametrize("precond", [None, "jacobi", "neumann", "block_jacobi", "chebyshev"])
 def test_mesh_routes_to_the_sharded_solver(problem, precision, method, precond):
     """solve(mesh=) runs cgx_torch.parallel's sharded_cg_solve (cgx
     api.py:210-270) with the configuration's method, preconditioner and
@@ -252,6 +253,20 @@ def test_mesh_routes_to_the_sharded_solver(problem, precision, method, precond):
     rtol = 1e-10 if precision == "fp64" else 1e-3
     np.testing.assert_allclose(got.x.numpy(), np.asarray(want.x), rtol=rtol,
                                atol=rtol * np.abs(np.asarray(want.x)).max())
+
+
+def test_mesh_passes_the_block_size(problem, monkeypatch):
+    """solve(mesh=) hands cfg.precond_block_size to the sharded solver, as
+    cgx does (api.py:247-266): a size that straddles raises its error."""
+    dia, b = problem
+    mesh = cgx_torch.make_mesh(device="cpu")
+    cfg = SolveConfig(precond="block_jacobi", precond_block_size=16, tolerance=1e-6)
+    got = cgx_torch.solve(dia, b, cfg, mesh=mesh, device="cpu")
+    single = cgx_torch.solve(dia, b, cfg, device="cpu")
+    assert torch.equal(got.x, single.x)
+    with pytest.raises(ValueError, match="divide the shard size"):
+        cgx_torch.solve(dia, b, SolveConfig(precond="block_jacobi", precond_block_size=24),
+                        mesh=mesh, device="cpu")
 
 
 def test_sharded_route_takes_x0_and_operators(problem):

@@ -31,6 +31,9 @@ SHARDED_RUNS = {
     "dia_pipelined_neumann": ["--format", "dia", "--tol", "1e-6", "--method", "pipelined",
                               "--precond", "neumann"],
     "csr_jacobi": ["--format", "csr", "--tol", "1e-6", "--precond", "jacobi"],
+    "dia_block_jacobi": ["--format", "dia", "--tol", "1e-6", "--precond", "block_jacobi",
+                         "--precond-block-size", "16"],
+    "dense_chebyshev": ["--tol", "1e-6", "--precond", "chebyshev"],
 }
 
 

@@ -32,7 +32,8 @@ def test_import_pulls_in_neither_jax_nor_cgx():
                                     "cgx_torch.ops.cg_stream", "cgx_torch.solver.pipelined",
                                     "cgx_torch.ops.dia_powers", "cgx_torch.ops.sstep_stream",
                                     "cgx_torch.solver.sstep", "cgx_torch.solver.chebyshev",
-                                    "cgx_torch.ops.tw32", "cgx_torch.parallel",
+                                    "cgx_torch.ops.tw32", "cgx_torch.ops.dd",
+                                    "cgx_torch.ops.ozaki", "cgx_torch.parallel",
                                     "cgx_torch.parallel.sharded_cg",
                                     "cgx_torch.parallel.multihost",
                                     "cgx_torch.utils.collectives",
