@@ -31,8 +31,19 @@ from cgx_torch.ops.matvec import dense_matvec, dense_matvec_dot
 from cgx_torch.ops.ozaki import OzakiDenseOperator, ozaki_matvec
 from cgx_torch.ops.sstep_stream import dia_sstep_stream_solve
 from cgx_torch.parallel import ShardedCGSolver, make_mesh, make_sharded_solver, sharded_cg_solve
-from cgx_torch.solver.api import solve
+from cgx_torch.solver.api import solve, solve_sequence
+from cgx_torch.solver.autodiff import block_cg_solve_differentiable, cg_solve_differentiable
+from cgx_torch.solver.batched import cg_solve_batched
+from cgx_torch.solver.blockcg import BlockCGResult, block_cg_solve, block_deflated_cg_solve
 from cgx_torch.solver.cg import CGResult, cg_solve
+from cgx_torch.solver.chebyshev import chebyshev_solve
+from cgx_torch.solver.deflated import (
+    DeflationBasis,
+    cg_solve_harvest,
+    deflated_cg_solve,
+    lanczos_ritz,
+)
+from cgx_torch.solver.gvpipe import gv_cg_solve
 from cgx_torch.solver.fast import dia_cg_solve_pallas
 from cgx_torch.solver.multigrid import MGPreconditioner, mg_preconditioner
 from cgx_torch.solver.pipelined import pipelined_cg_solve
@@ -43,6 +54,7 @@ from cgx_torch.solver.operators import (
     EllOperator,
     PallasDenseOperator,
     as_operator,
+    basis_from_cgx,
     densify_on_device,
     operator_from_cgx,
     operator_from_numpy,

@@ -32,8 +32,10 @@ Where the port differs from cgx's CLI, by design:
 - on CUDA the kernels are built before the clock starts, and the clock
   stops after ``torch.cuda.synchronize()``, so ``elapsed`` is the solve.
 
-``--method pipelined`` and ``--method sstep`` run as cgx branches them
-(cli/main.py:341-377), the latter with ``--sstep-s``, ``--sstep-basis``,
+``--method pipelined|gvpipe|chebyshev|sstep`` run as cgx branches them
+(cli/main.py:341-377): gvpipe with ``--gv-replace-every`` and the
+preconditioner, chebyshev on its Lanczos bounds without one (a given one
+is ignored with a warning), sstep with ``--sstep-s``, ``--sstep-basis``,
 ``--sstep-powers`` and ``--sstep-replace-every`` passed through.
 ``--precond jacobi|block_jacobi|neumann|chebyshev|mg`` run as cgx builds
 them (cli/main.py:285-340): ``block_jacobi`` with
@@ -57,11 +59,13 @@ torchrun's environment if it is not yet (NCCL on the card, gloo with
 and appends the CSV row, whose ``psize`` is P. ``--precond
 jacobi|block_jacobi|neumann|chebyshev`` run there too, ``block_jacobi``
 with ``--precond-block-size`` (default min(32, the shard size), a
-divisor of the shard size).
+divisor of the shard size), and so do ``--method gvpipe`` (with
+``--gv-replace-every``) and ``--method chebyshev`` (on the host
+matrix's Lanczos bounds).
 
-``--method gvpipe`` and ``chebyshev`` (A11), ``--method sstep`` or
-``--precond mg`` with ``--devices`` (A14) and ``--precision bf16`` (A6)
-raise ``NotImplementedError`` naming their ROADMAP item.
+``--method sstep`` or ``--precond mg`` with ``--devices`` (A14) and
+``--precision bf16`` (A6) raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -80,7 +84,8 @@ from cgx_torch.mats.containers import COOMatrix, CSRMatrix, DIAMatrix, ELLMatrix
 from cgx_torch.mats.generators import lap2d_reference, source_term
 from cgx_torch.ops._util import resolve_device
 from cgx_torch.solver.cg import CGResult, cg_solve
-from cgx_torch.solver.chebyshev import spectral_bounds
+from cgx_torch.solver.chebyshev import chebyshev_solve, spectral_bounds
+from cgx_torch.solver.gvpipe import gv_cg_solve
 from cgx_torch.solver.multigrid import mg_preconditioner
 from cgx_torch.solver.operators import DiaOperator, PallasDenseOperator, as_operator
 from cgx_torch.solver.pipelined import pipelined_cg_solve
@@ -148,8 +153,6 @@ def run(argv=None) -> Run:
     pos = args.positionals
     if args.precision == "bf16":
         raise _unported("--precision bf16 (bf16 storage, ROADMAP A6)")
-    if args.method in ("gvpipe", "chebyshev"):
-        raise _unported(f"--method {args.method} (ROADMAP A11)")
     dev = resolve_device(args.device)
     dtype = _DTYPES[args.precision]
     tol = args.tol if args.tol is not None else DEFAULT_TOLERANCE
@@ -227,6 +230,13 @@ def run(argv=None) -> Run:
     if args.method == "pipelined":
         res = pipelined_cg_solve(op, b, tol=tol, maxiter=maxiter, history=args.history,
                                  precond=pc, device=dev)
+    elif args.method == "gvpipe":
+        res = gv_cg_solve(op, b, tol=tol, maxiter=maxiter, history=args.history, precond=pc,
+                          replace_every=args.gv_replace_every, device=dev)
+    elif args.method == "chebyshev":
+        if pc is not None:
+            print("warning: chebyshev takes no preconditioner; ignoring", file=sys.stderr)
+        res = chebyshev_solve(op, b, tol=tol, maxiter=maxiter, device=dev)
     elif args.method == "sstep":
         if pc is not None:
             print("warning: sstep takes no preconditioner; ignoring", file=sys.stderr)
@@ -336,7 +346,8 @@ def _run_sharded(args, host, b_np, n: int, tol: float, maxiter, fmt: str, dev, c
         res = sharded_cg_solve(host_mat, b_host, mesh=mesh, strategy=args.strategy,
                                method=args.method, precond=args.precond,
                                precond_block_size=args.precond_block_size, tol=tol,
-                               maxiter=maxiter, history=args.history)
+                               maxiter=maxiter, history=args.history,
+                               gv_replace_every=args.gv_replace_every)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         elapsed = time.perf_counter() - t1

@@ -59,11 +59,10 @@ class SolveConfig:
     # precond="neumann") or "xla" (the plain loop, with the configured
     # preconditioner).
     large_banded: str = "stream"
-    # "reference", "pipelined" (Chronopoulos-Gear) or "sstep" (s-step CG,
-    # with the sstep_* fields below); "gvpipe" and "chebyshev" (A11) are
-    # not ported yet. Of the fields below, check_every, multi_rhs and
-    # gv_replace_every select no ported path yet; they keep cgx's
-    # defaults so that a cgx configuration reads the same.
+    # "reference", "pipelined" (Chronopoulos-Gear), "gvpipe" (Ghysels-
+    # Vanroose, with gv_replace_every), "chebyshev" (the Chebyshev
+    # iteration, checked every check_every iterations, maxiter 4N by
+    # default) or "sstep" (s-step CG, with the sstep_* fields below).
     method: str = "reference"
     # None, "jacobi", "neumann" (with use_pallas: the whole-solve
     # kernel's in-kernel Neumann PCG), "block_jacobi" (blocks of
@@ -82,6 +81,8 @@ class SolveConfig:
     dense_fp64: str = "auto"
     local_kernel: str = "auto"
     sstep_replace_every: Optional[int] = None
+    # a 2-D b: "block" (one breakdown-free block-CG Krylov space) or
+    # "batched" (an independent reference recurrence a column)
     multi_rhs: str = "block"
     gv_replace_every: int = 25
     sstep_powers: str = "auto"

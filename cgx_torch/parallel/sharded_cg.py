@@ -33,9 +33,13 @@ Strategies (cgx's):
   h edge rows that see the halo. ``"auto"`` takes B8 for a float32 shard
   of at least :data:`STREAM_LOCAL_MIN_ELEMS` rows on CUDA (cgx's rule).
 
-The methods are ``reference`` (two all-reduces an iteration) and
+The methods are ``reference`` (two all-reduces an iteration),
 ``pipelined`` (Chronopoulos-Gear: one all-reduce of two dots, three with
-a preconditioner), with no preconditioner, ``jacobi``, ``block_jacobi``
+a preconditioner), ``gvpipe`` (Ghysels-Vanroose: the same one all-reduce,
+which the iteration's mat-vec does not wait on, and the guarded residual
+replacement's four more mat-vecs every ``gv_replace_every`` iterations)
+and ``chebyshev`` (the Chebyshev iteration on ``bounds``: no all-reduce
+but one every ``check_every`` iterations), with no preconditioner, ``jacobi``, ``block_jacobi``
 (the shard's diagonal blocks inverted once, applied as one local batched
 product: no collective), ``neumann`` or ``chebyshev`` (degree 3, three
 strategy mat-vecs an application). A dense fp64 operator takes cgx's
@@ -61,7 +65,8 @@ from cgx_torch.ops.reduce import vdot
 from cgx_torch.parallel.mesh import ROWS_AXIS, Mesh, local_device, make_mesh
 from cgx_torch.parallel.partition import pad_bands, pad_dense, pad_vector, padded_size
 from cgx_torch.solver.cg import CGResult, cg_loop
-from cgx_torch.solver.chebyshev import host_spectral_bounds
+from cgx_torch.solver.chebyshev import cheby_loop, host_spectral_bounds
+from cgx_torch.solver.gvpipe import gv_cg_loop
 from cgx_torch.solver.operators import CsrOperator, EllOperator, _torch_dtype
 from cgx_torch.solver.pipelined import pipelined_cg_loop
 from cgx_torch.solver.precond import chebyshev_poly, diag_blocks, invert_spd_blocks
@@ -74,8 +79,8 @@ STREAM_LOCAL_MIN_ELEMS = 2_000_000
 # cgx's per-shard band-plane tile (sharded_cg.py:192-195)
 PLANE_ROWS, PLANE_COLS = 256, 512
 
-_UNPORTED_METHODS = {"sstep": "the sharded s-step, ROADMAP A14",
-                     "gvpipe": "ROADMAP A11", "chebyshev": "ROADMAP A11"}
+_UNPORTED_METHODS = {"sstep": "the sharded s-step, ROADMAP A14"}
+METHODS = ("reference", "pipelined", "gvpipe", "chebyshev")
 PRECONDS = (None, "jacobi", "block_jacobi", "neumann", "chebyshev")
 CHEBYSHEV_DEGREE = 3  # cgx's sharded polynomial (sharded_cg.py:794)
 
@@ -416,6 +421,8 @@ def make_sharded_solver(
     bounds: Optional[tuple] = None,
     dense_fp64: str = "emulated",
     local_kernel: str = "auto",
+    check_every: int = 32,
+    gv_replace_every: int = 25,
     axis_name: str = ROWS_AXIS,
     device=None,
 ) -> "ShardedCGSolver":
@@ -435,11 +442,15 @@ def make_sharded_solver(
       strategy: ``"allgather"``, ``"reducescatter"`` (dense), ``"halo"``
         (DIA) or ``"auto"`` (halo for DIA when the bandwidth fits in a
         shard, else allgather).
-      method: ``"reference"`` (two all-reduces an iteration) or
-        ``"pipelined"`` (one, of two dots; three with a preconditioner).
-        ``"sstep"`` (A14), ``"gvpipe"`` and ``"chebyshev"`` (A11) raise.
+      method: ``"reference"`` (two all-reduces an iteration),
+        ``"pipelined"`` (one, of two dots; three with a preconditioner),
+        ``"gvpipe"`` (the same one, off the mat-vec's path; cgx
+        sharded_cg.py:810-821) or ``"chebyshev"`` (the Chebyshev
+        iteration on ``bounds``, one all-reduce every ``check_every``
+        iterations, no preconditioner: one given is not applied, as in
+        cgx). ``"sstep"`` (A14) raises.
       tol, nearzero: per-call defaults (absolute tolerance, alpha clamp).
-      maxiter: iteration cap; defaults to N.
+      maxiter: iteration cap; defaults to N, 4N for ``"chebyshev"``.
       dot_precision: dtype the dots accumulate in (float64 for float32
         vectors); default the vectors'.
       precond: None, ``"jacobi"`` (local), ``"block_jacobi"`` (a DIA or
@@ -451,28 +462,31 @@ def make_sharded_solver(
       precond_block_size: block-Jacobi's rows a block; default min(32,
         the shard size). It must divide the shard size: no block may
         straddle two shards.
-      bounds: ``(lmin, lmax)`` of the Chebyshev preconditioner; default
-        :func:`cgx_torch.solver.chebyshev.host_spectral_bounds` of ``mat``.
+      bounds: ``(lmin, lmax)`` of the Chebyshev preconditioner or method;
+        default :func:`cgx_torch.solver.chebyshev.host_spectral_bounds` of
+        ``mat``. The method needs ``0 < lmin < lmax``.
       dense_fp64: a dense fp64 operator's product: ``"emulated"`` and
         ``"auto"`` the fp64 ``torch.matmul`` (the H100's fp64 is native),
         ``"ozaki"`` cgx's int8 slices (:mod:`cgx_torch.ops.ozaki`), under
         the allgather strategy.
       local_kernel: ``"auto"``, ``"xla"`` or ``"stream2d"``, the local
         product of the halo strategy (see :func:`_resolve_local_kernel`).
+      check_every: the Chebyshev method's iterations between convergence
+        checks.
+      gv_replace_every: the gvpipe method's residual-replacement cadence
+        (0 = off).
       axis_name: the name of the mesh's axis, when the mesh is made here.
       device: where this rank computes; default the mesh's
         (``cuda:LOCAL_RANK`` unless the mesh was made for the CPU).
 
-    cgx's options of the s-step, gvpipe and Chebyshev methods
-    (``check_every``, ``sstep_*``, ``gv_replace_every``) come with those
-    methods (A11, A14).
+    cgx's options of the s-step method (``sstep_*``) come with it (A14).
 
     N is padded to a multiple of the mesh size with zero rows; padded
     entries of b, x, r and p stay exactly zero through every iteration.
     """
     if method in _UNPORTED_METHODS:
         raise _unported(f"method={method!r} on the sharded route ({_UNPORTED_METHODS[method]})")
-    if method not in ("reference", "pipelined"):
+    if method not in METHODS:
         raise ValueError(f"unknown method {method!r}")
     if jacobi and precond is None:
         precond = "jacobi"
@@ -513,12 +527,23 @@ def make_sharded_solver(
         inv[:n] = 1.0 / np.asarray(diag, dtype=_np_dtype(dtype))
         inv_loc = torch.tensor(inv[lo: lo + n_loc], device=dev)
         pc = _JacobiPrecond(inv_loc) if precond == "jacobi" else _NeumannPrecond(mv, inv_loc)
+    cheby = None
+    if method == "chebyshev":  # cgx sharded_cg.py:833-848
+        if bounds is None:
+            bounds = host_spectral_bounds(mat)
+        lmin, lmax = float(bounds[0]), float(bounds[1])
+        if not (0 < lmin < lmax):
+            raise ValueError(f"invalid spectral bounds {bounds}")
+        cheby = (lmin, lmax, int(check_every))
+    if maxiter is None:
+        maxiter = 4 * n if method == "chebyshev" else n
     dot_precision = _torch_dtype(dot_precision, None)
     return ShardedCGSolver(
         mesh=mesh, device=dev, n=n, n_pad=n_pad, dtype=dtype, mv=mv, precond=pc, method=method,
-        maxiter=n if maxiter is None else int(maxiter), history=int(history),
+        maxiter=int(maxiter), history=int(history),
         dot_precision=dot_precision, tol=float(tol), nearzero=float(nearzero),
-        strategy=strategy, local_kernel=kernel,
+        strategy=strategy, local_kernel=kernel, cheby=cheby,
+        gv_replace_every=int(gv_replace_every),
     )
 
 
@@ -532,7 +557,8 @@ class ShardedCGSolver:
     halo strategy)."""
 
     def __init__(self, *, mesh, device, n, n_pad, dtype, mv, precond, method, maxiter, history,
-                 dot_precision, tol, nearzero, strategy, local_kernel):
+                 dot_precision, tol, nearzero, strategy, local_kernel, cheby=None,
+                 gv_replace_every=25):
         self.mesh = mesh
         self.device = device
         self.n = n
@@ -550,6 +576,8 @@ class ShardedCGSolver:
         self._nearzero = nearzero
         self.strategy = strategy
         self.local_kernel = local_kernel
+        self._cheby = cheby  # (lmin, lmax, check_every) of the Chebyshev method
+        self._gv_replace_every = gv_replace_every
 
     def _shard(self, v, name: str) -> torch.Tensor:
         v = _host(v, _np_dtype(self.dtype))
@@ -571,7 +599,19 @@ class ShardedCGSolver:
         common = dict(tol=tol_t, nearzero=nz_t, maxiter=self._maxiter, history=self._history,
                       precond=self._precond)
         with f32_exact():
-            if self.method == "pipelined":
+            if self.method == "chebyshev":  # cgx's _ChebyLoop, sharded_cg.py:2172
+                psum = _PsumDots(self.mesh, self._dot_precision)
+                lmin, lmax, check_every = self._cheby
+                res = cheby_loop(self._mv, b_loc, x0_loc, lmin, lmax, tol_t,
+                                 maxiter=self._maxiter, check_every=check_every,
+                                 dot=lambda u, v: psum([(u, v)])[0], marks=collectives)
+            elif self.method == "gvpipe":
+                res = gv_cg_loop(x0_loc, b_loc, matvec=self._mv,
+                                 dot_precision=self._dot_precision,
+                                 dots=_PsumDots(self.mesh, self._dot_precision),
+                                 replace_every=self._gv_replace_every, marks=collectives,
+                                 **common)
+            elif self.method == "pipelined":
                 res = pipelined_cg_loop(x0_loc, b_loc, matvec=self._mv,
                                         dot_precision=self._dot_precision,
                                         dots=_PsumDots(self.mesh, self._dot_precision),

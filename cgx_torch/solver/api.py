@@ -24,6 +24,12 @@ Dispatch (cgx api.py:322-403):
   ported: a failed launch raises;
 - ``method="pipelined"`` runs :func:`cgx_torch.solver.pipelined.
   pipelined_cg_solve`, with float64 dots for fp32;
+- ``method="gvpipe"`` runs :func:`cgx_torch.solver.gvpipe.gv_cg_solve`
+  with ``gv_replace_every`` and the configured preconditioner, float64
+  dots for fp32; ``method="chebyshev"`` runs
+  :func:`cgx_torch.solver.chebyshev.chebyshev_solve` with
+  ``check_every`` and no preconditioner (``ValueError``), its default
+  maxiter 4N;
 - ``method="sstep"`` runs :func:`cgx_torch.solver.sstep.sstep_cg_solve`
   with the configuration's ``sstep_*`` fields; ``sstep_powers="auto"``
   resolves by :func:`_single_powers` (cgx api.py:104-137): the fused
@@ -39,6 +45,13 @@ Dispatch (cgx api.py:322-403):
   ``torch.distributed`` (:mod:`cgx_torch.parallel.sharded_cg`), with
   ``strategy``; there ``precond="mg"``, ``precision="mixed"``,
   ``precision="tw"`` and ``method="sstep"`` (A14) raise;
+- a 2-D ``b`` of shape (n, s) solves every column: ``multi_rhs="block"``
+  (the default) in one breakdown-free block-CG Krylov space with the
+  configured preconditioner (:func:`_solve_block`), ``"batched"`` by
+  independent reference recurrences (:func:`_solve_batched_rhs`); an
+  ``x0`` of the same shape warm-starts by the shift identity;
+  :func:`solve_sequence` solves a sequence with spectral recycling. Their
+  sharded forms raise naming A14;
 - everything else that is ported runs the plain reference loop, with
   the configured preconditioner: ``jacobi``, ``neumann``,
   ``block_jacobi`` (``precond_block_size``, default min(32, N)),
@@ -62,8 +75,12 @@ from cgx_torch.ops._util import resolve_device
 from cgx_torch.ops.ozaki import OzakiDenseOperator
 from cgx_torch.ops.cg_kernel import dia_cg_solve_vmem, resident_state_bytes
 from cgx_torch.ops.cg_stream import dia_cg_solve_stream, dia_cg_solve_stream_pcg
+from cgx_torch.solver.batched import cg_solve_batched
+from cgx_torch.solver.blockcg import BlockCGResult, block_cg_solve, block_matvec
 from cgx_torch.solver.cg import CGResult, as_vector, cg_solve
-from cgx_torch.solver.chebyshev import spectral_bounds
+from cgx_torch.solver.chebyshev import chebyshev_solve, spectral_bounds
+from cgx_torch.solver.deflated import DeflationBasis, cg_solve_harvest, deflated_cg_solve
+from cgx_torch.solver.gvpipe import gv_cg_solve
 from cgx_torch.solver.multigrid import infer_grid_ndim, mg_preconditioner
 from cgx_torch.solver.operators import DenseOperator, DiaOperator, as_operator
 from cgx_torch.solver.pipelined import pipelined_cg_solve
@@ -265,11 +282,105 @@ def _solve_sharded(mat, b, cfg: SolveConfig, method: str, dev: torch.device, *, 
     return sharded_cg_solve(
         _host_matrix(mat), b_np, x0=x0, mesh=mesh, n_devices=n_devices, strategy=strategy,
         method=method, precond=cfg.precond, precond_block_size=cfg.precond_block_size,
-        tol=cfg.tolerance, maxiter=b_np.shape[0] if cfg.maxiter is None else cfg.maxiter,
+        tol=cfg.tolerance, maxiter=_default_maxiter(cfg, method, b_np.shape[0]),
         nearzero=cfg.nearzero, history=cfg.history,
         dot_precision=None if cfg.precision == "fp64" else torch.float64,
+        check_every=cfg.check_every, gv_replace_every=cfg.gv_replace_every,
         dense_fp64=cfg.dense_fp64, local_kernel=cfg.local_kernel, device=dev,
     )
+
+
+def _default_maxiter(cfg: SolveConfig, method: str, n: int) -> int:
+    """``cfg.maxiter``, else N, or 4N for the Chebyshev iteration, which
+    trades iterations for reductions (cgx api.py:201-205)."""
+    if cfg.maxiter is not None:
+        return cfg.maxiter
+    return 4 * n if method == "chebyshev" else n
+
+
+def _multi_rhs_dtype(cfg: SolveConfig) -> torch.dtype:
+    if cfg.precision not in _DTYPES:
+        raise ValueError(f"multi-RHS solves support fp64/fp32, not {cfg.precision!r}")
+    return _DTYPES[cfg.precision]
+
+
+def _block_x0(x0, b: torch.Tensor, dev: torch.device):
+    """x0 as an (n, s) float64 array or tensor of b's shape, or None."""
+    if x0 is None:
+        return None
+    x0 = as_vector(x0, dev, "x0", torch.float64) if isinstance(x0, torch.Tensor) else (
+        np.asarray(x0, np.float64))
+    if tuple(x0.shape) != tuple(b.shape):
+        raise ValueError(f"x0 must match b's shape {tuple(b.shape)}; got {tuple(x0.shape)}")
+    return x0
+
+
+def _operator_of(mat, dtype, dev):
+    """A port operator as it is; anything else as its natural operator."""
+    return mat if hasattr(mat, "matvec") else as_operator(mat, dtype=dtype, device=dev)
+
+
+def _solve_batched_rhs(mat, b, cfg: SolveConfig, method: str, dev: torch.device, x0, *,
+                       sharded: bool) -> CGResult:
+    """multi_rhs="batched" (cgx api.py:610-716): an independent reference
+    recurrence a column of the (n, s) b, through
+    :func:`cgx_torch.solver.batched.cg_solve_batched`; the result's x is
+    (n, s) and its other fields carry a leading column axis."""
+    dtype = _multi_rhs_dtype(cfg)
+    b_dev = as_vector(b, dev, "b", dtype)
+    x0 = _block_x0(x0, b_dev, dev)
+    if sharded:
+        raise _unported("multi_rhs='batched' on the sharded route (batched2d, ROADMAP A14)")
+    if method != "reference":
+        raise ValueError("single-device multi_rhs='batched' runs the batched reference "
+                         f"recurrence; method={method!r} needs a mesh")
+    if cfg.precond is not None:
+        raise ValueError("single-device multi_rhs='batched' takes no preconditioner (use the "
+                         "sharded path or multi_rhs='block')")
+    x0_t = None if x0 is None else torch.as_tensor(x0, device=dev).to(dtype).mT
+    res = cg_solve_batched(
+        _operator_of(mat, dtype, dev), b_dev.mT, x0_t, tol=cfg.tolerance,
+        maxiter=_default_maxiter(cfg, method, b_dev.shape[0]), nearzero=cfg.nearzero,
+        history=cfg.history, device=dev)
+    return res._replace(x=res.x.mT)
+
+
+def _solve_block(mat, b, cfg: SolveConfig, method: str, dev: torch.device, x0, *,
+                 sharded: bool) -> BlockCGResult:
+    """multi_rhs="block" (cgx api.py:718-841): every column of the (n, s)
+    b in one breakdown-free block-CG Krylov space, with the configured
+    preconditioner applied to every column. ``x0`` warm-starts by the
+    shift identity: solve ``A D = B - A X0`` from zero and return ``X0 +
+    D``, ``A X0`` on the host in float64 for a host matrix (as cgx), by
+    the operator itself for a port operator."""
+    if method != "reference":
+        raise ValueError("multi-RHS solves use the breakdown-free block recurrence; "
+                         f"method={method!r} applies to single-RHS solves only")
+    dtype = _multi_rhs_dtype(cfg)
+    b_dev = as_vector(b, dev, "b", dtype if x0 is None else torch.float64)
+    x0 = _block_x0(x0, b_dev, dev)
+    if sharded:
+        raise _unported("multi-RHS block solves on the sharded route (sharded_block_cg_solve, "
+                        "ROADMAP A14)")
+    op = _operator_of(mat, dtype, dev)
+    if dtype == torch.float64:
+        op = _maybe_ozaki(op, cfg)
+    pc = _build_precond(cfg, op)
+    shift = None
+    if x0 is not None:
+        if hasattr(mat, "mat_vec") or isinstance(mat, np.ndarray):
+            x0_np = x0.cpu().numpy() if isinstance(x0, torch.Tensor) else x0
+            ax0 = (mat @ x0_np if isinstance(mat, np.ndarray) else np.stack(
+                [mat.mat_vec(x0_np[:, j]) for j in range(x0_np.shape[1])], axis=1))
+            ax0 = torch.as_tensor(ax0, dtype=torch.float64, device=dev)
+        else:
+            ax0 = block_matvec(op)(torch.as_tensor(x0, device=dev).to(dtype)).to(torch.float64)
+        b_dev = b_dev - ax0
+        shift = torch.as_tensor(x0, device=dev).to(dtype)
+    res = block_cg_solve(op, b_dev.to(dtype), tol=cfg.tolerance,
+                         maxiter=b_dev.shape[0] if cfg.maxiter is None else cfg.maxiter,
+                         precond=pc, device=dev)
+    return res if shift is None else res._replace(x=res.x + shift)
 
 
 def solve(
@@ -297,9 +408,13 @@ def solve(
     if x0 is not None and cfg.precision in ("mixed", "tw"):
         raise ValueError(f"precision={cfg.precision!r} manages its own inner starts; x0 is "
                          "not supported there")
-    if np.ndim(b) == 2:
-        raise _unported("multi-RHS solves of a 2-D b (ROADMAP A11)")
     sharded = (n_devices is not None and n_devices > 1) or mesh is not None
+    if np.ndim(b) == 2:
+        if cfg.multi_rhs == "batched":
+            return _solve_batched_rhs(mat, b, cfg, method, dev, x0, sharded=sharded)
+        if cfg.multi_rhs != "block":
+            raise ValueError(f"unknown multi_rhs {cfg.multi_rhs!r}")
+        return _solve_block(mat, b, cfg, method, dev, x0, sharded=sharded)
     if cfg.precision == "tw":
         return _solve_tw(mat, b, cfg, method, dev, sharded=sharded)
     if sharded:
@@ -311,19 +426,27 @@ def solve(
         raise _unported(f"precision={cfg.precision!r}: {_UNPORTED_PRECISION[cfg.precision]}")
     if cfg.precision not in _DTYPES:
         raise ValueError(f"unknown precision {cfg.precision!r}")
-    if method in ("gvpipe", "chebyshev"):
-        raise _unported(f"method={method!r} (ROADMAP A11)")
-    if method not in ("reference", "pipelined", "sstep"):
+    if method not in ("reference", "pipelined", "gvpipe", "chebyshev", "sstep"):
         raise ValueError(f"unknown method {method!r}")
     dtype = _DTYPES[cfg.precision]
     # fp32 vectors with fp64 dots, as cgx does whenever x64 is on
     dot_precision = torch.float64 if dtype != torch.float64 else None
 
-    op = mat if hasattr(mat, "matvec") else as_operator(mat, dtype=dtype, device=dev)
-    op = _maybe_ozaki(op, cfg)
+    op = _maybe_ozaki(_operator_of(mat, dtype, dev), cfg)
     b_dev = as_vector(b, dev, "b", dtype)
     n = b_dev.shape[0]
-    maxiter = n if cfg.maxiter is None else cfg.maxiter
+    maxiter = _default_maxiter(cfg, method, n)
+    if method == "chebyshev":  # cgx api.py:280-288
+        if cfg.precond is not None:
+            raise ValueError("chebyshev_solve does not take a preconditioner")
+        return chebyshev_solve(op, b_dev, x0, tol=cfg.tolerance, maxiter=maxiter,
+                               check_every=cfg.check_every, device=dev)
+    if method == "gvpipe":  # cgx api.py:310-318
+        return gv_cg_solve(
+            op, b_dev, x0, tol=cfg.tolerance, maxiter=maxiter, nearzero=cfg.nearzero,
+            history=cfg.history, dot_precision=dot_precision,
+            precond=_build_precond(cfg, op), replace_every=cfg.gv_replace_every, device=dev,
+        )
     if method == "pipelined":  # cgx api.py:302-309
         return pipelined_cg_solve(
             op, b_dev, x0, tol=cfg.tolerance, maxiter=maxiter, nearzero=cfg.nearzero,
@@ -368,3 +491,67 @@ def solve(
         precond=_build_precond(cfg, op),
         device=dev,
     )
+
+
+def solve_sequence(
+    mat,
+    bs,
+    config: Optional[SolveConfig] = None,
+    *,
+    k: int = 16,
+    window: Optional[int] = None,
+    warm_start: bool = False,
+    n_devices: Optional[int] = None,
+    mesh=None,
+    strategy: str = "auto",
+    device="cuda",
+) -> list:
+    """Solve a sequence ``A x_t = b_t`` with spectral recycling (cgx
+    ``solve_sequence``, api.py:843): the first solve runs plain CG and
+    harvests up to ``k`` converged Ritz vectors from its own iterates
+    (:func:`cgx_torch.solver.deflated.cg_solve_harvest`), and every later
+    one runs deflated CG on that basis, with the configured preconditioner
+    (deflated PCG). ``mat`` may be a list of matrices, one a step: the
+    harvested W is kept and only A_t W and the (k, k) inverse are rebuilt.
+    ``warm_start`` starts each solve from the one before. A harvest that
+    finds no converged Ritz pair leaves the rest of the sequence to plain
+    CG. Returns the list of results. The sharded form raises naming A14."""
+    cfg = config or SolveConfig()
+    dev = resolve_device(device)
+    if cfg.precision in _UNPORTED_PRECISION:
+        raise _unported(f"precision={cfg.precision!r}: {_UNPORTED_PRECISION[cfg.precision]}")
+    if cfg.precision not in _DTYPES:
+        raise ValueError(f"unknown precision {cfg.precision!r}")
+    if cfg.method != "reference":
+        raise ValueError(
+            "solve_sequence runs the reference recurrence (plain harvesting first solve + "
+            f"deflated PCG remainder); method={cfg.method!r} is not supported here - solve "
+            "those systems individually via cgx_torch.solve")
+    dtype = _DTYPES[cfg.precision]
+    bs = [as_vector(b, dev, "b", dtype) for b in bs]
+    if not bs:
+        return []
+    varying = isinstance(mat, (list, tuple))
+    mats = list(mat) if varying else [mat] * len(bs)
+    if len(mats) != len(bs):
+        raise ValueError(f"got {len(mats)} matrices for {len(bs)} right-hand sides")
+    if (n_devices is not None and n_devices > 1) or mesh is not None:
+        raise _unported("solve_sequence on the sharded route (sharded_cg_solve_harvest, "
+                        "sharded_deflated_cg_solve, ROADMAP A14)")
+    n = bs[0].shape[0]
+    maxiter = n if cfg.maxiter is None else cfg.maxiter
+    common = dict(tol=cfg.tolerance, maxiter=maxiter, nearzero=cfg.nearzero, device=dev)
+    op0 = _operator_of(mats[0], dtype, dev)
+    res0, basis = cg_solve_harvest(op0, bs[0], k=k, window=window, strict=False, **common)
+    results = [res0]
+    pc = None if basis is None else _build_precond(cfg, op0)
+    for m, b in zip(mats[1:], bs[1:]):
+        op_t = _operator_of(m, dtype, dev) if varying else op0
+        x_prev = results[-1].x if warm_start else None
+        if basis is None:
+            results.append(cg_solve(op_t, b, x_prev, **common))
+        else:
+            # a varying A keeps the harvested W; A_t W and the inverse are rebuilt
+            basis_t = DeflationBasis(op_t, basis.w) if varying else basis
+            results.append(deflated_cg_solve(op_t, b, basis_t, x_prev, precond=pc, **common))
+    return results

@@ -17,19 +17,28 @@ The two paths agree to rounding (``tests/test_torch_sstep.py`` holds
 them to 1e-12 relative). :func:`host_spectral_bounds` is the host path
 for a host matrix (the coarsest level of a multigrid hierarchy, the
 sharded route's Chebyshev preconditioner).
-``chebyshev_solve`` itself is not ported yet (ROADMAP A11).
+
+:func:`chebyshev_solve` is cgx's Chebyshev iteration (chebyshev.py:245-371):
+given ``[lmin, lmax]`` its recurrence needs no reduction, only one dot
+every ``check_every`` iterations for the convergence test, which is also
+the loop's only host read. Its scalars depend on the bounds alone, so
+the host computes them, in the vectors' dtype, as cgx's device does.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
+from cgx_torch.config import DEFAULT_TOLERANCE
 from cgx_torch.mats.containers import CSRMatrix, DenseMatrix, DIAMatrix, ELLMatrix
+from cgx_torch.ops._util import f32_exact, resolve_device
 from cgx_torch.ops.dia_spmv import dia_matvec_ref
-from cgx_torch.solver.operators import DiaOperator
+from cgx_torch.ops.reduce import vdot
+from cgx_torch.solver.cg import CGResult, _as_matvec, as_vector
+from cgx_torch.solver.operators import DenseOperator, DiaOperator
 
 
 def gershgorin_bounds(mat) -> Tuple[float, float]:
@@ -200,3 +209,117 @@ def spectral_bounds(
         lmin = max(lmin, g_lo)
         lmax = min(lmax, g_hi)
     return lmin, lmax
+
+
+def cheby_loop(
+    matvec: Callable,
+    b: torch.Tensor,
+    x0: torch.Tensor,
+    lmin: float,
+    lmax: float,
+    tol: torch.Tensor,
+    *,
+    maxiter: int,
+    check_every: int,
+    dot: Optional[Callable] = None,
+    marks=None,
+) -> CGResult:
+    """The Chebyshev iteration from ``x0`` on ``[lmin, lmax]`` (cgx
+    ``cheby_loop``, chebyshev.py:245). ``tol`` is a 0-d tensor of the
+    dot's dtype; ``dot(u, v)`` defaults to a local
+    :func:`cgx_torch.ops.reduce.vdot` (the sharded solver all-reduces
+    it). The dot runs, and the host reads ``converged``, only on the
+    iterations ``k`` with ``(k + 1) % check_every == 0``, so on
+    convergence ``k`` is a multiple of ``check_every``. ``marks`` as for
+    :func:`cgx_torch.solver.cg.run_recurrence`."""
+    if dot is None:
+        dot = vdot
+    dev = b.device
+    t = np.float64 if b.dtype == torch.float64 else np.float32
+    # the scalars in b's dtype, rounded as cgx's device rounds them
+    lo, hi, two, unit = t(lmin), t(lmax), t(2.0), t(1.0)
+    theta = (hi + lo) / two
+    delta = (hi - lo) / two
+    sigma1 = theta / delta
+    r = b - matvec(x0)
+    rr = dot(r, r)
+    conv = (torch.sqrt(rr) < tol) | (rr == 0)
+    x = x0
+    # a true division (a CUDA tensor divided by a host scalar is multiplied
+    # by its reciprocal instead)
+    p = r / torch.tensor(theta, dtype=b.dtype, device=dev)
+    rho_old = unit / sigma1
+    k = 0
+    if not bool(conv):
+        while k < maxiter:
+            if marks is not None:
+                marks.next_iteration()
+            x = x + p
+            r = r - matvec(p)
+            rho = unit / (two * sigma1 - rho_old)
+            p = float(rho * rho_old) * p + float(two * rho / delta) * r
+            rho_old = rho
+            k += 1
+            if k % check_every == 0:  # the loop's only reduction and host read
+                rr = dot(r, r)
+                conv = torch.sqrt(rr) < tol
+                if bool(conv):
+                    break
+    if marks is not None:
+        marks.end_loop()
+    rr_final = dot(r, r)
+    return CGResult(
+        x=x,
+        iterations=torch.tensor(k, dtype=torch.int32, device=dev),
+        residual_norm=torch.sqrt(rr_final),
+        converged=torch.sqrt(rr_final) < tol,
+        rsold=rr,
+        history=torch.zeros((0,), dtype=b.dtype, device=dev),
+        breakdown=torch.zeros((), dtype=torch.bool, device=dev),
+    )
+
+
+def chebyshev_solve(
+    a,
+    b,
+    x0=None,
+    *,
+    bounds: Optional[Tuple[float, float]] = None,
+    tol: float = DEFAULT_TOLERANCE,
+    maxiter: Optional[int] = None,
+    check_every: int = 32,
+    device="cuda",
+) -> CGResult:
+    """Solve SPD ``A x = b`` by the Chebyshev iteration (cgx
+    ``chebyshev_solve``, chebyshev.py:323).
+
+    Args:
+      a: an operator with ``.matvec``, a 2-D tensor, or a callable (which
+        then needs ``bounds``).
+      bounds: ``(lmin, lmax)``; by default :func:`spectral_bounds` of the
+        operator. ``0 < lmin < lmax`` or ``ValueError``.
+      maxiter: defaults to 4N (the method trades iterations for
+        reductions).
+      check_every: iterations between convergence checks.
+      device: where the solve runs; ``"cuda"`` unless ``"cpu"`` is asked.
+    """
+    dev = resolve_device(device)
+    b = as_vector(b, dev, "b")
+    n = b.shape[0]
+    x0 = torch.zeros_like(b) if x0 is None else as_vector(x0, dev, "x0", b.dtype)
+    if isinstance(a, torch.Tensor) and a.dim() == 2:
+        a = DenseOperator(a)
+    if bounds is None:
+        if not hasattr(a, "matvec"):
+            raise ValueError("bounds= is required for bare-callable operators")
+        bounds = spectral_bounds(a, n)
+    lmin, lmax = bounds
+    if not (0 < lmin < lmax):
+        raise ValueError(f"invalid spectral bounds {bounds}")
+    with f32_exact():
+        return cheby_loop(
+            _as_matvec(a, dev), b, x0, float(lmin), float(lmax),
+            torch.tensor(tol, dtype=b.dtype, device=dev),
+            maxiter=4 * n if maxiter is None else int(maxiter),
+            check_every=int(check_every),
+        )

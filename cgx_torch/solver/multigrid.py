@@ -601,6 +601,8 @@ class MGPreconditioner:
     def _coarsest(self, r: torch.Tensor) -> torch.Tensor:
         if self.coarsest_inv is not None:
             with f32_exact():
+                if r.dim() > 1:  # a batch of residuals, one a row
+                    return torch.matmul(r, self.coarsest_inv.mT)
                 return torch.matmul(self.coarsest_inv, r)
         return self.coarsest_cheb(r)
 
@@ -653,7 +655,9 @@ class MGPreconditioner:
         return z
 
     def apply(self, r: torch.Tensor) -> torch.Tensor:
-        """``z = M^-1 r``: one symmetric cycle from a zero guess."""
+        """``z = M^-1 r``: one symmetric cycle from a zero guess. ``r`` may
+        carry leading batch dimensions (the columns of a block solve), each
+        row cycled as a single vector is."""
         return self._vcycle(0, r)
 
     def apply_mixed(self, r: torch.Tensor) -> torch.Tensor:

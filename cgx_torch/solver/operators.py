@@ -322,3 +322,14 @@ def operator_from_cgx(op, *, dtype=None, device="cuda"):
     if hasattr(op, "indices"):
         return EllOperator(values(op.values), ints(op.indices))
     raise TypeError(f"no port counterpart for {type(op)}")
+
+
+def basis_from_cgx(basis, op):
+    """The port's :class:`~cgx_torch.solver.deflated.DeflationBasis` of
+    ``op`` (a port operator, on its device) from a cgx
+    ``DeflationBasis``: its W read with ``np.asarray`` (nothing of cgx is
+    imported), and AW, the (k, k) inverse and (AW)^T AW rebuilt here in
+    the operator's dtype."""
+    from cgx_torch.solver.deflated import DeflationBasis
+
+    return DeflationBasis(op, np.asarray(basis.w))

@@ -174,7 +174,29 @@ Phases, one JSON object per line each:
     Ozaki mat-vec within 1e-14 of torch.mv relative to each dot's mass,
     solve(dense_fp64="ozaki") at tol 1e-10 (k in the golden's window,
     true residual below 1e-11), "auto" resolving to the plain operator;
-    ms of an Ozaki mat-vec beside B3 and torch.mv.
+    ms of an Ozaki mat-vec beside B3 and torch.mv;
+34. sharded methods (inside phase 25's NCCL group of one rank): gvpipe
+    through solve(mesh=) and the Chebyshev method on the analytic bounds,
+    lap2d_fd(1000), fp64, k equal to one device's, one all-reduce an
+    iteration for gvpipe and one every check_every for Chebyshev;
+35. gv main: Ghysels-Vanroose CG at N = 10,240,000: fp32 twice (bitwise;
+    an honest breakdown or the classic loop's gates), fp64 against the
+    three-kernel loop (cgx's k bound), and MG-PCG in fp64 with both
+    cycles at 1e-10 ||b|| and with the fp64 cycle at 1e-8 ||b||;
+36. cheby main: the analytic extremes of the stencil against eigvalsh,
+    the Lanczos estimate, the Chebyshev iteration at N = 10,240,000 in
+    fp32 twice (bitwise), and solve(method="chebyshev") on
+    lap2D_5pt_n100.mtx in fp64 on the card and the host (k equal);
+37. CLI methods: --method gvpipe and --method chebyshev on the
+    reference's run against a CPU replay of the same argv, run in a
+    process of its own beside phases 35-36;
+38. block main: block MG-PCG with 8 right-hand sides at N = 10,240,000,
+    fp64, fp32 cycle, twice (bitwise), its build apart, V-cycles, host
+    syncs, a profile and the peak memory;
+39. multi-RHS paths on lap2d_fd(1000): multi_rhs="batched" against
+    single solves, solve_sequence against plain CG, and the
+    differentiable solves (single and block) against one more solve and a
+    central difference.
 
 The CLI phases call cgx_torch.cli.main.run, the body of the CLI's main,
 in this process. Then a "kernels" line for the ported kernels (every
@@ -206,10 +228,16 @@ import torch.distributed as dist
 
 from cgx_torch import (
     DenseOperator,
+    gv_cg_solve,
+    DiaOperator,
     SolveConfig,
     _build,
     as_operator,
+    block_cg_solve,
+    block_cg_solve_differentiable,
     cg_solve,
+    cg_solve_differentiable,
+    chebyshev_solve,
     config,
     densify_on_device,
     dia_cg_solve_pallas,
@@ -219,11 +247,13 @@ from cgx_torch import (
     iterative_refinement,
     pipelined_cg_solve,
     solve,
+    solve_sequence,
 )
 from cgx_torch.cli import main as cli
 from cgx_torch.mats.device import lap2d_operator, source_term_device
 from cgx_torch.parallel import make_mesh, make_sharded_solver
 from cgx_torch.parallel import sharded_cg as sc
+from cgx_torch.mats.containers import COOMatrix
 from cgx_torch.mats.generators import (
     lap2d_fd,
     lap2d_fd_coo_lower,
@@ -235,7 +265,7 @@ from cgx_torch.ops import axpy, cg_kernel, cg_stream, dia_powers, dia_spmv, matv
 from cgx_torch.ops import sstep_stream as ss
 from cgx_torch.ops._util import f32_exact
 from cgx_torch.ops.dd import two_prod, two_sum
-from cgx_torch.solver import api
+from cgx_torch.solver import api, blockcg
 from cgx_torch.solver.chebyshev import (
     device_matvec,
     host_matvec,
@@ -400,6 +430,11 @@ MG_CONFIGS = (("richardson", "v"), ("richardson", "w"), ("gs", "v"), ("gs", "w")
 MG_SKIP = {("lap3d_fd(128)", "gs", "w")}
 MG_PROBE_GRID = 256  # device against host Galerkin build
 PRECOND_GRID = 1000  # lap2d_fd(1000): N = 1,000,000
+GV_SLACK = (1.15, 2)  # tests/test_gvpipe.py:61: gvpipe's k <= 1.15 k_classic + 2
+BLOCK_S = 8  # block_main's right-hand sides
+MULTI_S = 4  # multi_rhs_paths' batched and block right-hand sides
+SEQ_K = 16  # solve_sequence's harvested Ritz vectors
+FD_STEP = 1e-4  # the bands scaled by 1 +- FD_STEP for the central difference
 TW_GATE = 1e-10  # bench.py's SECONDARY_REL_GATE: the true relative residual
 # bench.py's refine_pcg_sweeps_tw arguments (bench.py:140-144); solve(precision="tw") the same
 TW_KW = dict(sweeps=16, rtol=3e-11, inner_tol=1e-6, inner_maxiter=80)
@@ -2454,7 +2489,7 @@ def counted(pc):
     return apply, calls
 
 
-def phase_mg_main(spec, b4: dict) -> None:
+def phase_mg_main(spec, b4: dict) -> dict:
     """MG-PCG on cgx's flagship problem, uncut: lap2d_operator(3200) and
     source_term_device built on the card, N = 10,240,000, fp64, tol
     1e-10 ||b||, through solve(precond="mg") with an fp32 cycle (bench.py's
@@ -2486,6 +2521,7 @@ def phase_mg_main(spec, b4: dict) -> None:
     check(bool(plain.converged), "mg_main: the plain fp64 loop did not converge")
     floor = true_rel_compensated(op.bands, op.offsets, plain.x, b)
     del plain
+    summary = {"k": {}, "floor": floor, "k_plain": k_plain}
     for cycle in MG_CYCLES:
         cfg = SolveConfig(precision="fp64", precond="mg", mg_cycle_precision=cycle,
                           tolerance=tol)
@@ -2556,8 +2592,12 @@ def phase_mg_main(spec, b4: dict) -> None:
               f"the separate build bitwise {same}")
         check(mg.galerkin_setup == "device", f"{where}: the {mg.galerkin_setup} Galerkin build ran")
         check(vcycles <= 2 * k + 2, f"{where}: {vcycles} V-cycles for k={k}")
+        summary["k"][cycle] = k
+        summary[f"seconds_{cycle}"] = seconds
+        summary[f"setup_seconds_{cycle}"] = setup_seconds
         del res, pc, mg, apply
         sync()
+    return summary
 
 
 def mg_cpu_twin(dia, ndim: int, setup: str):
@@ -2966,6 +3006,598 @@ def phase_ozaki_dense() -> None:
     sync()
 
 
+def analytic_bounds(g: int) -> tuple:
+    """The extreme eigenvalues of lap2d_fd(g), the 5-point Dirichlet
+    stencil (4 on the diagonal, -1 at the four neighbours):
+    4 (1 -+ cos(pi / (g + 1)))."""
+    c = float(np.cos(np.pi / (g + 1)))
+    return 4.0 * (1.0 - c), 4.0 * (1.0 + c)
+
+
+def peak_since(base: int) -> int:
+    return torch.cuda.max_memory_allocated() - base
+
+
+def reset_peak() -> int:
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def profile_record(fn, iters: int) -> dict:
+    """Launches, device ms and the idle share an iteration of ``fn``, a
+    run of ``iters`` loop iterations, from torch.profiler."""
+    events, busy_us, wall_us = device_profile(fn)
+    return {"profile_iterations": iters, "device_events_per_iter": events / iters,
+            "device_ms_per_iter": busy_us / iters / 1e3,
+            "profiled_wall_us_per_iter": wall_us / iters,
+            "idle_share_profiled": 1 - busy_us / wall_us}
+
+
+def phase_gv_main(spec, b4: dict, mg: dict) -> None:
+    """Ghysels-Vanroose CG on cgx's flagship problem, uncut:
+    lap2d_operator(3200) and source_term_device (N = 10,240,000). First in
+    fp32 (float64 dots) at the main path's 1e-5 ||b||, solve(method=
+    "gvpipe") twice (bitwise), with a profile of 256 iterations and the
+    peak memory. In fp32 cgx's recurrence breaks down before that
+    tolerance once kappa passes about 1e4 (cgx's own gv_cg_solve does, on
+    lap2d_fd(128) and up on the CPU: its deeper recursions drift by about
+    eps kappa), and exits on it with converged False (gvpipe.py:148-160):
+    so a converged run is held to the classic loop's true residual within
+    2x (cgx bounds no fp32 count: tests/test_gvpipe.py:117-128), and a
+    broken-down one to an honest exit (breakdown set, k below N, the
+    reported residual within 2x of the true one). Then in fp64 at the same
+    tolerance against the plain fp64 classic loop: cgx's bound k <= 1.15
+    k_classic + 2 (tests/test_gvpipe.py:61) and the true residual within
+    2x; then in fp64 with precond="mg" at 1e-10 ||b||, an fp64 and an fp32
+    cycle: with the fp64 cycle k within 1 of mg_main's and MG's gate (the
+    error-free true residual below the larger of 1e-10 and twice the
+    plain fp64 loop's) where it converges, and an honest exit where the
+    recursions stall first: an fp32 cycle is not the exactly symmetric
+    operator they assume (cgx breaks down on it at lap2d_fd(64) and (128)
+    on the CPU), and at this size even the fp64 cycle's recursive residual
+    stalls near 1.3e-10 ||b||. So gvpipe MG-PCG with the fp64 cycle runs
+    again at 1e-8 ||b||, held to MG-PCG on the same build (k one more,
+    the true residual within 2x). Plain torch: no hand-written kernel runs
+    (the fp64 yardstick is the three-kernel loop, B1 and B2)."""
+    n = GRID * GRID
+    b_host = source_term(n)
+    rel64 = rel64_on_card(lap2d_fd(GRID), b_host)
+    op = lap2d_operator(GRID, torch.float32, device=DEV)
+    b = source_term_device(n, torch.float32, device=DEV)
+    tol = 1e-5 * float(np.linalg.norm(b_host))
+    cfg = SolveConfig(precision="fp32", method="gvpipe", tolerance=tol)
+    base = reset_peak()
+    res, k, seconds, launches, bitwise = solve_twice(lambda: solve(op, b, cfg, device=DEV))
+    peak = peak_since(base)
+    rel = rel64(res.x)
+    prof = profile_record(lambda: solve(op, b, SolveConfig(
+        precision="fp32", method="gvpipe", tolerance=0.0, maxiter=PROFILE_ITERS),
+        device=DEV).iterations.item(), PROFILE_ITERS)
+    bound = GV_SLACK[0] * b4["k_classic"] + GV_SLACK[1]
+    reported = float(res.residual_norm) / float(np.linalg.norm(b_host))
+    rec = {"phase": "gv_main", "problem": f"lap2d_operator({GRID})", "n": n,
+           "precision": "fp32", "dots": "float64", "tol": tol, "k": k,
+           "converged": bool(res.converged), "breakdown": bool(res.breakdown),
+           "bitwise_repeat": bitwise, "seconds": seconds, "us_per_iter": seconds / max(k, 1) * 1e6,
+           "k_classic": b4["k_classic"], "k_bound": bound,
+           "classic_seconds": b4["classic_seconds"], "true_rel": rel,
+           "reported_rel": reported, "true_rel_classic": b4["true_rel_classic"],
+           "peak_bytes": peak, **prof,
+           "x_finite": bool(torch.isfinite(res.x).all())}
+    emit(rec)
+    check(rec["x_finite"] and res.x.shape == (n,), "gv_main: x is not finite")
+    check(bitwise, "gv_main: two runs differ")
+    rc = b4["true_rel_classic"]
+    if rec["converged"]:
+        check(max(rel, rc) <= 2 * min(rel, rc),
+              f"gv_main: true residual {rel}, the classic loop's {rc}: more than 2x apart")
+    else:
+        check(rec["breakdown"] and k < n and max(rel, reported) <= 2 * min(rel, reported),
+              f"gv_main: neither converged nor an honest breakdown: k={k}, breakdown "
+              f"{rec['breakdown']}, reported residual {reported}, true {rel}")
+    no_kernel_launched(launches, "gv_main")
+    del res, op, b
+    sync()
+
+    op64 = lap2d_operator(GRID, torch.float64, device=DEV)
+    b64 = source_term_device(n, device=DEV)
+    classic, k_classic, classic_seconds = timed(lambda: dia_cg_solve_pallas(op64, b64, tol=tol,
+                                                                            device=DEV))
+    rc = rel64(classic.x)
+    del classic
+    reset_launches()
+    res, k, seconds = timed(lambda: solve(op64, b64, SolveConfig(method="gvpipe", tolerance=tol),
+                                          device=DEV))
+    launches = read_launches()
+    rel = rel64(res.x)
+    bound = GV_SLACK[0] * k_classic + GV_SLACK[1]
+    emit({"phase": "gv_main_fp64", "problem": f"lap2d_operator({GRID})", "n": n,
+          "precision": "fp64", "tol": tol, "k": k, "converged": bool(res.converged),
+          "seconds": seconds, "us_per_iter": seconds / k * 1e6, "k_classic": k_classic,
+          "classic_seconds": classic_seconds, "k_bound": bound, "true_rel": rel,
+          "true_rel_classic": rc})
+    check(bool(res.converged) and k <= bound,
+          f"gv_main fp64: converged {bool(res.converged)}, k={k}, bound {bound}")
+    check(max(rel, rc) <= 2 * min(rel, rc),
+          f"gv_main fp64: true residual {rel}, the classic loop's {rc}: more than 2x apart")
+    no_kernel_launched(launches, "gv_main fp64")
+    del res
+    sync()
+
+    tol64 = 1e-10 * float(torch.linalg.norm(b64))
+    for cycle in MG_CYCLES:
+        cfg = SolveConfig(precision="fp64", method="gvpipe", precond="mg",
+                          mg_cycle_precision=cycle, tolerance=tol64)
+        base = reset_peak()
+        reset_launches()
+        res, k, seconds = timed(lambda: solve(op64, b64, cfg, device=DEV))
+        launches = read_launches()
+        peak = peak_since(base)
+        rel = true_rel_compensated(op64.bands, op64.offsets, res.x, b64)
+        reported = float(res.residual_norm) / float(torch.linalg.norm(b64))
+        k_mg = mg["k"][cycle]
+        rec = {"phase": "gv_main_mg", "problem": f"lap2d_operator({GRID})", "n": n,
+               "precision": "fp64", "cycle_precision": cycle, "tol": tol64, "k": k,
+               "converged": bool(res.converged), "breakdown": bool(res.breakdown),
+               "seconds_with_build": seconds, "mg_main_k": k_mg,
+               "mg_main_seconds_with_build": mg[f"seconds_{cycle}"],
+               "mg_setup_seconds": mg[f"setup_seconds_{cycle}"], "true_rel": rel,
+               "reported_rel": reported, "true_rel_plain": mg["floor"], "peak_bytes": peak,
+               "x_finite": bool(torch.isfinite(res.x).all())}
+        emit(rec)
+        where = f"gv_main mg ({cycle} cycle)"
+        check(rec["x_finite"], f"{where}: x is not finite")
+        if rec["converged"]:
+            check(abs(k - k_mg) <= 1, f"{where}: k={k}, mg_main's {k_mg}")
+            check(rel < max(1e-10, 2 * mg["floor"]),
+                  f"{where}: true relative residual {rel}, the plain fp64 loop's {mg['floor']}")
+        else:
+            # the recursions' drift: an honest exit on denom <= 0 (gvpipe.py:148-160)
+            check(rec["breakdown"] and k < n, f"{where}: neither converged nor an honest "
+                  f"breakdown: k={k}, breakdown {rec['breakdown']}")
+        no_kernel_launched(launches, where)
+        del res
+        sync()
+
+    # above the recursions' attainable accuracy at this size (the recursive
+    # residual stalls near 1.3e-10 ||b|| from k = 11 on an H100): against
+    # MG-PCG on the same build at the same tolerance
+    tol8 = 1e-8 * float(torch.linalg.norm(b64))
+    cfg = SolveConfig(precision="fp64", precond="mg", tolerance=tol8)
+    pc = api._build_precond(cfg, op64)
+    ref, k_ref, ref_seconds = timed(lambda: cg_solve(op64, b64, tol=tol8, precond=pc,
+                                                     device=DEV))
+    rel_ref = true_rel_compensated(op64.bands, op64.offsets, ref.x, b64)
+    del ref
+    reset_launches()
+    res, k, seconds = timed(lambda: gv_cg_solve(op64, b64, tol=tol8, precond=pc, device=DEV))
+    launches = read_launches()
+    rel = true_rel_compensated(op64.bands, op64.offsets, res.x, b64)
+    rec = {"phase": "gv_main_mg_1e-8", "problem": f"lap2d_operator({GRID})", "n": n,
+           "precision": "fp64", "cycle_precision": "fp64", "tol": tol8, "k": k,
+           "converged": bool(res.converged), "seconds": seconds, "k_pcg": k_ref,
+           "pcg_seconds": ref_seconds, "true_rel": rel, "true_rel_pcg": rel_ref}
+    emit(rec)
+    where = "gv_main mg at 1e-8"
+    # gvpipe tests convergence as an iteration starts: one more than classic's k
+    check(rec["converged"] and 0 <= k - k_ref <= 1, f"{where}: k={k}, MG-PCG's {k_ref}")
+    check(max(rel, rel_ref) <= 2 * min(rel, rel_ref),
+          f"{where}: true residual {rel}, MG-PCG's {rel_ref}: more than 2x apart")
+    no_kernel_launched(launches, where)
+    del res, pc, op64, b64
+    sync()
+
+
+def phase_cheby_main(spec, b4: dict, tmp: Path) -> None:
+    """The Chebyshev iteration at N = 10,240,000, fp32, tol 1e-5 ||b||.
+    The analytic extremes of the 5-point Dirichlet stencil, checked
+    against a dense eigvalsh of lap2d_fd(8) and (12) on the host, beside
+    the port's spectral_bounds (64-step Lanczos, Gershgorin-tightened) of
+    the card's operator. At kappa near 4e6 the 64 steps cannot resolve
+    lmin; where the estimate is more than 2x above the analytic lmin the
+    full-size solve runs on the analytic bounds (chebyshev_solve(bounds=)),
+    else through solve(method="chebyshev"); twice (bitwise), k a multiple
+    of check_every, a profile of 256 iterations, the true residual below
+    the larger of 1e-4 and twice the classic loop's. Then
+    solve(method="chebyshev") on the reference's lap2D_5pt_n100.mtx in
+    fp64, on the card and on the host CPU: k equal."""
+    for g in (8, 12):
+        ev = np.linalg.eigvalsh(lap2d_fd(g).to_dense())
+        lo, hi = analytic_bounds(g)
+        check(abs(ev[0] - lo) <= 1e-12 * hi and abs(ev[-1] - hi) <= 1e-12 * hi,
+              f"cheby_main: lap2d_fd({g}) extremes {ev[0]}, {ev[-1]}; analytic {lo}, {hi}")
+    n = GRID * GRID
+    b_host = source_term(n)
+    rel64 = rel64_on_card(lap2d_fd(GRID), b_host)
+    op = lap2d_operator(GRID, torch.float32, device=DEV)
+    b = source_term_device(n, torch.float32, device=DEV)
+    tol = 1e-5 * float(np.linalg.norm(b_host))
+    sync()
+    t0 = time.perf_counter()
+    est = spectral_bounds(op, n)
+    bounds_seconds = time.perf_counter() - t0
+    analytic = analytic_bounds(GRID)
+    on_analytic = est[0] > 2 * analytic[0]
+    if on_analytic:
+        def run(maxiter=None, tol=tol):
+            return chebyshev_solve(op, b, bounds=analytic, tol=tol, maxiter=maxiter, device=DEV)
+    else:
+        def run(maxiter=None, tol=tol):
+            return solve(op, b, SolveConfig(precision="fp32", method="chebyshev", tolerance=tol,
+                                            maxiter=maxiter), device=DEV)
+    base = reset_peak()
+    res, k, seconds, launches, bitwise = solve_twice(run)
+    peak = peak_since(base)
+    rel = rel64(res.x)
+    prof = profile_record(lambda: run(PROFILE_ITERS, 0.0).iterations.item(), PROFILE_ITERS)
+    rc = b4["true_rel_classic"]
+    rec = {"phase": "cheby_main", "problem": f"lap2d_operator({GRID})", "n": n,
+           "precision": "fp32", "tol": tol, "bounds_estimate": list(est),
+           "bounds_analytic": list(analytic), "bounds_seconds": bounds_seconds,
+           "lmin_estimate_over_analytic": est[0] / analytic[0],
+           "ran_on": "analytic bounds" if on_analytic else "estimated bounds",
+           "k": k, "converged": bool(res.converged), "bitwise_repeat": bitwise,
+           "seconds": seconds, "us_per_iter": seconds / k * 1e6, "k_classic": b4["k_classic"],
+           "true_rel": rel, "true_rel_classic": rc, "peak_bytes": peak, **prof,
+           "idle_share": 1 - prof["device_ms_per_iter"] * 1e3 / (seconds / k * 1e6),
+           "x_finite": bool(torch.isfinite(res.x).all())}
+    emit(rec)
+    check(rec["converged"] and rec["x_finite"], "cheby_main: did not converge to a finite x")
+    check(bitwise and k % SolveConfig().check_every == 0,
+          f"cheby_main: bitwise {bitwise}, k={k} not a multiple of check_every")
+    check(rel < max(1e-4, 2 * rc), f"cheby_main: true relative residual {rel}")
+    no_kernel_launched(launches, "cheby_main")
+    del res, op, b
+    sync()
+
+    mtx = tmp / "lap2D_5pt_n100.mtx"
+    if not mtx.exists():
+        lap2d_fd_coo_lower(100).write(mtx, comment=" 2D 5-point Laplacian, 100x100 grid")
+    coo = COOMatrix.read(str(mtx))
+    b100 = source_term(coo.shape[0])
+    cfg = SolveConfig(method="chebyshev")
+    card, k_card, card_seconds = timed(lambda: solve(coo, b100, cfg, device=DEV))
+    t0 = time.perf_counter()
+    cpu = solve(coo, b100, cfg, device="cpu")
+    cpu_seconds = time.perf_counter() - t0
+    dense = lap2d_fd(100).to_dense()
+    rel_card = float(np.linalg.norm(dense @ card.x.cpu().numpy() - b100) / np.linalg.norm(b100))
+    emit({"phase": "cheby_mtx", "problem": "lap2D_5pt_n100.mtx", "precision": "fp64",
+          "k": k_card, "k_cpu": int(cpu.iterations), "converged": bool(card.converged),
+          "seconds": card_seconds, "cpu_seconds": cpu_seconds, "true_rel": rel_card})
+    check(bool(card.converged) and k_card == int(cpu.iterations),
+          f"cheby_mtx: k={k_card} on the card, {int(cpu.iterations)} on the CPU")
+    check(rel_card < 1e-11, f"cheby_mtx: true relative residual {rel_card}")
+
+
+def phase_block_main(spec, mg: dict) -> None:
+    """Block MG-PCG at N = 10,240,000: solve(lap2d_operator(3200), B,
+    precond="mg", fp32 cycle) in fp64 with B (n, 8): source_term and seven
+    seeded normal columns scaled to its norm, tol 1e-10 ||b0||, twice
+    (bitwise). Every column's error-free true residual below MG's gate,
+    k at most one above mg_main's single-RHS k. Then the build timed apart (peak
+    memory), the solve from it (bitwise) with its V-cycles (one
+    batched cycle an iteration), host syncs and peak memory counted, and a
+    profile of it (launches, device ms and idle share an iteration)."""
+    n = GRID * GRID
+    op = lap2d_operator(GRID, torch.float64, device=DEV)
+    b0 = source_term_device(n, device=DEV)
+    bnorm = float(torch.linalg.norm(b0))
+    cols = torch.as_tensor(np.random.default_rng(SEED).standard_normal((n, BLOCK_S - 1)),
+                           device=DEV)
+    big_b = torch.cat([b0[:, None], cols * (bnorm / torch.linalg.norm(cols, dim=0))], dim=1)
+    del cols
+    tol = 1e-10 * bnorm
+    cfg = SolveConfig(precision="fp64", precond="mg", mg_cycle_precision="fp32", tolerance=tol)
+    runs = []
+    for _ in range(2):
+        reset_launches()
+        res, k, seconds = timed(lambda: solve(op, big_b, cfg, device=DEV))
+        runs.append((res, k, seconds, read_launches()))
+    (res, k, seconds, launches), (res2, k2, seconds2, _) = runs
+    bitwise = k == k2 and torch.equal(res.x.view(torch.int64), res2.x.view(torch.int64))
+    del res2, runs
+    rels = [true_rel_compensated(op.bands, op.offsets, res.x[:, j].contiguous(),
+                                 big_b[:, j].contiguous()) for j in range(BLOCK_S)]
+    no_kernel_launched(launches, "block_main")
+
+    base = reset_peak()
+    t0 = time.perf_counter()
+    pc = api._build_precond(cfg, op)
+    sync()
+    setup_seconds = time.perf_counter() - t0
+    peak_build = peak_since(base)
+    cycle = pc.__self__
+    widths, syncs = [], [0]
+    vcycle, host = cycle._vcycle, blockcg._host
+
+    def counting_cycle(level, r):
+        if level == 0:
+            widths.append(r.shape[0] if r.dim() > 1 else 1)
+        return vcycle(level, r)
+
+    def counting_host(t):
+        syncs[0] += 1
+        return host(t)
+
+    cycle._vcycle, blockcg._host = counting_cycle, counting_host
+    try:
+        base = reset_peak()
+        again, k_again, solve_seconds = timed(lambda: block_cg_solve(
+            op, big_b, tol=tol, maxiter=n, precond=pc, device=DEV))
+        peak_solve = peak_since(base)
+        same = k_again == k and torch.equal(again.x.view(torch.int64), res.x.view(torch.int64))
+        del again
+        cycles, host_reads = list(widths), syncs[0]
+        prof = profile_record(lambda: int(block_cg_solve(op, big_b, tol=tol, maxiter=n,
+                                                         precond=pc, device=DEV).iterations), k)
+    finally:
+        cycle._vcycle, blockcg._host = vcycle, host
+    rec = {"phase": "block_main", "problem": f"lap2d_operator({GRID})", "n": n, "s": BLOCK_S,
+           "precision": "fp64", "cycle_precision": "fp32", "tol": tol, "k": k,
+           "converged": res.converged.tolist(), "breakdown": bool(res.breakdown),
+           "bitwise_repeat": bitwise, "seconds_with_build": seconds,
+           "seconds_with_build_repeat": seconds2, "setup_seconds": setup_seconds,
+           "peak_build_bytes": peak_build, "solve_seconds": solve_seconds,
+           "us_per_iter": solve_seconds / k * 1e6, "solve_bitwise_solve": same,
+           "peak_solve_bytes": peak_solve, "vcycles": len(cycles),
+           "vcycle_widths": sorted(set(cycles)),
+           "host_syncs": host_reads, "host_syncs_per_iter": (host_reads - 3) / k,
+           "mg_main_k": mg["k"]["fp32"], "mg_main_solve_seconds_with_build": mg["seconds_fp32"],
+           "true_rel": rels, "true_rel_plain": mg["floor"], **prof,
+           "idle_share": 1 - prof["device_ms_per_iter"] * 1e3 / (solve_seconds / k * 1e6),
+           "x_finite": bool(torch.isfinite(res.x).all())}
+    emit(rec)
+    gate = max(1e-10, 2 * mg["floor"])
+    check(bool(res.converged.all()) and rec["x_finite"] and res.x.shape == (n, BLOCK_S),
+          f"block_main: converged {rec['converged']}")
+    check(all(r < gate for r in rels), f"block_main: true residuals {rels}, the gate {gate}")
+    # cgx's breakdown-free recurrence takes one iteration more than its
+    # single-RHS MG-PCG on this block (8 against 7 at lap2d_fd(64) and (128)
+    # on the CPU, cgx and the port alike; blockcg.py:29-31)
+    check(k <= mg["k"]["fp32"] + 1,
+          f"block_main: k={k}, the single-RHS MG-PCG k={mg['k']['fp32']}")
+    check(bitwise and same, f"block_main: bitwise {bitwise}, from the separate build {same}")
+    check(len(cycles) == k + 1 and set(cycles) == {BLOCK_S},
+          f"block_main: {len(cycles)} V-cycles of widths {set(cycles)} for k={k}")
+    del res, big_b, pc, cycle, op, b0
+    sync()
+
+
+def phase_multi_rhs_paths() -> None:
+    """The other multi-RHS paths on lap2d_fd(1000) (N = 1,000,000), fp64:
+    solve(multi_rhs="batched") with s = 4 (source_term and three seeded
+    columns scaled to its norm, tol 1e-8 ||b0||) against each column's
+    single-RHS cg_solve (k within 2); solve_sequence of three of them with
+    k = 16 against plain CG (the first k within 1, the later ones within
+    10% of plain's: on this Laplacian deflation does not pay, as cgx's
+    docstring warns), seconds beside plain's; the differentiable solve at
+    1e-10 ||b0||: db against one more solve (1e-10) and the band gradient
+    against a central difference of the loss along the bands themselves
+    (1e-6); the block version at s = 4 likewise. Plain torch: no hand-written kernel."""
+    g = PRECOND_GRID
+    dia = lap2d_fd(g)
+    n = dia.shape[0]
+    op = as_operator(dia, torch.float64, device=DEV)
+    b0 = source_term(n)
+    rng = np.random.default_rng(SEED + 1)
+    cols = rng.standard_normal((n, MULTI_S - 1))
+    big_b = torch.as_tensor(np.concatenate(
+        [b0[:, None], cols * (np.linalg.norm(b0) / np.linalg.norm(cols, axis=0))], axis=1),
+        device=DEV)
+    tol = 1e-8 * float(np.linalg.norm(b0))
+    reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    batched = solve(op, big_b, SolveConfig(multi_rhs="batched", tolerance=tol), device=DEV)
+    ks = batched.iterations.tolist()
+    batched_seconds = time.perf_counter() - t0
+    singles = [timed(lambda: cg_solve(op, big_b[:, j].contiguous(), tol=tol, device=DEV))
+               for j in range(MULTI_S)]
+    k_single = [k for _, k, _ in singles]
+    conv = bool(batched.converged.all())
+    emit({"phase": "multi_rhs_batched", "problem": f"lap2d_fd({g})", "n": n, "s": MULTI_S,
+          "tol": tol, "k": ks, "k_single": k_single, "converged": conv,
+          "seconds": batched_seconds, "single_seconds": [s for _, _, s in singles]})
+    check(conv and all(abs(a - c) <= 2 for a, c in zip(ks, k_single)),
+          f"batched: k={ks}, single-RHS k={k_single}, converged {conv}")
+    del batched
+
+    sync()
+    t0 = time.perf_counter()
+    seq = solve_sequence(op, [big_b[:, j] for j in range(3)], SolveConfig(tolerance=tol),
+                         k=SEQ_K, device=DEV)
+    k_seq = [int(r.iterations) for r in seq]
+    seq_seconds = time.perf_counter() - t0
+    emit({"phase": "multi_rhs_sequence", "problem": f"lap2d_fd({g})", "n": n, "k": SEQ_K,
+          "k_seq": k_seq, "k_plain": k_single[:3], "seconds": seq_seconds,
+          "plain_seconds": sum(s for _, _, s in singles[:3]),
+          "converged": [bool(r.converged) for r in seq]})
+    check(all(bool(r.converged) for r in seq), "solve_sequence: a solve did not converge")
+    # a 128-row harvest of a 2911-iteration solve deflates no low mode here:
+    # cgx's own solve_sequence takes 3023 and 3122 on the CPU, the port's
+    # counts, against plain 2855 and 2944
+    check(abs(k_seq[0] - k_single[0]) <= 1 and all(a <= 1.1 * c for a, c in zip(
+        k_seq[1:], k_single[1:3])), f"solve_sequence: k={k_seq}, plain CG k={k_single[:3]}")
+    del seq
+
+    dtol = 1e-10 * float(np.linalg.norm(b0))
+    # the backward solve takes the forward's absolute tolerance (cgx's), so
+    # the cotangents are scaled to ||b0||: the same relative accuracy both ways
+    w = torch.as_tensor(rng.standard_normal(n), device=DEV)
+    w = w * (float(np.linalg.norm(b0)) / torch.linalg.norm(w))
+    bands = op.bands.clone().requires_grad_(True)
+    b = torch.as_tensor(b0, device=DEV).requires_grad_(True)
+    sync()
+    t0 = time.perf_counter()
+    loss = w @ cg_solve_differentiable(DiaOperator(bands, op.offsets), b, dtol, device=DEV)
+    loss.backward()
+    diff_seconds = time.perf_counter() - t0
+    y = cg_solve(op, w, tol=dtol, device=DEV).x
+    db_err = float(torch.max(torch.abs(b.grad - y)) / torch.max(torch.abs(y)))
+
+    def loss_at(scale):
+        return float(w @ cg_solve(DiaOperator(op.bands * scale, op.offsets), b.detach(),
+                                  tol=dtol, device=DEV).x)
+
+    fd = (loss_at(1 + FD_STEP) - loss_at(1 - FD_STEP)) / (2 * FD_STEP)
+    ad = float(torch.sum(bands.grad * op.bands))
+    emit({"phase": "multi_rhs_autodiff", "problem": f"lap2d_fd({g})", "n": n, "tol": dtol,
+          "seconds_forward_backward": diff_seconds, "db_rel_err": db_err,
+          "band_grad_along_bands": ad, "central_difference": fd,
+          "fd_rel_err": abs(ad - fd) / abs(fd), "loss": float(loss.detach())})
+    check(db_err <= 1e-10, f"autodiff: db off by {db_err}")
+    check(abs(ad - fd) <= 1e-6 * abs(fd), f"autodiff: band gradient {ad}, difference {fd}")
+
+    wb = torch.as_tensor(rng.standard_normal((n, MULTI_S)), device=DEV)
+    wb = wb * (float(np.linalg.norm(b0)) / torch.linalg.norm(wb, dim=0))
+    btol = dtol
+    bands = op.bands.clone().requires_grad_(True)
+    bb = big_b.clone().requires_grad_(True)
+    sync()
+    t0 = time.perf_counter()
+    xb = block_cg_solve_differentiable(DiaOperator(bands, op.offsets), bb, btol, device=DEV)
+    (wb * xb).sum().backward()
+    block_seconds = time.perf_counter() - t0
+    yb = block_cg_solve(op, wb, tol=btol, device=DEV).x
+    db_block = float(torch.max(torch.abs(bb.grad - yb)) / torch.max(torch.abs(yb)))
+
+    def block_loss_at(scale):
+        return float(torch.sum(wb * block_cg_solve(DiaOperator(op.bands * scale, op.offsets),
+                                                   big_b, tol=btol, device=DEV).x))
+
+    fd = (block_loss_at(1 + FD_STEP) - block_loss_at(1 - FD_STEP)) / (2 * FD_STEP)
+    ad = float(torch.sum(bands.grad * op.bands))
+    launches = read_launches()
+    emit({"phase": "multi_rhs_block_autodiff", "problem": f"lap2d_fd({g})", "n": n,
+          "s": MULTI_S, "tol": btol, "seconds_forward_backward": block_seconds,
+          "db_rel_err": db_block, "band_grad_along_bands": ad, "central_difference": fd,
+          "fd_rel_err": abs(ad - fd) / abs(fd)})
+    check(db_block <= 1e-10, f"block autodiff: dB off by {db_block}")
+    check(abs(ad - fd) <= 1e-6 * abs(fd), f"block autodiff: band gradient {ad}, difference {fd}")
+    no_kernel_launched(launches, "multi_rhs_paths")
+    sync()
+
+
+def phase_sharded_methods(mesh) -> None:
+    """The sharded gvpipe and Chebyshev methods on the NCCL group of one
+    rank: lap2d_fd(1000), fp64, tol 1e-8 ||b||; gvpipe through
+    solve(mesh=), Chebyshev through sharded_cg_solve on the analytic
+    bounds. k equal to the same solve on one device; the recorder shows
+    one fused all-reduce an iteration for gvpipe (four more mat-vecs' halos
+    on the replacement cadence) and one every check_every iterations for
+    Chebyshev."""
+    dia = lap2d_fd(PRECOND_GRID)
+    n, g = dia.shape[0], PRECOND_GRID
+    b = source_term(n)
+    tol = 1e-8 * float(np.linalg.norm(b))
+    op = as_operator(dia, torch.float64, device=DEV)
+    b_dev = torch.as_tensor(b, dtype=torch.float64, device=DEV)
+    bounds = analytic_bounds(g)
+    every = SolveConfig().check_every
+    for method in ("gvpipe", "chebyshev"):
+        if method == "gvpipe":
+            cfg = SolveConfig(method="gvpipe", tolerance=tol)
+            single, k_single, single_seconds = timed(lambda: solve(op, b_dev, cfg, device=DEV))
+            sharded = lambda: solve(dia, b, cfg, mesh=mesh, device=DEV)  # noqa: E731
+        else:
+            single, k_single, single_seconds = timed(lambda: chebyshev_solve(
+                op, b_dev, bounds=bounds, tol=tol, device=DEV))
+            sharded = lambda: sc.sharded_cg_solve(  # noqa: E731
+                dia, b, mesh=mesh, method="chebyshev", bounds=bounds, tol=tol, device=DEV)
+        del single
+        reset_launches()
+        with collectives.capture() as cap:
+            res, k, seconds = timed(sharded)
+        launches = read_launches()
+        iters = cap.programs[0].iters
+        psums = [[e for e in it if e[0] == "psum"] for it in iters]
+        if method == "gvpipe":
+            ok = all(p == [("psum", 1, 2)] for p in psums)
+        else:
+            ok = all(p == ([("psum", 1, 1)] if (i + 1) % every == 0 else [])
+                     for i, p in enumerate(psums))
+        emit({"phase": "sharded_method", "method": method, "problem": f"lap2d_fd({g})", "n": n,
+              "precision": "fp64", "world": mesh.size, "backend": dist.get_backend(mesh.group),
+              "tol": tol, "k": k, "k_single": k_single, "converged": bool(res.converged),
+              "seconds": seconds, "single_seconds": single_seconds,
+              "us_per_iter": seconds / max(k, 1) * 1e6, "loop_iterations": len(iters),
+              "psums_in_loop": sum(len(p) for p in psums), "signature_iter": iters[0]})
+        where = f"sharded {method}"
+        check(bool(res.converged) and k == k_single, f"{where}: k={k}, one device k={k_single}")
+        check(ok, f"{where}: all-reduces an iteration {psums[:every]}")
+        no_kernel_launched(launches, where)
+        del res
+        sync()
+
+
+CLI_METHODS = ("gvpipe", "chebyshev")
+REPLAY_THREADS = 4  # of the host's cores, for the CPU replay beside the card's phases
+
+
+def cli_method_argv(tmp: Path, method: str, device: str = "cuda") -> list:
+    out = tmp / (f"{method}.txt" if device == "cuda" else f"{method}_cpu.txt")
+    argv = [str(tmp / "lap2D_5pt_n100.mtx"), "1024", "16", "true", str(out), "--method", method]
+    return argv if device == "cuda" else argv + ["--device", "cpu"]
+
+
+def start_cli_replay(tmp: Path) -> subprocess.Popen:
+    """The CPU replay of phase_cli_methods' two CLI runs, started in a
+    process of its own with REPLAY_THREADS threads, so that it runs while
+    the card's phases before it do (the dense kernel's plain version
+    takes tens of seconds on the host)."""
+    lap2d_fd_coo_lower(100).write(tmp / "lap2D_5pt_n100.mtx",
+                                  comment=" 2D 5-point Laplacian, 100x100 grid")
+    runs = "; ".join(
+        f"{sys.executable} -m cgx_torch.cli.main {' '.join(cli_method_argv(tmp, m, 'cpu'))} "
+        f"> {tmp / (m + '_cpu.out')}" for m in CLI_METHODS)
+    env = dict(os.environ, OMP_NUM_THREADS=str(REPLAY_THREADS),
+               PYTHONPATH=os.pathsep.join(filter(None, [str(Path(__file__).resolve().parent),
+                                                        os.environ.get("PYTHONPATH")])))
+    return subprocess.Popen(["bash", "-c", f"set -e; {runs}"], env=env)
+
+
+def phase_cli_methods(spec, tmp: Path, replay: subprocess.Popen) -> None:
+    """The CLI's --method gvpipe and --method chebyshev on the reference's
+    run, lap2D_5pt_n100.mtx 1024 16 true (fp64 through the dense kernel),
+    in this process, against the CPU replay of the same argv
+    (start_cli_replay): the [STEP k] line (Chebyshev's k equal, gvpipe's
+    within 3, the golden window's width, since the kernel sums in its own
+    order), the true residual below 1e-11 on both, ||x|| within 1e-9, and
+    the CSV rows' fields."""
+    card = {m: cli_run(cli_method_argv(tmp, m)) for m in CLI_METHODS}
+    t0 = time.perf_counter()
+    rc = replay.wait(timeout=900)
+    wait_seconds = time.perf_counter() - t0
+    check(rc == 0, f"the CLI's CPU replay exited with {rc}")
+    for method in CLI_METHODS:
+        run, m, launches = card[method]
+        m_cpu = STEP.search((tmp / f"{method}_cpu.out").read_text())
+        row_cpu = (tmp / f"{method}_cpu.txt").read_text().splitlines()[0].split(",")
+        check(m_cpu is not None, f"cli {method}: no [STEP k] line in the CPU replay")
+        k, k_cpu = int(m.group(1)), int(m_cpu.group(1))
+        row = run.csv_row.split(",")
+        x_norm, x_cpu = float(m.group(3)), float(m_cpu.group(3))
+        rec = {"phase": "cli_method", "method": method, "argv": cli_method_argv(tmp, method)[5:],
+               "k": k, "k_cpu": k_cpu, "step_line": m.group(0), "step_line_cpu": m_cpu.group(0),
+               "csv_row": run.csv_row, "csv_row_cpu": ",".join(row_cpu),
+               "seconds": run.seconds, "replay_wait_seconds": wait_seconds,
+               "converged": bool(run.result.converged), "true_rel": float(m.group(4)),
+               "true_rel_cpu": float(m_cpu.group(4)), "dense_launches": launches["dense_matvec"]}
+        emit(rec)
+        where = f"cli --method {method}"
+        check(rec["converged"], f"{where}: did not converge")
+        check(k == k_cpu if method == "chebyshev" else abs(k - k_cpu) <= 3,
+              f"{where}: k={k}, the CPU replay's {k_cpu}")
+        check(rec["true_rel"] < 1e-11 and rec["true_rel_cpu"] < 1e-11,
+              f"{where}: true residuals {rec['true_rel']}, {rec['true_rel_cpu']}")
+        check(abs(x_norm - x_cpu) <= 1e-9 * x_cpu, f"{where}: ||x|| {x_norm}, the CPU's {x_cpu}")
+        check(row[:2] == row_cpu[:2] == ["1024", "16"] and float(row[2]) > 0
+              and float(row_cpu[2]) > 0, f"{where}: CSV rows {row}, {row_cpu}")
+        check(launches["dense_matvec"] >= k, f"{where} missed the kernel: {launches}")
+
+
 def main() -> int:
     spec = phase_device()
     phase_build()
@@ -3001,7 +3633,8 @@ def main() -> int:
         launches.update(phase_sharded(spec, mesh, b4_main))
         phase_sharded_goldens(mesh)
         phase_sharded_precond(mesh)
-    phase_mg_main(spec, b4_main)
+        phase_sharded_methods(mesh)
+    mg = phase_mg_main(spec, b4_main)
     phase_mg_goldens()
     with tempfile.TemporaryDirectory() as tmp:
         phase_precond_paths(Path(tmp))
@@ -3010,6 +3643,18 @@ def main() -> int:
     del op, b, apply
     sync()
     phase_ozaki_dense()
+    with tempfile.TemporaryDirectory() as tmp:
+        replay = start_cli_replay(Path(tmp))
+        try:
+            phase_gv_main(spec, b4_main, mg)
+            phase_cheby_main(spec, b4_main, Path(tmp))
+            phase_cli_methods(spec, Path(tmp), replay)
+        finally:
+            if replay.poll() is None:
+                replay.kill()
+                replay.wait()
+    phase_block_main(spec, mg)
+    phase_multi_rhs_paths()
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         rec = records[name]

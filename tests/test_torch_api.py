@@ -154,10 +154,8 @@ def test_precond_without_pallas_matches_cgx(problem, precond, precision):
         # the sharded route runs since ROADMAP A14 landed; what it does not port yet raises
         (SolveConfig(method="sstep"), {"n_devices": 4}),
         (SolveConfig(precond="mg"), {"mesh": object()}),
-        (SolveConfig(), {"method": "gvpipe"}),
-        (SolveConfig(), {"method": "chebyshev"}),
     ],
-    ids=["bf16", "tw", "n_devices", "mesh", "gvpipe", "chebyshev_method"],
+    ids=["bf16", "tw", "n_devices", "mesh"],
 )
 def test_unported_configs_raise(problem, cfg, kwargs):
     dia, b = problem
@@ -215,9 +213,8 @@ def test_mg_needs_a_banded_operator(problem):
 @pytest.mark.parametrize(
     "cfg,item",
     [(SolveConfig(method="sstep"), "A14"), (SolveConfig(precond="mg"), "A14"),
-     (SolveConfig(precision="mixed"), "A14"), (SolveConfig(precision="tw"), "A14"),
-     (SolveConfig(method="gvpipe"), "A11")],
-    ids=["sstep", "mg", "mixed", "tw", "gvpipe"],
+     (SolveConfig(precision="mixed"), "A14"), (SolveConfig(precision="tw"), "A14")],
+    ids=["sstep", "mg", "mixed", "tw"],
 )
 def test_sharded_unported_options_name_their_item(problem, cfg, item):
     dia, b = problem
@@ -285,11 +282,16 @@ def test_sharded_route_takes_x0_and_operators(problem):
 
 
 def test_unported_inputs_raise(problem):
-    """A 2-D b is not ported yet (A11). The sparse containers, which
-    raised here until ROADMAP A3 landed, now solve like cgx's."""
+    """A 2-D b on the sharded route is not ported yet (A14), under either
+    multi_rhs; on one device it solves (tests/test_torch_batched.py). The
+    sparse containers, which raised here until ROADMAP A3 landed, now
+    solve like cgx's."""
     dia, b = problem
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cgx_torch.solve(dia, np.stack([b, b], axis=1), device="cpu")
+    mesh = cgx_torch.make_mesh(device="cpu")
+    for multi_rhs in ("block", "batched"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A14"):
+            cgx_torch.solve(dia, np.stack([b, b], axis=1), SolveConfig(multi_rhs=multi_rhs),
+                            mesh=mesh, device="cpu")
     with pytest.raises(TypeError):
         cgx_torch.solve(object(), b, device="cpu")
     coo = cgx_torch.mats.generators.lap2d_fd_coo_lower(4)
@@ -362,3 +364,36 @@ def test_operator_from_numpy_casts_to_the_requested_dtype():
     assert op.bands.dtype == torch.float32 and op.bands.is_contiguous()
     with pytest.raises(ValueError):
         cgx_torch.operator_from_numpy(dia.bands, dia.offsets[:3], device="cpu")
+
+
+@pytest.mark.parametrize("method", ["gvpipe", "chebyshev"])
+def test_single_device_methods_match_cgx(problem, method):
+    """method="gvpipe" and "chebyshev" run on one device as cgx routes them
+    (api.py:280-318): cgx's k, x within 1e-10 (they raised naming A11
+    until it landed)."""
+    dia, b = problem
+    cfg = dict(method=method, tolerance=1e-8 * np.linalg.norm(b))
+    want = cgx.solve(cgx.lap2d_reference(256), b, cgx.SolveConfig(**cfg))
+    got = cgx_torch.solve(dia, b, SolveConfig(**cfg), device="cpu")
+    assert bool(got.converged) and int(got.iterations) == int(want.iterations)
+    np.testing.assert_allclose(got.x.numpy(), np.asarray(want.x), rtol=0,
+                               atol=1e-10 * np.abs(np.asarray(want.x)).max())
+
+
+@pytest.mark.parametrize("method", ["gvpipe", "chebyshev"])
+def test_mesh_runs_gvpipe_and_chebyshev(problem, method):
+    """solve(mesh=) takes the two methods to the sharded solver, with
+    gv_replace_every and check_every; on one rank it is the single-device
+    loop bit for bit (the sharded gvpipe raised naming A11 until it
+    landed)."""
+    from cgx_torch.utils import collectives
+
+    dia, b = problem
+    cfg = SolveConfig(method=method, tolerance=1e-8 * np.linalg.norm(b), check_every=8,
+                      gv_replace_every=10)
+    with collectives.capture() as cap:
+        got = cgx_torch.solve(dia, b, cfg, mesh=cgx_torch.make_mesh(device="cpu"), device="cpu")
+    assert cap.programs
+    single = cgx_torch.solve(dia, b, cfg, device="cpu")
+    assert int(got.iterations) == int(single.iterations)
+    assert torch.equal(got.x, single.x)

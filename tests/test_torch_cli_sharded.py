@@ -34,6 +34,9 @@ SHARDED_RUNS = {
     "dia_block_jacobi": ["--format", "dia", "--tol", "1e-6", "--precond", "block_jacobi",
                          "--precond-block-size", "16"],
     "dense_chebyshev": ["--tol", "1e-6", "--precond", "chebyshev"],
+    "dia_gvpipe": ["--format", "dia", "--tol", "1e-6", "--method", "gvpipe",
+                   "--gv-replace-every", "10"],
+    "dia_chebyshev_method": ["--format", "dia", "--tol", "1e-6", "--method", "chebyshev"],
 }
 
 

@@ -58,15 +58,39 @@ def case_signatures():
     return {name: _signature(name) for name in SOLVES}
 
 
+# the methods whose iterations differ by a cadence: cgx records the
+# cadence's collectives under lax.cond ("[cond]"), the port those that ran
+CADENCE = 4
+BOUNDS = (0.0183, 7.99)  # lap2d_fd(32)'s spectrum, widened
+COND_SOLVES = {
+    "gvpipe": {"strategy": "halo", "method": "gvpipe", "gv_replace_every": CADENCE},
+    "gvpipe_jacobi": {"strategy": "halo", "method": "gvpipe", "precond": "jacobi",
+                      "gv_replace_every": CADENCE},
+    "chebyshev_method": {"strategy": "halo", "method": "chebyshev", "bounds": BOUNDS,
+                         "check_every": CADENCE},
+}
+
+
+def case_iteration_lists():
+    """Every iteration's collectives, for the cadence methods."""
+    out = {}
+    for name, kw in COND_SOLVES.items():
+        with C.capture() as cap:
+            sharded_cg_solve(lap2d_fd(G), source_term(N), mesh=make_mesh(device="cpu"),
+                             maxiter=MAXITER, tol=0.0, **kw)
+        out[name] = [list(it) for it in cap.programs[-1].iters]
+    return out
+
+
 @pytest.fixture(scope="module")
 def port(tmp_path_factory):
     @functools.lru_cache(maxsize=None)
     def run(world):
         ranks = run_world(str(tmp_path_factory.mktemp(f"world{world}")), world, __name__,
-                          ["case_signatures"])
+                          ["case_signatures", "case_iteration_lists"])
         for other in ranks[1:]:  # a program-level signature: the same on every rank
             assert other == ranks[0]
-        return ranks[0]["case_signatures"]
+        return {**ranks[0]["case_signatures"], **ranks[0]["case_iteration_lists"]}
 
     return run
 
@@ -177,3 +201,53 @@ def test_dense_ozaki_same_signature_as_allgather(port, world):
     """The Ozaki shards gather p as the fp64 dense route does: one
     all_gather and two scalar psums an iteration."""
     assert _iter(port, world, "dense_ozaki") == _iter(port, world, "reference_allgather")
+
+
+@functools.lru_cache(maxsize=None)
+def cgx_cond_signature(p: int, name: str):
+    from cgx.mats.generators import lap2d_fd as cgx_lap2d_fd
+    from cgx.parallel.mesh import make_mesh as cgx_mesh
+    from cgx.parallel.sharded_cg import sharded_cg_solve as cgx_sharded
+    from cgx.utils import collectives as cgx_c
+
+    with cgx_c.capture() as cap:
+        cgx_sharded(cgx_lap2d_fd(G), source_term(N), mesh=cgx_mesh(p), maxiter=MAXITER,
+                    **COND_SOLVES[name])
+    return cap.signature()
+
+
+def _split_cond(sig):
+    """cgx's iteration list as (unconditional, under lax.cond), the
+    latter with cgx's "[cond]" mark taken off."""
+    uncond = [e for e in sig["iter"] if "[cond]" not in e[0]]
+    cond = [(e[0].replace("[cond]", ""),) + tuple(e[1:]) for e in sig["iter"] if "[cond]" in e[0]]
+    return uncond, cond
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("name", ["gvpipe", "gvpipe_jacobi"])
+def test_gvpipe_one_fused_psum_and_cadence_replacement(port, world, name):
+    """Ghysels-Vanroose: one fused all-reduce an iteration (of two dots,
+    three with a preconditioner), its mat-vec's halos after it, as cgx's
+    unconditional list; on the replacement cadence the four mat-vecs of
+    the replacement (cgx's eight [cond] ppermutes) run before them."""
+    uncond, cond = _split_cond(cgx_cond_signature(cgx_mesh_size(world), name))
+    assert uncond[0] == ("psum", 1, 3 if name.endswith("jacobi") else 2)
+    assert cond == [("ppermute", 1, G)] * 8
+    iters = port(world)[name]
+    assert len(iters) == MAXITER
+    for i, got in enumerate(iters):
+        assert got == (cond + uncond if i and i % CADENCE == 0 else uncond), (i, got)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_chebyshev_method_reduces_every_check_every(port, world):
+    """The Chebyshev iteration: its mat-vec's halos only, and one
+    all-reduce of one dot on every check_every-th iteration (cgx's psum
+    under lax.cond)."""
+    uncond, cond = _split_cond(cgx_cond_signature(cgx_mesh_size(world), "chebyshev_method"))
+    assert uncond == [("ppermute", 1, G)] * 2 and cond == [("psum", 1, 1)]
+    iters = port(world)["chebyshev_method"]
+    assert len(iters) == MAXITER
+    for i, got in enumerate(iters):
+        assert got == (uncond + cond if (i + 1) % CADENCE == 0 else uncond), (i, got)

@@ -38,7 +38,10 @@ def test_import_pulls_in_neither_jax_nor_cgx():
                                     "cgx_torch.parallel.multihost",
                                     "cgx_torch.utils.collectives",
                                     "cgx_torch.solver.multigrid", "cgx_torch.solver.precond",
-                                    "cgx_torch.mats.device"])
+                                    "cgx_torch.mats.device", "cgx_torch.solver.gvpipe",
+                                    "cgx_torch.solver.batched", "cgx_torch.solver.blockcg",
+                                    "cgx_torch.solver.deflated", "cgx_torch.solver.autodiff",
+                                    "cgx_torch.solver.api"])
 def test_module_import_pulls_in_neither_jax_nor_cgx_nor_a_build(module):
     code = (f"import {module}, sys, cgx_torch; "
             "assert 'jax' not in sys.modules and 'cgx' not in sys.modules, "
@@ -115,6 +118,42 @@ def test_solver_loops_run_at_full_float32(monkeypatch):
                                                            tolerance=1e-4), device="cpu")
         assert bool(res.converged) and len(seen) >= 4  # merge, coarsest, blocks, the loop's
         assert all(s == (False, "highest") for s in seen), seen
+        assert torch.get_float32_matmul_precision() == "medium"
+    finally:
+        torch.set_float32_matmul_precision(old)
+
+
+def test_new_loops_run_at_full_float32():
+    """gvpipe, the Chebyshev iteration, the batched loop and the deflated
+    loop also run their mat-vecs with TF32 off, and restore the caller's
+    setting."""
+    import functools
+
+    from cgx_torch.solver.deflated import DeflationBasis
+
+    old = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("medium")
+    try:
+        seen = []
+        op = types.SimpleNamespace(matvec=_flag_recorder(seen))
+        solves = (cgx_torch.gv_cg_solve,
+                  functools.partial(cgx_torch.chebyshev_solve, bounds=(1.0, 3.0)))
+        for solve in solves:
+            seen.clear()
+            res = solve(op, np.ones(8, np.float32), device="cpu")
+            assert bool(res.converged) and seen
+            assert all(s == (False, "highest") for s in seen), seen
+        seen.clear()
+        res = cgx_torch.cg_solve_batched(_flag_recorder(seen), np.ones((2, 8), np.float32),
+                                         device="cpu")
+        assert bool(res.converged.all()) and all(s == (False, "highest") for s in seen)
+        dia = cgx_torch.as_operator(cgx_torch.lap2d_fd(4), torch.float32, device="cpu")
+        basis = DeflationBasis(dia, np.eye(16, 2))
+        seen.clear()
+        rec = types.SimpleNamespace(matvec=lambda v: (_flag_recorder(seen)(v), dia.matvec(v))[1])
+        res = cgx_torch.deflated_cg_solve(rec, np.ones(16, np.float32), basis, tol=1e-4,
+                                          device="cpu")
+        assert bool(res.converged) and all(s == (False, "highest") for s in seen)
         assert torch.get_float32_matmul_precision() == "medium"
     finally:
         torch.set_float32_matmul_precision(old)

@@ -267,6 +267,26 @@ def case_solve_n_devices():
     return {**_np(res), "sharded": bool(cap.programs)}
 
 
+def case_gvpipe():
+    return _np(sharded_cg_solve(lap2d_reference(512), source_term(512), mesh=_mesh(), tol=1e-8,
+                                method="gvpipe"))
+
+
+def case_gvpipe_jacobi():
+    return _np(sharded_cg_solve(lap2d_reference(512), source_term(512), mesh=_mesh(), tol=1e-8,
+                                method="gvpipe", precond="jacobi", gv_replace_every=10))
+
+
+def case_chebyshev_method():
+    return _np(sharded_cg_solve(lap2d_reference(512), source_term(512), mesh=_mesh(), tol=1e-6,
+                                method="chebyshev", bounds=CHEB_BOUNDS, check_every=8))
+
+
+def case_chebyshev_method_host_bounds():
+    return _np(sharded_cg_solve(lap2d_reference(512), source_term(512), mesh=_mesh(), tol=1e-6,
+                                method="chebyshev"))
+
+
 CASES = [name for name in dir() if name.startswith("case_")]
 
 
@@ -524,6 +544,32 @@ def test_solve_n_devices_routes_to_the_sharded_solver(port, world):
     _same_solve(got, cgx_solve(cgx_mesh_size(world), "dia:512", tol=1e-6))
 
 
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("case,kw", [
+    ("gvpipe", {"tol": 1e-8, "method": "gvpipe"}),
+    ("gvpipe_jacobi", {"tol": 1e-8, "method": "gvpipe", "precond": "jacobi",
+                       "gv_replace_every": 10}),
+    ("chebyshev_method", {"tol": 1e-6, "method": "chebyshev", "bounds": CHEB_BOUNDS,
+                          "check_every": 8}),
+    ("chebyshev_method_host_bounds", {"tol": 1e-6, "method": "chebyshev"}),
+], ids=["gvpipe", "gvpipe_jacobi", "chebyshev", "chebyshev_host_bounds"])
+def test_gvpipe_and_chebyshev_match_cgx(port, world, case, kw):
+    """The sharded gvpipe (on gv_cg_loop with the fused all-reduce) and the
+    Chebyshev method (on given bounds or the host matrix's) on every world
+    against cgx on make_mesh(P): the same k, x within 1e-10 (both raised
+    naming A11 until it landed)."""
+    got = port(world)[f"case_{case}"]
+    _same_solve(got, cgx_solve(cgx_mesh_size(world), "dia:512", **kw))
+    if kw["method"] == "chebyshev":
+        assert got["k"] % kw.get("check_every", 32) == 0
+
+
+def test_chebyshev_method_rejects_bad_bounds():
+    with pytest.raises(ValueError, match="invalid spectral bounds"):
+        sharded_cg_solve(lap2d_reference(64), source_term(64), mesh=_mesh(), method="chebyshev",
+                         bounds=(0.0, 8.0))
+
+
 # ---------------------------------------------------------------------------
 # In this process, without a process group
 # ---------------------------------------------------------------------------
@@ -557,9 +603,7 @@ def test_halo_wider_than_the_shard_raises():
 
 @pytest.mark.parametrize("kw,item", [
     ({"method": "sstep"}, "A14"),
-    ({"method": "gvpipe"}, "A11"),
-    ({"method": "chebyshev"}, "A11"),
-], ids=["sstep", "gvpipe", "chebyshev"])
+], ids=["sstep"])
 def test_unported_options_raise_naming_their_item(kw, item):
     kw = dict(kw)
     mat = lap2d_reference(64)
