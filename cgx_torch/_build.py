@@ -84,16 +84,16 @@ _SIGNATURES = {
     },
     "sstep_stream": {
         "cgx_sstep_gram": (_p, _p, _p, _p, _p, _p, _p, _p, _n, _p, _n, _p, _n, _offs, _i, _i, _d,
-                           _d, _d_in, _i, _d, _d, _d, _n, _i, _p),
+                           _d, _d_in, _i, _d, _d, _d, _n, _i, _n, _n, _i, _p),
         "cgx_sstep_gram_wave": (_p, _p, _p, _p, _p, _p, _p, _p, _n, _p, _n, _offs, _i, _i, _d,
-                                _d, _d_in, _i, _d, _d, _d, _offs, _i, _i, _p),
-        "cgx_sstep_replay": (_p, _p, _i, _d, _d, _d, _p),
+                                _d, _d_in, _i, _d, _d, _d, _offs, _i, _i, _n, _n, _i, _p),
+        "cgx_sstep_replay": (_p, _p, _i, _d, _d, _d, _i, _p),
     },
     "sstep_recover": {
         "cgx_sstep_recover": (_p, _p, _p, _p, _p, _p, _p, _p, _n, _p, _n, _offs, _i, _i, _d, _d,
-                              _d_in, _i, _n, _i, _p),
+                              _d_in, _i, _n, _i, _n, _n, _p),
         "cgx_sstep_recover_wave": (_p, _p, _p, _p, _p, _p, _p, _p, _n, _offs, _i, _i, _d, _d,
-                                   _d_in, _i, _offs, _i, _i, _p),
+                                   _d_in, _i, _offs, _i, _i, _n, _n, _p),
     },
 }
 # Entries that also take bfloat16 bands under float32 vectors, bound with

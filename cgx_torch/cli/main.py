@@ -63,9 +63,10 @@ divisor of the shard size), and so do ``--method gvpipe`` (with
 ``--gv-replace-every``) and ``--method chebyshev`` (on the host
 matrix's Lanczos bounds).
 
-``--method sstep`` or ``--precond mg`` with ``--devices`` (A14) and
-``--precision bf16`` (A6) raise ``NotImplementedError`` naming their
-ROADMAP item.
+``--method sstep`` (with ``--sstep-powers off|deephalo``) and
+``--precond mg`` (``--mg-smoother``, ``--mg-cycle``; a banded operator,
+else rc 1) run sharded too. ``--precision bf16`` (A6) raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -319,10 +320,11 @@ def _run_sharded(args, host, b_np, n: int, tol: float, maxiter, fmt: str, dev, c
     from cgx_torch.parallel.multihost import initialize_from_env
     from cgx_torch.parallel.sharded_cg import sharded_cg_solve
 
-    if args.method == "sstep":
-        raise _unported("--method sstep with --devices (the sharded s-step, ROADMAP A14)")
-    if args.precond == "mg":
-        raise _unported("--precond mg with --devices (mg_sharded, ROADMAP A14)")
+    from cgx_torch.parallel.mg_sharded import sharded_mg_cg_solve
+
+    if args.precond == "mg" and not isinstance(host, DIAMatrix):
+        print("error: --precond mg needs a banded (dia) operator", file=sys.stderr)
+        return Run(1)
     own_group = not dist.is_initialized()
     if own_group:
         if "WORLD_SIZE" not in os.environ and "SLURM_NTASKS" not in os.environ:
@@ -343,11 +345,19 @@ def _run_sharded(args, host, b_np, n: int, tol: float, maxiter, fmt: str, dev, c
             _build.load()  # nvcc runs here, not inside the timed solve
         dist.barrier()
         t1 = time.perf_counter()
-        res = sharded_cg_solve(host_mat, b_host, mesh=mesh, strategy=args.strategy,
-                               method=args.method, precond=args.precond,
-                               precond_block_size=args.precond_block_size, tol=tol,
-                               maxiter=maxiter, history=args.history,
-                               gv_replace_every=args.gv_replace_every)
+        if args.precond == "mg":  # cgx cli/main.py:213-226
+            res = sharded_mg_cg_solve(host_mat, b_host, mesh=mesh, tol=tol, maxiter=maxiter,
+                                      history=args.history, smoother=args.mg_smoother,
+                                      cycle_precision=args.mg_cycle)
+        else:
+            res = sharded_cg_solve(host_mat, b_host, mesh=mesh, strategy=args.strategy,
+                                   method=args.method, precond=args.precond,
+                                   precond_block_size=args.precond_block_size, tol=tol,
+                                   maxiter=maxiter, history=args.history,
+                                   sstep_s=args.sstep_s, sstep_basis=args.sstep_basis,
+                                   sstep_replace_every=args.sstep_replace_every,
+                                   sstep_powers=args.sstep_powers,
+                                   gv_replace_every=args.gv_replace_every)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         elapsed = time.perf_counter() - t1

@@ -1,6 +1,15 @@
 // The arguments of the fused s-step block's two launches (kernels B10: the
 // Gram launch in sstep_stream.cu, the recover launch in sstep_recover.cu),
 // and what both designs of each share.
+//
+// The halo mode (the sharded route, cgx_torch.parallel.sstep_fused): the
+// vectors and bands are a shard's extended rows, its n_loc rows with d rows of
+// each neighbour on either side (zeros past the mesh's ends), and the launches
+// cover only the window [w_lo, w_hi) of the shard's own rows: the slabs tile the
+// window, so the Gram sums and the recover writes only its rows, while the
+// generator reads the halo rows as it reads any row inside [0, n). With
+// d >= s R the window's levels are those of the whole vector. The single-device
+// launches are the window [0, n).
 #pragma once
 
 #include "sstep_basis.cuh"
@@ -24,6 +33,8 @@ struct BlockArgs {
   unsigned int* ticket;
   long long tile;
   double tol, nearzero, maxiter;
+  long long w_lo, w_hi;  // the window of rows the slabs tile
+  int part;              // gram: store the block's G and mark it live, no replay
 };
 
 // the slab's rows of each level, m x tile, in the block's scratch
@@ -34,9 +45,19 @@ struct LevelSink {
   __device__ void operator()(int level, long long j, T v) { lv[level * tile + (j - t0)] = v; }
 };
 
+// The window of rows [w_lo, w_hi) inside [0, n), non-empty
+template <typename T, typename B>
+static bool set_window(BlockArgs<T, B>* g, long long w_lo, long long w_hi) {
+  if (w_lo < 0 || w_hi > g->a.n || w_lo >= w_hi) return false;
+  g->w_lo = w_lo;
+  g->w_hi = w_hi;
+  return true;
+}
+
 template <typename T, typename B>
 static void block_pointers(BlockArgs<T, B>* g, void* const* pr, void* x, void* state,
                            const void* bmat, void* ticket) {
+  g->part = 0;
   for (int t = 0; t < 2; ++t) {
     g->p[t] = static_cast<const T*>(pr[t]);
     g->r[t] = static_cast<const T*>(pr[2 + t]);
@@ -56,9 +77,9 @@ static bool make_block(BlockArgs<T, B>* g, const void* bands, void* const* pr, v
                        void* state, const void* bmat, void* scratch, long long scratch_len,
                        void* ticket, long long n, const long long* offsets, int ndiag, int s,
                        double theta, double delta, const double* shifts, int nshifts,
-                       long long tile, int grid) {
+                       long long tile, int grid, long long w_lo, long long w_hi) {
   if (!make_basis(&g->a, bands, n, offsets, ndiag, s, theta, delta, shifts, nshifts) ||
-      tile < 1 || grid < 1)
+      tile < 1 || grid < 1 || !set_window(g, w_lo, w_hi))
     return false;
   const long long need = block_scratch(tile, g->a.reach, s, 2 * s + 1);
   if (scratch_len < need * grid) return false;
@@ -76,9 +97,11 @@ static bool make_wave_block(BlockArgs<T, B>* g, WavePlan* pl, const void* bands,
                             void* x, void* state, const void* bmat, void* ticket, long long n,
                             const long long* offsets, int ndiag, int s, double theta,
                             double delta, const double* shifts, int nshifts,
-                            const long long* plan, int plan_len, int grid) {
+                            const long long* plan, int plan_len, int grid,
+                            long long w_lo, long long w_hi) {
   if (!make_basis(&g->a, bands, n, offsets, ndiag, s, theta, delta, shifts, nshifts) ||
-      !make_wave_plan<T>(pl, plan, plan_len, s, n, g->a.reach, grid))
+      !set_window(g, w_lo, w_hi) ||
+      !make_wave_plan<T>(pl, plan, plan_len, s, w_hi - w_lo, g->a.reach, grid))
     return false;
   block_pointers(g, pr, x, state, bmat, ticket);
   return true;

@@ -18,7 +18,10 @@
 // block count, which only a live recover advances (its last block, by a
 // ticket, also clears the live mark): a launch pair that finds the solve
 // stopped (converged, broken down or at maxiter) changes nothing, so the host
-// may queue blocks past the stop freely.
+// may queue blocks past the stop freely. The slabs tile the launch's window
+// (sstep_block.cuh): in the halo mode of the sharded route, a shard's own rows,
+// so that the halo rows of the pairs' other half are left for the next
+// exchange to fill.
 //
 // Two designs, the Gram launch's (cgx_torch.ops.dia_powers.basis_plan picks
 // one for both launches of a block):
@@ -71,14 +74,14 @@ __global__ void __launch_bounds__(kBasisThreads, 2) recover_kernel(BlockArgs<T, 
   T* buf0 = g.scratch + static_cast<long long>(blockIdx.x) * g.per_block;
   T* buf1 = buf0 + g.half;
   T* lv = buf1 + g.half;
-  const long long n = g.a.n, tile = g.tile;
+  const long long w1 = g.w_hi, tile = g.tile;
   T* x = g.x;
   T* r_out = g.r_out[q ^ 1];
   T* p_out = g.p_out[q ^ 1];
   __syncthreads();  // coef is loaded
-  for (long long t0 = static_cast<long long>(blockIdx.x) * tile; t0 < n;
+  for (long long t0 = g.w_lo + static_cast<long long>(blockIdx.x) * tile; t0 < w1;
        t0 += static_cast<long long>(gridDim.x) * tile) {
-    const long long t1 = t0 + tile < n ? t0 + tile : n;
+    const long long t1 = t0 + tile < w1 ? t0 + tile : w1;
     LevelSink<T> sink{lv, t0, tile};
     gen_chain(g.a, g.p[q], s + 1, 0, t0, t1, buf0, buf1, sink);
     gen_chain(g.a, g.r[q], s, s + 1, t0, t1, buf0, buf1, sink);  // ends with a barrier
@@ -169,11 +172,11 @@ __global__ void __launch_bounds__(kWaveThreads, 1)
   rows.x = g.x;
   rows.r_out = g.r_out[q ^ 1];
   rows.p_out = g.p_out[q ^ 1];
-  const long long n = g.a.n;
-  for (long long t0 = static_cast<long long>(blockIdx.x) * pl.slab; t0 < n;
+  const long long w1 = g.w_hi;
+  for (long long t0 = g.w_lo + static_cast<long long>(blockIdx.x) * pl.slab; t0 < w1;
        t0 += static_cast<long long>(gridDim.x) * pl.slab) {
     rows.t0 = t0;
-    rows.t1 = t0 + pl.slab < n ? t0 + pl.slab : n;
+    rows.t1 = t0 + pl.slab < w1 ? t0 + pl.slab : w1;
     gen_wave<S, ND>(g.a, pl, g.p[q], g.r[q], reinterpret_cast<T*>(smem), t0, rows.t1, slots,
                      rows);
   }
@@ -185,10 +188,10 @@ static int launch_recover(const void* bands, void* const* pr, void* x, void* sta
                           void* scratch, long long scratch_len, void* ticket, long long n,
                           const long long* offsets, int ndiag, int s, double theta, double delta,
                           const double* shifts, int nshifts, long long tile, int grid,
-                          void* stream) {
+                          long long w_lo, long long w_hi, void* stream) {
   BlockArgs<T, B> g;
   if (!make_block(&g, bands, pr, x, state, nullptr, scratch, scratch_len, ticket, n, offsets,
-                  ndiag, s, theta, delta, shifts, nshifts, tile, grid))
+                  ndiag, s, theta, delta, shifts, nshifts, tile, grid, w_lo, w_hi))
     return static_cast<int>(cudaErrorInvalidValue);
   recover_kernel<T, B><<<grid, kBasisThreads, 0, static_cast<cudaStream_t>(stream)>>>(g);
   return static_cast<int>(cudaGetLastError());
@@ -199,11 +202,11 @@ static int launch_recover_wave(const void* bands, void* const* pr, void* x, void
                                void* ticket, long long n, const long long* offsets, int ndiag,
                                int s, double theta, double delta, const double* shifts,
                                int nshifts, const long long* plan, int plan_len, int grid,
-                               void* stream) {
+                               long long w_lo, long long w_hi, void* stream) {
   BlockArgs<T, B> g;
   WavePlan pl;
   if (!make_wave_block(&g, &pl, bands, pr, x, state, nullptr, ticket, n, offsets, ndiag, s,
-                       theta, delta, shifts, nshifts, plan, plan_len, grid))
+                       theta, delta, shifts, nshifts, plan, plan_len, grid, w_lo, w_hi))
     return static_cast<int>(cudaErrorInvalidValue);
   return wave_dispatch(s, offsets, ndiag, [&](auto S, auto ND) {
     return wave_launch<recover_wave_kernel<T, B, decltype(S)::value, decltype(ND)::value>>(
@@ -221,22 +224,22 @@ extern "C" {
                                 void* ticket, long long n, const long long* offsets,            \
                                 int ndiag, int s, double theta, double delta,                   \
                                 const double* shifts, int nshifts, long long tile, int grid,    \
-                                void* stream) {                                                 \
+                                long long w_lo, long long w_hi, void* stream) {                 \
     void* pr[4] = {p0, p1, r0, r1};                                                              \
     return cgx::launch_recover<T, B>(bands, pr, x, state, scratch, scratch_len, ticket, n,      \
                                      offsets, ndiag, s, theta, delta, shifts, nshifts, tile,    \
-                                     grid, stream);                                             \
+                                     grid, w_lo, w_hi, stream);                                 \
   }                                                                                              \
   int cgx_sstep_recover_wave##SUFFIX(const void* bands, void* p0, void* p1, void* r0, void* r1, \
                                      void* x, void* state, void* ticket, long long n,           \
                                      const long long* offsets, int ndiag, int s, double theta,  \
                                      double delta, const double* shifts, int nshifts,           \
                                      const long long* plan, int plan_len, int grid,             \
-                                     void* stream) {                                            \
+                                     long long w_lo, long long w_hi, void* stream) {            \
     void* pr[4] = {p0, p1, r0, r1};                                                              \
     return cgx::launch_recover_wave<T, B>(bands, pr, x, state, ticket, n, offsets, ndiag, s,    \
                                           theta, delta, shifts, nshifts, plan, plan_len, grid,  \
-                                          stream);                                              \
+                                          w_lo, w_hi, stream);                                  \
   }
 
 CGX_RECOVER_ENTRIES(_f32, float, float)

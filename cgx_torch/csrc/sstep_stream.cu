@@ -26,7 +26,11 @@
 //   device memory, then walks over the slab in sub-tiles staged in shared
 //   memory; a warp owns fixed pairs.
 // Each block has a fixed slab and each sum a fixed order, so every partial is
-// summed in one order. The last block to take an integer ticket sums the
+// summed in one order. The slabs tile the launch's window of rows
+// (sstep_block.cuh): all rows on one device, a shard's own rows in the halo
+// mode of the sharded route, whose Gram-only launch (part) stores the shard's
+// G and marks the block live without the replay, so that the caller can sum
+// the shards' G across the mesh and replay after (cgx_sstep_replay, live_only). The last block to take an integer ticket sums the
 // partials in block order (no float atomics), stores G, and replays the s
 // iterations in float64 on one thread (cgx replays in float32 with compensated
 // quadratic forms; the port keeps the whole replay in double, ROADMAP C). It
@@ -92,10 +96,23 @@ __device__ void gram_finish(const BlockArgs<T, B>& g, double* gm) {
   if (threadIdx.x == 0) {
     double* out = g.state;
     for (int i = 0; i < m * m; ++i) out[kGram + i] = gm[i];
-    replay(out, gm, g.bmat, g.a.s, g.tol, g.nearzero, g.maxiter);
+    if (!g.part) replay(out, gm, g.bmat, g.a.s, g.tol, g.nearzero, g.maxiter);
     out[kLive] = 1.0;
     *g.ticket = 0u;
   }
+}
+
+// Whether the solve is stopped (converged, broken down or at maxiter): then
+// the launch does nothing, but a Gram-only launch zeroes G, which the caller
+// sums across the mesh all the same.
+template <typename T, typename B>
+__device__ __forceinline__ bool gram_stopped(const BlockArgs<T, B>& g) {
+  double* st = g.state;
+  if (st[kConv] == 0.0 && st[kBrk] == 0.0 && st[kK] < g.maxiter) return false;
+  const int m = 2 * g.a.s + 1;
+  if (g.part && blockIdx.x == 0)
+    for (int t = threadIdx.x; t < m * m; t += blockDim.x) st[kGram + t] = 0.0;
+  return true;
 }
 
 template <typename T, typename B>
@@ -105,7 +122,7 @@ __global__ void __launch_bounds__(kBasisThreads, 2) gram_slab_kernel(BlockArgs<T
   __shared__ double part[kMaxM * (kMaxM + 1) / 2];
   __shared__ double gm[kMaxM * kMaxM];
   const double* st = g.state;
-  if (st[kConv] != 0.0 || st[kBrk] != 0.0 || !(st[kK] < g.maxiter)) return;  // stopped
+  if (gram_stopped(g)) return;
   const int q = static_cast<long long>(st[kBlk]) & 1;
   const int s = g.a.s, m = 2 * s + 1, npairs = m * (m + 1) / 2;
   for (int t = threadIdx.x; t < npairs; t += blockDim.x) part[t] = 0.0;
@@ -114,10 +131,10 @@ __global__ void __launch_bounds__(kBasisThreads, 2) gram_slab_kernel(BlockArgs<T
   T* lv = buf1 + g.half;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
   const int sub = gram_sub<T>(m);
-  const long long n = g.a.n;
-  for (long long t0 = static_cast<long long>(blockIdx.x) * g.tile; t0 < n;
+  const long long w1 = g.w_hi;
+  for (long long t0 = g.w_lo + static_cast<long long>(blockIdx.x) * g.tile; t0 < w1;
        t0 += static_cast<long long>(gridDim.x) * g.tile) {
-    const long long t1 = t0 + g.tile < n ? t0 + g.tile : n;
+    const long long t1 = t0 + g.tile < w1 ? t0 + g.tile : w1;
     LevelSink<T> sink{lv, t0, g.tile};
     gen_chain(g.a, g.p[q], s + 1, 0, t0, t1, buf0, buf1, sink);
     gen_chain(g.a, g.r[q], s, s + 1, t0, t1, buf0, buf1, sink);  // ends with a barrier
@@ -202,7 +219,7 @@ __global__ void __launch_bounds__(kWaveThreads, 1)
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ WaveSlots slots[2][kWaveMaxM];
   const double* st = g.state;
-  if (st[kConv] != 0.0 || st[kBrk] != 0.0 || !(st[kK] < g.maxiter)) return;  // stopped
+  if (gram_stopped(g)) return;
   const int q = static_cast<long long>(st[kBlk]) & 1;
   using Rows = GramRows<T, S>;
   Rows rows;
@@ -210,11 +227,11 @@ __global__ void __launch_bounds__(kWaveThreads, 1)
   rows.ring = reinterpret_cast<const T*>(smem);
 #pragma unroll
   for (int t = 0; t < Rows::kRun; ++t) rows.acc[t] = 0.0;
-  const long long n = g.a.n;
-  for (long long t0 = static_cast<long long>(blockIdx.x) * pl.slab; t0 < n;
+  const long long w1 = g.w_hi;
+  for (long long t0 = g.w_lo + static_cast<long long>(blockIdx.x) * pl.slab; t0 < w1;
        t0 += static_cast<long long>(gridDim.x) * pl.slab) {
     rows.t0 = t0;
-    rows.t1 = t0 + pl.slab < n ? t0 + pl.slab : n;
+    rows.t1 = t0 + pl.slab < w1 ? t0 + pl.slab : w1;
     gen_wave<S, ND>(g.a, pl, g.p[q], g.r[q], reinterpret_cast<T*>(smem), t0, rows.t1, slots,
                      rows);
   }  // gen_wave ends with a barrier: the rings are free
@@ -236,9 +253,11 @@ __global__ void __launch_bounds__(kWaveThreads, 1)
   gram_finish(g, red);  // its barrier comes before red is reused for G
 }
 
+// The replay on the state's G; with live_only, only after a live Gram-only launch
 __global__ void replay_kernel(double* st, const double* bmat, int s, double tol, double nearzero,
-                              double maxiter) {
-  if (threadIdx.x == 0 && blockIdx.x == 0) replay(st, st + kGram, bmat, s, tol, nearzero, maxiter);
+                              double maxiter, int live_only) {
+  if (threadIdx.x != 0 || blockIdx.x != 0 || (live_only && st[kLive] == 0.0)) return;
+  replay(st, st + kGram, bmat, s, tol, nearzero, maxiter);
 }
 
 template <typename T, typename B>
@@ -247,13 +266,13 @@ static int launch_gram_wave(const void* bands, void* const* pr, void* state, con
                             const long long* offsets, int ndiag, int s, double theta,
                             double delta, const double* shifts, int nshifts, double tol,
                             double nearzero, double maxiter, const long long* plan, int plan_len,
-                            int grid, void* stream) {
+                            int grid, long long w_lo, long long w_hi, int part, void* stream) {
   BlockArgs<T, B> g;
   WavePlan pl;
   const int m = 2 * s + 1;
   const long long npairs = m * (m + 1) / 2;
   if (!make_wave_block(&g, &pl, bands, pr, nullptr, state, bmat, ticket, n, offsets, ndiag, s,
-                       theta, delta, shifts, nshifts, plan, plan_len, grid) ||
+                       theta, delta, shifts, nshifts, plan, plan_len, grid, w_lo, w_hi) ||
       partials_len < grid * npairs ||
       plan[3] < kWaveThreads / 32 * npairs * 8 || plan[3] < m * m * 8)
     return static_cast<int>(cudaErrorInvalidValue);  // the block's reduction and G reuse the rings
@@ -261,6 +280,7 @@ static int launch_gram_wave(const void* bands, void* const* pr, void* state, con
   g.tol = tol;
   g.nearzero = nearzero;
   g.maxiter = maxiter;
+  g.part = part;
   return wave_dispatch(s, offsets, ndiag, [&](auto S, auto ND) {
     return wave_launch<gram_wave_kernel<T, B, decltype(S)::value, decltype(ND)::value>>(
         grid, plan[3], stream, g, pl);
@@ -273,17 +293,19 @@ static int launch_gram(const void* bands, void* const* pr, void* state, const vo
                        long long partials_len, void* ticket, long long n,
                        const long long* offsets, int ndiag, int s, double theta, double delta,
                        const double* shifts, int nshifts, double tol, double nearzero,
-                       double maxiter, long long tile, int grid, void* stream) {
+                       double maxiter, long long tile, int grid, long long w_lo, long long w_hi,
+                       int part, void* stream) {
   BlockArgs<T, B> g;
   const int m = 2 * s + 1;
   if (!make_block(&g, bands, pr, nullptr, state, bmat, scratch, scratch_len, ticket, n, offsets,
-                  ndiag, s, theta, delta, shifts, nshifts, tile, grid) ||
+                  ndiag, s, theta, delta, shifts, nshifts, tile, grid, w_lo, w_hi) ||
       partials_len < static_cast<long long>(grid) * m * (m + 1) / 2)
     return static_cast<int>(cudaErrorInvalidValue);
   g.partials = static_cast<double*>(partials);
   g.tol = tol;
   g.nearzero = nearzero;
   g.maxiter = maxiter;
+  g.part = part;
   const size_t shared = static_cast<size_t>(m) * gram_sub<T>(m) * sizeof(T);
   cudaError_t err = cudaFuncSetAttribute(gram_slab_kernel<T, B>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -304,11 +326,13 @@ extern "C" {
                              void* ticket, long long n, const long long* offsets, int ndiag,   \
                              int s, double theta, double delta, const double* shifts,          \
                              int nshifts, double tol, double nearzero, double maxiter,         \
-                             long long tile, int grid, void* stream) {                         \
+                             long long tile, int grid, long long w_lo, long long w_hi,         \
+                             int part, void* stream) {                                         \
     void* pr[4] = {p0, p1, r0, r1};                                                             \
     return cgx::launch_gram<T, B>(bands, pr, state, bmat, scratch, scratch_len, partials,      \
                                   partials_len, ticket, n, offsets, ndiag, s, theta, delta,    \
-                                  shifts, nshifts, tol, nearzero, maxiter, tile, grid, stream); \
+                                  shifts, nshifts, tol, nearzero, maxiter, tile, grid, w_lo,   \
+                                  w_hi, part, stream);                                         \
   }                                                                                             \
   int cgx_sstep_gram_wave##SUFFIX(const void* bands, void* p0, void* p1, void* r0, void* r1,   \
                                   void* state, const void* bmat, void* partials,               \
@@ -316,11 +340,13 @@ extern "C" {
                                   const long long* offsets, int ndiag, int s, double theta,    \
                                   double delta, const double* shifts, int nshifts, double tol, \
                                   double nearzero, double maxiter, const long long* plan,      \
-                                  int plan_len, int grid, void* stream) {                      \
+                                  int plan_len, int grid, long long w_lo, long long w_hi,      \
+                                  int part, void* stream) {                                    \
     void* pr[4] = {p0, p1, r0, r1};                                                             \
     return cgx::launch_gram_wave<T, B>(bands, pr, state, bmat, partials, partials_len, ticket, \
                                        n, offsets, ndiag, s, theta, delta, shifts, nshifts,    \
-                                       tol, nearzero, maxiter, plan, plan_len, grid, stream);  \
+                                       tol, nearzero, maxiter, plan, plan_len, grid, w_lo,     \
+                                       w_hi, part, stream);                                    \
   }
 
 CGX_SSTEP_ENTRIES(_f32, float, float)
@@ -330,10 +356,11 @@ CGX_SSTEP_ENTRIES(_f32_bf16b, float, __nv_bfloat16)
 #undef CGX_SSTEP_ENTRIES
 
 int cgx_sstep_replay_f64(void* state, const void* bmat, int s, double tol, double nearzero,
-                         double maxiter, void* stream) {
+                         double maxiter, int live_only, void* stream) {
   if (s < 1 || s > cgx::kMaxS) return static_cast<int>(cudaErrorInvalidValue);
   cgx::replay_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<double*>(state), static_cast<const double*>(bmat), s, tol, nearzero, maxiter);
+      static_cast<double*>(state), static_cast<const double*>(bmat), s, tol, nearzero, maxiter,
+      live_only);
   return static_cast<int>(cudaGetLastError());
 }
 

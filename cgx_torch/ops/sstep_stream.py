@@ -18,7 +18,16 @@ in ``.design`` and ``.plan``):
   ``p = sum c_i V_i`` into the other half of their ping-pong pairs;
 - :func:`sstep_replay`: the replay alone, one block, on a Gram matrix
   the caller put in the state (the matrix-powers route,
-  :mod:`cgx_torch.solver.sstep`).
+  :mod:`cgx_torch.solver.sstep`, and the sharded route).
+
+The halo mode (the sharded route, :mod:`cgx_torch.parallel.sstep_fused`):
+``window=(lo, hi)`` makes both launches cover only the rows ``[lo, hi)``
+of vectors and bands that hold a shard's own rows there and its
+neighbours' rows around them. The generator reads every row, the Gram
+sums and the recover writes only the window's. ``part=True`` makes the
+Gram launch store the shard's G and mark the block live without the
+replay, so that the caller sums the shards' G over the mesh and replays
+after (:func:`sstep_replay` with ``live_only=True``).
 
 The state (float64, ``STATE_LEN``) holds ``[k, rsold, rsnew, conv, brk,
 blk, live]``, the coefficients ``[xc, d, c]`` from ``COEF`` and G from
@@ -128,42 +137,59 @@ def _replay_ref(state, bmat, *, s: int, tol: float, nearzero: float, maxiter: in
                                     brk.to(torch.float64)])
 
 
+def _window(window, n: int) -> Tuple[int, int]:
+    """The rows ``[lo, hi)`` a launch covers: all n, or the halo mode's window."""
+    lo, hi = (0, n) if window is None else (int(window[0]), int(window[1]))
+    if not 0 <= lo < hi <= n:
+        raise ValueError(f"window [{lo}, {hi}) is not a non-empty range of the {n} rows")
+    return lo, hi
+
+
 def _gram_ref(bands, p, r, state, bmat, *, offsets, s, theta, delta, shifts, tol, nearzero,
-              maxiter) -> None:
+              maxiter, window=None, part: bool = False) -> None:
     """Plain version of the Gram launch: the basis of the current halves,
-    G = V V^T with the products in float64, the replay, the live mark."""
+    G = V V^T over the window's rows with the products in float64, the
+    replay (none with ``part``), the live mark. A stopped solve changes
+    nothing, but ``part`` zeroes G."""
     h = state[:COEF].tolist()
+    m = 2 * s + 1
     if _stopped(h, maxiter):
+        if part:
+            state[GRAM:GRAM + m * m] = 0.0
         return
+    lo, hi = _window(window, p.shape[1])
     q = int(h[BLK]) & 1
     v = dia_sstep_basis_ref(bands, p[q], r[q], offsets=offsets, s=s, theta=theta, delta=delta,
-                            shifts=shifts).to(torch.float64)
-    m = 2 * s + 1
+                            shifts=shifts)[:, lo:hi].to(torch.float64)
     state[GRAM:GRAM + m * m] = (v @ v.T).reshape(-1)
-    _replay_ref(state, bmat, s=s, tol=tol, nearzero=nearzero, maxiter=maxiter)
+    if not part:
+        _replay_ref(state, bmat, s=s, tol=tol, nearzero=nearzero, maxiter=maxiter)
     state[LIVE] = 1.0
 
 
-def _recover_ref(bands, p, r, x, state, *, offsets, s, theta, delta, shifts) -> None:
+def _recover_ref(bands, p, r, x, state, *, offsets, s, theta, delta, shifts,
+                 window=None) -> None:
     """Plain version of the recover launch: the coefficient combinations
     in level order, the coefficients rounded to the vectors' dtype, and
-    x plus its whole increment (cgx's loop; its kernel adds term by term)."""
+    x plus its whole increment (cgx's loop; its kernel adds term by term),
+    on the window's rows."""
     h = state[:COEF].tolist()
     if h[LIVE] == 0.0:
         return
+    lo, hi = _window(window, p.shape[1])
     q = int(h[BLK]) & 1
     v = dia_sstep_basis_ref(bands, p[q], r[q], offsets=offsets, s=s, theta=theta, delta=delta,
-                            shifts=shifts)
+                            shifts=shifts)[:, lo:hi]
     m = 2 * s + 1
     coef = state[COEF:COEF + 3 * m].view(3, m).to(x.dtype)
-    xa, ra, pa = (torch.zeros_like(x) for _ in range(3))
+    xa, ra, pa = (torch.zeros_like(v[0]) for _ in range(3))
     for i in range(m):
         xa = xa + coef[0, i] * v[i]
         ra = ra + coef[1, i] * v[i]
         pa = pa + coef[2, i] * v[i]
-    x.copy_(x + xa)
-    r[1 - q].copy_(ra)
-    p[1 - q].copy_(pa)
+    x[lo:hi].copy_(x[lo:hi] + xa)
+    r[1 - q, lo:hi].copy_(ra)
+    p[1 - q, lo:hi].copy_(pa)
     state[BLK] += 1.0
     state[LIVE] = 0.0
 
@@ -200,16 +226,21 @@ def _suffix(bands, like) -> str:
 
 def _sstep_gram(bands, p, r, state, bmat, *, offsets: Sequence[int], s: int, theta: float,
                 delta: float, shifts: Tuple[float, ...] = (), tol: float, nearzero: float,
-                maxiter: int, work: Optional[Workspace] = None) -> None:
-    """The Gram launch of one s-step block (kernel B10) and its replay."""
+                maxiter: int, work: Optional[Workspace] = None, window=None,
+                part: bool = False) -> None:
+    """The Gram launch of one s-step block (kernel B10) and its replay;
+    in the halo mode over ``window``, and with ``part`` the Gram only.
+    ``work`` is a workspace for the window's rows."""
     offsets = _check_block("_sstep_gram", bands, p, r, None, state, bmat, offsets, s, shifts)
     s = int(s)
     kw = dict(offsets=offsets, s=s, theta=theta, delta=delta, shifts=tuple(shifts))
+    lo, hi = _window(window, p.shape[1])
     if p.device.type == "cpu":
-        _gram_ref(bands, p, r, state, bmat, tol=tol, nearzero=nearzero, maxiter=maxiter, **kw)
+        _gram_ref(bands, p, r, state, bmat, tol=tol, nearzero=nearzero, maxiter=maxiter,
+                  window=window, part=part, **kw)
     else:
         n = p.shape[1]
-        work = workspace(p.device, n, offsets, s, p.dtype) if work is None else work
+        work = workspace(p.device, hi - lo, offsets, s, p.dtype) if work is None else work
         plan = work.plan
         sh, nsh = shifts_arg(shifts)
         head = (bands.data_ptr(), p[0].data_ptr(), p[1].data_ptr(), r[0].data_ptr(),
@@ -219,11 +250,11 @@ def _sstep_gram(bands, p, r, state, bmat, *, offsets: Sequence[int], s: int, the
         if plan.design == "wavefront":
             launch("cgx_sstep_gram_wave", p, *head, work.partials.data_ptr(),
                    work.partials.numel(), work.ticket.data_ptr(), n, *basis, *plan.as_arg(),
-                   plan.grid, suffix=_suffix(bands, p))
+                   plan.grid, lo, hi, int(part), suffix=_suffix(bands, p))
         else:
             launch("cgx_sstep_gram", p, *head, work.scratch.data_ptr(), work.scratch.numel(),
                    work.partials.data_ptr(), work.partials.numel(), work.ticket.data_ptr(), n,
-                   *basis, plan.slab, plan.grid, suffix=_suffix(bands, p))
+                   *basis, plan.slab, plan.grid, lo, hi, int(part), suffix=_suffix(bands, p))
         _sstep_gram.grid = plan.grid
         _sstep_gram.design = plan.design
         _sstep_gram.plan = plan
@@ -233,16 +264,18 @@ def _sstep_gram(bands, p, r, state, bmat, *, offsets: Sequence[int], s: int, the
 
 def _sstep_recover(bands, p, r, x, state, *, offsets: Sequence[int], s: int, theta: float,
                    delta: float, shifts: Tuple[float, ...] = (),
-                   work: Optional[Workspace] = None) -> None:
-    """The recover launch of one s-step block (kernel B10)."""
+                   work: Optional[Workspace] = None, window=None) -> None:
+    """The recover launch of one s-step block (kernel B10); in the halo
+    mode over ``window``."""
     offsets = _check_block("_sstep_recover", bands, p, r, x, state, None, offsets, s, shifts)
     s = int(s)
     kw = dict(offsets=offsets, s=s, theta=theta, delta=delta, shifts=tuple(shifts))
+    lo, hi = _window(window, p.shape[1])
     if p.device.type == "cpu":
-        _recover_ref(bands, p, r, x, state, **kw)
+        _recover_ref(bands, p, r, x, state, window=window, **kw)
     else:
         n = p.shape[1]
-        work = workspace(p.device, n, offsets, s, p.dtype) if work is None else work
+        work = workspace(p.device, hi - lo, offsets, s, p.dtype) if work is None else work
         plan = work.plan
         sh, nsh = shifts_arg(shifts)
         head = (bands.data_ptr(), p[0].data_ptr(), p[1].data_ptr(), r[0].data_ptr(),
@@ -250,10 +283,10 @@ def _sstep_recover(bands, p, r, x, state, *, offsets: Sequence[int], s: int, the
         basis = (_offsets_arg(offsets), len(offsets), s, float(theta), float(delta), sh, nsh)
         if plan.design == "wavefront":
             launch("cgx_sstep_recover_wave", p, *head, work.ticket.data_ptr(), n, *basis,
-                   *plan.as_arg(), plan.grid, suffix=_suffix(bands, p))
+                   *plan.as_arg(), plan.grid, lo, hi, suffix=_suffix(bands, p))
         else:
             launch("cgx_sstep_recover", p, *head, work.scratch.data_ptr(), work.scratch.numel(),
-                   work.ticket.data_ptr(), n, *basis, plan.slab, plan.grid,
+                   work.ticket.data_ptr(), n, *basis, plan.slab, plan.grid, lo, hi,
                    suffix=_suffix(bands, p))
         _sstep_recover.grid = plan.grid
         _sstep_recover.design = plan.design
@@ -261,17 +294,20 @@ def _sstep_recover(bands, p, r, x, state, *, offsets: Sequence[int], s: int, the
     _sstep_recover.launches += 1
 
 
-def sstep_replay(state, bmat, *, s: int, tol: float, nearzero: float, maxiter: int) -> None:
+def sstep_replay(state, bmat, *, s: int, tol: float, nearzero: float, maxiter: int,
+                 live_only: bool = False) -> None:
     """Replay s iterations from the Gram matrix in ``state[GRAM:]``: one
-    block of the replay kernel, or its plain version on the CPU."""
+    block of the replay kernel, or its plain version on the CPU. With
+    ``live_only`` only after a live Gram-only launch (the sharded route)."""
     _check_state("sstep_replay", state, bmat, s, state.device)
     if not 1 <= int(s) <= MAX_S:
         raise ValueError(f"sstep_replay: s must be in 1..{MAX_S}, got {s}")
     if state.device.type == "cpu":
-        _replay_ref(state, bmat, s=int(s), tol=tol, nearzero=nearzero, maxiter=maxiter)
+        if not live_only or state[LIVE].item() != 0.0:
+            _replay_ref(state, bmat, s=int(s), tol=tol, nearzero=nearzero, maxiter=maxiter)
     else:
         launch("cgx_sstep_replay", state, state.data_ptr(), bmat.data_ptr(), int(s), float(tol),
-               float(nearzero), float(maxiter))
+               float(nearzero), float(maxiter), int(live_only))
     sstep_replay.launches += 1
 
 

@@ -1,6 +1,7 @@
 """cgx_torch.parallel: the sharded route on ``torch.distributed``
 (counterpart of ``cgx/parallel``): meshes of ranks, start-up, row-block
-partitions and the sharded CG solver."""
+partitions, the sharded CG solver and its s-step, refinement, MG-PCG and
+triple-word solves."""
 
 from cgx_torch.parallel.mesh import ROWS_AXIS, Mesh, make_mesh
 from cgx_torch.parallel.multihost import (
@@ -18,7 +19,8 @@ from cgx_torch.parallel.sharded_cg import (
     sharded_cg_solve,
     sharded_cg_solve_batched,
     sharded_deflated_cg_solve,
-    sharded_mg_cg_solve,
     sharded_refine_fixed_sweeps,
-    sharded_tw_solve,
 )
+from cgx_torch.parallel.mg_sharded import sharded_mg_block_cg_solve, sharded_mg_cg_solve
+from cgx_torch.parallel.sstep_fused import fused_plane_geometry
+from cgx_torch.parallel.tw_sharded import TWShardedResult, sharded_tw_solve

@@ -38,8 +38,12 @@ The methods are ``reference`` (two all-reduces an iteration),
 a preconditioner), ``gvpipe`` (Ghysels-Vanroose: the same one all-reduce,
 which the iteration's mat-vec does not wait on, and the guarded residual
 replacement's four more mat-vecs every ``gv_replace_every`` iterations)
-and ``chebyshev`` (the Chebyshev iteration on ``bounds``: no all-reduce
-but one every ``check_every`` iterations), with no preconditioner, ``jacobi``, ``block_jacobi``
+``chebyshev`` (the Chebyshev iteration on ``bounds``: no all-reduce
+but one every ``check_every`` iterations) and ``sstep`` (s iterations a
+Gram all-reduce: the basis from per-mat-vec halos, ``sstep_powers="off"``;
+from one deep halo a block, ``"deephalo"``; or by kernels B10 per shard
+on neighbour halos, ``"fused"``, :mod:`cgx_torch.parallel.sstep_fused`),
+with no preconditioner, ``jacobi``, ``block_jacobi``
 (the shard's diagonal blocks inverted once, applied as one local batched
 product: no collective), ``neumann`` or ``chebyshev`` (degree 3, three
 strategy mat-vecs an application). A dense fp64 operator takes cgx's
@@ -70,6 +74,7 @@ from cgx_torch.solver.gvpipe import gv_cg_loop
 from cgx_torch.solver.operators import CsrOperator, EllOperator, _torch_dtype
 from cgx_torch.solver.pipelined import pipelined_cg_loop
 from cgx_torch.solver.precond import chebyshev_poly, diag_blocks, invert_spd_blocks
+from cgx_torch.solver.sstep import _local_gram, basis_columns_fn, newton_shifts, sstep_cg_loop
 from cgx_torch.utils import collectives
 
 # Per-shard rows from which "auto" streams the local banded product through
@@ -79,8 +84,8 @@ STREAM_LOCAL_MIN_ELEMS = 2_000_000
 # cgx's per-shard band-plane tile (sharded_cg.py:192-195)
 PLANE_ROWS, PLANE_COLS = 256, 512
 
-_UNPORTED_METHODS = {"sstep": "the sharded s-step, ROADMAP A14"}
-METHODS = ("reference", "pipelined", "gvpipe", "chebyshev")
+METHODS = ("reference", "pipelined", "gvpipe", "chebyshev", "sstep")
+SSTEP_POWERS = ("off", "deephalo", "fused")
 PRECONDS = (None, "jacobi", "block_jacobi", "neumann", "chebyshev")
 CHEBYSHEV_DEGREE = 3  # cgx's sharded polynomial (sharded_cg.py:794)
 
@@ -222,6 +227,95 @@ class _DiaHalo:
         for d, off in enumerate(self.offsets):
             y = y + self.flat[d] * p_ext[h + off: h + off + n_loc]
         return y
+
+
+def extended_rows(t: torch.Tensor, d: int, mesh: Mesh) -> torch.Tensor:
+    """``t`` (the shard's rows on its last axis) with the neighbours' d
+    edge rows on either side, zeros past the mesh's ends: one exchange a
+    direction (the deep-halo and fused s-step routes' bands and x0)."""
+    zeros = torch.zeros(t.shape[:-1] + (d,), dtype=t.dtype, device=t.device)
+    left, right = collectives.halo_exchange(t[..., :d].contiguous(), t[..., -d:].contiguous(),
+                                            mesh, zeros)
+    return torch.cat([left, t, right], dim=-1)
+
+
+class _DeepHaloBasis:
+    """The s-step basis of a block from one deep halo (cgx's
+    ``_DeepHaloBasis``, the distributed matrix-powers scheme): each rank
+    receives ``s h`` rows of p and r from each neighbour in one exchange a
+    direction (the two vectors' edges stacked in one message), then builds
+    all 2s+1 columns on its extended rows with plain banded products; each
+    application spoils h more rows at the halo's outer edges, and the depth
+    keeps the shard's own rows exact. A block costs 2 exchanges and the
+    Gram's all-reduce, against 2(2s-1) exchanges with per-mat-vec halos.
+    The extended bands are exchanged once a solve (:meth:`prepare`, where
+    cgx threads them through its loop as a tree, ``_TreeFirstMV``)."""
+
+    def __init__(self, mesh: Mesh, offsets, n_loc: int, s: int, theta: float, delta: float,
+                 shifts=()):
+        self.mesh, self.offsets, self.n_loc = mesh, tuple(int(o) for o in offsets), int(n_loc)
+        self.s, self.theta, self.delta = int(s), float(theta), float(delta)
+        self.shifts = tuple(float(v) for v in shifts)
+        self.h = max(max(abs(o) for o in self.offsets), 1)
+        self.depth = self.s * self.h
+        if self.depth > self.n_loc:
+            raise ValueError(f"matrix-powers halo depth s*h = {self.depth} exceeds shard size "
+                             f"{self.n_loc}; reduce sstep_s, use fewer shards, or "
+                             "sstep_powers='off'")
+        self.bands_ext = None
+
+    def prepare(self, bands_loc: torch.Tensor) -> None:
+        """The shard's bands with the neighbours' d band columns around
+        them: two exchanges, once a solve."""
+        self.bands_ext = extended_rows(bands_loc, self.depth, self.mesh)
+
+    def __call__(self, p: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+        d = self.depth
+        bands_ext, offsets = self.bands_ext, self.offsets
+        cols = basis_columns_fn(lambda v: dia_spmv.dia_matvec_ref(bands_ext, v, offsets=offsets),
+                                p.dtype, self.theta, self.delta, self.shifts)
+        zeros = torch.zeros((2, d), dtype=p.dtype, device=p.device)
+        left, right = collectives.halo_exchange(torch.stack([p[:d], r[:d]]),
+                                                torch.stack([p[-d:], r[-d:]]), self.mesh, zeros)
+        p_ext = torch.cat([left[0], p, right[0]])
+        r_ext = torch.cat([left[1], r, right[1]])
+        v = torch.stack(cols(p_ext, self.s + 1) + cols(r_ext, self.s))
+        return v[:, d: d + self.n_loc]
+
+
+class _PsumGram:
+    """``V V^T`` of the shard's (m, n_loc) basis, then ONE all-reduce of
+    the (m, m) block: the s-step method's one reduction a block (cgx's
+    ``_PsumGram``)."""
+
+    def __init__(self, mesh: Mesh):
+        self.mesh = mesh
+
+    def __call__(self, v: torch.Tensor) -> torch.Tensor:
+        return collectives.all_reduce(_local_gram(v), self.mesh)
+
+
+class _SStepLoop:
+    """:func:`cgx_torch.solver.sstep.sstep_cg_loop` on the shard (cgx's
+    ``_SStepLoop``): the strategy mat-vec, the basis interval, the Newton
+    shifts, the replacement cadence, the Gram hook and, for
+    ``"deephalo"``, the deep-halo basis, whose bands are prepared once a
+    solve. ``gram_precision`` is the Gram's and the replay's dtype (None:
+    the vectors', cgx's arithmetic)."""
+
+    def __init__(self, theta, delta, mv, s, maxiter, gram, shifts=(), replace_every=0,
+                 basis=None, bands_loc=None, gram_precision=None):
+        self.theta, self.delta, self.mv, self.s, self.maxiter = theta, delta, mv, s, maxiter
+        self.gram, self.shifts, self.replace_every = gram, tuple(shifts), replace_every
+        self.basis, self.bands_loc, self.gram_precision = basis, bands_loc, gram_precision
+
+    def __call__(self, b, x0, tol: float, nearzero: float, marks=None) -> CGResult:
+        if self.basis is not None:
+            self.basis.prepare(self.bands_loc)  # loop-invariant: once a solve
+        return sstep_cg_loop(self.mv, b, x0, tol, nearzero, s=self.s, maxiter=self.maxiter,
+                             theta=self.theta, delta=self.delta, shifts=self.shifts,
+                             basis_fn=self.basis, replace_every=self.replace_every,
+                             gram_precision=self.gram_precision, gram=self.gram, marks=marks)
 
 
 class _SparseAllGather:
@@ -422,12 +516,17 @@ def make_sharded_solver(
     dense_fp64: str = "emulated",
     local_kernel: str = "auto",
     check_every: int = 32,
+    sstep_s: int = 4,
+    sstep_basis: str = "chebyshev",
+    sstep_replace_every: Optional[int] = None,
+    sstep_powers: str = "off",
+    sstep_bands_dtype="auto",
     gv_replace_every: int = 25,
     axis_name: str = ROWS_AXIS,
     device=None,
 ) -> "ShardedCGSolver":
     """Build an operator-resident row-block-sharded CG solver (cgx's
-    signature, less the options of its unported methods).
+    signature).
 
     Each rank keeps its shard of the operator on its device once; the
     returned :class:`ShardedCGSolver` solves repeated right-hand sides.
@@ -448,7 +547,8 @@ def make_sharded_solver(
         sharded_cg.py:810-821) or ``"chebyshev"`` (the Chebyshev
         iteration on ``bounds``, one all-reduce every ``check_every``
         iterations, no preconditioner: one given is not applied, as in
-        cgx). ``"sstep"`` (A14) raises.
+        cgx) or ``"sstep"`` (``sstep_s`` iterations a Gram all-reduce, on
+        ``bounds``; no preconditioner).
       tol, nearzero: per-call defaults (absolute tolerance, alpha clamp).
       maxiter: iteration cap; defaults to N, 4N for ``"chebyshev"``.
       dot_precision: dtype the dots accumulate in (float64 for float32
@@ -462,9 +562,10 @@ def make_sharded_solver(
       precond_block_size: block-Jacobi's rows a block; default min(32,
         the shard size). It must divide the shard size: no block may
         straddle two shards.
-      bounds: ``(lmin, lmax)`` of the Chebyshev preconditioner or method;
-        default :func:`cgx_torch.solver.chebyshev.host_spectral_bounds` of
-        ``mat``. The method needs ``0 < lmin < lmax``.
+      bounds: ``(lmin, lmax)`` of the Chebyshev preconditioner or method,
+        or of the s-step basis; default :func:`cgx_torch.solver.chebyshev.
+        host_spectral_bounds` of ``mat``. The methods need ``0 < lmin <
+        lmax``.
       dense_fp64: a dense fp64 operator's product: ``"emulated"`` and
         ``"auto"`` the fp64 ``torch.matmul`` (the H100's fp64 is native),
         ``"ozaki"`` cgx's int8 slices (:mod:`cgx_torch.ops.ozaki`), under
@@ -473,25 +574,45 @@ def make_sharded_solver(
         product of the halo strategy (see :func:`_resolve_local_kernel`).
       check_every: the Chebyshev method's iterations between convergence
         checks.
+      sstep_s: the s-step method's iterations a Gram all-reduce.
+      sstep_basis: ``"chebyshev"`` or ``"newton"`` (Leja-ordered Ritz
+        shifts).
+      sstep_replace_every: the guarded residual replacement's cadence in
+        blocks (0 = off; None: 0 for s <= 8, else 1); refused by
+        ``"fused"``, as cgx refuses it.
+      sstep_powers: ``"off"`` (2s-1 strategy mat-vecs a block, their
+        halos each), ``"deephalo"`` (:class:`_DeepHaloBasis`: one deep
+        halo a block; needs s h <= the shard size) or ``"fused"``
+        (kernels B10 per shard, :mod:`cgx_torch.parallel.sstep_fused`;
+        s <= 8, the shard must tile by :func:`~cgx_torch.parallel.
+        sstep_fused.fused_plane_geometry`). "deephalo" and "fused" need a
+        DIA matrix under the halo strategy. The Gram and the replay run in
+        ``dot_precision`` (float64 for float32 vectors as ``solve`` asks;
+        None: cgx's arithmetic); "fused" always in float64.
+      sstep_bands_dtype: the streamed bands of ``"fused"``: "auto"
+        (bfloat16 where every band value is exact in it), None (the
+        solve's dtype) or a dtype (the operator rounded to it).
       gv_replace_every: the gvpipe method's residual-replacement cadence
         (0 = off).
       axis_name: the name of the mesh's axis, when the mesh is made here.
       device: where this rank computes; default the mesh's
         (``cuda:LOCAL_RANK`` unless the mesh was made for the CPU).
 
-    cgx's options of the s-step method (``sstep_*``) come with it (A14).
-
     N is padded to a multiple of the mesh size with zero rows; padded
     entries of b, x, r and p stay exactly zero through every iteration.
     """
-    if method in _UNPORTED_METHODS:
-        raise _unported(f"method={method!r} on the sharded route ({_UNPORTED_METHODS[method]})")
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}")
     if jacobi and precond is None:
         precond = "jacobi"
     if precond not in PRECONDS:
         raise ValueError(f"unknown precond {precond!r}")
+    _check_sstep_options(method, sstep_powers, sstep_replace_every, sstep_s, sstep_bands_dtype)
+    if method == "sstep":
+        # the s-step bases consume the flat local bands (cgx sharded_cg.py:708-712)
+        local_kernel = "xla"
+        if precond is not None:
+            raise ValueError(f"method={method!r} does not take a preconditioner")
     if mesh is None:
         mesh = make_mesh(n_devices, device="cuda" if device is None else device,
                          axis_name=axis_name)
@@ -527,6 +648,11 @@ def make_sharded_solver(
         inv[:n] = 1.0 / np.asarray(diag, dtype=_np_dtype(dtype))
         inv_loc = torch.tensor(inv[lo: lo + n_loc], device=dev)
         pc = _JacobiPrecond(inv_loc) if precond == "jacobi" else _NeumannPrecond(mv, inv_loc)
+    sstep = None
+    if method == "sstep":
+        sstep = _sstep_loop(mat, n, n_loc, mesh, mv, dtype, bounds, maxiter, sstep_s,
+                            sstep_basis, sstep_replace_every, sstep_powers, sstep_bands_dtype,
+                            _torch_dtype(dot_precision, None))
     cheby = None
     if method == "chebyshev":  # cgx sharded_cg.py:833-848
         if bounds is None:
@@ -543,8 +669,79 @@ def make_sharded_solver(
         maxiter=int(maxiter), history=int(history),
         dot_precision=dot_precision, tol=float(tol), nearzero=float(nearzero),
         strategy=strategy, local_kernel=kernel, cheby=cheby,
-        gv_replace_every=int(gv_replace_every),
+        gv_replace_every=int(gv_replace_every), sstep=sstep,
     )
+
+
+def _check_sstep_options(method, powers, replace_every, s, bands_dtype) -> None:
+    """cgx's build-time refusals of the s-step options (sharded_cg.py:713-739)."""
+    if method == "sstep" and powers not in SSTEP_POWERS:
+        if powers in ("pallas", "interpret"):
+            raise ValueError(f"sstep_powers={powers!r} is a single-device mode; use "
+                             "sstep_powers='deephalo' or 'fused' for sharded solves")
+        raise ValueError(f"unknown sstep_powers {powers!r}")
+    if method == "sstep" and powers == "fused":
+        if replace_every is not None:
+            raise ValueError(
+                "sstep_powers='fused' has no residual-replacement cadence (the fused block's "
+                "recurrence lives inside the kernel); sstep_replace_every is only meaningful "
+                "with sstep_powers='off'/'deephalo'")
+        if int(s) > 8:
+            raise ValueError("sstep_powers='fused' supports sstep_s <= 8 (larger s needs the "
+                             "residual-replacement cadence of sstep_powers='off'/'deephalo')")
+    elif not (bands_dtype is None or (isinstance(bands_dtype, str) and bands_dtype == "auto")):
+        raise ValueError(
+            "sstep_bands_dtype is only consumed by method='sstep' with sstep_powers='fused' "
+            f"(got sstep_bands_dtype={bands_dtype!r} with method={method!r}, "
+            f"sstep_powers={powers!r})")
+
+
+def _sstep_loop(mat, n: int, n_loc: int, mesh: Mesh, mv, dtype: torch.dtype, bounds,
+                maxiter, s: int, basis: str, replace_every, powers: str, bands_dtype,
+                gram_precision):
+    """The s-step loop of the sharded solver (cgx sharded_cg.py:849-948):
+    :class:`_SStepLoop` for "off" and "deephalo", :class:`~cgx_torch.
+    parallel.sstep_fused._SStepFusedLoop` for "fused"."""
+    if bounds is None:
+        bounds = host_spectral_bounds(mat)
+    lmin, lmax = float(bounds[0]), float(bounds[1])
+    if not 0 < lmin < lmax:
+        raise ValueError(f"invalid spectral bounds {bounds}")
+    theta, delta = (lmax + lmin) / 2.0, (lmax - lmin) / 2.0
+    s = int(s)
+    maxiter = n if maxiter is None else int(maxiter)
+    if basis == "newton":
+        shifts = newton_shifts(mat, n, s, (lmin, lmax))
+    elif basis == "chebyshev":
+        shifts = ()
+    else:
+        raise ValueError(f"unknown s-step basis {basis!r}")
+    if powers in ("deephalo", "fused") and not (isinstance(mat, DIAMatrix)
+                                               and isinstance(mv, _DiaHalo)):
+        raise ValueError(f"sstep_powers={powers!r} needs a DIA matrix with the 'halo' (or "
+                         "'auto') strategy")
+    if powers == "fused":
+        from cgx_torch.parallel.sstep_fused import _SStepFusedLoop, fused_plane_geometry
+
+        if isinstance(bands_dtype, str):  # "auto": bfloat16 exactly where the bands are
+            host = np.asarray(mat.bands).astype(_np_dtype(dtype))
+            t = torch.from_numpy(host)
+            exact = bool(torch.equal(t.to(torch.bfloat16).to(t.dtype), t))
+            bdt = torch.bfloat16 if exact else None
+        else:
+            bdt = _torch_dtype(bands_dtype, None)
+        rows, cols, pm = fused_plane_geometry(mv.offsets, s, n_loc, dtype, bdt)
+        return _SStepFusedLoop(mesh, mv.flat, mv.offsets, n_loc, s, maxiter, theta, delta,
+                               shifts, rows, cols, pm, bdt)
+    deep = None
+    if powers == "deephalo":
+        deep = _DeepHaloBasis(mesh, mv.offsets, n_loc, s, theta, delta, shifts)
+    if replace_every is None:
+        replace_every = 1 if s > 8 else 0
+    return _SStepLoop(theta, delta, mv, s, maxiter, _PsumGram(mesh), shifts=shifts,
+                      replace_every=int(replace_every), basis=deep,
+                      bands_loc=mv.flat if deep is not None else None,
+                      gram_precision=gram_precision)
 
 
 class ShardedCGSolver:
@@ -558,7 +755,7 @@ class ShardedCGSolver:
 
     def __init__(self, *, mesh, device, n, n_pad, dtype, mv, precond, method, maxiter, history,
                  dot_precision, tol, nearzero, strategy, local_kernel, cheby=None,
-                 gv_replace_every=25):
+                 gv_replace_every=25, sstep=None):
         self.mesh = mesh
         self.device = device
         self.n = n
@@ -578,6 +775,7 @@ class ShardedCGSolver:
         self.local_kernel = local_kernel
         self._cheby = cheby  # (lmin, lmax, check_every) of the Chebyshev method
         self._gv_replace_every = gv_replace_every
+        self._sstep = sstep  # the s-step loop (_SStepLoop or _SStepFusedLoop)
 
     def _shard(self, v, name: str) -> torch.Tensor:
         v = _host(v, _np_dtype(self.dtype))
@@ -599,7 +797,11 @@ class ShardedCGSolver:
         common = dict(tol=tol_t, nearzero=nz_t, maxiter=self._maxiter, history=self._history,
                       precond=self._precond)
         with f32_exact():
-            if self.method == "chebyshev":  # cgx's _ChebyLoop, sharded_cg.py:2172
+            if self.method == "sstep":
+                res = self._sstep(b_loc, x0_loc, float(self._tol if tol is None else tol),
+                                  float(self._nearzero if nearzero is None else nearzero),
+                                  marks=collectives)
+            elif self.method == "chebyshev":  # cgx's _ChebyLoop, sharded_cg.py:2172
                 psum = _PsumDots(self.mesh, self._dot_precision)
                 lmin, lmax, check_every = self._cheby
                 res = cheby_loop(self._mv, b_loc, x0_loc, lmin, lmax, tol_t,
@@ -626,15 +828,164 @@ class ShardedCGSolver:
     __call__ = solve
 
 
-def sharded_cg_solve(mat, b, *, x0=None, **kwargs) -> CGResult:
+def sharded_cg_solve(mat, b, *, x0=None, sstep_fallback: str = "auto", **kwargs) -> CGResult:
     """Solve ``A x = b`` with row-block-sharded CG over a mesh of ranks:
     :func:`make_sharded_solver` and one solve (see there for the options).
     ``b`` (and ``x0``) are host arrays, the same on every rank; a float32
-    ``b`` solves in float32."""
+    ``b`` solves in float32.
+
+    ``sstep_fallback`` (cgx's, sharded_cg.py:1052-1116): after a
+    ``method="sstep"`` solve whose replay broke down unconverged, "auto"
+    finishes on the reference recurrence from the frozen iterate (for the
+    iterations left), "adaptive" first restarts the sharded s-step at
+    s // 2 (down to 2), "off" returns the frozen result."""
+    if sstep_fallback not in ("auto", "adaptive", "off"):
+        raise ValueError(f"unknown sstep_fallback {sstep_fallback!r}")
     b = _host(b)
     dtype = b.dtype if b.dtype in (np.float32, np.float64) else np.float64
     solver = make_sharded_solver(mat, b.shape[0], dtype=dtype, **kwargs)
-    return solver.solve(b, x0=x0)
+    res = solver.solve(b, x0=x0)
+    if (sstep_fallback == "off" or kwargs.get("method") != "sstep" or not bool(res.breakdown)
+            or bool(res.converged)):
+        return res
+    used = int(res.iterations)
+    left = int(kwargs.get("maxiter") or b.shape[0]) - used
+    if left <= 0:
+        return res
+    x_f = _host(res.x)
+    s_cur = int(kwargs.get("sstep_s", 4))
+    if sstep_fallback == "adaptive" and s_cur >= 4:
+        kw2 = dict(kwargs, sstep_s=s_cur // 2, maxiter=left)
+        res2 = sharded_cg_solve(mat, b, x0=x_f, sstep_fallback="adaptive", **kw2)
+    else:
+        kw2 = {k: v for k, v in kwargs.items() if not k.startswith("sstep_")}
+        kw2.update(method="reference", maxiter=left)
+        res2 = sharded_cg_solve(mat, b, x0=x_f, sstep_fallback="off", **kw2)
+    return res2._replace(iterations=res2.iterations + used)
+
+
+class _RefineLoop:
+    """Sharded mixed-precision refinement on the shard (cgx's
+    ``_RefineLoop``): ``sweeps`` rounds of an fp32 inner CG on the
+    normalized fp64 residual, through the strategy's fp32 mat-vec and one
+    all-reduce a dot, then the fp64 correction, the fp64 true residual
+    (the fp64 mat-vec's halos) and one all-reduce of its norm, stopping
+    once ``||r|| < rtol ||b||`` (read on the host once a sweep). A sweep is
+    an iteration of the collectives' record; the inner's ride in it."""
+
+    def __init__(self, mesh: Mesh, mv64, mv32, sweeps: int, inner_tol: float,
+                 inner_maxiter: int):
+        self.mesh, self.mv64, self.mv32 = mesh, mv64, mv32
+        self.sweeps, self.inner_tol, self.inner_maxiter = sweeps, inner_tol, inner_maxiter
+
+    def _dot64(self, a, b):
+        return collectives.all_reduce(vdot(a, b).reshape(1), self.mesh)[0]
+
+    def __call__(self, b64, x0, rtol: float, nearzero: float, marks=None) -> CGResult:
+        dev = b64.device
+        f32 = torch.float32
+        tol = rtol * torch.sqrt(self._dot64(b64, b64))
+        x = x0
+        r = b64 - self.mv64(x0)
+        rr = self._dot64(r, r)
+        counts = torch.zeros(self.sweeps, dtype=torch.int32, device=dev)
+        tiny = torch.finfo(torch.float64).tiny
+        inner_tol = torch.tensor(self.inner_tol, dtype=f32, device=dev)
+        nz = torch.tensor(nearzero, dtype=f32, device=dev)
+        dots = _PsumDots(self.mesh, None, separate=True)
+        k = 0
+        # a converged solve runs no further inner CG (the one host read a sweep)
+        while k < self.sweeps and bool(torch.sqrt(rr) >= tol):
+            if marks is not None:
+                marks.next_iteration()
+            # normalized, so that fp32's range is centred for any ||b||
+            scale = torch.sqrt(torch.clamp(rr, min=tiny))
+            r32 = (r / scale).to(f32)
+            inner = cg_loop(self.mv32, r32, torch.zeros_like(r32), dots=dots, precond=None,
+                            tol=inner_tol, nearzero=nz, maxiter=self.inner_maxiter, history=0)
+            x = x + inner.x.to(torch.float64) * scale
+            r = b64 - self.mv64(x)
+            rr = self._dot64(r, r)
+            counts[k] = inner.iterations
+            k += 1
+        if marks is not None:
+            marks.end_loop()
+        res = torch.sqrt(rr)
+        return CGResult(
+            x=x,
+            # the outer sweeps used; the inner counts a sweep ride in history
+            iterations=torch.tensor(k, dtype=torch.int32, device=dev),
+            residual_norm=res,
+            converged=res < tol,
+            rsold=rr,
+            history=counts.to(torch.float64),
+            breakdown=torch.zeros((), dtype=torch.bool, device=dev),
+        )
+
+
+def sharded_refine_fixed_sweeps(
+    mat: DIAMatrix,
+    b,
+    *,
+    mesh: Optional[Mesh] = None,
+    n_devices: Optional[int] = None,
+    strategy: str = "auto",
+    sweeps: int = 4,
+    rtol: float = 1e-11,
+    inner_tol: float = 1e-6,
+    inner_maxiter: Optional[int] = None,
+    axis_name: str = ROWS_AXIS,
+    device=None,
+) -> CGResult:
+    """Sharded mixed-precision solve (cgx's ``sharded_refine_fixed_sweeps``,
+    sharded_cg.py:1456): an fp32 inner sharded CG and fp64 outer
+    refinement sweeps, with the relative tolerance of
+    :func:`cgx_torch.solver.refine.refine_fixed_sweeps`: converged means
+    ``||b - A x|| < rtol ||b||``. The fp32 inner runs the strategy's mat-vec
+    and all-reduces (its local product B8 by the halo strategy's "auto"
+    rule); fp64 only the outer mat-vec, the residual and one all-reduce a
+    sweep. ``iterations`` is the outer sweeps used, ``history`` each
+    sweep's inner count. ``b`` is a host array, the same on every rank."""
+    if not isinstance(mat, DIAMatrix):
+        raise TypeError("sharded_refine_fixed_sweeps needs a DIAMatrix")
+    if mesh is None:
+        mesh = make_mesh(n_devices, device="cuda" if device is None else device,
+                         axis_name=axis_name)
+    if not mesh.is_member:
+        raise ValueError("this rank is not in the mesh: only its members solve")
+    dev = mesh.device if device is None else local_device(device)
+    b = _host(b, np.float64)
+    n = b.shape[0]
+    inner_maxiter = n if inner_maxiter is None else int(inner_maxiter)
+    n_pad = padded_size(n, mesh.size)
+    n_loc = n_pad // mesh.size
+    lo = mesh.rank * n_loc
+    offsets = tuple(int(o) for o in mat.offsets)
+    bands64 = pad_bands(np.asarray(mat.bands, np.float64), n_pad)[:, lo: lo + n_loc]
+    bands32 = bands64.astype(np.float32)
+    halo = max(max(abs(o) for o in offsets), 1)
+    if strategy == "auto":
+        strategy = "halo" if halo <= n_loc else "allgather"
+    if strategy == "halo":
+        mv64 = _DiaHalo(mesh, torch.tensor(bands64, device=dev), offsets, n_loc)
+        # the fp32 inner, where the iterations are, may run B8; the fp64 outer stays plain
+        lk32 = _resolve_local_kernel("auto", n_loc, torch.float32, dev)
+        if lk32 == "stream2d":
+            bands32 = dia_spmv.stream2d_band_planes(bands32, rows=PLANE_ROWS, cols=PLANE_COLS)
+        mv32 = _DiaHalo(mesh, torch.tensor(np.ascontiguousarray(bands32), device=dev), offsets,
+                        n_loc, local_kernel=lk32)
+    elif strategy == "allgather":
+        mv64 = _DiaAllGather(mesh, torch.tensor(bands64, device=dev), offsets, n_loc)
+        mv32 = _DiaAllGather(mesh, torch.tensor(bands32, device=dev), offsets, n_loc)
+    else:
+        raise ValueError(f"strategy {strategy!r} not supported here")
+    b_loc = torch.tensor(pad_vector(b, n_pad)[lo: lo + n_loc], device=dev)
+    loop = _RefineLoop(mesh, mv64, mv32, int(sweeps), float(inner_tol), inner_maxiter)
+    collectives.begin_program()
+    with f32_exact():
+        res = loop(b_loc, torch.zeros_like(b_loc), float(rtol), NEARZERO, marks=collectives)
+    collectives.begin_output()
+    return res._replace(x=collectives.all_gather(res.x, mesh)[:n])
 
 
 def _unported_entry(name: str, item: str):
@@ -645,8 +996,7 @@ def _unported_entry(name: str, item: str):
     return entry
 
 
-# cgx's other sharded solves, the rest of ROADMAP A14
-sharded_refine_fixed_sweeps = _unported_entry("sharded_refine_fixed_sweeps", "ROADMAP A14")
+# cgx's multi-RHS sharded solves, the rest of ROADMAP A14
 sharded_block_cg_solve = _unported_entry("sharded_block_cg_solve", "ROADMAP A14")
 sharded_deflated_cg_solve = _unported_entry("sharded_deflated_cg_solve", "ROADMAP A14")
 sharded_block_deflated_cg_solve = _unported_entry("sharded_block_deflated_cg_solve",
@@ -654,5 +1004,3 @@ sharded_block_deflated_cg_solve = _unported_entry("sharded_block_deflated_cg_sol
 sharded_cg_solve_harvest = _unported_entry("sharded_cg_solve_harvest", "ROADMAP A14")
 sharded_cg_solve_batched = _unported_entry("sharded_cg_solve_batched (batched2d)",
                                            "ROADMAP A14")
-sharded_mg_cg_solve = _unported_entry("sharded_mg_cg_solve (mg_sharded)", "ROADMAP A14, after A10")
-sharded_tw_solve = _unported_entry("sharded_tw_solve (tw_sharded)", "ROADMAP A14, after A12")

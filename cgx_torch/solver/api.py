@@ -38,13 +38,15 @@ Dispatch (cgx api.py:322-403):
 - ``precision="mixed"`` runs fp64 refinement around fp32 inner solves
   (:mod:`cgx_torch.solver.refine`);
 - ``precision="tw"`` runs triple-word float32 refinement sweeps around an
-  fp32 MG-PCG inner (:func:`_solve_tw`), on one device;
+  fp32 MG-PCG inner (:func:`_solve_tw`);
 - a dense fp64 operator runs as ``cfg.dense_fp64`` says
   (:func:`_maybe_ozaki`): the fp64 product, or the Ozaki int8 slices;
 - ``n_devices > 1`` or ``mesh=`` runs the sharded route on
   ``torch.distributed`` (:mod:`cgx_torch.parallel.sharded_cg`), with
-  ``strategy``; there ``precond="mg"``, ``precision="mixed"``,
-  ``precision="tw"`` and ``method="sstep"`` (A14) raise;
+  ``strategy``: every method (``method="sstep"`` with
+  :func:`_sharded_powers`), ``precond="mg"`` (:mod:`cgx_torch.parallel.
+  mg_sharded`), ``precision="mixed"`` (``sharded_refine_fixed_sweeps``)
+  and ``precision="tw"`` (:mod:`cgx_torch.parallel.tw_sharded`);
 - a 2-D ``b`` of shape (n, s) solves every column: ``multi_rhs="block"``
   (the default) in one breakdown-free block-CG Krylov space with the
   configured preconditioner (:func:`_solve_block`), ``"batched"`` by
@@ -144,14 +146,29 @@ def _single_powers(cfg: SolveConfig, op) -> str:
     raise ValueError(f"unknown sstep_powers {cfg.sstep_powers!r}")
 
 
-def _solve_mixed(mat, b, cfg: SolveConfig, method: str, dev: torch.device) -> CGResult:
+def _solve_mixed(mat, b, cfg: SolveConfig, method: str, dev: torch.device, *,
+                 sharded: bool = False, n_devices=None, mesh=None,
+                 strategy: str = "auto") -> CGResult:
     """precision="mixed" (cgx api.py:406-468): fp32 inner solves and fp64
     refinement sweeps on a banded operator. ``cfg.tolerance`` is relative
-    to ||b|| here, and ``cfg.maxiter`` caps each inner solve."""
+    to ||b|| here, and ``cfg.maxiter`` caps each inner solve (cgx's
+    sharded branch keeps its own cap, N). On a mesh
+    :func:`cgx_torch.parallel.sharded_cg.sharded_refine_fixed_sweeps`;
+    its ``history`` holds each sweep's inner count."""
     if method != "reference" or cfg.precond is not None:
         raise ValueError(
             "precision='mixed' runs the reference recurrence without an outer preconditioner "
             "(the fp32 inner solve is the acceleration)")
+    if sharded:  # cgx api.py:428-434
+        from cgx_torch.parallel.sharded_cg import sharded_refine_fixed_sweeps
+
+        host = _host_matrix(mat)
+        if not isinstance(host, DIAMatrix):
+            raise ValueError("precision='mixed' needs a banded operator")
+        b_np = b.detach().cpu().numpy() if isinstance(b, torch.Tensor) else np.asarray(b)
+        return sharded_refine_fixed_sweeps(host, b_np.astype(np.float64), mesh=mesh,
+                                           n_devices=n_devices, strategy=strategy,
+                                           rtol=cfg.tolerance, device=dev)
     if isinstance(mat, DIAMatrix):
         op64 = as_operator(mat, torch.float64, device=dev)
     elif isinstance(mat, DiaOperator):
@@ -179,19 +196,43 @@ def _solve_mixed(mat, b, cfg: SolveConfig, method: str, dev: torch.device) -> CG
 
 
 def _solve_tw(mat, b, cfg: SolveConfig, method: str, dev: torch.device, *,
-              sharded: bool) -> CGResult:
+              sharded: bool, n_devices=None, mesh=None) -> CGResult:
     """precision="tw" (cgx api.py:471-561): triple-word float32 refinement
     sweeps (:func:`cgx_torch.solver.refine.refine_pcg_sweeps_tw`) around an
     fp32 inner: MG-PCG (an fp32 V-cycle) where the banded operator decodes
     on a grid, else, with ``precond=None``, plain fp32 CG. ``cfg.tolerance``
     is relative to ||b||, judged on the tw-evaluated true residual;
-    ``cfg.maxiter`` caps each inner solve (80 with MG, else N)."""
+    ``cfg.maxiter`` caps each inner solve (80 with MG, else N). On a mesh
+    :func:`cgx_torch.parallel.tw_sharded.sharded_tw_solve` runs the same
+    sweeps over the sharded MG-PCG (or halo CG) inner."""
     if method != "reference":
         raise ValueError("precision='tw' runs the reference recurrence")
     if cfg.precond not in (None, "mg"):
         raise ValueError(f"precision='tw' supports precond=None or 'mg' (got {cfg.precond!r})")
-    if sharded:
-        raise _unported("precision='tw' on the sharded route (tw_sharded, ROADMAP A14)")
+    if sharded:  # cgx api.py:497-521
+        from cgx_torch.parallel.tw_sharded import sharded_tw_solve
+
+        host = _host_matrix(mat)
+        if isinstance(host, COOMatrix):
+            host = DIAMatrix.from_coo(host)
+        if not isinstance(host, DIAMatrix):
+            raise ValueError("precision='tw' needs a banded operator")
+        b_np = b.detach().cpu().numpy() if isinstance(b, torch.Tensor) else np.asarray(b)
+        res = sharded_tw_solve(host, b_np.astype(np.float64), mesh=mesh, n_devices=n_devices,
+                               rtol=cfg.tolerance,
+                               precond="mg" if cfg.precond == "mg" else "auto",
+                               smoother=cfg.mg_smoother,
+                               inner_maxiter=int(cfg.maxiter) if cfg.maxiter else None,
+                               device=dev)
+        return CGResult(
+            x=res.x,
+            iterations=torch.tensor(res.outer_iterations, dtype=torch.int32, device=dev),
+            residual_norm=res.residual_norm,
+            converged=res.converged,
+            rsold=res.residual_norm ** 2,
+            history=torch.zeros((0,), dtype=torch.float64, device=dev),
+            breakdown=torch.zeros((), dtype=torch.bool, device=dev),
+        )
     if isinstance(mat, DIAMatrix):
         op64 = as_operator(mat, torch.float64, device=dev)
     elif isinstance(mat, DiaOperator):
@@ -266,11 +307,9 @@ def _solve_sharded(mat, b, cfg: SolveConfig, method: str, dev: torch.device, *, 
     with the same arguments."""
     from cgx_torch.parallel.sharded_cg import sharded_cg_solve
 
-    if cfg.precond == "mg":
-        raise _unported("precond='mg' on the sharded route (mg_sharded, ROADMAP A14)")
     if cfg.precision == "mixed":
-        raise _unported("precision='mixed' on the sharded route (sharded_refine_fixed_sweeps, "
-                        "ROADMAP A14)")
+        return _solve_mixed(mat, b, cfg, method, dev, sharded=True, n_devices=n_devices,
+                            mesh=mesh, strategy=strategy)
     if cfg.precision in _UNPORTED_PRECISION:
         raise _unported(f"precision={cfg.precision!r}: {_UNPORTED_PRECISION[cfg.precision]}")
     if cfg.precision not in _DTYPES:
@@ -279,15 +318,47 @@ def _solve_sharded(mat, b, cfg: SolveConfig, method: str, dev: torch.device, *, 
     b_np = b_np.astype(np.float64 if cfg.precision == "fp64" else np.float32)
     if x0 is not None:
         x0 = x0.detach().cpu().numpy() if isinstance(x0, torch.Tensor) else np.asarray(x0)
+    host = _host_matrix(mat)
+    maxiter = _default_maxiter(cfg, method, b_np.shape[0])
+    if cfg.precond == "mg":  # cgx api.py:217-245
+        from cgx_torch.parallel.mg_sharded import sharded_mg_cg_solve
+
+        if method != "reference":
+            raise ValueError("precond='mg' sharded runs the reference recurrence")
+        if not isinstance(host, DIAMatrix):
+            raise ValueError("precond='mg' needs a banded grid operator")
+        if x0 is not None:
+            raise ValueError("x0 warm starts are not supported on the sharded MG path")
+        return sharded_mg_cg_solve(
+            host, b_np, mesh=mesh, n_devices=n_devices, tol=cfg.tolerance, maxiter=maxiter,
+            nearzero=cfg.nearzero, history=cfg.history, smoother=cfg.mg_smoother,
+            cycle_precision=cfg.mg_cycle_precision,
+            ndim=infer_grid_ndim(host.shape[0], host.offsets), device=dev)
     return sharded_cg_solve(
-        _host_matrix(mat), b_np, x0=x0, mesh=mesh, n_devices=n_devices, strategy=strategy,
+        host, b_np, x0=x0, mesh=mesh, n_devices=n_devices, strategy=strategy,
         method=method, precond=cfg.precond, precond_block_size=cfg.precond_block_size,
-        tol=cfg.tolerance, maxiter=_default_maxiter(cfg, method, b_np.shape[0]),
-        nearzero=cfg.nearzero, history=cfg.history,
+        tol=cfg.tolerance, maxiter=maxiter, nearzero=cfg.nearzero, history=cfg.history,
         dot_precision=None if cfg.precision == "fp64" else torch.float64,
-        check_every=cfg.check_every, gv_replace_every=cfg.gv_replace_every,
+        check_every=cfg.check_every, sstep_s=cfg.sstep_s, sstep_basis=cfg.sstep_basis,
+        sstep_replace_every=cfg.sstep_replace_every, sstep_powers=_sharded_powers(cfg),
+        sstep_fallback=cfg.sstep_fallback, gv_replace_every=cfg.gv_replace_every,
         dense_fp64=cfg.dense_fp64, local_kernel=cfg.local_kernel, device=dev,
     )
+
+
+def _sharded_powers(cfg: SolveConfig) -> str:
+    """The sharded ``sstep_powers`` (cgx ``_sharded_powers``, api.py:81-101):
+    "auto" is "off" on a mesh (per-mat-vec halos; "deephalo" trades
+    message count for a halo depth of s h, a choice of the caller's);
+    "off", "deephalo" and "fused" pass; the single-device modes raise."""
+    if cfg.sstep_powers == "auto":
+        return "off"
+    if cfg.sstep_powers in ("off", "deephalo", "fused"):
+        return cfg.sstep_powers
+    if cfg.sstep_powers in ("pallas", "interpret"):
+        raise ValueError(f"sstep_powers={cfg.sstep_powers!r} is a single-device mode; use "
+                         "sstep_powers='deephalo' or 'fused' for sharded solves")
+    raise ValueError(f"unknown sstep_powers {cfg.sstep_powers!r}")
 
 
 def _default_maxiter(cfg: SolveConfig, method: str, n: int) -> int:
@@ -416,7 +487,8 @@ def solve(
             raise ValueError(f"unknown multi_rhs {cfg.multi_rhs!r}")
         return _solve_block(mat, b, cfg, method, dev, x0, sharded=sharded)
     if cfg.precision == "tw":
-        return _solve_tw(mat, b, cfg, method, dev, sharded=sharded)
+        return _solve_tw(mat, b, cfg, method, dev, sharded=sharded, n_devices=n_devices,
+                         mesh=mesh)
     if sharded:
         return _solve_sharded(mat, b, cfg, method, dev, n_devices=n_devices, mesh=mesh,
                               strategy=strategy, x0=x0)

@@ -243,13 +243,19 @@ def sstep_cg_loop(
     replace_every: int = 0,
     gram_precision: Optional[torch.dtype] = None,
     replay: Optional[Callable] = None,
+    gram: Optional[Callable] = None,
+    marks=None,
 ) -> CGResult:
     """The s-step recurrence from ``x0`` (cgx ``sstep_cg_loop``).
 
     ``basis_fn(p, r)`` returns the (2s+1, n) basis (B9), or None for the
     2s-1 plain mat-vecs; ``gram_precision`` the Gram's and the replay's
     dtype (None: the vectors', cgx's arithmetic); ``replay(g, k, rsnew,
-    conv, brk)`` replaces :func:`replay_block` (the kernel replay).
+    conv, brk)`` replaces :func:`replay_block` (the kernel replay);
+    ``gram(v)`` maps the (m, n) basis in the Gram's dtype to ``V V^T``
+    (default the local product; the sharded route all-reduces it, one
+    collective a block, as cgx's ``gram`` hook does). ``marks`` as for
+    :func:`cgx_torch.solver.cg.run_recurrence`, a block an iteration.
     ``replace_every`` > 0 replaces ``r = b - A x`` every that many blocks
     while ``||r||^2 > eps ||r_0||^2`` (cgx's guarded replacement; here
     the mat-vec runs in every such block and the replacement is
@@ -262,9 +268,10 @@ def sstep_cg_loop(
     tol_t = torch.tensor(tol, dtype=gdt, device=dev)
     nz_t = torch.tensor(nearzero, dtype=gdt, device=dev)
 
+    gram_of = _local_gram if gram is None else gram
+
     def gram(v):
-        v = v.to(gdt)
-        return _local_gram(v)
+        return gram_of(v.to(gdt))
 
     if replay is None:
         def replay(g, k, rsnew, conv, brk):
@@ -283,16 +290,23 @@ def sstep_cg_loop(
     blk = 0
     while not bool(conv | brk | (k >= maxiter)):  # the one host read per _BLOCKS blocks
         for _ in range(_BLOCKS):
+            if marks is not None:
+                marks.next_iteration()
             if replace_every > 0 and blk > 0 and blk % replace_every == 0:
                 live = ~conv & ~brk & (k < maxiter)
                 r = torch.where(live & (rsnew > rr_floor), b - matvec(x), r)
             v = basis_fn(p, r) if basis_fn is not None else torch.stack(cols(p, s + 1) + cols(r, s))
-            xc, d, c, k, rsold, rsnew, conv, brk = replay(gram(v), k, rsnew, conv, brk)
+            live = ~conv & ~brk & (k < maxiter)
+            xc, d, c, k, rs, rsnew, conv, brk = replay(gram(v), k, rsnew, conv, brk)
+            # cgx's loop ends at the stop: rsold is its last live block's
+            rsold = torch.where(live, rs, rsold)
             # one stacked (3, m) @ (m, n) product, the coefficients in the vectors' dtype
             rec = torch.stack([xc, d, c]).to(dtype) @ v
             x = x + rec[0]
             r, p = rec[1], rec[2]
             blk += 1
+    if marks is not None:
+        marks.end_loop()
     return CGResult(
         x=x,
         iterations=k,

@@ -3,7 +3,8 @@
 
 Every collective of the sharded solver goes through this module:
 
-- :func:`all_reduce` for cgx's ``psum`` of one or more stacked dots;
+- :func:`all_reduce` for cgx's ``psum`` of one or more stacked dots, and
+  :func:`all_reduce_max` for its ``pmax``;
 - :func:`halo_exchange` for cgx's pair of ``ppermute`` halos;
 - :func:`all_gather` for ``all_gather`` (tiled);
 - :func:`reduce_scatter` for ``psum_scatter`` (tiled).
@@ -147,6 +148,15 @@ def all_reduce(t: torch.Tensor, mesh, width: int = 1) -> torch.Tensor:
     _record("psum", t.numel(), width)
     if mesh.group is not None:  # a group of one rank still runs the collective
         dist.all_reduce(t, group=mesh.group)
+    return t
+
+
+def all_reduce_max(t: torch.Tensor, mesh) -> torch.Tensor:
+    """The max of ``t`` over the mesh (cgx's ``pmax``), in place; recorded
+    as ``("pmax", 1, elements)`` (cgx's record counts no ``pmax``)."""
+    _record("pmax", t.numel())
+    if mesh.group is not None:
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.group)
     return t
 
 

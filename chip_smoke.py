@@ -196,7 +196,32 @@ Phases, one JSON object per line each:
 39. multi-RHS paths on lap2d_fd(1000): multi_rhs="batched" against
     single solves, solve_sequence against plain CG, and the
     differentiable solves (single and block) against one more solve and a
-    central difference.
+    central difference;
+40. sstep halo (after the s-step goldens): B10's halo mode on
+    lap2d_fd(3200) cut in one process into 4 shards of 2,560,000 rows
+    (5000 x 512 of cgx's float32 planes), each extended by its
+    neighbours' rows: the Gram-only launches' G summed in rank order
+    within 1e-12 of the single-device Gram, the replay of the sum within
+    1e-13 of its coefficients, the recovered rows bitwise; each launch
+    against its plain version on the same shards, float32 and bfloat16
+    bands, both designs; the times of a shard's launches with bfloat16
+    bands beside their bound on its extended rows;
+41. sharded s-step (inside phase 25's NCCL group): make_sharded_solver
+    (method="sstep") at N = 10,240,000, fp32, analytic bounds, "fused",
+    "off" and "deephalo", set-up apart: "fused" k equal to the
+    single-device fused route's on the same bounds, the others within s,
+    true residuals within 2x of it, one Gram all-reduce a block, B10 on
+    every fused block; the bitwise repeat and a profile on 64 blocks
+    each;
+42. sharded mixed, MG-PCG and tw (a second NCCL group of one rank, after
+    phase 33): solve(precision="mixed", mesh=) at rtol 2e-10 (sweeps
+    within one of one device's; the repeat on one capped sweep),
+    solve(precond="mg", mesh=) in fp64 with the fp32 cycle (k within 2
+    of phase 27's, its gate), solve(precision="tw", precond="mg", mesh=)
+    (sweeps within one of phase 31's, below 1e-10 by its own words), at
+    N = 10,240,000; MG and tw then from sharded_mg_cg_setup's and
+    sharded_tw_setup's build, timed apart, twice (bitwise the solve()
+    call's x); each profiled.
 
 The CLI phases call cgx_torch.cli.main.run, the body of the CLI's main,
 in this process. Then a "kernels" line for the ported kernels (every
@@ -253,6 +278,9 @@ from cgx_torch.cli import main as cli
 from cgx_torch.mats.device import lap2d_operator, source_term_device
 from cgx_torch.parallel import make_mesh, make_sharded_solver
 from cgx_torch.parallel import sharded_cg as sc
+from cgx_torch.parallel.mg_sharded import sharded_mg_cg_setup
+from cgx_torch.parallel.sstep_fused import fused_plane_geometry
+from cgx_torch.parallel.tw_sharded import sharded_tw_setup
 from cgx_torch.mats.containers import COOMatrix
 from cgx_torch.mats.generators import (
     lap2d_fd,
@@ -279,6 +307,7 @@ from cgx_torch.solver.refine import refine_pcg_sweeps_dd, refine_pcg_sweeps_tw
 from cgx_torch.solver.sstep import newton_shifts, sstep_cg_solve
 from cgx_torch.utils import collectives
 
+STARTED = time.perf_counter()  # the records' script_seconds count from here
 SEED = 0
 DEV = "cuda"  # every tensor of the run lives here
 GRID = 3200  # bench.py:54, N = 10,240,000
@@ -328,6 +357,12 @@ SSTEP_MAIN_CASE = {"dia_sstep_basis_planes": "f32", "sstep_gram": "f32_bf16b",
 GRAM_RTOL = 1e-12  # against sum |v_i v_j|: float64 sums in two orders
 COEF_RTOL = 1e-13  # the replay's coefficients, against their max
 SSTEP_PROFILE_BLOCKS = 64
+# the sharded mixed solve's rtol at N = 10,240,000: fp64 leaves a floor near
+# 1e-10 there (phase_mg_main), and the refinement on one card and on the mesh
+# both stall at 8.45e-11, so the 1e-11 of the N = 1e6 phases is out of reach
+MIXED_RTOL = 2e-10
+HALO_SHARDS = 4  # the halo phase's cut of lap2d_fd(GRID): 2,560,000 rows a shard
+SHARDED_POWERS = ("fused", "off", "deephalo")  # the sharded s-step routes
 GENERIC_GRID = 48  # lap3d_fd(48): N = 110,592, 7 diagonals, reach 2304
 
 # (name substring, HBM bytes/s, float32 FLOP/s, float64 FLOP/s) from
@@ -469,7 +504,8 @@ def sync() -> None:
 
 
 def emit(obj: dict) -> None:
-    print(json.dumps(obj), flush=True)
+    """One record a line, with the seconds since the script started."""
+    print(json.dumps({**obj, "script_seconds": time.perf_counter() - STARTED}), flush=True)
 
 
 def check(cond: bool, what: str) -> None:
@@ -3532,6 +3568,469 @@ def phase_sharded_methods(mesh) -> None:
         sync()
 
 
+def halo_shard(v: torch.Tensor, k: int, n_loc: int, d: int) -> torch.Tensor:
+    """Shard k of ``v`` (rows on the last axis) with the d rows of each
+    neighbour around it, zeros past the ends: what the sharded fused route's
+    band exchange and per-block exchange put in a shard's extended rows."""
+    n = v.shape[-1]
+    lo, hi = k * n_loc, (k + 1) * n_loc
+    out = torch.zeros(v.shape[:-1] + (n_loc + 2 * d,), dtype=v.dtype, device=v.device)
+    a, b = max(lo - d, 0), min(hi + d, n)
+    out[..., a - (lo - d): b - (lo - d)] = v[..., a:b]
+    return out
+
+
+def halo_block(kb, p, r, x, start, k: int, n_loc: int, d: int) -> ss.BlockState:
+    """Shard k's block on the card: extended bands, p and r in half 0 of
+    their pairs, x, and a copy of the start's state and B."""
+    ext = halo_shard(torch.stack([p, r, x]), k, n_loc, d)
+    pe, re = (torch.zeros((2, n_loc + 2 * d), dtype=p.dtype, device=p.device) for _ in range(2))
+    pe[0], re[0] = ext[0], ext[1]
+    return (halo_shard(kb, k, n_loc, d).contiguous(),
+            ss.BlockState(ext[2].contiguous(), pe, re, start.state.clone(), start.bmat))
+
+
+def phase_sstep_halo(spec) -> dict:
+    """B10 in the halo mode of the sharded fused route: lap2d_fd(GRID),
+    float32 vectors and bands, s = SSTEP_S, cut in one process into
+    HALO_SHARDS shards of 2,560,000 rows (5000 x 512 of cgx's float32
+    planes, fused_plane_geometry's tiling), each extended by its
+    neighbours' d = pm cols rows by copies. Per shard the Gram-only launch
+    over the shard's rows, then the recover from the single-device
+    replay's coefficients. The shards' G summed in rank order holds to the
+    single-device Gram kernel on the whole vector within GRAM_RTOL of its
+    largest entry, the replay of the sum to the single-device coefficients
+    within COEF_RTOL, and each shard's x, r and p rows bitwise to the
+    single-device recover. Then each launch against its plain version on
+    the same shards, with float32 and with bfloat16 bands, in both designs
+    (halo_plain_checks), and the times of a shard's launches with the
+    bfloat16 bands of the sharded fused route beside their bound on
+    n_loc + 2d rows. Returns the kernels line's halo figures of the three
+    sites."""
+    dia = lap2d_fd(GRID)
+    n, offsets = dia.shape[0], tuple(dia.offsets)
+    n_loc = n // HALO_SHARDS
+    rows, cols, pm = fused_plane_geometry(offsets, SSTEP_S, n_loc, torch.float32)
+    d = pm * cols
+    check(n_loc % (rows * cols) == 0 and d >= SSTEP_S * GRID
+          and (GRID != 3200 or (cols, n_loc // cols) == (512, 5000)),
+          f"halo geometry {(rows, cols, pm)} of a {n_loc}-row shard")
+    kw = sstep_kw(dia, analytic_bounds(GRID))
+    m = 2 * SSTEP_S + 1
+    gram, coef = slice(ss.GRAM, ss.GRAM + m * m), slice(ss.COEF, ss.COEF + 3 * m)
+    bands, kb, p, r = sstep_inputs("f32", dia)
+    start = seeded_block(bands, p, r, kw)
+    start.x.copy_(p)
+    whole = ss.BlockState(*(t.clone() for t in start))
+    ss._sstep_gram(kb, whole.p, whole.r, whole.state, whole.bmat, **kw, **SSTEP_CONTROL)
+    ss._sstep_recover(kb, whole.p, whole.r, whole.x, whole.state, **kw)
+    sync()
+    g_whole = whole.state[gram]
+    total = torch.zeros_like(g_whole)
+    window = (d, d + n_loc)
+    bitwise, design = [], None
+    for k in range(HALO_SHARDS):
+        kbk, st = halo_block(kb, p, r, start.x, start, k, n_loc, d)
+        work = ss.workspace(DEV, n_loc, offsets, SSTEP_S, torch.float32)
+        ss._sstep_gram(kbk, st.p, st.r, st.state, st.bmat, work=work, window=window, part=True,
+                       **kw, **SSTEP_CONTROL)
+        total += st.state[gram]  # the all-reduce's sum, in rank order
+        design = ss._sstep_gram.design
+        check(float(st.state[ss.LIVE]) == 1.0 and float(st.state[ss.K]) == 0.0,
+              f"halo shard {k}: the Gram-only launch replayed or left the block dead")
+        st.state[coef] = whole.state[coef]  # every shard recovers with the replay's coefficients
+        ss._sstep_recover(kbk, st.p, st.r, st.x, st.state, work=work, window=window, **kw)
+        lo, hi = k * n_loc, (k + 1) * n_loc
+        bitwise.append(torch.equal(st.x[d:d + n_loc], whole.x[lo:hi])
+                       and torch.equal(st.p[1, d:d + n_loc], whole.p[1, lo:hi])
+                       and torch.equal(st.r[1, d:d + n_loc], whole.r[1, lo:hi]))
+        del kbk, st, work
+        sync()
+    gram_rel = float((total - g_whole).abs().max() / g_whole.abs().max())
+    summed = start.state.clone()
+    summed[gram] = total
+    summed[ss.LIVE] = 1.0
+    ss.sstep_replay(summed, start.bmat, s=SSTEP_S, live_only=True, **SSTEP_CONTROL)
+    c_whole = whole.state[coef]
+    coef_rel = float((summed[coef] - c_whole).abs().max() / c_whole.abs().max())
+    del whole, total, summed, bands, kb, p, r, start
+    sync()
+    checks = halo_plain_checks(dia, kw, n_loc)
+    times = halo_times(spec, dia, kw, n_loc)
+    rec = {"phase": "sstep_halo", "problem": f"lap2d_fd({GRID})", "n": n,
+           "shards": HALO_SHARDS, "n_loc": n_loc, "geometry": {"rows": rows, "cols": cols,
+                                                              "pm": pm}, "halo_rows": d,
+           "design": design, "gram_rel_to_single_device": gram_rel,
+           "coef_rel_to_single_device": coef_rel, "recover_bitwise_by_shard": bitwise,
+           "plain_checks": checks, "times": times}
+    emit(rec)
+    check(gram_rel <= GRAM_RTOL, f"sstep halo: the shards' Gram sum is off by {gram_rel}")
+    check(coef_rel <= COEF_RTOL, f"sstep halo: the replay of the sum is off by {coef_rel}")
+    check(all(bitwise), f"sstep halo: the recovered rows differ by shard: {bitwise}")
+    return times
+
+
+def halo_plain_checks(dia, kw, n_loc: int) -> dict:
+    """The halo-mode launches against their plain versions (on the card)
+    on the same inputs, at the shapes of phase_sstep_halo's shards: every
+    shard of the cut, float32 bands and the bfloat16 bands the sharded
+    fused route streams ("auto"), each with that bands dtype's halo depth
+    (fused_plane_geometry), in basis_plan's design and, where that is the
+    wavefront, in the slab design forced. The Gram-only G within
+    GRAM_RTOL of sum |v_i v_j| and the state's flags equal; the recover
+    from seeded coefficients: x, r, p and the state bitwise."""
+    offsets = tuple(dia.offsets)
+    m = 2 * SSTEP_S + 1
+    gram, coef = slice(ss.GRAM, ss.GRAM + m * m), slice(ss.COEF, ss.COEF + 3 * m)
+    flags = [ss.K, ss.CONV, ss.BRK, ss.LIVE]
+    rng = np.random.default_rng(SEED + 1)
+    c = torch.as_tensor(rng.standard_normal(3 * m), dtype=torch.float64, device=DEV)
+    out = {}
+    for case in ("f32", "f32_bf16b"):
+        dtype, bf16 = SSTEP_CASES[case]
+        d = fused_plane_geometry(offsets, SSTEP_S, n_loc, dtype,
+                                 torch.bfloat16 if bf16 else None)
+        d = d[2] * d[1]
+        bands, kb, p, r = sstep_inputs(case, dia)
+        start = seeded_block(bands, p, r, kw)
+        start.x.copy_(p)
+        works = {}
+        plan_work = ss.workspace(DEV, n_loc, offsets, SSTEP_S, dtype)
+        works[plan_work.plan.design] = plan_work
+        if plan_work.plan.design != "slab":
+            works["slab"] = ss.workspace(DEV, n_loc, offsets, SSTEP_S, dtype,
+                                         plan=slab_plan_of(n_loc, dtype))
+        rec = {"bands": str(kb.dtype), "halo_rows": d, "gram_rel": {k: [] for k in works},
+               "recover_bitwise": {k: [] for k in works}}
+        window = (d, d + n_loc)
+        for k in range(HALO_SHARDS):
+            kbk, st = halo_block(kb, p, r, start.x, start, k, n_loc, d)
+            want = ss.BlockState(*(t.clone() for t in st))
+            ss._gram_ref(kbk, want.p, want.r, want.state, want.bmat, window=window, part=True,
+                         **kw, **SSTEP_CONTROL)
+            v = ss.dia_sstep_basis_ref(kbk, st.p[0], st.r[0], **kw)[:, d:d + n_loc].double()
+            _, scale = pair_sums(v)
+            del v
+            want.state[coef] = c
+            after_gram = ss.BlockState(*(t.clone() for t in want))
+            ss._recover_ref(kbk, want.p, want.r, want.x, want.state, window=window, **kw)
+            for design, work in works.items():
+                got = ss.BlockState(*(t.clone() for t in st))
+                ss._sstep_gram(kbk, got.p, got.r, got.state, got.bmat, work=work, window=window,
+                               part=True, **kw, **SSTEP_CONTROL)
+                sync()
+                rel = float(((got.state[gram] - after_gram.state[gram]).abs()
+                             / scale.reshape(-1)).max())
+                same_flags = torch.equal(got.state[flags], after_gram.state[flags])
+                rec["gram_rel"][design].append(rel if same_flags else float("inf"))
+                got = ss.BlockState(*(t.clone() for t in after_gram))
+                ss._sstep_recover(kbk, got.p, got.r, got.x, got.state, work=work, window=window,
+                                  **kw)
+                sync()
+                rec["recover_bitwise"][design].append(all(
+                    torch.equal(a, w) for a, w in zip(got[:4], want[:4])))
+                del got
+            del kbk, st, want, after_gram
+            sync()
+        out[case] = rec
+        emit({"phase": "sstep_halo_plain_check", "case": case, "n_loc": n_loc, **rec})
+        check(max(max(v) for v in rec["gram_rel"].values()) <= GRAM_RTOL
+              and all(all(v) for v in rec["recover_bitwise"].values()),
+              f"sstep halo against the plain versions ({case}): {rec}")
+        del bands, kb, p, r, start, works, plan_work
+        sync()
+    return out
+
+
+def halo_times(spec, dia, kw, n_loc: int) -> dict:
+    """ms of shard 0's halo-mode launches (the Gram-only, the recover, the
+    live-only replay) with the bfloat16 bands the sharded fused route
+    streams, beside their bound on n_loc + 2d rows, the plain versions'
+    ms and the launches' design."""
+    ndiag = len(dia.offsets)
+    offsets = tuple(dia.offsets)
+    bands, kb, p, r = sstep_inputs(SSTEP_MAIN_CASE["sstep_gram"], dia)
+    rows, cols, pm = fused_plane_geometry(offsets, SSTEP_S, n_loc, torch.float32, kb.dtype)
+    d = pm * cols
+    start = seeded_block(bands, p, r, kw)
+    start.x.copy_(p)
+    kbk, st = halo_block(kb, p, r, start.x, start, 0, n_loc, d)
+    del bands, start
+    work = ss.workspace(DEV, n_loc, offsets, SSTEP_S, torch.float32)
+    live = torch.tensor([0.0, 1.0], dtype=torch.float64, device=DEV)
+    window = (d, d + n_loc)
+
+    def recover(fn, **extra):
+        st.state[ss.BLK:ss.LIVE + 1].copy_(live)
+        fn(kbk, st.p, st.r, st.x, st.state, window=window, **kw, **extra)
+
+    runs = {
+        "sstep_gram": (lambda: ss._sstep_gram(kbk, st.p, st.r, st.state, st.bmat, work=work,
+                                              window=window, part=True, **kw, **SSTEP_CONTROL),
+                       lambda: ss._gram_ref(kbk, st.p, st.r, st.state, st.bmat, window=window,
+                                            part=True, **kw, **SSTEP_CONTROL)),
+        "sstep_recover": (lambda: recover(ss._sstep_recover, work=work),
+                          lambda: recover(ss._recover_ref)),
+        "sstep_replay": (lambda: ss.sstep_replay(st.state, st.bmat, s=SSTEP_S, live_only=True,
+                                                 **SSTEP_CONTROL),
+                         lambda: ss._replay_ref(st.state, st.bmat, s=SSTEP_S, **SSTEP_CONTROL)),
+    }
+    out = {}
+    for site, (kern, plain) in runs.items():
+        sync()
+        st.state[ss.LIVE] = 1.0
+        ms = time_ms(kern)
+        plain_ms = time_ms(plain, reps=3, burst=1)
+        bound, bound_by = sstep_bound(spec, site, ndiag, n_loc + 2 * d, torch.float32,
+                                      kb.element_size())
+        out[site] = {"halo_ms": ms, "halo_plain_ms": plain_ms, "halo_bound_ms": bound,
+                     "halo_bound_by": bound_by, "halo_rows": n_loc + 2 * d,
+                     "halo_bands": str(kb.dtype),
+                     "halo_design": work.plan.design if site != "sstep_replay" else None}
+        emit({"phase": "sstep_halo_kernel", "site": site, "n_loc": n_loc, "halo": d, **out[site],
+              "bound_share": bound / ms})
+    del kbk, st, work, p, r
+    sync()
+    return out
+
+
+def sharded_rec(phase: str, mesh, res, k: int, seconds: float, setup_seconds: float,
+                launches: dict, bitwise: bool, **extra) -> dict:
+    return {"phase": phase, "world": mesh.size, "backend": dist.get_backend(mesh.group), "k": k,
+            "converged": bool(res.converged), "breakdown": bool(res.breakdown),
+            "bitwise_repeat": bitwise, "seconds": seconds, "setup_seconds": setup_seconds,
+            "time_to_solution_seconds": seconds + setup_seconds,
+            "us_per_iter": seconds / max(k, 1) * 1e6,
+            "launches": {name: c for name, c in launches.items() if c},
+            "x_finite": bool(torch.isfinite(res.x).all()), **extra}
+
+
+def same_x(a, b) -> bool:
+    """Two results' x bit for bit."""
+    return a.x.shape == b.x.shape and torch.equal(a.x.contiguous().view(torch.uint8),
+                                                  b.x.contiguous().view(torch.uint8))
+
+
+def phase_sharded_sstep(spec, mesh) -> dict:
+    """The sharded s-step on the NCCL group of one rank: lap2d_fd(GRID),
+    fp32 (the Gram and the replay in float64), s = SSTEP_S, tol 1e-5 ||b||,
+    the stencil's analytic bounds, through make_sharded_solver and its
+    solve, set-up apart, for "fused" (B10 per shard in the halo mode;
+    bfloat16 bands by "auto"), "off" and "deephalo". Beside them the
+    single-device fused route on the same bounds: "fused" takes its k,
+    "off" and "deephalo" k within s of it, all three a true residual
+    within 2x of its. The collectives a block from the recorder. The
+    bitwise repeat and the profile run SSTEP_PROFILE_BLOCKS blocks of each
+    (maxiter capped: "off" and "deephalo" take 20 s a whole solve).
+    Returns the fused run's launches of the three B10 sites."""
+    dia = lap2d_fd(GRID)
+    n = dia.shape[0]
+    b = source_term(n)
+    tol = 1e-5 * float(np.linalg.norm(b))
+    bounds = analytic_bounds(GRID)
+    rel64 = rel64_on_card(dia, b)
+    op = as_operator(dia, torch.float32, device=DEV)
+    b_dev = torch.as_tensor(b, dtype=torch.float32, device=DEV)
+    single, k_single, single_seconds = timed(lambda: sstep_cg_solve(
+        op, b_dev, s=SSTEP_S, bounds=bounds, tol=tol, powers="fused", device=DEV))
+    rel_single = rel64(single.x)
+    check(bool(single.converged), "sharded sstep: the single-device fused route did not converge")
+    del single, op, b_dev
+    sync()
+    m = 2 * SSTEP_S + 1
+    capped = SSTEP_PROFILE_BLOCKS * SSTEP_S
+    counts = {}
+    for powers in SHARDED_POWERS:
+        kw = dict(dtype=np.float32, mesh=mesh, method="sstep", sstep_s=SSTEP_S,
+                  sstep_powers=powers, bounds=bounds, tol=tol, dot_precision=torch.float64)
+        t0 = time.perf_counter()
+        solver = make_sharded_solver(dia, n, **kw)
+        sync()
+        setup_seconds = time.perf_counter() - t0
+        reset_launches()
+        with collectives.capture() as cap:
+            res, k, seconds = timed(lambda: solver.solve(b))
+        launches = read_launches()
+        sig = cap.signature(0)
+        rel = rel64(res.x)
+        sites = ("sstep_gram", "sstep_recover", "sstep_replay")
+        blocks = launches["sstep_gram"]
+        prof_solver = make_sharded_solver(dia, n, maxiter=capped, **kw)
+        bitwise = same_x(prof_solver.solve(b), prof_solver.solve(b))
+        prof = profile_record(lambda: prof_solver.solve(b), capped)
+        rec = sharded_rec("sharded_sstep", mesh, res, k, seconds, setup_seconds, launches,
+                          bitwise, powers=powers, problem=f"lap2d_fd({GRID})", n=n,
+                          dtype="float32", s=SSTEP_S, tol=tol, bounds=bounds,
+                          bitwise_repeat_iterations=capped,
+                          k_single_fused=k_single, single_fused_seconds=single_seconds,
+                          true_rel=rel, true_rel_single_fused=rel_single,
+                          signature_block=sig["iter"], signature_setup=sig["setup"],
+                          signature_uniform=sig["uniform"], blocks_run=sig["iterations"],
+                          bands_dtype=str(ss._sstep_gram.bands_dtype) if powers == "fused"
+                          else "float32",
+                          gram_design=ss._sstep_gram.design if powers == "fused" else None,
+                          recover_design=ss._sstep_recover.design if powers == "fused" else None,
+                          **prof)
+        emit(rec)
+        where = f"sharded sstep ({powers})"
+        check(rec["converged"] and rec["x_finite"] and not rec["breakdown"]
+              and res.x.shape == (n,), f"{where}: did not converge to a finite x")
+        check(bitwise, f"{where}: two runs of {capped} iterations differ")
+        check(k == k_single if powers == "fused" else abs(k - k_single) <= SSTEP_S,
+              f"{where}: k={k}, the single-device fused route's {k_single}")
+        check(rel <= 2 * rel_single, f"{where}: true residual {rel}, one device's {rel_single}")
+        psums = [e for e in sig["iter"] if e[0] == "psum"]
+        check(sig["uniform"] and psums == [("psum", 1, m * m)],
+              f"{where}: collectives a block {sig['iter']}")
+        if powers == "fused":
+            check(blocks >= k // SSTEP_S and all(launches[s_] == blocks for s_ in sites),
+                  f"{where}: launches {launches} at k={k}")
+            others = {name: c for name, c in launches.items() if c and name not in sites}
+            check(not others, f"{where} launched other kernels: {others}")
+            counts = {s_: launches[s_] for s_ in sites}
+        else:
+            no_kernel_launched(launches, where)
+        del res, solver, prof_solver
+        sync()
+    return counts
+
+
+def phase_sharded_mixed(spec, mesh) -> None:
+    """Mixed refinement on the NCCL group of one rank at N = 10,240,000:
+    solve(precision="mixed", mesh=) at rtol MIXED_RTOL, its sweeps within
+    one of the single-device mixed solve's (whose inner is the streaming
+    PCG, the sharded one plain CG on B8), the true residual below
+    MIXED_RTOL, B8 launched by every inner iteration. The bitwise repeat
+    and the profile run one sweep of 256 inner iterations (the whole
+    solve takes 42 s)."""
+    dia = lap2d_fd(GRID)
+    n = dia.shape[0]
+    b = source_term(n)
+    rel64 = rel64_on_card(dia, b)
+    op64 = as_operator(dia, torch.float64, device=DEV)
+    b64 = torch.as_tensor(b, dtype=torch.float64, device=DEV)
+    cfg = SolveConfig(precision="mixed", tolerance=MIXED_RTOL)
+    single, k_single, single_seconds = timed(lambda: solve(op64, b64, cfg, device=DEV))
+    rel_single = rel64(single.x)
+    del single, op64, b64
+    reset_launches()
+    res, k, seconds = timed(lambda: solve(dia, b, cfg, mesh=mesh, device=DEV))
+    launches = read_launches()
+    sweep = lambda: sc.sharded_refine_fixed_sweeps(  # noqa: E731
+        dia, b, mesh=mesh, sweeps=1, inner_maxiter=256)
+    bitwise = same_x(sweep(), sweep())
+    prof = profile_record(sweep, 256)
+    rel = rel64(res.x)
+    inner = float(res.history.sum())
+    rec = sharded_rec("sharded_mixed", mesh, res, k, seconds, 0.0, launches, bitwise,
+                      problem=f"lap2d_fd({GRID})", n=n, rtol=MIXED_RTOL, sweeps=k,
+                      inner_iterations=res.history.tolist(), sweeps_single=k_single,
+                      single_seconds=single_seconds, true_rel=rel, true_rel_single=rel_single,
+                      local_kernel=sc._resolve_local_kernel("auto", n, torch.float32, DEV),
+                      bitwise_repeat_iterations=256, profile_inner_iterations=256, **prof)
+    rec["us_per_iter"] = seconds / max(inner, 1.0) * 1e6  # an inner iteration
+    rec["note"] = "no set-up apart: the sweeps convert the host operator in the call"
+    emit(rec)
+    check(rec["converged"] and bitwise and abs(k - k_single) <= 1 and rel < MIXED_RTOL,
+          f"sharded mixed: {rec}")
+    check(launches["dia_matvec_stream2d_planes"] >= inner,
+          f"sharded mixed: the fp32 inner missed B8: {launches}")
+    del res
+    sync()
+
+
+def sharded_built(public, setup) -> tuple:
+    """A sharded solve whose set-up builds a hierarchy: ``setup()`` timed
+    apart (the first build in the process: the host levels' Galerkin
+    cache is cold), the call it returns run twice, timed, with the launch
+    counts from the first, then ``public`` (the user's entry point, the
+    build inside); all three x bit for bit. Returns (the public call's
+    result, its k, the built solve's seconds, setup_seconds, launches,
+    bitwise, the call, the public call's seconds)."""
+    sync()
+    t0 = time.perf_counter()
+    run = setup()
+    sync()
+    setup_seconds = time.perf_counter() - t0
+    reset_launches()
+    t0 = time.perf_counter()
+    first = run()
+    sync()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    second = run()
+    res, k, public_seconds = timed(public)
+    bitwise = same_x(first, res) and same_x(second, res)
+    del first, second
+    return res, k, seconds, setup_seconds, launches, bitwise, run, public_seconds
+
+
+def phase_sharded_mg(spec, mesh, mg: dict) -> None:
+    """MG-PCG on the NCCL group of one rank at N = 10,240,000:
+    solve(precond="mg", mesh=) in fp64 with the fp32 cycle at 1e-10 ||b||,
+    then sharded_mg_cg_setup's build (on the card) timed apart and its
+    solve twice (all three bitwise); k within 2 of mg_main's and the true
+    residual (error-free) below mg_main's gate, max(1e-10, 2x the plain
+    fp64 floor); no kernel launches; a profile of the built solve."""
+    dia = lap2d_fd(GRID)
+    n = dia.shape[0]
+    b = source_term(n)
+    tol = 1e-10 * float(np.linalg.norm(b))
+    gate = max(1e-10, 2 * mg["floor"])
+    bands64 = torch.as_tensor(dia.bands, dtype=torch.float64, device=DEV)
+    b64 = torch.as_tensor(b, dtype=torch.float64, device=DEV)
+    cfg = SolveConfig(precision="fp64", precond="mg", mg_cycle_precision="fp32", tolerance=tol)
+    res, k, seconds, setup_seconds, launches, bitwise, run, public_seconds = sharded_built(
+        lambda: solve(dia, b, cfg, mesh=mesh, device=DEV),
+        lambda: sharded_mg_cg_setup(dia, b, mesh=mesh, tol=tol, cycle_precision="fp32",
+                                    device=DEV))
+    prof = profile_record(run, k)
+    rel = true_rel_compensated(bands64, tuple(dia.offsets), res.x, b64)
+    rec = sharded_rec("sharded_mg", mesh, res, k, seconds, setup_seconds, launches, bitwise,
+                      problem=f"lap2d_fd({GRID})", n=n, precision="fp64", cycle="fp32",
+                      tol=tol, k_single=mg["k"]["fp32"], true_rel_compensated=rel, gate=gate,
+                      public_call_seconds=public_seconds, **prof)
+    emit(rec)
+    check(rec["converged"] and bitwise and abs(k - mg["k"]["fp32"]) <= 2 and rel < gate,
+          f"sharded MG: {rec}")
+    no_kernel_launched(launches, "sharded MG")
+    del res, bands64, b64, run
+    sync()
+
+
+def phase_sharded_tw(spec, mesh, tw: dict) -> None:
+    """Triple-word sweeps on the NCCL group of one rank at N = 10,240,000:
+    solve(precision="tw", precond="mg", mesh=) at tw_main's rtol, then
+    sharded_tw_setup's fp32 hierarchy timed apart and its sweeps twice
+    (all three bitwise); sweeps within one of tw_main's and its own
+    tw-evaluated residual below TW_GATE, the host long-double residual of
+    x's fp64 view beside it; a profile of the built sweeps."""
+    dia = lap2d_fd(GRID)
+    n = dia.shape[0]
+    b = source_term(n)
+    bnorm = float(np.linalg.norm(b))
+    cfg = SolveConfig(precision="tw", precond="mg", tolerance=TW_KW["rtol"])
+    res, k, seconds, setup_seconds, launches, bitwise, run, public_seconds = sharded_built(
+        lambda: solve(dia, b, cfg, mesh=mesh, device=DEV),
+        lambda: sharded_tw_setup(dia, b, mesh=mesh, rtol=TW_KW["rtol"], precond="mg",
+                                 smoother=cfg.mg_smoother, device=DEV))
+    prof = profile_record(run, k)
+    own = float(res.residual_norm) / bnorm
+    ld = ld_true_rel(torch.as_tensor(dia.bands, dtype=torch.float64, device=DEV),
+                     tuple(dia.offsets), (res.x,),
+                     torch.as_tensor(b, dtype=torch.float64, device=DEV))
+    rec = sharded_rec("sharded_tw", mesh, res, k, seconds, setup_seconds, launches, bitwise,
+                      problem=f"lap2d_fd({GRID})", n=n, rtol=TW_KW["rtol"], sweeps=k,
+                      sweeps_single=tw["sweeps"], own_true_rel=own,
+                      longdouble_true_rel_fp64_view=ld, gate=TW_GATE,
+                      public_call_seconds=public_seconds, **prof)
+    emit(rec)
+    check(rec["converged"] and bitwise and abs(k - tw["sweeps"]) <= 1 and own < TW_GATE,
+          f"sharded tw: {rec}")
+    no_kernel_launched(launches, "sharded tw")
+    del res, run
+    sync()
+
 CLI_METHODS = ("gvpipe", "chebyshev")
 REPLAY_THREADS = 4  # of the host's cores, for the CPU replay beside the card's phases
 
@@ -3628,12 +4127,16 @@ def main() -> int:
     records.update(phase_sstep_kernels(spec, bounds))
     launches.update(phase_sstep_path(spec, bounds, bounds_seconds, b4_main))
     phase_sstep_goldens()
+    for site, halo in phase_sstep_halo(spec).items():
+        records[site].update(halo)
     records.update(phase_stream_matvec(spec))
     with nccl_mesh() as mesh:
         launches.update(phase_sharded(spec, mesh, b4_main))
         phase_sharded_goldens(mesh)
         phase_sharded_precond(mesh)
         phase_sharded_methods(mesh)
+        for site, n_halo in phase_sharded_sstep(spec, mesh).items():
+            records[site]["halo_launches"] = n_halo  # on the sharded fused path
     mg = phase_mg_main(spec, b4_main)
     phase_mg_goldens()
     with tempfile.TemporaryDirectory() as tmp:
@@ -3643,6 +4146,10 @@ def main() -> int:
     del op, b, apply
     sync()
     phase_ozaki_dense()
+    with nccl_mesh() as mesh:
+        phase_sharded_mixed(spec, mesh)
+        phase_sharded_mg(spec, mesh, mg)
+        phase_sharded_tw(spec, mesh, tw)
     with tempfile.TemporaryDirectory() as tmp:
         replay = start_cli_replay(Path(tmp))
         try:
@@ -3669,7 +4176,13 @@ def main() -> int:
                         "three_ms": rec.get("three_ms"), "grid_ms": rec.get("grid_ms"),
                         "global_ms": rec.get("global_ms"),
                         "sync_floor_ms": rec.get("sync_floor_ms"),
-                        "hbm_per_iter_bound_ms": rec.get("hbm_per_iter_bound_ms")})
+                        "hbm_per_iter_bound_ms": rec.get("hbm_per_iter_bound_ms"),
+                        # B10's halo mode (the sharded fused route): a shard of
+                        # 2,560,000 rows and its halo, and its launches there
+                        "halo_ms": rec.get("halo_ms"), "halo_bound_ms": rec.get("halo_bound_ms"),
+                        "halo_plain_ms": rec.get("halo_plain_ms"),
+                        "halo_design": rec.get("halo_design"),
+                        "halo_launches": rec.get("halo_launches")})
     print(json.dumps({"kernels": kernels, "not_ported": NOT_PORTED}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -149,13 +149,11 @@ def test_precond_without_pallas_matches_cgx(problem, precond, precision):
     "cfg,kwargs",
     [
         (SolveConfig(precision="bf16"), {}),
-        # precision="tw" runs on one device since ROADMAP A12; the sharded one is A14's
-        (SolveConfig(precision="tw"), {"mesh": object()}),
-        # the sharded route runs since ROADMAP A14 landed; what it does not port yet raises
-        (SolveConfig(method="sstep"), {"n_devices": 4}),
-        (SolveConfig(precond="mg"), {"mesh": object()}),
+        # on the sharded route too, before any mesh is made (the sharded s-step,
+        # MG, mixed and tw solves run since the single-RHS half of ROADMAP A14)
+        (SolveConfig(precision="bf16"), {"n_devices": 4}),
     ],
-    ids=["bf16", "tw", "n_devices", "mesh"],
+    ids=["bf16", "bf16_n_devices"],
 )
 def test_unported_configs_raise(problem, cfg, kwargs):
     dia, b = problem
@@ -211,16 +209,26 @@ def test_mg_needs_a_banded_operator(problem):
 
 
 @pytest.mark.parametrize(
-    "cfg,item",
-    [(SolveConfig(method="sstep"), "A14"), (SolveConfig(precond="mg"), "A14"),
-     (SolveConfig(precision="mixed"), "A14"), (SolveConfig(precision="tw"), "A14")],
+    "cfg",
+    [dict(method="sstep", tolerance=1e-6), dict(precond="mg", tolerance=1e-8),
+     dict(precision="mixed", tolerance=1e-11), dict(precision="tw", tolerance=1e-12)],
     ids=["sstep", "mg", "mixed", "tw"],
 )
-def test_sharded_unported_options_name_their_item(problem, cfg, item):
-    dia, b = problem
-    mesh = cgx_torch.make_mesh(device="cpu")
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        cgx_torch.solve(dia, b, cfg, mesh=mesh, device="cpu")
+def test_mesh_runs_the_single_rhs_a14_paths(cfg):
+    """solve(mesh=) on one rank runs the sharded s-step, MG-PCG, mixed
+    refinement and tw sweeps (cgx api.py:210-561): cgx's k on make_mesh(1)
+    (sweeps for mixed and tw) and the true residual of cgx's gate."""
+    from cgx.parallel.mesh import make_mesh as cgx_mesh
+
+    g = 32
+    dia, dia_c = cgx_torch.lap2d_fd(g), cgx.lap2d_fd(g)
+    b = cgx_torch.source_term(g * g)
+    got = cgx_torch.solve(dia, b, SolveConfig(**cfg), mesh=cgx_torch.make_mesh(device="cpu"),
+                          device="cpu")
+    want = cgx.solve(dia_c, b, cgx.SolveConfig(**cfg), mesh=cgx_mesh(1))
+    assert bool(got.converged) and int(got.iterations) == int(want.iterations)
+    rel = np.linalg.norm(dia.mat_vec(got.x.numpy()) - b) / np.linalg.norm(b)
+    assert rel < (1e-11 if "precision" in cfg or "precond" in cfg else 1e-6)
 
 
 @pytest.mark.parametrize("precision", ["fp64", "fp32"])

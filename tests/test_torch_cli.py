@@ -159,10 +159,9 @@ def test_host_conversions_match_cgx(fmt):
 
 @pytest.mark.parametrize(
     "extra,item",
-    # --devices and --precond run now (test_torch_cli_sharded.py, below); these raise
-    [(["--devices", "4", "--method", "sstep"], "A14"),
-     (["--precision", "bf16"], "A6"), (["--devices", "4", "--precond", "mg"], "A14")],
-    ids=["devices", "bf16", "devices_mg"],
+    # --devices, --precond and their A14 pairs run now (test_torch_cli_sharded.py, below)
+    [(["--precision", "bf16"], "A6")],
+    ids=["bf16"],
 )
 def test_unported_flags_raise_naming_their_item(extra, item, tmp_path):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):

@@ -82,15 +82,59 @@ def case_iteration_lists():
     return out
 
 
+# the single-RHS half of ROADMAP A14: name -> (solve, its arguments)
+G_FUSED = 128  # the fused route's shards must tile cgx's planes (tests/test_sstep_fused.py)
+G_MG = 64
+S = 4
+
+
+def _a14_solves():
+    from cgx_torch.mats.containers import DIAMatrix
+    from cgx_torch.mats.generators import lap2d_fd_coo_lower
+    from cgx_torch.parallel import sharded_mg_cg_solve, sharded_refine_fixed_sweeps
+    from cgx_torch.parallel.tw_sharded import sharded_tw_solve
+
+    mesh = make_mesh(device="cpu")
+    sstep = dict(mesh=mesh, strategy="halo", method="sstep", sstep_s=S, maxiter=MAXITER)
+    return {
+        "sstep": lambda: sharded_cg_solve(lap2d_fd(G), source_term(N), **sstep),
+        "sstep_deephalo": lambda: sharded_cg_solve(lap2d_fd(G), source_term(N),
+                                                   sstep_powers="deephalo", **sstep),
+        "sstep_fused": lambda: sharded_cg_solve(
+            lap2d_fd(G_FUSED), np.ones(G_FUSED ** 2, np.float32), sstep_powers="fused",
+            sstep_bands_dtype=None, **sstep),
+        "refine": lambda: sharded_refine_fixed_sweeps(lap2d_fd(G), source_term(N), mesh=mesh),
+        "mg": lambda: sharded_mg_cg_solve(lap2d_fd(G_MG), source_term(G_MG ** 2), mesh=mesh,
+                                          tol=1e-8),
+        "tw": lambda: sharded_tw_solve(
+            DIAMatrix.from_coo(lap2d_fd_coo_lower(16)),
+            np.random.default_rng(0).standard_normal(256), mesh=mesh, sweeps=4,
+            inner_maxiter=8, precond=None),
+    }
+
+
+def case_a14_programs():
+    """Each A14 solve's record: its set-up and every iteration's list (a
+    block of the s-step, a sweep of the refinements, an iteration of MG)."""
+    out = {}
+    for name, solve in _a14_solves().items():
+        with C.capture() as cap:
+            solve()
+        prog = cap.programs[-1]
+        out[name] = {"setup": list(prog.setup), "iters": [list(it) for it in prog.iters]}
+    return out
+
+
 @pytest.fixture(scope="module")
 def port(tmp_path_factory):
     @functools.lru_cache(maxsize=None)
     def run(world):
         ranks = run_world(str(tmp_path_factory.mktemp(f"world{world}")), world, __name__,
-                          ["case_signatures", "case_iteration_lists"])
+                          ["case_signatures", "case_iteration_lists", "case_a14_programs"])
         for other in ranks[1:]:  # a program-level signature: the same on every rank
             assert other == ranks[0]
-        return {**ranks[0]["case_signatures"], **ranks[0]["case_iteration_lists"]}
+        return {**ranks[0]["case_signatures"], **ranks[0]["case_iteration_lists"],
+                **ranks[0]["case_a14_programs"]}
 
     return run
 
@@ -251,3 +295,180 @@ def test_chebyshev_method_reduces_every_check_every(port, world):
     assert len(iters) == MAXITER
     for i, got in enumerate(iters):
         assert got == (uncond + cond if (i + 1) % CADENCE == 0 else uncond), (i, got)
+
+
+# ---------------------------------------------------------------------------
+# The single-RHS half of ROADMAP A14: the sharded s-step, refinement, MG-PCG
+# and triple-word sweeps against cgx's signatures
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def cgx_a14_signature(p: int, name: str):
+    from cgx.mats.generators import lap2d_fd as cgx_lap2d_fd
+    from cgx.parallel.mesh import make_mesh as cgx_mesh
+    from cgx.parallel.mg_sharded import sharded_mg_cg_solve as cgx_mg
+    from cgx.parallel.sharded_cg import sharded_cg_solve as cgx_sharded
+    from cgx.parallel.sharded_cg import sharded_refine_fixed_sweeps as cgx_refine
+
+    mesh = cgx_mesh(p)
+    sstep = dict(mesh=mesh, strategy="halo", method="sstep", sstep_s=S, maxiter=MAXITER)
+    solves = {
+        "sstep": lambda: cgx_sharded(cgx_lap2d_fd(G), source_term(N), **sstep),
+        "sstep_deephalo": lambda: cgx_sharded(cgx_lap2d_fd(G), source_term(N),
+                                              sstep_powers="deephalo", **sstep),
+        "sstep_fused": lambda: cgx_sharded(cgx_lap2d_fd(G_FUSED),
+                                           np.ones(G_FUSED ** 2, np.float32),
+                                           sstep_powers="fused", sstep_bands_dtype=None, **sstep),
+        "refine": lambda: cgx_refine(cgx_lap2d_fd(G), source_term(N), mesh=mesh),
+        "mg": lambda: cgx_mg(cgx_lap2d_fd(G_MG), source_term(G_MG ** 2), mesh=mesh, tol=1e-8),
+    }
+    if name == "tw":  # cgx's tw solve is not recorded: its loop's jaxpr, as cgx's test reads it
+        return _cgx_tw_signature(mesh)
+    return _cgx_traced_signature(solves[name])
+
+
+class _Traced(Exception):
+    """Raised by the stand-in for cgx's run_recorded once it holds the program."""
+
+
+def _cgx_traced_signature(solve):
+    """cgx's collective signature of the program ``solve`` runs, as
+    ``capture().signature()`` reads it (collective_signature of the
+    recorded program and arguments), from the trace alone: cgx's
+    run_recorded, which records the program and then runs it, is replaced
+    by one that records it and stops, so that the interpret-mode kernels
+    of the fused route are traced, not compiled and run."""
+    import cgx.parallel.mg_sharded as cgx_mg
+    import cgx.parallel.sharded_cg as cgx_sc
+    from cgx.utils.collectives import collective_signature
+
+    seen = []
+
+    def record_only(fn, *args):
+        seen.append((fn, args))
+        raise _Traced
+
+    with pytest.MonkeyPatch.context() as mp:
+        for mod in (cgx_sc, cgx_mg):
+            mp.setattr(mod, "run_recorded", record_only)
+        with pytest.raises(_Traced):
+            solve()
+    fn, args = seen[0]
+    return collective_signature(fn, *args)
+
+
+def _cgx_tw_signature(mesh):
+    """cgx's tw loop traced on ``mesh`` (tests/test_tw_sharded.py:113-147):
+    the plain halo CG inner, four sweeps of eight inner iterations."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import PartitionSpec as P
+
+    from cgx.mats.containers import DIAMatrix as CgxDia
+    from cgx.mats.generators import lap2d_fd_coo_lower as cgx_coo
+    from cgx.parallel.sharded_cg import _DiaHalo, _PsumDot
+    from cgx.parallel.tw_sharded import _tw_sharded_loop
+    from cgx.utils.collectives import collective_signature
+
+    mat = CgxDia.from_coo(cgx_coo(16))
+    p = mesh.devices.size
+    offsets = tuple(int(o) for o in mat.offsets)
+    bands32 = jnp.asarray(mat.bands, jnp.float32)
+    loop = functools.partial(
+        _tw_sharded_loop, offsets=offsets, sweeps=4, inner_tol=1e-6, inner_maxiter=8,
+        matvec=_DiaHalo("rows", offsets, 256 // p, p), precond=None,
+        dot=_PsumDot("rows", None), axis="rows", n_shards=p)
+    fn = jax.shard_map(loop, mesh=mesh, in_specs=(P(None, "rows"), P(None, "rows"), P("rows"), P()),
+                       out_specs=(P(None, "rows"), P(), P(), P(), P()), check_vma=False)
+    b = jnp.asarray(np.random.default_rng(0).standard_normal(256))
+    return collective_signature(fn, bands32, bands32, b, jnp.asarray(1e-10))
+
+
+def _uniform_iter(prog):
+    first = prog["iters"][0]
+    assert all(it == first for it in prog["iters"]), prog["iters"]
+    return first
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("name", ["sstep", "sstep_deephalo"])
+def test_sstep_block_signature_equals_cgx(port, world, name):
+    """s-step: one (2s+1)^2 Gram all-reduce a block (tests/test_collective_
+    counts.py:335); the basis from 2s-1 halo'd mat-vecs, or with
+    "deephalo" from two exchanges of depth s h carrying p and r together
+    (:452), its band halos once, at set-up."""
+    prog = port(world)[name]
+    want = cgx_a14_signature(cgx_mesh_size(world), name)
+    assert _uniform_iter(prog) == want["iter"]
+    assert [e for e in want["iter"] if e[0] == "psum"] == [("psum", 1, (2 * S + 1) ** 2)]
+    assert sorted(prog["setup"]) == sorted(want["setup"])
+    if name == "sstep_deephalo":
+        assert want["iter"][:2] == [("ppermute", 1, 2 * S * G)] * 2
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_sstep_fused_signature_equals_cgx(port, world):
+    """The fused route a block: the two stacked exchanges of cgx's
+    (tests/test_sstep_fused.py:200) and one all-reduce of the float64 Gram,
+    (m, m) where cgx sums its (2, m, m) double-float32 pair (ROADMAP.md
+    §C); at set-up the band and x0 edges (4 exchanges), the max of the
+    prescale (recorded as pmax, which cgx's record omits) and ||r0||^2."""
+    prog = port(world)["sstep_fused"]
+    want = cgx_a14_signature(cgx_mesh_size(world), "sstep_fused")
+    got = _uniform_iter(prog)
+    m = 2 * S + 1
+    assert [e for e in got if e[0] == "ppermute"] == [e for e in want["iter"]
+                                                      if e[0] == "ppermute"]
+    assert [e for e in got if e[0] != "ppermute"] == [("psum", 1, m * m)]
+    assert [e for e in want["iter"] if e[0] != "ppermute"] == [("psum", 1, 2 * m * m)]
+    assert sorted(e for e in prog["setup"] if e[0] == "ppermute") == sorted(
+        e for e in want["setup"] if e[0] == "ppermute")
+    assert [e for e in prog["setup"] if e[0] != "ppermute"] == [("pmax", 1, 1), ("psum", 1, 1)]
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_refine_sweep_signature(port, world):
+    """Mixed refinement (tests/test_collective_counts.py:395): every
+    all-reduce is of one scalar, as cgx's; a sweep ends with the fp64
+    mat-vec's halos and the one all-reduce of ||r||^2, and carries the
+    fp32 inner's collectives, cgx's set of them."""
+    prog = port(world)["refine"]
+    want = cgx_a14_signature(cgx_mesh_size(world), "refine")
+    assert all(e[2] == 1 for e in want["iter"] if e[0] == "psum")
+    for sweep in prog["iters"]:
+        assert all(e[2] == 1 for e in sweep if e[0] == "psum")
+        assert sweep[-3:] == [("ppermute", 1, G), ("ppermute", 1, G), ("psum", 1, 1)]
+        assert set(sweep) == set(want["iter"])
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_mg_iteration_signature_equals_cgx(port, world):
+    """MG-PCG (tests/test_collective_counts.py:406): the CG dots (the
+    conjugacy dot, then <r, r> and <r, z> as one), the one tail gather, and
+    cgx's count and volume of neighbour halos an iteration."""
+    got = _uniform_iter(port(world)["mg"])
+    want = cgx_a14_signature(cgx_mesh_size(world), "mg")["iter"]
+    assert [e for e in got if e[0] == "psum"] == [("psum", 1, 1), ("psum", 2, 2)]
+    for op in ("psum", "all_gather"):
+        assert [e for e in got if e[0] == op] == [e for e in want if e[0] == op]
+    halos = [e for e in got if e[0] == "ppermute"]
+    want_halos = [e for e in want if e[0] == "ppermute"]
+    assert len(halos) == len(want_halos) and sum(e[2] for e in halos) == sum(
+        e[2] for e in want_halos)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_tw_sweep_signature(port, world):
+    """Triple-word sweeps (tests/test_tw_sharded.py:113): a sweep's outer
+    product exchanges the three words stacked (2 exchanges of 3h) and
+    gathers the fp64 residual view once for the ordered norm; the inner
+    adds its all-reduces and halos: cgx's kinds of collective."""
+    prog = port(world)["tw"]
+    want = cgx_a14_signature(cgx_mesh_size(world), "tw")
+    h = 16
+    for sweep in prog["iters"]:
+        assert sweep[-3:] == [("ppermute", 1, 3 * h), ("ppermute", 1, 3 * h),
+                              ("all_gather", 1, 256)]
+        assert {e[0] for e in sweep} == {e[0] for e in want["iter"]} == {
+            "ppermute", "psum", "all_gather"}

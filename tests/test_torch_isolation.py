@@ -35,6 +35,9 @@ def test_import_pulls_in_neither_jax_nor_cgx():
                                     "cgx_torch.ops.tw32", "cgx_torch.ops.dd",
                                     "cgx_torch.ops.ozaki", "cgx_torch.parallel",
                                     "cgx_torch.parallel.sharded_cg",
+                                    "cgx_torch.parallel.sstep_fused",
+                                    "cgx_torch.parallel.mg_sharded",
+                                    "cgx_torch.parallel.tw_sharded",
                                     "cgx_torch.parallel.multihost",
                                     "cgx_torch.utils.collectives",
                                     "cgx_torch.solver.multigrid", "cgx_torch.solver.precond",

@@ -55,6 +55,9 @@ def _rank_main(rank, world, store, out_dir, module, cases):
         dist.destroy_process_group()
 
 
+_ONE_THREAD = {"OMP_NUM_THREADS": "1", "OPENBLAS_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
+
+
 def run_world(tmp_dir, world, module: str, cases) -> list:
     """Each case function of ``module`` (named in ``cases``) run once on
     every rank of a gloo world of ``world`` ranks, or in this process for
@@ -63,9 +66,21 @@ def run_world(tmp_dir, world, module: str, cases) -> list:
         mod = importlib.import_module(module)
         return [{name: getattr(mod, name)() for name in cases}]
     os.makedirs(tmp_dir, exist_ok=True)
-    mp.start_processes(_rank_main, args=(world, os.path.join(tmp_dir, "store"), tmp_dir, module,
-                                         list(cases)),
-                       nprocs=world, join=True, start_method="spawn")
+    # one BLAS thread a rank: the ranks share the host's cores, and a NumPy
+    # BLAS call that spins up every core in each rank at once runs many times
+    # slower (the spawned ranks inherit this environment as they start)
+    saved = {k: os.environ.get(k) for k in _ONE_THREAD}
+    os.environ.update(_ONE_THREAD)
+    try:
+        mp.start_processes(_rank_main, args=(world, os.path.join(tmp_dir, "store"), tmp_dir,
+                                             module, list(cases)),
+                           nprocs=world, join=True, start_method="spawn")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
     out = []
     for r in range(world):
         with open(os.path.join(tmp_dir, f"{r}.pkl"), "rb") as f:
@@ -285,6 +300,24 @@ def case_chebyshev_method():
 def case_chebyshev_method_host_bounds():
     return _np(sharded_cg_solve(lap2d_reference(512), source_term(512), mesh=_mesh(), tol=1e-6,
                                 method="chebyshev"))
+
+
+def case_refine():
+    return _np(sc.sharded_refine_fixed_sweeps(lap2d_reference(1024), source_term(1024),
+                                              mesh=_mesh(), sweeps=4))
+
+
+def case_refine_padding():
+    return _np(sc.sharded_refine_fixed_sweeps(lap2d_reference(509), source_term(509),
+                                              mesh=_mesh(), sweeps=5))
+
+
+def case_solve_mixed():
+    import cgx_torch
+
+    return _np(cgx_torch.solve(lap2d_reference(1024), source_term(1024),
+                               cgx_torch.SolveConfig(precision="mixed", tolerance=1e-11),
+                               mesh=_mesh(), device="cpu"))
 
 
 CASES = [name for name in dir() if name.startswith("case_")]
@@ -564,6 +597,47 @@ def test_gvpipe_and_chebyshev_match_cgx(port, world, case, kw):
         assert got["k"] % kw.get("check_every", 32) == 0
 
 
+@functools.lru_cache(maxsize=None)
+def cgx_refine(p: int, n: int, sweeps: int):
+    import cgx
+    from cgx.parallel.mesh import make_mesh as cgx_mesh
+    from cgx.parallel.sharded_cg import sharded_refine_fixed_sweeps as cgx_sharded_refine
+
+    res = cgx_sharded_refine(cgx.lap2d_reference(n), source_term(n), mesh=cgx_mesh(p),
+                             sweeps=sweeps)
+    return {"k": int(res.iterations), "x": np.asarray(res.x), "res": float(res.residual_norm),
+            "history": np.asarray(res.history), "converged": bool(res.converged)}
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("case,n,sweeps", [("refine", 1024, 4), ("refine_padding", 509, 5),
+                                           ("solve_mixed", 1024, 4)],
+                         ids=["refine", "padding", "solve_mixed"])
+def test_refine_matches_cgx(port, world, case, n, sweeps):
+    """Sharded mixed refinement (cgx tests/test_sharded.py:373-400): the
+    sweeps within one of cgx's on make_mesh(P), equal where cgx's last
+    residual is not within 2x of rtol ||b||; the true residual below
+    rtol = 1e-11; the first sweep's inner count within 1 of cgx's, the
+    later ones within a tenth (a later inner solves a residual at the fp32
+    inner's rounding level, where its count follows the fp32 dots' summation
+    order, torch's here and XLA's in cgx: 88 against 83 on lap2d_reference
+    (1024)); the padded N = 509 exact; solve(precision="mixed", mesh=)
+    routes here."""
+    got, want = port(world)[f"case_{case}"], cgx_refine(cgx_mesh_size(world), n, sweeps)
+    b = source_term(n)
+    target = 1e-11 * np.linalg.norm(b)
+    assert got["converged"] and want["converged"] and got["x"].shape == (n,)
+    assert abs(got["k"] - want["k"]) <= 1
+    if want["res"] < 0.5 * target:
+        assert got["k"] == want["k"]
+    a = lap2d_reference(n).to_dense()
+    assert np.linalg.norm(a @ got["x"] - b) / np.linalg.norm(b) < 1e-11
+    k = min(got["k"], want["k"])
+    assert abs(got["history"][0] - want["history"][0]) <= 1
+    assert np.all(np.abs(got["history"][:k] - want["history"][:k]) <= 0.1 * want["history"][:k])
+    assert got["history"][0] > 0 and got["history"].shape == (sweeps,)
+
+
 def test_chebyshev_method_rejects_bad_bounds():
     with pytest.raises(ValueError, match="invalid spectral bounds"):
         sharded_cg_solve(lap2d_reference(64), source_term(64), mesh=_mesh(), method="chebyshev",
@@ -601,18 +675,6 @@ def test_halo_wider_than_the_shard_raises():
                     (-5, 0, 5), 4)
 
 
-@pytest.mark.parametrize("kw,item", [
-    ({"method": "sstep"}, "A14"),
-], ids=["sstep"])
-def test_unported_options_raise_naming_their_item(kw, item):
-    kw = dict(kw)
-    mat = lap2d_reference(64)
-    if kw.pop("dense", False):
-        mat = mat.to_dense()
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        sharded_cg_solve(mat, source_term(64), mesh=make_mesh(device="cpu"), **kw)
-
-
 def test_dense_fp64_auto_is_emulated_on_the_cpu(monkeypatch):
     """"auto" is the fp64 product: on the CPU, as in cgx, and by design on
     CUDA too (the H100's fp64 is native; the rule reads no device). An
@@ -632,10 +694,9 @@ def test_dense_fp64_auto_is_emulated_on_the_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("name,item", [
-    ("sharded_refine_fixed_sweeps", "A14"), ("sharded_block_cg_solve", "A14"),
-    ("sharded_deflated_cg_solve", "A14"), ("sharded_block_deflated_cg_solve", "A14"),
-    ("sharded_cg_solve_harvest", "A14"), ("sharded_cg_solve_batched", "A14"),
-    ("sharded_mg_cg_solve", "A14, after A10"), ("sharded_tw_solve", "A14, after A12"),
+    ("sharded_block_cg_solve", "A14"), ("sharded_deflated_cg_solve", "A14"),
+    ("sharded_block_deflated_cg_solve", "A14"), ("sharded_cg_solve_harvest", "A14"),
+    ("sharded_cg_solve_batched", "A14"),
 ])
 def test_unported_sharded_solves_raise(name, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
