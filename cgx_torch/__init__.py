@@ -30,7 +30,19 @@ from cgx_torch.ops.dia_powers import dia_sstep_basis
 from cgx_torch.ops.matvec import dense_matvec, dense_matvec_dot
 from cgx_torch.ops.ozaki import OzakiDenseOperator, ozaki_matvec
 from cgx_torch.ops.sstep_stream import dia_sstep_stream_solve
-from cgx_torch.parallel import ShardedCGSolver, make_mesh, make_sharded_solver, sharded_cg_solve
+from cgx_torch.parallel import (
+    ShardedCGSolver,
+    make_mesh,
+    make_mesh2d,
+    make_sharded_solver,
+    sharded_block_cg_solve,
+    sharded_block_deflated_cg_solve,
+    sharded_cg_solve,
+    sharded_cg_solve_batched,
+    sharded_cg_solve_harvest,
+    sharded_deflated_cg_solve,
+    sharded_mg_block_cg_solve,
+)
 from cgx_torch.solver.api import solve, solve_sequence
 from cgx_torch.solver.autodiff import block_cg_solve_differentiable, cg_solve_differentiable
 from cgx_torch.solver.batched import cg_solve_batched

@@ -1,8 +1,10 @@
 """cgx_torch.parallel: the sharded route on ``torch.distributed``
 (counterpart of ``cgx/parallel``): meshes of ranks, start-up, row-block
 partitions, the sharded CG solver and its s-step, refinement, MG-PCG and
-triple-word solves."""
+triple-word solves, the multi-RHS and recycling solves, and the 2-D
+(rows x rhs) batched mesh."""
 
+from cgx_torch.parallel.batched2d import Mesh2D, make_mesh2d, sharded_cg_solve_batched
 from cgx_torch.parallel.mesh import ROWS_AXIS, Mesh, make_mesh
 from cgx_torch.parallel.multihost import (
     global_mesh,
@@ -17,7 +19,7 @@ from cgx_torch.parallel.sharded_cg import (
     sharded_block_cg_solve,
     sharded_block_deflated_cg_solve,
     sharded_cg_solve,
-    sharded_cg_solve_batched,
+    sharded_cg_solve_harvest,
     sharded_deflated_cg_solve,
     sharded_refine_fixed_sweeps,
 )

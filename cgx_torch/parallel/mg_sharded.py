@@ -20,12 +20,14 @@ the host in NumPy (cgx's code, :mod:`cgx_torch.solver.multigrid`) or, on
 CUDA for N >= 2^18, by the port's band probing on the rank's device
 (:func:`~cgx_torch.solver.multigrid.galerkin_probe`, the single-device
 "auto" rule). The cycle is plain torch, as cgx's is XLA code: no
-hand-written kernel runs on this route. The block form
-(``sharded_mg_block_cg_solve``) is the multi-RHS half of ROADMAP A14.
+hand-written kernel runs on this route. The block form,
+:func:`sharded_mg_block_cg_solve`, runs breakdown-free block CG with one
+cycle of the whole (n_loc, s) block an iteration.
 """
 
 from __future__ import annotations
 
+import hashlib
 from typing import Callable, List, Optional, Tuple
 
 import numpy as np
@@ -34,8 +36,17 @@ import torch
 from cgx_torch.config import DEFAULT_TOLERANCE, NEARZERO
 from cgx_torch.mats.containers import DIAMatrix
 from cgx_torch.ops._util import f32_exact
-from cgx_torch.parallel.mesh import ROWS_AXIS, Mesh, local_device, make_mesh
-from cgx_torch.parallel.sharded_cg import _DiaHalo, _host, _PsumDots, _unported_entry
+from cgx_torch.parallel.mesh import ROWS_AXIS, Mesh
+from cgx_torch.parallel.sharded_cg import (
+    _DiaHalo,
+    _host,
+    _member_mesh,
+    _PsumBlockGram,
+    _PsumDots,
+    _rows,
+    _solve_dtype,
+)
+from cgx_torch.solver.blockcg import BlockCGResult, bf_block_cg_loop
 from cgx_torch.solver.cg import CGResult, cg_loop
 from cgx_torch.solver.multigrid import (
     MGPreconditioner as MG,
@@ -62,7 +73,10 @@ class _ShardedVCycle:
     (colour masks, inverse diagonal) a level, or None for Richardson;
     ``tail_inv`` the replicated dense inverse of the coarsest level.
     ``mixed``: an fp32 cycle inside an fp64 recurrence (r cast down and
-    the correction back). cgx threads the levels through its program as a
+    the correction back). The cycle takes one vector (n_loc,) or a block
+    of columns (n_loc, s), rows on axis 0 as the halo mat-vec's: every
+    level then sends ONE halo message a direction for the whole block and
+    gathers the tail once, as cgx's vmapped ``_ColumnsVCycle`` does. cgx threads the levels through its program as a
     tree, with ``_TreeMV`` to take the fine bands from it; here each level's
     halo mat-vec holds its own bands, and the CG loop calls the fine one
     (``_build_sharded_mg``'s ``base_mv``) directly."""
@@ -85,16 +99,17 @@ class _ShardedVCycle:
         return (g // self.p,) + (g,) * (self.ndim - 1)
 
     def _restrict_local(self, r, level):
-        shape = self._local_shape(level)
+        shape, cols = self._local_shape(level), tuple(r.shape[1:])
         pooled = sum(((s // 2, 2) for s in shape), ())
         axes = tuple(2 * i + 1 for i in range(self.ndim))
-        return r.reshape(pooled).mean(dim=axes).reshape(-1)
+        return r.reshape(pooled + cols).mean(dim=axes).reshape((-1,) + cols)
 
     def _prolong_local(self, e, level):
-        a = e.reshape(tuple(s // 2 for s in self._local_shape(level)))
+        cols = tuple(e.shape[1:])
+        a = e.reshape(tuple(s // 2 for s in self._local_shape(level)) + cols)
         for axis in range(self.ndim):
             a = torch.repeat_interleave(a, 2, dim=axis)
-        return a.reshape(-1)
+        return a.reshape((-1,) + cols)
 
     # bilinear: the trailing axes are shard-local; the row axis takes one
     # grid row from each neighbour (zeros past the mesh's ends, the
@@ -106,7 +121,8 @@ class _ShardedVCycle:
                                          self.mesh)
 
     def _restrict_bilinear(self, r, level):
-        a = r.reshape(self._local_shape(level))
+        cols = tuple(r.shape[1:])
+        a = r.reshape(self._local_shape(level) + cols)
         for axis in range(1, self.ndim):
             a = MG._down_axis(a, axis)
         f0, f1 = a[0::2], a[1::2]
@@ -115,11 +131,11 @@ class _ShardedVCycle:
         from_left, from_right = self._row_halos(a[:1], a[-1:])
         f1m = torch.cat([from_left, f1[:-1]])
         f0p = torch.cat([f0[1:], from_right])
-        return (0.75 * (f0 + f1) + 0.25 * (f1m + f0p)).reshape(-1)
+        return (0.75 * (f0 + f1) + 0.25 * (f1m + f0p)).reshape((-1,) + cols)
 
     def _prolong_bilinear(self, e, level):
-        shape = self._local_shape(level)
-        a = e.reshape(tuple(s // 2 for s in shape))
+        shape, cols = self._local_shape(level), tuple(e.shape[1:])
+        a = e.reshape(tuple(s // 2 for s in shape) + cols)
         from_left, from_right = self._row_halos(a[:1], a[-1:])
         am1 = torch.cat([from_left, a[:-1]])
         ap1 = torch.cat([a[1:], from_right])
@@ -128,7 +144,7 @@ class _ShardedVCycle:
         rows = torch.stack([r0, r1], dim=1).reshape((shape[0],) + tuple(a.shape[1:]))
         for axis in range(1, self.ndim):
             rows = MG._up_axis(rows, axis)
-        return rows.reshape(-1)
+        return rows.reshape((-1,) + cols)
 
     def _gs_sweep(self, level, z, r, *, start=0, reverse=False):
         """One multicolour Gauss-Seidel sweep with the level's halo mat-vec."""
@@ -137,7 +153,7 @@ class _ShardedVCycle:
         nc = colors.shape[0]
         for i in range(start, nc):
             mask = colors[nc - 1 - i] if reverse else colors[i]
-            z = z + mask * dinv * (r - mv(z))
+            z = z + _rows(mask * dinv, z) * (r - mv(z))
         return z
 
     def _tail(self, r):
@@ -154,7 +170,7 @@ class _ShardedVCycle:
         mv, damp = self.mvs[level], self.damps[level]
         if self.smoother == "gs":
             colors, dinv = self.smooth[level]
-            z = colors[0] * dinv * r  # the first colour from z = 0: no mat-vec
+            z = _rows(colors[0] * dinv, r) * r  # the first colour from z = 0: no mat-vec
             z = self._gs_sweep(level, z, r, start=1)
             for _ in range(self.pre - 1):
                 z = self._gs_sweep(level, z, r)
@@ -184,6 +200,29 @@ class _ShardedVCycle:
             if self.mixed:
                 return self._v(0, r.to(self.dtype)).to(r.dtype)
             return self._v(0, r)
+
+
+_TAIL_INV: dict = {}
+_TAIL_INV_MAX_BYTES = 256 * 1024 * 1024
+
+
+def _tail_inverse(cur: DIAMatrix) -> np.ndarray:
+    """The replicated tail's dense inverse, memoised by a hash of its bands
+    as the Galerkin products are (:func:`~cgx_torch.solver.multigrid.
+    _galerkin_cached`): a sequence of solves on one operator, or of
+    set-ups, inverts it once. Oldest entries go first past 256 MB."""
+    h = hashlib.blake2b(digest_size=16)
+    h.update(np.ascontiguousarray(cur.bands).tobytes())
+    key = (tuple(int(o) for o in cur.offsets), cur.shape, h.hexdigest())
+    hit = _TAIL_INV.get(key)
+    if hit is None:
+        hit = np.linalg.inv(cur.to_dense())
+        while _TAIL_INV and sum(v.nbytes for v in _TAIL_INV.values()) + hit.nbytes \
+                > _TAIL_INV_MAX_BYTES:
+            _TAIL_INV.pop(next(iter(_TAIL_INV)))
+        if hit.nbytes <= _TAIL_INV_MAX_BYTES:
+            _TAIL_INV[key] = hit
+    return hit
 
 
 def _coarsen(cur: DIAMatrix, g: int, ndim: int, transfer: str, dev: torch.device) -> DIAMatrix:
@@ -276,7 +315,7 @@ def _build_sharded_mg(mat: DIAMatrix, n: int, g: Optional[int], mesh: Mesh, *, p
             d0 = list(m.offsets).index(0)
             smooth.append((rows_of(np.stack(masks), grids[lvl]),
                            rows_of(1.0 / m.bands[d0], grids[lvl])))
-    tail_inv = torch.tensor(np.linalg.inv(cur.to_dense()), dtype=cyc, device=dev)
+    tail_inv = torch.tensor(_tail_inverse(cur), dtype=cyc, device=dev)
     vcycle = _ShardedVCycle(mesh, tuple(grids), levels, tail_inv, pre=pre_smooth,
                             post=post_smooth, overcorrection=overcorrection, transfer=transfer,
                             ndim=ndim, smoother=smoother, smooth=smooth, mixed=mixed)
@@ -320,14 +359,9 @@ def sharded_mg_cg_setup(
     Per iteration: the fine halo mat-vec, the cycle's level halos and its
     one tail gather, and the CG dots (the conjugacy dot, then <r, r> and
     <r, z> in one all-reduce)."""
-    if mesh is None:
-        mesh = make_mesh(n_devices, device="cuda" if device is None else device,
-                         axis_name=axis_name)
-    if not mesh.is_member:
-        raise ValueError("this rank is not in the mesh: only its members solve")
-    dev = mesh.device if device is None else local_device(device)
+    mesh, dev = _member_mesh(mesh, n_devices, device, axis_name)
     b = _host(b)
-    dtype = torch.float32 if b.dtype == np.float32 else torch.float64
+    dtype = _solve_dtype(b)
     n = b.shape[0]
     maxiter = n if maxiter is None else int(maxiter)
     vcycle, base_mv, g = _build_sharded_mg(
@@ -361,5 +395,72 @@ def sharded_mg_cg_solve(mat: DIAMatrix, b, g: Optional[int] = None, **options) -
     return sharded_mg_cg_setup(mat, b, g, **options)()
 
 
-# cgx's block MG-PCG, the multi-RHS half of ROADMAP A14
-sharded_mg_block_cg_solve = _unported_entry("sharded_mg_block_cg_solve", "ROADMAP A14")
+def sharded_mg_block_cg_setup(
+    mat: DIAMatrix,
+    b_block,
+    g: Optional[int] = None,
+    *,
+    mesh: Optional[Mesh] = None,
+    n_devices: Optional[int] = None,
+    tol: float = DEFAULT_TOLERANCE,
+    maxiter: Optional[int] = None,
+    rank_tol: float = 1e-12,
+    pre_smooth: int = 2,
+    post_smooth: int = 2,
+    omega: float = 0.8,
+    overcorrection: Optional[float] = None,
+    transfer: str = "bilinear",
+    smoother: str = "richardson",
+    cycle_precision: str = "fp64",
+    ndim: int = 2,
+    axis_name: str = ROWS_AXIS,
+    device=None,
+) -> Callable[[], BlockCGResult]:
+    """The set-up of :func:`sharded_mg_block_cg_solve`: the mesh, the
+    hierarchy and this rank's share of it and of the (n, s) ``b_block``;
+    returns the solve as a call, which repeats it on the same hierarchy.
+    ``run.vcycle`` is the rank's cycle."""
+    b_block = _host(b_block)
+    if b_block.ndim != 2:
+        raise ValueError("b_block must be (n, s)")
+    mesh, dev = _member_mesh(mesh, n_devices, device, axis_name)
+    n = b_block.shape[0]
+    maxiter = n if maxiter is None else int(maxiter)
+    dtype = _solve_dtype(b_block)
+    vcycle, base_mv, g = _build_sharded_mg(
+        mat, n, g, mesh, pre_smooth=pre_smooth, post_smooth=post_smooth, omega=omega,
+        overcorrection=overcorrection, transfer=transfer, smoother=smoother, ndim=ndim,
+        cycle_precision=cycle_precision, solve_dtype=dtype, device=dev)
+    n_loc = n // mesh.size
+    lo = mesh.rank * n_loc
+    b_loc = torch.tensor(np.ascontiguousarray(b_block[lo: lo + n_loc]), dtype=dtype, device=dev)
+
+    def run() -> BlockCGResult:
+        collectives.begin_program()
+        with f32_exact():
+            res = bf_block_cg_loop(base_mv, b_loc, torch.zeros_like(b_loc), tol, maxiter=maxiter,
+                                   rank_tol=rank_tol, gram=_PsumBlockGram(mesh), precond=vcycle,
+                                   marks=collectives)
+        collectives.begin_output()
+        return res._replace(x=collectives.all_gather(res.x, mesh))
+
+    run.vcycle = vcycle
+    return run
+
+
+def sharded_mg_block_cg_solve(mat: DIAMatrix, b_block, g: Optional[int] = None,
+                              **options) -> BlockCGResult:
+    """Row-sharded breakdown-free block CG preconditioned by the sharded
+    Galerkin V-cycle (cgx's ``sharded_mg_block_cg_solve``,
+    mg_sharded.py:545, "the production multi-RHS path"):
+    :func:`sharded_mg_block_cg_setup` (options as :func:`sharded_mg_cg_setup`,
+    with ``rank_tol``) and one solve. One Krylov space for every column of
+    the (n, s) ``b_block``, the cycle applied to the whole block at once:
+    cgx vmaps its cycle over the columns, so each level exchanges one
+    batched halo message a direction and the tail is gathered once for the
+    block; the port's cycle takes the block as it is, with the same
+    collectives. An iteration: the block halo mat-vec, one cycle of width
+    s, the (3s, 3s) Gram all-reduce and the (3s, s) strip's. A float32 b
+    solves in float32. Returns a :class:`~cgx_torch.solver.blockcg.
+    BlockCGResult` with the whole (n, s) x on every rank."""
+    return sharded_mg_block_cg_setup(mat, b_block, g, **options)()

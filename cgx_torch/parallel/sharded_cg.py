@@ -48,12 +48,16 @@ with no preconditioner, ``jacobi``, ``block_jacobi``
 product: no collective), ``neumann`` or ``chebyshev`` (degree 3, three
 strategy mat-vecs an application). A dense fp64 operator takes cgx's
 Ozaki int8 slices under ``dense_fp64="ozaki"`` (allgather only).
-What is not ported yet raises ``NotImplementedError`` naming its ROADMAP
-item. Operations that cgx leaves to XLA are plain torch here.
+The multi-RHS and recycling solves are cgx's: :func:`sharded_block_cg_solve`,
+:func:`sharded_cg_solve_harvest`, :func:`sharded_deflated_cg_solve`,
+:func:`sharded_block_deflated_cg_solve` (the 2-D rows x rhs mesh is
+:mod:`cgx_torch.parallel.batched2d`). Operations that cgx leaves to XLA
+are plain torch here.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Optional
 
 import numpy as np
@@ -66,10 +70,19 @@ from cgx_torch.ops import dia_spmv
 from cgx_torch.ops.ozaki import _ozaki_apply, _pad_cols, build_slices_np
 from cgx_torch.ops._util import f32_exact
 from cgx_torch.ops.reduce import vdot
+from cgx_torch.ops.tw32 import comp_block_gram
 from cgx_torch.parallel.mesh import ROWS_AXIS, Mesh, local_device, make_mesh
 from cgx_torch.parallel.partition import pad_bands, pad_dense, pad_vector, padded_size
+from cgx_torch.solver.blockcg import bf_block_cg_loop, bf_block_deflated_cg_loop, block_cg_loop
 from cgx_torch.solver.cg import CGResult, cg_loop
-from cgx_torch.solver.chebyshev import cheby_loop, host_spectral_bounds
+from cgx_torch.solver.chebyshev import cheby_loop, host_matvec, host_spectral_bounds
+from cgx_torch.solver.deflated import (
+    _harvest_cg_loop,
+    _local_tallT,
+    _ritz_from_cg_window,
+    deflated_cg_loop,
+    lanczos_ritz,
+)
 from cgx_torch.solver.gvpipe import gv_cg_loop
 from cgx_torch.solver.operators import CsrOperator, EllOperator, _torch_dtype
 from cgx_torch.solver.pipelined import pipelined_cg_loop
@@ -88,10 +101,6 @@ METHODS = ("reference", "pipelined", "gvpipe", "chebyshev", "sstep")
 SSTEP_POWERS = ("off", "deephalo", "fused")
 PRECONDS = (None, "jacobi", "block_jacobi", "neumann", "chebyshev")
 CHEBYSHEV_DEGREE = 3  # cgx's sharded polynomial (sharded_cg.py:794)
-
-
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to cgx_torch yet")
 
 
 def _np_dtype(dtype: torch.dtype):
@@ -143,7 +152,15 @@ class _DenseReduceScatter:
         return collectives.reduce_scatter(torch.matmul(p_loc, self.a_loc), self.mesh)
 
 
+def _rows(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A per-row vector ``v`` broadcast against ``like``: (n_loc,) or an
+    (n_loc, s) block of columns (rows always on axis 0, as cgx's)."""
+    return v if like.dim() == 1 else v[:, None]
+
+
 class _DiaAllGather:
+    """Banded rows with p gathered; p is (n_loc,) or an (n_loc, s) block."""
+
     def __init__(self, mesh: Mesh, bands_loc: torch.Tensor, offsets, n_loc: int):
         self.mesh, self.bands_loc, self.offsets, self.n_loc = mesh, bands_loc, offsets, n_loc
 
@@ -151,11 +168,11 @@ class _DiaAllGather:
         p_full = collectives.all_gather(p_loc, self.mesh)
         start = self.mesh.rank * self.n_loc
         pad = max(max(abs(o) for o in self.offsets), 1)
-        p_pad = F.pad(p_full, (pad, pad))
+        p_pad = F.pad(p_full, (0, 0) * (p_full.dim() - 1) + (pad, pad))
         y = torch.zeros_like(p_loc)
         for d, off in enumerate(self.offsets):
             lo = pad + start + off
-            y = y + self.bands_loc[d] * p_pad[lo: lo + self.n_loc]
+            y = y + _rows(self.bands_loc[d], p_loc) * p_pad[lo: lo + self.n_loc]
         return y
 
 
@@ -175,6 +192,10 @@ class _DiaHalo:
       in. The flat bands are the planes' first n_loc entries a band.
 
     Both issue the same two ppermutes, and give the same y bit for bit.
+    The "xla" product also takes an (n_loc, s) block of columns (rows on
+    axis 0, cgx's layout): each direction's halo is then one message of
+    h s elements for the whole block; "stream2d" is a single-vector
+    product (the block solves build their operator with "xla", as cgx).
     """
 
     def __init__(self, mesh: Mesh, bands_loc: torch.Tensor, offsets, n_loc: int,
@@ -203,13 +224,17 @@ class _DiaHalo:
 
     def __call__(self, p_loc):
         h = self.halo
-        left, right = collectives.halo_exchange(p_loc[:h], p_loc[-h:], self.mesh, self.zeros)
+        zeros = self.zeros if p_loc.dim() == 1 else p_loc.new_zeros((h,) + p_loc.shape[1:])
+        left, right = collectives.halo_exchange(p_loc[:h], p_loc[-h:], self.mesh, zeros)
         return self.local(p_loc, left, right)
 
     def local(self, p_loc, left, right):
         """The shard's rows of A p, given the two halos."""
         h, n_loc = self.halo, self.n_loc
         if self.local_kernel == "stream2d":
+            if p_loc.dim() != 1:
+                raise ValueError("the 'stream2d' local product takes one vector; build a "
+                                 "block solve's operator with local_kernel='xla'")
             y = dia_spmv.dia_matvec_stream2d_planes(self.bands, p_loc, offsets=self.offsets,
                                                     rows=self.rows, cols=self.cols)
             if n_loc >= 2 * h:  # each edge needs only 3h entries of the extended vector
@@ -225,7 +250,7 @@ class _DiaHalo:
         p_ext = torch.cat([left, p_loc, right])
         y = torch.zeros_like(p_loc)
         for d, off in enumerate(self.offsets):
-            y = y + self.flat[d] * p_ext[h + off: h + off + n_loc]
+            y = y + _rows(self.flat[d], p_loc) * p_ext[h + off: h + off + n_loc]
         return y
 
 
@@ -331,6 +356,50 @@ class _SparseAllGather:
         return self.op_loc.matvec(collectives.all_gather(p_loc, self.mesh))
 
 
+class _PsumBlockGram:
+    """The (a, b) block Gram ``A^T B`` of the shard, compensated across
+    chunks (:func:`cgx_torch.ops.tw32.comp_block_gram`, the single-device
+    arithmetic), then ONE all-reduce of it: a block CG's reductions (cgx's
+    ``_PsumBlockGram``)."""
+
+    def __init__(self, mesh: Mesh):
+        self.mesh = mesh
+
+    def __call__(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return collectives.all_reduce(comp_block_gram(a, b).contiguous(), self.mesh)
+
+
+class _PsumTallT:
+    """The (j,) contraction ``M^T v`` of the shard, then ONE all-reduce:
+    the deflated loop's fused ``[W, AW]^T r`` over the mesh (cgx's
+    ``_PsumTallT``)."""
+
+    def __init__(self, mesh: Mesh):
+        self.mesh = mesh
+
+    def __call__(self, m_: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        return collectives.all_reduce(_local_tallT(m_, v), self.mesh)
+
+
+class _PsumFused:
+    """Dots and tall contractions of the shard reduced by ONE all-reduce
+    of them concatenated: the deflated PCG's last launch, ``<r, z>``,
+    ``<r, r>`` and ``(AW)^T z``, which XLA's combiner merges for cgx
+    (recorded as cgx's: width 3, k + 2 elements). The port's loops have no
+    combiner, so :func:`cgx_torch.solver.deflated.deflated_cg_loop` hands
+    them over together (its ``fuse`` hook)."""
+
+    def __init__(self, mesh: Mesh):
+        self.mesh = mesh
+
+    def __call__(self, pairs, talls):
+        parts = [vdot(a, b).reshape(1) for a, b in pairs] + [_local_tallT(m_, v)
+                                                          for m_, v in talls]
+        out = collectives.all_reduce(torch.cat(parts), self.mesh, width=len(parts))
+        pieces = out.split([p.numel() for p in parts])
+        return tuple(p[0] for p in pieces[:len(pairs)]) + pieces[len(pairs):]
+
+
 class _PsumDots:
     """The local dots of a list of pairs, then ONE all-reduce of them
     stacked: the Chronopoulos-Gear single reduction an iteration. cgx
@@ -351,24 +420,28 @@ class _PsumDots:
 
 class _NeumannPrecond:
     """Degree-1 Neumann apply ``z = 2 D^-1 r - D^-1 A (D^-1 r)``: one more
-    strategy mat-vec, with its collectives, an application."""
+    strategy mat-vec, with its collectives, an application; r is (n_loc,)
+    or an (n_loc, s) block (cgx's ``_TreeBlockNeumann``: one block
+    mat-vec and its halo pair)."""
 
     def __init__(self, mv: Callable, inv_diag: torch.Tensor):
         self.mv, self.inv_diag = mv, inv_diag
 
     def __call__(self, r):
-        c = self.inv_diag * r
-        return 2.0 * c - self.inv_diag * self.mv(c)
+        d = _rows(self.inv_diag, r)
+        c = d * r
+        return 2.0 * c - d * self.mv(c)
 
 
 class _JacobiPrecond:
-    """``z = r / diag(A)``, purely local."""
+    """``z = r / diag(A)``, purely local; r is (n_loc,) or an (n_loc, s)
+    block (cgx's ``_TreeBlockJacobi``)."""
 
     def __init__(self, inv_diag: torch.Tensor):
         self.inv_diag = inv_diag
 
     def __call__(self, r):
-        return self.inv_diag * r
+        return _rows(self.inv_diag, r) * r
 
 
 class _BlockJacobiPrecond:
@@ -613,12 +686,7 @@ def make_sharded_solver(
         local_kernel = "xla"
         if precond is not None:
             raise ValueError(f"method={method!r} does not take a preconditioner")
-    if mesh is None:
-        mesh = make_mesh(n_devices, device="cuda" if device is None else device,
-                         axis_name=axis_name)
-    if not mesh.is_member:
-        raise ValueError("this rank is not in the mesh: only its members solve")
-    dev = mesh.device if device is None else local_device(device)
+    mesh, dev = _member_mesh(mesh, n_devices, device, axis_name)
     dtype = _torch_dtype(dtype, None)
     n = int(n)
     n_pad = padded_size(n, mesh.size)
@@ -644,9 +712,7 @@ def make_sharded_solver(
         lmin, lmax = bounds if bounds is not None else host_spectral_bounds(mat)
         pc = chebyshev_poly(mv, float(lmin), float(lmax), degree=CHEBYSHEV_DEGREE)
     elif precond is not None:
-        inv = np.zeros(n_pad, dtype=_np_dtype(dtype))
-        inv[:n] = 1.0 / np.asarray(diag, dtype=_np_dtype(dtype))
-        inv_loc = torch.tensor(inv[lo: lo + n_loc], device=dev)
+        inv_loc = _inv_diag_rows(diag, n, n_pad, mesh, n_loc, dtype, dev)
         pc = _JacobiPrecond(inv_loc) if precond == "jacobi" else _NeumannPrecond(mv, inv_loc)
     sstep = None
     if method == "sstep":
@@ -948,12 +1014,7 @@ def sharded_refine_fixed_sweeps(
     sweep's inner count. ``b`` is a host array, the same on every rank."""
     if not isinstance(mat, DIAMatrix):
         raise TypeError("sharded_refine_fixed_sweeps needs a DIAMatrix")
-    if mesh is None:
-        mesh = make_mesh(n_devices, device="cuda" if device is None else device,
-                         axis_name=axis_name)
-    if not mesh.is_member:
-        raise ValueError("this rank is not in the mesh: only its members solve")
-    dev = mesh.device if device is None else local_device(device)
+    mesh, dev = _member_mesh(mesh, n_devices, device, axis_name)
     b = _host(b, np.float64)
     n = b.shape[0]
     inner_maxiter = n if inner_maxiter is None else int(inner_maxiter)
@@ -988,19 +1049,350 @@ def sharded_refine_fixed_sweeps(
     return res._replace(x=collectives.all_gather(res.x, mesh)[:n])
 
 
-def _unported_entry(name: str, item: str):
-    def entry(*args, **kwargs):
-        raise _unported(f"{name} ({item})")
-    entry.__name__ = entry.__qualname__ = name
-    entry.__doc__ = f"cgx's ``{name}``: not ported yet ({item}); raises NotImplementedError."
-    return entry
+# ---------------------------------------------------------------------------
+# The multi-RHS and recycling solves (cgx sharded_cg.py:1581-2168): the
+# block, harvest, deflated and block-deflated loops of cgx_torch.solver on
+# the shard, their reductions through the hooks above
+# ---------------------------------------------------------------------------
 
 
-# cgx's multi-RHS sharded solves, the rest of ROADMAP A14
-sharded_block_cg_solve = _unported_entry("sharded_block_cg_solve", "ROADMAP A14")
-sharded_deflated_cg_solve = _unported_entry("sharded_deflated_cg_solve", "ROADMAP A14")
-sharded_block_deflated_cg_solve = _unported_entry("sharded_block_deflated_cg_solve",
-                                                  "ROADMAP A14")
-sharded_cg_solve_harvest = _unported_entry("sharded_cg_solve_harvest", "ROADMAP A14")
-sharded_cg_solve_batched = _unported_entry("sharded_cg_solve_batched (batched2d)",
-                                           "ROADMAP A14")
+class _PsumDot:
+    """One dot of the shard, then one all-reduce (cgx's ``_PsumDot``)."""
+
+    def __init__(self, mesh: Mesh, precision=None):
+        self.dots = _PsumDots(mesh, precision)
+
+    def __call__(self, u, v):
+        return self.dots([(u, v)])[0]
+
+
+def _member_mesh(mesh: Optional[Mesh], n_devices, device, axis_name: str):
+    """``mesh`` (by default ``make_mesh(n_devices)`` over the process
+    group) and this rank's device; a rank outside the mesh is refused."""
+    if mesh is None:
+        mesh = make_mesh(n_devices, device="cuda" if device is None else device,
+                         axis_name=axis_name)
+    if not mesh.is_member:
+        raise ValueError("this rank is not in the mesh: only its members solve")
+    return mesh, (mesh.device if device is None else local_device(device))
+
+
+def _solve_dtype(arr: np.ndarray) -> torch.dtype:
+    """A float32 b solves in float32, any other in float64 (cgx's
+    canonical dtype with x64 on)."""
+    return torch.float32 if arr.dtype == np.float32 else torch.float64
+
+
+def _row_block(arr, n_pad: int, mesh: Mesh, n_loc: int, dtype, dev) -> torch.Tensor:
+    """This rank's rows of ``arr`` ((n,) or (n, s)), zero-padded to n_pad."""
+    lo = mesh.rank * n_loc
+    rows = pad_vector(np.asarray(arr), n_pad)[lo: lo + n_loc]
+    return torch.tensor(np.ascontiguousarray(rows), dtype=dtype, device=dev)
+
+
+def _inv_diag_rows(diag, n: int, n_pad: int, mesh: Mesh, n_loc: int, dtype, dev):
+    """This rank's rows of 1 / diag(A), zero on the padded rows."""
+    inv = np.zeros(n_pad, dtype=_np_dtype(dtype))
+    inv[:n] = 1.0 / np.asarray(diag, dtype=_np_dtype(dtype))
+    return torch.tensor(inv[mesh.rank * n_loc: (mesh.rank + 1) * n_loc], device=dev)
+
+
+def _block_op(mat, n: int, n_pad: int, n_loc: int, mesh: Mesh, dtype, dev, strategy: str,
+              dense_fp64: str = "emulated"):
+    """The strategy mat-vec of a block solve (its local product the plain
+    one, as cgx's ``_build_op`` default) and the diagonal; cgx's refusal
+    of the formats whose block product it lacks."""
+    mv, diag, _strategy, _kernel = _build_op(mat, n, n_pad, n_loc, mesh, dtype, dev, strategy,
+                                             dense_fp64, "xla")
+    if isinstance(mv, (_SparseAllGather, _DenseReduceScatter)):
+        raise ValueError("sharded block CG supports DIA (halo/allgather) and dense (allgather) "
+                         "operators")
+    return mv, diag
+
+
+def _deflation_data(mat, n: int, k: int, w, lanczos_m):
+    """W (by default ``lanczos_ritz`` of ``mat`` on the host), A W by the
+    host mat-vec, the inverse of W^T A W and (AW)^T AW, in float64 on the
+    host (cgx sharded_cg.py:1762-1771)."""
+    if w is None:
+        w = lanczos_ritz(mat, n, int(k), m=lanczos_m)
+    w = _host(w, np.float64)
+    if w.ndim != 2 or w.shape[0] != n:
+        raise ValueError(f"w must be (n, k); got {w.shape}")
+    hmv = host_matvec(mat)
+    aw = np.stack([hmv(w[:, j]) for j in range(w.shape[1])], axis=1)
+    return w, aw, np.linalg.inv(w.T @ aw), aw.T @ aw
+
+
+def _csr_of_coo(mat):
+    return CSRMatrix.from_coo(mat) if isinstance(mat, COOMatrix) else mat
+
+
+def sharded_block_cg_solve(
+    mat,
+    b_block,
+    *,
+    mesh: Optional[Mesh] = None,
+    n_devices: Optional[int] = None,
+    strategy: str = "auto",
+    tol: float = DEFAULT_TOLERANCE,
+    maxiter: Optional[int] = None,
+    jitter_eps: float = 1e-15,
+    method: str = "breakdown_free",
+    rank_tol: float = 1e-12,
+    precond: Optional[str] = None,
+    bounds: Optional[tuple] = None,
+    dense_fp64: str = "emulated",
+    axis_name: str = ROWS_AXIS,
+    device=None,
+):
+    """Row-block-sharded block CG: one Krylov space for every column of
+    the (n, s) ``b_block`` over the mesh (cgx's ``sharded_block_cg_solve``,
+    sharded_cg.py:2029; :mod:`cgx_torch.solver.blockcg` on the shard). An
+    iteration: one block mat-vec (a halo of h s elements a direction, or
+    one gather) and the Gram all-reduces, ONE (3s, 3s) for
+    ``method="breakdown_free"`` (the default), two (s, s) for
+    ``"oleary"``. ``precond`` None, ``"jacobi"``, ``"neumann"`` (one more
+    block mat-vec) or ``"chebyshev"`` (degree 3 on ``bounds``, default
+    :func:`~cgx_torch.solver.chebyshev.host_spectral_bounds`), breakdown-free
+    only; it adds the (3s, s) strip's all-reduce. DIA (halo or allgather)
+    and dense (allgather) operators; ``dense_fp64`` as
+    :func:`make_sharded_solver`. ``b_block`` is a host array, the same on
+    every rank; a float32 one solves in float32. The small Gram algebra
+    runs on each rank's host on the all-reduced Grams, so every rank takes
+    the same decisions. Returns a :class:`~cgx_torch.solver.blockcg.
+    BlockCGResult` with the whole (n, s) x on every rank."""
+    b_block = _host(b_block)
+    if b_block.ndim != 2:
+        raise ValueError("b_block must be (n, s)")
+    if method not in ("breakdown_free", "oleary"):
+        raise ValueError(f"unknown block CG method {method!r}")
+    if precond is not None and method != "breakdown_free":
+        raise ValueError("precond requires method='breakdown_free'")
+    mesh, dev = _member_mesh(mesh, n_devices, device, axis_name)
+    n = b_block.shape[0]
+    maxiter = n if maxiter is None else int(maxiter)
+    n_pad = padded_size(n, mesh.size)
+    n_loc = n_pad // mesh.size
+    dtype = _solve_dtype(b_block)
+    mat = _csr_of_coo(mat)
+    mv, diag = _block_op(mat, n, n_pad, n_loc, mesh, dtype, dev, strategy, dense_fp64)
+    pc = None
+    if precond is not None:  # cgx sharded_cg.py:2101-2123
+        inv_loc = _inv_diag_rows(diag, n, n_pad, mesh, n_loc, dtype, dev)
+        if precond == "jacobi":
+            pc = _JacobiPrecond(inv_loc)
+        elif precond == "neumann":
+            pc = _NeumannPrecond(mv, inv_loc)
+        elif precond == "chebyshev":
+            lmin, lmax = bounds if bounds is not None else host_spectral_bounds(mat)
+            pc = chebyshev_poly(mv, float(lmin), float(lmax), degree=CHEBYSHEV_DEGREE)
+        else:
+            raise ValueError(f"unknown precond {precond!r}")
+    b_loc = _row_block(b_block, n_pad, mesh, n_loc, dtype, dev)
+    gram = _PsumBlockGram(mesh)
+    collectives.begin_program()
+    with f32_exact():
+        if method == "breakdown_free":
+            res = bf_block_cg_loop(mv, b_loc, torch.zeros_like(b_loc), tol, maxiter=maxiter,
+                                   rank_tol=rank_tol, gram=gram, precond=pc, marks=collectives)
+        else:
+            res = block_cg_loop(mv, b_loc, torch.zeros_like(b_loc), tol, maxiter=maxiter,
+                                jitter_eps=jitter_eps, gram=gram, marks=collectives)
+    collectives.begin_output()
+    return res._replace(x=collectives.all_gather(res.x, mesh)[:n])
+
+
+def sharded_cg_solve_harvest(
+    mat,
+    b,
+    *,
+    k: int = 8,
+    window: Optional[int] = None,
+    ritz_tol: float = 1e-3,
+    mesh: Optional[Mesh] = None,
+    n_devices: Optional[int] = None,
+    strategy: str = "auto",
+    tol: float = DEFAULT_TOLERANCE,
+    maxiter: Optional[int] = None,
+    nearzero: float = NEARZERO,
+    strict: bool = True,
+    local_kernel: str = "auto",
+    axis_name: str = ROWS_AXIS,
+    device=None,
+):
+    """Row-block-sharded plain CG that also harvests a deflation basis from
+    its own iterates (cgx's ``sharded_cg_solve_harvest``, sharded_cg.py:1601):
+    returns ``(result, w)``, ``w`` an (n, k') orthonormal host array of
+    converged Ritz vectors for :func:`sharded_deflated_cg_solve`'s ``w=``.
+    The Lanczos window stays row-sharded during the loop, (window, n_loc)
+    a rank, so an iteration's collectives are the plain reference solve's;
+    after the loop the captured rows are gathered once to every rank (set
+    apart in the record, with the gather of x) and the Ritz extraction runs
+    on each rank's host on the same inputs. ``local_kernel`` as
+    :func:`make_sharded_solver` ("auto": B8 for a float32 shard of at
+    least :data:`STREAM_LOCAL_MIN_ELEMS` rows on CUDA). With
+    ``strict=False`` a failed extraction returns ``(result, None)``.
+    The gather's seconds are kept in ``sharded_cg_solve_harvest.
+    gather_seconds``."""
+    b = _host(b)
+    mesh, dev = _member_mesh(mesh, n_devices, device, axis_name)
+    n = b.shape[0]
+    maxiter = n if maxiter is None else int(maxiter)
+    window = int(min(max(8 * k, 64) if window is None else window, maxiter, n))
+    n_pad = padded_size(n, mesh.size)
+    n_loc = n_pad // mesh.size
+    dtype = _solve_dtype(b)
+    mv, _diag, _strategy, _kernel = _build_op(_csr_of_coo(mat), n, n_pad, n_loc, mesh, dtype,
+                                              dev, strategy, "emulated", local_kernel)
+    b_loc = _row_block(b, n_pad, mesh, n_loc, dtype, dev)
+    collectives.begin_program()
+    with f32_exact():
+        res, win, av, bv = _harvest_cg_loop(
+            mv, b_loc, torch.zeros_like(b_loc), torch.tensor(tol, dtype=dtype, device=dev),
+            torch.tensor(nearzero, dtype=dtype, device=dev), maxiter=maxiter, window=window,
+            dot=_PsumDot(mesh), marks=collectives)
+    collectives.begin_output()
+    res = res._replace(x=collectives.all_gather(res.x, mesh)[:n])
+    steps = min(int(res.iterations) + 1, window)
+    t0 = time.perf_counter()
+    # the captured rows of every rank, (P, steps, n_loc), as the (steps, n) window
+    shards = collectives.all_gather(win[:steps].reshape(-1), mesh)
+    win_full = shards.reshape(mesh.size, steps, n_loc).transpose(0, 1).reshape(steps, -1)[:, :n]
+    win_np = win_full.cpu().numpy()
+    sharded_cg_solve_harvest.gather_seconds = time.perf_counter() - t0
+    del shards, win_full, win
+    try:
+        w = _ritz_from_cg_window(win_np, av.cpu().numpy(), bv.cpu().numpy(), steps, int(k),
+                                 ritz_tol)
+    except ValueError:
+        if strict:
+            raise
+        return res, None
+    return res, w
+
+
+sharded_cg_solve_harvest.gather_seconds = None
+
+
+def sharded_deflated_cg_solve(
+    mat,
+    b,
+    *,
+    k: int = 8,
+    w=None,
+    lanczos_m: Optional[int] = None,
+    mesh: Optional[Mesh] = None,
+    n_devices: Optional[int] = None,
+    strategy: str = "auto",
+    tol: float = DEFAULT_TOLERANCE,
+    maxiter: Optional[int] = None,
+    nearzero: float = NEARZERO,
+    precond: Optional[str] = None,
+    x0=None,
+    local_kernel: str = "auto",
+    axis_name: str = ROWS_AXIS,
+    device=None,
+) -> CGResult:
+    """Row-block-sharded deflated CG (cgx's ``sharded_deflated_cg_solve``,
+    sharded_cg.py:1712; :func:`cgx_torch.solver.deflated.deflated_cg_loop`
+    on the shard). W comes from ``lanczos_ritz`` of ``mat`` on the host
+    unless an (n, k) ``w`` is given; A W, the (k, k) inverse of W^T A W and
+    (AW)^T AW are built on the host in float64. W and A W are row-sharded
+    and zero-padded, the two (k, k) matrices replicated. An iteration: the
+    conjugacy dot, the fused (2k,) ``[W, AW]^T r`` and ``<r, r>``, one
+    all-reduce each. ``precond`` None, ``"jacobi"`` or ``"neumann"``
+    (deflated PCG): the guard then contracts ``W^T r`` (k), and ``<r, z>``,
+    ``<r, r>`` and ``(AW)^T z`` ride one all-reduce of k + 2 elements.
+    ``x0`` warm-starts; ``local_kernel`` as :func:`make_sharded_solver`."""
+    b = _host(b)
+    mesh, dev = _member_mesh(mesh, n_devices, device, axis_name)
+    n = b.shape[0]
+    maxiter = n if maxiter is None else int(maxiter)
+    n_pad = padded_size(n, mesh.size)
+    n_loc = n_pad // mesh.size
+    dtype = _solve_dtype(b)
+    mat = _csr_of_coo(mat)
+    w, aw, minv, awtaw = _deflation_data(mat, n, k, w, lanczos_m)
+    mv, diag, _strategy, _kernel = _build_op(mat, n, n_pad, n_loc, mesh, dtype, dev, strategy,
+                                             "emulated", local_kernel)
+    pc = None
+    if precond is not None:
+        inv_loc = _inv_diag_rows(diag, n, n_pad, mesh, n_loc, dtype, dev)
+        if precond == "jacobi":
+            pc = _JacobiPrecond(inv_loc)
+        elif precond == "neumann":
+            pc = _NeumannPrecond(mv, inv_loc)
+        else:
+            raise ValueError(f"unknown precond {precond!r}")
+    b_loc = _row_block(b, n_pad, mesh, n_loc, dtype, dev)
+    if x0 is None:
+        x0_loc = torch.zeros_like(b_loc)
+    else:
+        x0 = _host(x0, _np_dtype(dtype))
+        if x0.shape != (n,):
+            raise ValueError(f"x0 must be ({n},); got {x0.shape}")
+        x0_loc = _row_block(x0, n_pad, mesh, n_loc, dtype, dev)
+
+    def small(a):
+        return torch.tensor(a, dtype=dtype, device=dev)
+
+    collectives.begin_program()
+    with f32_exact():
+        res = deflated_cg_loop(
+            mv, b_loc, x0_loc, _row_block(w, n_pad, mesh, n_loc, dtype, dev),
+            _row_block(aw, n_pad, mesh, n_loc, dtype, dev), small(minv), small(awtaw),
+            torch.tensor(tol, dtype=dtype, device=dev),
+            torch.tensor(nearzero, dtype=dtype, device=dev), maxiter=maxiter,
+            dot=_PsumDot(mesh), tallT=_PsumTallT(mesh), fuse=_PsumFused(mesh), precond=pc,
+            marks=collectives)
+    collectives.begin_output()
+    return res._replace(x=collectives.all_gather(res.x, mesh)[:n])
+
+
+def sharded_block_deflated_cg_solve(
+    mat,
+    b_block,
+    *,
+    k: int = 8,
+    w=None,
+    lanczos_m: Optional[int] = None,
+    mesh: Optional[Mesh] = None,
+    n_devices: Optional[int] = None,
+    strategy: str = "auto",
+    tol: float = DEFAULT_TOLERANCE,
+    maxiter: Optional[int] = None,
+    rank_tol: float = 1e-12,
+    axis_name: str = ROWS_AXIS,
+    device=None,
+):
+    """Row-block-sharded deflated breakdown-free block CG (cgx's
+    ``sharded_block_deflated_cg_solve``, sharded_cg.py:1859): one block
+    Krylov space for every column of the (n, s) ``b_block`` and W's
+    recycled Ritz vectors (W as :func:`sharded_deflated_cg_solve`). An
+    iteration: one block mat-vec and three all-reduces, the (3s, 3s) Gram,
+    the fused (2k, s) ``[W, AW]^T R`` and the (3s, s) strip. DIA and dense
+    operators."""
+    b_block = _host(b_block)
+    if b_block.ndim != 2:
+        raise ValueError("b_block must be (n, s)")
+    mesh, dev = _member_mesh(mesh, n_devices, device, axis_name)
+    n = b_block.shape[0]
+    maxiter = n if maxiter is None else int(maxiter)
+    n_pad = padded_size(n, mesh.size)
+    n_loc = n_pad // mesh.size
+    dtype = _solve_dtype(b_block)
+    mat = _csr_of_coo(mat)
+    w, aw, minv, awtaw = _deflation_data(mat, n, k, w, lanczos_m)
+    mv, _diag = _block_op(mat, n, n_pad, n_loc, mesh, dtype, dev, strategy)
+    b_loc = _row_block(b_block, n_pad, mesh, n_loc, dtype, dev)
+    collectives.begin_program()
+    with f32_exact():
+        res = bf_block_deflated_cg_loop(
+            mv, b_loc, torch.zeros_like(b_loc), _row_block(w, n_pad, mesh, n_loc, dtype, dev),
+            _row_block(aw, n_pad, mesh, n_loc, dtype, dev),
+            torch.tensor(minv, dtype=dtype, device=dev),
+            torch.tensor(awtaw, dtype=dtype, device=dev), tol, maxiter=maxiter,
+            rank_tol=rank_tol, gram=_PsumBlockGram(mesh), marks=collectives)
+    collectives.begin_output()
+    return res._replace(x=collectives.all_gather(res.x, mesh)[:n])

@@ -52,8 +52,9 @@ Dispatch (cgx api.py:322-403):
   configured preconditioner (:func:`_solve_block`), ``"batched"`` by
   independent reference recurrences (:func:`_solve_batched_rhs`); an
   ``x0`` of the same shape warm-starts by the shift identity;
-  :func:`solve_sequence` solves a sequence with spectral recycling. Their
-  sharded forms raise naming A14;
+  :func:`solve_sequence` solves a sequence with spectral recycling. On a
+  mesh they run :mod:`cgx_torch.parallel`'s block, block MG, 2-D batched,
+  harvest and deflated solves;
 - everything else that is ported runs the plain reference loop, with
   the configured preconditioner: ``jacobi``, ``neumann``,
   ``block_jacobi`` (``precond_block_size``, default min(32, N)),
@@ -391,17 +392,62 @@ def _operator_of(mat, dtype, dev):
     return mat if hasattr(mat, "matvec") else as_operator(mat, dtype=dtype, device=dev)
 
 
+def _shifted_host(b_np: np.ndarray, x0, host) -> tuple:
+    """cgx's shift identity for a warm start on the sharded route: ``B - A
+    X0`` with ``A X0`` on the host in float64 (cgx api.py:749-760), and X0
+    to add back (None without ``x0``)."""
+    if x0 is None:
+        return b_np, None
+    x0_np = x0.detach().cpu().numpy() if isinstance(x0, torch.Tensor) else np.asarray(x0)
+    x0_np = x0_np.astype(np.float64)
+    ax0 = host @ x0_np if isinstance(host, np.ndarray) else np.stack(
+        [host.mat_vec(x0_np[:, j]) for j in range(x0_np.shape[1])], axis=1)
+    return b_np - ax0.astype(b_np.dtype), x0_np
+
+
 def _solve_batched_rhs(mat, b, cfg: SolveConfig, method: str, dev: torch.device, x0, *,
-                       sharded: bool) -> CGResult:
-    """multi_rhs="batched" (cgx api.py:610-716): an independent reference
-    recurrence a column of the (n, s) b, through
-    :func:`cgx_torch.solver.batched.cg_solve_batched`; the result's x is
-    (n, s) and its other fields carry a leading column axis."""
+                       sharded: bool, n_devices=None, mesh=None) -> CGResult:
+    """multi_rhs="batched" (cgx api.py:610-716): an independent recurrence a
+    column of the (n, s) b; the result's x is (n, s) and its other fields
+    carry a leading column axis. On one device the reference recurrence
+    (:func:`cgx_torch.solver.batched.cg_solve_batched`); on a mesh
+    :func:`cgx_torch.parallel.batched2d.sharded_cg_solve_batched` over a
+    (rows x rhs) mesh, ``make_mesh2d(n_devices, 1)`` unless one is given (a
+    1-D rows mesh becomes (rows x 1)), with ``method`` "reference",
+    "pipelined" or "gvpipe", ``jacobi`` or ``neumann``, and ``x0`` by the
+    shift identity."""
     dtype = _multi_rhs_dtype(cfg)
     b_dev = as_vector(b, dev, "b", dtype)
     x0 = _block_x0(x0, b_dev, dev)
-    if sharded:
-        raise _unported("multi_rhs='batched' on the sharded route (batched2d, ROADMAP A14)")
+    if sharded:  # cgx api.py:630-690
+        from cgx_torch.parallel.batched2d import Mesh2D, make_mesh2d, sharded_cg_solve_batched
+        from cgx_torch.parallel.mesh import Mesh
+
+        host = _host_matrix(mat)
+        if not isinstance(host, DIAMatrix):
+            raise ValueError("multi_rhs='batched' sharded needs a banded (DIA) matrix")
+        if mesh is None:
+            mesh = make_mesh2d(int(n_devices), 1, device=dev)
+        elif isinstance(mesh, Mesh):  # a 1-D rows mesh adapts to (rows x 1)
+            mesh = make_mesh2d(mesh.size, 1, mesh.group, device=dev)
+        elif not isinstance(mesh, Mesh2D):
+            raise ValueError("multi_rhs='batched' needs a (rows x rhs) mesh or a 1-D rows mesh; "
+                             f"got {type(mesh)}")
+        if cfg.history > 0:
+            raise ValueError("the sharded batched loop carries no history buffer; use "
+                             "multi_rhs='block' or history=0")
+        cast = np.float64 if cfg.precision == "fp64" else np.float32
+        b_np = b_dev.cpu().numpy().astype(cast)
+        b_np, shift = _shifted_host(b_np, x0, host)
+        x_t, iters, resn, conv, brk = sharded_cg_solve_batched(
+            host, b_np.T, mesh=mesh, tol=cfg.tolerance,
+            maxiter=_default_maxiter(cfg, method, b_np.shape[0]), nearzero=cfg.nearzero,
+            method=method, precond=cfg.precond, gv_replace_every=cfg.gv_replace_every,
+            device=dev)
+        x = x_t.mT if shift is None else x_t.mT + torch.as_tensor(shift, device=dev).to(dtype)
+        return CGResult(x=x, iterations=iters, residual_norm=resn, converged=conv,
+                        rsold=resn * resn, history=torch.zeros((0,), dtype=x.dtype, device=dev),
+                        breakdown=brk)
     if method != "reference":
         raise ValueError("single-device multi_rhs='batched' runs the batched reference "
                          f"recurrence; method={method!r} needs a mesh")
@@ -417,22 +463,48 @@ def _solve_batched_rhs(mat, b, cfg: SolveConfig, method: str, dev: torch.device,
 
 
 def _solve_block(mat, b, cfg: SolveConfig, method: str, dev: torch.device, x0, *,
-                 sharded: bool) -> BlockCGResult:
+                 sharded: bool, n_devices=None, mesh=None, strategy: str = "auto"
+                 ) -> BlockCGResult:
     """multi_rhs="block" (cgx api.py:718-841): every column of the (n, s)
     b in one breakdown-free block-CG Krylov space, with the configured
     preconditioner applied to every column. ``x0`` warm-starts by the
     shift identity: solve ``A D = B - A X0`` from zero and return ``X0 +
     D``, ``A X0`` on the host in float64 for a host matrix (as cgx), by
-    the operator itself for a port operator."""
+    the operator itself for a port operator. On a mesh (cgx api.py:761-803)
+    ``precond="mg"`` runs :func:`cgx_torch.parallel.mg_sharded.
+    sharded_mg_block_cg_solve` (the grid's dimension by
+    :func:`infer_grid_ndim`), anything else :func:`cgx_torch.parallel.
+    sharded_cg.sharded_block_cg_solve` with ``strategy`` and
+    ``dense_fp64``; the shift on the host."""
     if method != "reference":
         raise ValueError("multi-RHS solves use the breakdown-free block recurrence; "
                          f"method={method!r} applies to single-RHS solves only")
     dtype = _multi_rhs_dtype(cfg)
     b_dev = as_vector(b, dev, "b", dtype if x0 is None else torch.float64)
     x0 = _block_x0(x0, b_dev, dev)
+    maxiter = b_dev.shape[0] if cfg.maxiter is None else cfg.maxiter
     if sharded:
-        raise _unported("multi-RHS block solves on the sharded route (sharded_block_cg_solve, "
-                        "ROADMAP A14)")
+        host = _host_matrix(mat)
+        cast = np.float64 if cfg.precision == "fp64" else np.float32
+        b_np, shift = _shifted_host(b_dev.cpu().numpy().astype(cast), x0, host)
+        if cfg.precond == "mg":
+            from cgx_torch.parallel.mg_sharded import sharded_mg_block_cg_solve
+
+            if not isinstance(host, DIAMatrix):
+                raise ValueError("precond='mg' needs a banded grid operator")
+            res = sharded_mg_block_cg_solve(
+                host, b_np, mesh=mesh, n_devices=n_devices, tol=cfg.tolerance, maxiter=maxiter,
+                smoother=cfg.mg_smoother, cycle_precision=cfg.mg_cycle_precision,
+                ndim=infer_grid_ndim(host.shape[0], host.offsets), device=dev)
+        else:
+            from cgx_torch.parallel.sharded_cg import sharded_block_cg_solve
+
+            res = sharded_block_cg_solve(
+                host, b_np, mesh=mesh, n_devices=n_devices, strategy=strategy,
+                tol=cfg.tolerance, maxiter=maxiter, precond=cfg.precond,
+                dense_fp64=cfg.dense_fp64, device=dev)
+        return res if shift is None else res._replace(
+            x=res.x + torch.as_tensor(shift, device=dev).to(res.x.dtype))
     op = _operator_of(mat, dtype, dev)
     if dtype == torch.float64:
         op = _maybe_ozaki(op, cfg)
@@ -448,9 +520,8 @@ def _solve_block(mat, b, cfg: SolveConfig, method: str, dev: torch.device, x0, *
             ax0 = block_matvec(op)(torch.as_tensor(x0, device=dev).to(dtype)).to(torch.float64)
         b_dev = b_dev - ax0
         shift = torch.as_tensor(x0, device=dev).to(dtype)
-    res = block_cg_solve(op, b_dev.to(dtype), tol=cfg.tolerance,
-                         maxiter=b_dev.shape[0] if cfg.maxiter is None else cfg.maxiter,
-                         precond=pc, device=dev)
+    res = block_cg_solve(op, b_dev.to(dtype), tol=cfg.tolerance, maxiter=maxiter, precond=pc,
+                         device=dev)
     return res if shift is None else res._replace(x=res.x + shift)
 
 
@@ -482,10 +553,12 @@ def solve(
     sharded = (n_devices is not None and n_devices > 1) or mesh is not None
     if np.ndim(b) == 2:
         if cfg.multi_rhs == "batched":
-            return _solve_batched_rhs(mat, b, cfg, method, dev, x0, sharded=sharded)
+            return _solve_batched_rhs(mat, b, cfg, method, dev, x0, sharded=sharded,
+                                      n_devices=n_devices, mesh=mesh)
         if cfg.multi_rhs != "block":
             raise ValueError(f"unknown multi_rhs {cfg.multi_rhs!r}")
-        return _solve_block(mat, b, cfg, method, dev, x0, sharded=sharded)
+        return _solve_block(mat, b, cfg, method, dev, x0, sharded=sharded, n_devices=n_devices,
+                            mesh=mesh, strategy=strategy)
     if cfg.precision == "tw":
         return _solve_tw(mat, b, cfg, method, dev, sharded=sharded, n_devices=n_devices,
                          mesh=mesh)
@@ -587,7 +660,8 @@ def solve_sequence(
     harvested W is kept and only A_t W and the (k, k) inverse are rebuilt.
     ``warm_start`` starts each solve from the one before. A harvest that
     finds no converged Ritz pair leaves the rest of the sequence to plain
-    CG. Returns the list of results. The sharded form raises naming A14."""
+    CG. Returns the list of results. With ``mesh=`` or ``n_devices=`` the
+    sharded route runs the same sequence (:func:`_sequence_sharded`)."""
     cfg = config or SolveConfig()
     dev = resolve_device(device)
     if cfg.precision in _UNPORTED_PRECISION:
@@ -608,8 +682,9 @@ def solve_sequence(
     if len(mats) != len(bs):
         raise ValueError(f"got {len(mats)} matrices for {len(bs)} right-hand sides")
     if (n_devices is not None and n_devices > 1) or mesh is not None:
-        raise _unported("solve_sequence on the sharded route (sharded_cg_solve_harvest, "
-                        "sharded_deflated_cg_solve, ROADMAP A14)")
+        return _sequence_sharded(mats, bs, cfg, varying, k=k, window=window,
+                                 warm_start=warm_start, n_devices=n_devices, mesh=mesh,
+                                 strategy=strategy, dev=dev)
     n = bs[0].shape[0]
     maxiter = n if cfg.maxiter is None else cfg.maxiter
     common = dict(tol=cfg.tolerance, maxiter=maxiter, nearzero=cfg.nearzero, device=dev)
@@ -626,4 +701,47 @@ def solve_sequence(
             # a varying A keeps the harvested W; A_t W and the inverse are rebuilt
             basis_t = DeflationBasis(op_t, basis.w) if varying else basis
             results.append(deflated_cg_solve(op_t, b, basis_t, x_prev, precond=pc, **common))
+    return results
+
+
+def _sequence_sharded(mats, bs, cfg: SolveConfig, varying: bool, *, k: int, window, warm_start,
+                      n_devices, mesh, strategy: str, dev: torch.device) -> list:
+    """:func:`solve_sequence` on a mesh (cgx api.py:919-984): the sharded
+    harvest (:func:`cgx_torch.parallel.sharded_cg.sharded_cg_solve_harvest`),
+    then :func:`~cgx_torch.parallel.sharded_cg.sharded_deflated_cg_solve`
+    with ``w=`` and the configured preconditioner for every later step (a
+    varying A rebuilds only A_t W and the inverse, in the call). A harvest
+    that finds no converged Ritz pair leaves the rest to one
+    :func:`~cgx_torch.parallel.sharded_cg.make_sharded_solver` built once
+    for the sequence, or to ``sharded_cg_solve`` a step for a varying A."""
+    from cgx_torch.parallel.sharded_cg import (
+        make_sharded_solver,
+        sharded_cg_solve,
+        sharded_cg_solve_harvest,
+        sharded_deflated_cg_solve,
+    )
+
+    cast = np.float64 if cfg.precision == "fp64" else np.float32
+    bs = [b.cpu().numpy().astype(cast) for b in bs]
+    n = bs[0].shape[0]
+    maxiter = n if cfg.maxiter is None else cfg.maxiter
+    common = dict(mesh=mesh, n_devices=n_devices, strategy=strategy, tol=cfg.tolerance,
+                  maxiter=maxiter, nearzero=cfg.nearzero, device=dev)
+    host0 = _host_matrix(mats[0])
+    # strict=False: a failed Ritz extraction keeps the completed first solve
+    res0, w = sharded_cg_solve_harvest(host0, bs[0], k=k, window=window, strict=False, **common)
+    results = [res0]
+    plain = None
+    if w is None and not varying:  # the operator's shards built once for the sequence
+        plain = make_sharded_solver(host0, n, dtype=cast, **common)
+    for m, b in zip(mats[1:], bs[1:]):
+        host_t = _host_matrix(m) if varying else host0
+        x_prev = results[-1].x.cpu().numpy() if warm_start else None
+        if plain is not None:
+            results.append(plain.solve(b, x0=x_prev))
+        elif w is None:
+            results.append(sharded_cg_solve(host_t, b, x0=x_prev, **common))
+        else:
+            results.append(sharded_deflated_cg_solve(host_t, b, w=w, precond=cfg.precond,
+                                                     x0=x_prev, **common))
     return results

@@ -207,6 +207,16 @@ def _next_direction(z, p, delta, gpp, gpz, gqz, gzz, rt, conv_now: bool):
     return p, restart and not bool(keepr.any())
 
 
+def _next(marks) -> None:
+    if marks is not None:
+        marks.next_iteration()
+
+
+def _end(marks) -> None:
+    if marks is not None:
+        marks.end_loop()
+
+
 def _result(x, k: int, res, ok, brk: bool) -> BlockCGResult:
     dev = x.device
     return BlockCGResult(x=x, iterations=torch.tensor(k, dtype=torch.int32, device=dev),
@@ -221,9 +231,10 @@ def _result(x, k: int, res, ok, brk: bool) -> BlockCGResult:
 
 def block_cg_loop(mv: Callable, b: torch.Tensor, x0: torch.Tensor, tol: float, *,
                   maxiter: int, jitter_eps: float = 1e-15,
-                  gram: Optional[Callable] = None) -> BlockCGResult:
+                  gram: Optional[Callable] = None, marks=None) -> BlockCGResult:
     """O'Leary's block CG (cgx ``block_cg_loop``, blockcg.py:75) with
-    jittered Cholesky Gram solves; a failed factor is a breakdown."""
+    jittered Cholesky Gram solves; a failed factor is a breakdown.
+    ``marks`` as for :func:`cgx_torch.solver.cg.cg_loop`."""
     gram = comp_block_gram if gram is None else gram
     dev, dtype = b.device, b.dtype
     tol_t = torch.tensor(tol, dtype=dtype)
@@ -238,6 +249,7 @@ def block_cg_loop(mv: Callable, b: torch.Tensor, x0: torch.Tensor, tol: float, *
     p = r
     k = 0
     while k < maxiter and not (conv or brk):
+        _next(marks)
         q = mv(p)
         delta = _host(gram(p, q))  # SPD while P has full rank
         alpha, ok1 = _gram_solve(delta, gamma, eps)
@@ -253,18 +265,20 @@ def block_cg_loop(mv: Callable, b: torch.Tensor, x0: torch.Tensor, tol: float, *
         brk = brk or not (ok1 and ok2)
         gamma = gamma_new
         k += 1
+    _end(marks)
     res = torch.sqrt(torch.diagonal(_host(gram(r, r))))
     return _result(x, k, res, res < tol_t, brk)
 
 
 def bf_block_cg_loop(mv: Callable, b: torch.Tensor, x0: torch.Tensor, tol: float, *,
                      maxiter: int, rank_tol: float = 1e-12, gram: Optional[Callable] = None,
-                     precond: Optional[Callable] = None) -> BlockCGResult:
+                     precond: Optional[Callable] = None, marks=None) -> BlockCGResult:
     """Breakdown-free block CG (cgx ``bf_block_cg_loop``, blockcg.py:227).
     ``precond`` is a block ``(n, s) -> (n, s)`` SPD apply, or None; with
     it each iteration adds one apply and one (3s, s) Gram strip. If the
     direction block loses all rank while columns remain unconverged it
-    restarts from ``orth(Z)``; only a rank-zero restart is a breakdown."""
+    restarts from ``orth(Z)``; only a rank-zero restart is a breakdown.
+    ``marks`` as for :func:`cgx_torch.solver.cg.cg_loop`."""
     gram = comp_block_gram if gram is None else gram
     dev, dtype = b.device, b.dtype
     s = b.shape[1]
@@ -286,6 +300,7 @@ def bf_block_cg_loop(mv: Callable, b: torch.Tensor, x0: torch.Tensor, tol: float
     x = x0
     k = 0
     while k < maxiter and not (conv or brk):
+        _next(marks)
         q = mv(p)
         cat = torch.cat([p, q, r], dim=1)  # (n, 3s)
         g = _host(gram(cat, cat))  # the alpha and residual reduction
@@ -307,19 +322,21 @@ def bf_block_cg_loop(mv: Callable, b: torch.Tensor, x0: torch.Tensor, tol: float
         conv = conv or conv_now
         r = r_new
         k += 1
+    _end(marks)
     res, ok = _true_report(mv, gram, b, x, conv, res0, tol_t)
     return _result(x, k, res, ok, brk)
 
 
 def bf_block_deflated_cg_loop(mv: Callable, b: torch.Tensor, x0: torch.Tensor, w, aw, minv,
                               awtaw, tol: float, *, maxiter: int, rank_tol: float = 1e-12,
-                              gram: Optional[Callable] = None) -> BlockCGResult:
+                              gram: Optional[Callable] = None, marks=None) -> BlockCGResult:
     """Deflated breakdown-free block CG (cgx ``bf_block_deflated_cg_loop``,
     blockcg.py:407): one shared block-Krylov space for every column, its
     directions A-orthogonal to range(W). Each iteration: one block
     mat-vec, the (3s, 3s) Gram, the fused (2k, s) ``[W, AW]^T R``
     contraction (the range(W) drift guard and the projector) and the
-    (3s, s) strip against the projected block."""
+    (3s, s) strip against the projected block. ``marks`` as for
+    :func:`cgx_torch.solver.cg.cg_loop`."""
     gram = comp_block_gram if gram is None else gram
     dev, dtype = b.device, b.dtype
     s, kdim = b.shape[1], w.shape[1]
@@ -351,6 +368,7 @@ def bf_block_deflated_cg_loop(mv: Callable, b: torch.Tensor, x0: torch.Tensor, w
     brk = not bool(keep0.any()) and not conv
     k = 0
     while k < maxiter and not (conv or brk):
+        _next(marks)
         q = mv(p)
         cat = torch.cat([p, q, r], dim=1)
         g = _host(gram(cat, cat))
@@ -371,6 +389,7 @@ def bf_block_deflated_cg_loop(mv: Callable, b: torch.Tensor, x0: torch.Tensor, w
         conv = conv or conv_now
         r = r_new
         k += 1
+    _end(marks)
     res, ok = _true_report(mv, gram, b, x, conv, res0, tol_t)
     return _result(x, k, res, ok, brk)
 

@@ -90,21 +90,34 @@ class DeflationBasis:
 def deflated_cg_loop(mv: Callable, b: torch.Tensor, x0: torch.Tensor, w, aw, minv, awtaw,
                      tol: torch.Tensor, nearzero: torch.Tensor, *, maxiter: int,
                      history: int = 0, dot: Optional[Callable] = None,
-                     precond: Optional[Callable] = None) -> CGResult:
+                     tallT: Optional[Callable] = None, fuse: Optional[Callable] = None,
+                     precond: Optional[Callable] = None, marks=None) -> CGResult:
     """Deflated (P)CG from ``x0`` (cgx ``deflated_cg_loop``,
     deflated.py:108). Without a preconditioner one fused ``[W, AW]^T r``
     contraction feeds both the drift guard and the projector; with one,
-    the guard contracts ``W^T r`` and the projector ``(AW)^T z``."""
+    the guard contracts ``W^T r`` and the projector ``(AW)^T z``.
+
+    ``tallT`` is cgx's hook, ``(M (n, j), v (n,)) -> (j,) M^T v`` (the
+    sharded route's reduces over the mesh). ``fuse``, if given, takes the
+    preconditioned iteration's last three reductions, the dots ``<r, z>``
+    and ``<r, r>`` and the contraction ``(AW)^T z``, as ``fuse([(r, z),
+    (r, r)], [(aw, z)])`` and returns them in that order: the sharded
+    route reduces them in one launch, as XLA's combiner does cgx's
+    (tests/test_collective_counts.py:496-526). ``marks`` as for
+    :func:`cgx_torch.solver.cg.cg_loop`."""
     dot = vdot if dot is None else dot
+    tall = _local_tallT if tallT is None else tallT
     dev, kdim = b.device, w.shape[1]
     wa = torch.cat([w, aw], dim=1)
     has_pc = precond is not None
 
-    def tall(m_, v):  # M^T v
-        return torch.matmul(m_.mT, v)
-
     def pc(v):
         return precond(v) if has_pc else v
+
+    def last_three(r_n, z):
+        if fuse is not None:
+            return fuse([(r_n, z), (r_n, r_n)], [(aw, z)])
+        return dot(r_n, z), dot(r_n, r_n), tall(aw, z)
 
     # the deflation start: shift x so that W^T r = 0
     r = b - mv(x0)
@@ -125,6 +138,8 @@ def deflated_cg_loop(mv: Callable, b: torch.Tensor, x0: torch.Tensor, w, aw, min
     while done < maxiter and not bool(converged):  # the one host sync per chunk
         steps = min(_CHUNK, maxiter - done)
         for _ in range(steps):
+            if marks is not None:
+                marks.next_iteration()
             live = ~converged
             ap = mv(p)
             conj = dot(p, ap)
@@ -142,9 +157,8 @@ def deflated_cg_loop(mv: Callable, b: torch.Tensor, x0: torch.Tensor, w, aw, min
             r_n = r_n - aw @ corr
             if has_pc:
                 z = pc(r_n)
-                rsnew = dot(r_n, z)
-                rr_n = dot(r_n, r_n)
-                zproj = z - w @ (minv @ tall(aw, z))
+                rsnew, rr_n, awz = last_three(r_n, z)
+                zproj = z - w @ (minv @ awz)
             else:
                 rsnew = dot(r_n, r_n)
                 rr_n = rsnew
@@ -163,18 +177,25 @@ def deflated_cg_loop(mv: Callable, b: torch.Tensor, x0: torch.Tensor, w, aw, min
             rr = torch.where(live, rr_n, rr)
             converged = converged | (live & conv)
         done += steps
+    if marks is not None:
+        marks.end_loop()
     return CGResult(x=x, iterations=k, residual_norm=torch.sqrt(rr), converged=converged,
                     rsold=rsold, history=hist[:history], breakdown=brk)
 
 
+def _local_tallT(m_, v):  # M^T v
+    return torch.matmul(m_.mT, v)
+
+
 def _harvest_cg_loop(mv: Callable, b: torch.Tensor, x0: torch.Tensor, tol: torch.Tensor,
                      nearzero: torch.Tensor, *, maxiter: int, window: int,
-                     dot: Optional[Callable] = None):
+                     dot: Optional[Callable] = None, marks=None):
     """The reference recurrence that also keeps the first ``window``
     Lanczos vectors ``v_j = (-1)^j r_j / ||r_j||`` and the recurrence's
     alpha and beta (cgx ``_harvest_cg_loop``, deflated.py:285): the
     harvest costs no extra mat-vec. Returns (result, window, alphas,
-    betas), the window a (window, n) tensor."""
+    betas), the window a (window, n) tensor. ``marks`` as for
+    :func:`cgx_torch.solver.cg.cg_loop`."""
     dot = vdot if dot is None else dot
     dev, dtype = b.device, b.dtype
     r = b - mv(x0)
@@ -194,6 +215,8 @@ def _harvest_cg_loop(mv: Callable, b: torch.Tensor, x0: torch.Tensor, tol: torch
     while done < maxiter and not bool(converged):  # the one host sync per chunk
         steps = min(_CHUNK, maxiter - done)
         for _ in range(steps):
+            if marks is not None:
+                marks.next_iteration()
             live = ~converged
             slot = torch.where(live, torch.clamp(k, max=window), trash).long().reshape(1)
             sign = 1.0 - 2.0 * (k % 2).to(dtype)
@@ -218,6 +241,8 @@ def _harvest_cg_loop(mv: Callable, b: torch.Tensor, x0: torch.Tensor, tol: torch
             k = torch.where(upd, k + 1, k)
             converged = converged | (live & conv)
         done += steps
+    if marks is not None:
+        marks.end_loop()
     res = CGResult(x=x, iterations=k, residual_norm=torch.sqrt(rsnew), converged=converged,
                    rsold=rsold, history=torch.zeros((0,), dtype=dtype, device=dev),
                    breakdown=brk)

@@ -116,8 +116,16 @@ def next_iteration() -> None:
             prog.iters.append([])
 
 
-def end_loop() -> None:
-    """The loop is over: what follows is set-up again (cgx's depth 0)."""
+def end_loop(exit_test: bool = False) -> None:
+    """The loop is over: what follows is set-up again (cgx's depth 0).
+    ``exit_test``: the last iteration opened ran only the loop's exit test
+    (a while loop's condition, evaluated once more than its body); its
+    records move to the set-up."""
+    for cap in _CAPTURE:
+        if cap.programs:
+            prog = cap.programs[-1]
+            if exit_test and prog.phase == "iter" and prog.iters:
+                prog.setup.extend(prog.iters.pop())
     _set_phase("setup")
 
 
@@ -161,12 +169,13 @@ def all_reduce_max(t: torch.Tensor, mesh) -> torch.Tensor:
 
 
 def all_gather(t: torch.Tensor, mesh) -> torch.Tensor:
-    """The shards ``t`` of every rank, concatenated in mesh order (cgx's
-    tiled ``all_gather``)."""
+    """The shards ``t`` of every rank, concatenated in mesh order along
+    their first axis (cgx's tiled ``all_gather``)."""
     _record("all_gather", t.numel() * mesh.size)
     if mesh.group is None:
         return t
-    out = torch.empty(t.numel() * mesh.size, dtype=t.dtype, device=t.device)
+    out = torch.empty((t.shape[0] * mesh.size,) + tuple(t.shape[1:]), dtype=t.dtype,
+                      device=t.device)
     _all_gather_base(out, t.contiguous(), group=mesh.group)
     return out
 

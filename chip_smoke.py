@@ -129,8 +129,9 @@ Phases, one JSON object per line each:
 25. sharded: a real NCCL process group of one rank (FileStore), and
     cgx_torch.solve(lap2d_fd(3200), fp32, mesh=make_mesh(1)), "auto"
     resolving the local product to B8: the reference and the pipelined
-    method, twice each (bitwise), against the plain loops of phase 6 (k
-    within 2%, true residual within 2x), B8 on every iteration and B1 on
+    method (bitwise on two runs capped at 256 iterations), against the
+    plain loops of phase 6 (k within 2%, true residual within 2x), B8 on
+    every iteration and B1 on
     none, the collectives of every iteration from the recorder; then a
     profile over 256 iterations (B8, NCCL, the rest, the idle share);
 26. sharded goldens: the fp64 goldens through the sharded route with B8
@@ -145,7 +146,7 @@ Phases, one JSON object per line each:
     path beside it. No hand-written kernel runs on this path: cgx's cycle
     is XLA code, and the port's is plain torch;
 28. mg goldens: MG-PCG on lap2d_fd(100), (130) (the Chebyshev coarsest)
-    and lap3d_fd(128), fp64, Richardson and GS, V and W (but GS W in 3-D),
+    and lap3d_fd(64), fp64, Richardson and GS, V and W (but GS W in 3-D),
     k on the card against the same solve on this machine's CPU; then
     lap2d_fd(256)'s device Galerkin build against the host build;
 29. precond paths: solve(precond="block_jacobi") and "chebyshev" on
@@ -185,8 +186,9 @@ Phases, one JSON object per line each:
     cycles at 1e-10 ||b|| and with the fp64 cycle at 1e-8 ||b||;
 36. cheby main: the analytic extremes of the stencil against eigvalsh,
     the Lanczos estimate, the Chebyshev iteration at N = 10,240,000 in
-    fp32 twice (bitwise), and solve(method="chebyshev") on
-    lap2D_5pt_n100.mtx in fp64 on the card and the host (k equal);
+    fp32 (bitwise on two runs capped at 256 iterations), and
+    solve(method="chebyshev") on lap2D_5pt_n100.mtx in fp64 on the card
+    and the host (k equal);
 37. CLI methods: --method gvpipe and --method chebyshev on the
     reference's run against a CPU replay of the same argv, run in a
     process of its own beside phases 35-36;
@@ -221,7 +223,16 @@ Phases, one JSON object per line each:
     (sweeps within one of phase 31's, below 1e-10 by its own words), at
     N = 10,240,000; MG and tw then from sharded_mg_cg_setup's and
     sharded_tw_setup's build, timed apart, twice (bitwise the solve()
-    call's x); each profiled.
+    call's x); each profiled;
+43. sharded multi-RHS (the same NCCL group, after phase 42), at N =
+    10,240,000: block MG-PCG through solve(B, mesh=) with 8 columns, fp64,
+    fp32 cycle (k at most one above phase 42's MG, every column below
+    MG's gate, one cycle of width 8 an iteration, the build apart);
+    sharded_cg_solve_batched on make_mesh2d(1, 1), fp32, 8 seeded columns,
+    pipelined (each column's k within 2% of the single-device batched
+    reference loop with the same dots); solve_sequence(mesh=), fp32, k =
+    8 (the harvest's k within 2% of that plain loop's, the deflated solves
+    within a tenth, B8 on every iteration); each bitwise on capped runs.
 
 The CLI phases call cgx_torch.cli.main.run, the body of the CLI's main,
 in this process. Then a "kernels" line for the ported kernels (every
@@ -235,6 +246,7 @@ needs a CUDA device and imports neither JAX nor cgx.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -261,6 +273,7 @@ from cgx_torch import (
     block_cg_solve,
     block_cg_solve_differentiable,
     cg_solve,
+    cg_solve_batched,
     cg_solve_differentiable,
     chebyshev_solve,
     config,
@@ -276,9 +289,14 @@ from cgx_torch import (
 )
 from cgx_torch.cli import main as cli
 from cgx_torch.mats.device import lap2d_operator, source_term_device
-from cgx_torch.parallel import make_mesh, make_sharded_solver
+from cgx_torch.parallel import make_mesh, make_mesh2d, make_sharded_solver
 from cgx_torch.parallel import sharded_cg as sc
-from cgx_torch.parallel.mg_sharded import sharded_mg_cg_setup
+from cgx_torch.parallel import sharded_cg_solve_batched, sharded_cg_solve_harvest
+from cgx_torch.parallel.mg_sharded import (
+    _ShardedVCycle,
+    sharded_mg_block_cg_setup,
+    sharded_mg_cg_setup,
+)
 from cgx_torch.parallel.sstep_fused import fused_plane_geometry
 from cgx_torch.parallel.tw_sharded import sharded_tw_setup
 from cgx_torch.mats.containers import COOMatrix
@@ -458,17 +476,21 @@ MPI_N = 16384  # the reference's largest MPI size (the 16384 key of plots.ipynb'
 MG_CYCLES = ("fp32", "fp64")  # bench.py's fp64_mg_mixed, then the full-fp64 cycle
 MG_GOLDENS = [("lap2d_fd(100)", lambda: lap2d_fd(100)),  # bench.py's primary problem
               ("lap2d_fd(130)", lambda: lap2d_fd(130)),  # 130 -> 65: the Chebyshev coarsest
-              ("lap3d_fd(128)", lambda: lap3d_fd(128))]  # 3-D: 81- and 125-band coarse levels
+              ("lap3d_fd(64)", lambda: lap3d_fd(64))]  # 3-D: 81- and 125-band coarse levels
 MG_CONFIGS = (("richardson", "v"), ("richardson", "w"), ("gs", "v"), ("gs", "w"))
-# lap3d_fd(128)'s GS W-cycle visits its 27-colour 125-band levels 4 and 8 times: about
-# 370,000 launches a cycle, minutes on the host for the card and for its CPU twin
-MG_SKIP = {("lap3d_fd(128)", "gs", "w")}
+# the 3-D GS W-cycle visits its 27-colour 125-band levels 4 and more times: about
+# 370,000 launches a cycle at lap3d_fd(128), minutes on the host for the card and its twin
+MG_SKIP = {("lap3d_fd(64)", "gs", "w")}
 MG_PROBE_GRID = 256  # device against host Galerkin build
 PRECOND_GRID = 1000  # lap2d_fd(1000): N = 1,000,000
 GV_SLACK = (1.15, 2)  # tests/test_gvpipe.py:61: gvpipe's k <= 1.15 k_classic + 2
 BLOCK_S = 8  # block_main's right-hand sides
 MULTI_S = 4  # multi_rhs_paths' batched and block right-hand sides
 SEQ_K = 16  # solve_sequence's harvested Ritz vectors
+SHARDED_SEQ_K = 8  # the sharded sequence's (its window max(8k, 64) = 64 rows)
+REPEAT_ITERS = 256  # the capped bitwise repeats of the longer solves at full size
+BATCHED_RTOL = 1e-3  # the 2-D batched phase's float32 tolerance, relative to ||b0||
+HOST_LANCZOS_M = 16  # Lanczos steps of the host-against-card comparison
 FD_STEP = 1e-4  # the bands scaled by 1 +- FD_STEP for the central difference
 TW_GATE = 1e-10  # bench.py's SECONDARY_REL_GATE: the true relative residual
 # bench.py's refine_pcg_sweeps_tw arguments (bench.py:140-144); solve(precision="tw") the same
@@ -898,6 +920,17 @@ def solve_twice(fn) -> tuple:
     (res, k, seconds, launches), (res2, k2, _, _) = runs
     bitwise = k == k2 and torch.equal(res.x.view(torch.int32), res2.x.view(torch.int32))
     return res, k, seconds, launches, bitwise
+
+
+def solve_capped_repeat(fn, capped) -> tuple:
+    """One run of a solve, the launch counts set to 0 just before it, and
+    the bitwise repeat on two runs of ``capped``, the same solve cut at
+    REPEAT_ITERS iterations; returns (result, k, seconds, launches,
+    bitwise equal)."""
+    reset_launches()
+    res, k, seconds = timed(fn)
+    launches = read_launches()
+    return res, k, seconds, launches, same_x(capped(), capped())
 
 
 def phase_main(spec) -> dict:
@@ -2027,7 +2060,8 @@ def phase_sstep_bounds():
     """The Lanczos bounds of lap2d_fd(GRID) on the card, once: set-up of
     the s-step phases, timed apart from the solves; beside them cgx's host
     NumPy steps on the same operator, timed, and the two paths' relative
-    difference (the CPU tests hold it to 1e-12)."""
+    difference at HOST_LANCZOS_M steps each (the CPU tests hold it to
+    1e-12)."""
     dia = lap2d_fd(GRID)
     n = dia.shape[0]
     op = as_operator(dia, torch.float32, device=DEV)
@@ -2035,14 +2069,17 @@ def phase_sstep_bounds():
     t0 = time.perf_counter()
     bounds = spectral_bounds(op, n)
     seconds = time.perf_counter() - t0
+    # the host's steps reorthogonalise in NumPy (52 s at m = 64 on N =
+    # 10,240,000): the comparison runs both paths at HOST_LANCZOS_M steps
     t0 = time.perf_counter()
-    host = lanczos_bounds(host_matvec(op), n)
+    host = lanczos_bounds(host_matvec(op), n, m=HOST_LANCZOS_M)
     host_seconds = time.perf_counter() - t0
-    card = lanczos_bounds(device_matvec(op), n, device=op.bands.device)
+    card = lanczos_bounds(device_matvec(op), n, m=HOST_LANCZOS_M, device=op.bands.device)
     rel = max(abs(a - c) / abs(c) for a, c in zip(card, host))
     emit({"phase": "sstep_bounds", "problem": f"lap2d_fd({GRID})", "n": n,
           "lmin": bounds[0], "lmax": bounds[1], "seconds": seconds,
-          "host_lanczos_seconds": host_seconds, "card_vs_host_rel": rel})
+          "host_lanczos_seconds": host_seconds, "host_lanczos_m": HOST_LANCZOS_M,
+          "card_vs_host_rel": rel})
     check(0 < bounds[0] < bounds[1], f"Lanczos bounds {bounds}")
     return bounds, seconds
 
@@ -2089,8 +2126,8 @@ SSTEP_ROUTES = {"fused": ("sstep_gram", "sstep_recover"),
 def phase_sstep_path(spec, bounds, bounds_seconds: float, b4: dict) -> dict:
     """solve(lap2d_fd(GRID), fp32, method="sstep"): "auto" resolves to the
     fused kernels (bfloat16 bands by "auto"); then sstep_powers="pallas",
-    the matrix-powers and replay kernels. Each twice, bitwise equal,
-    against the plain fp32 s-step loop with a float64 Gram (the kernels'
+    the matrix-powers and replay kernels. Each once (bitwise on two runs
+    capped at REPEAT_ITERS iterations), against the plain fp32 s-step loop with a float64 Gram (the kernels'
     arithmetic), beside the main path's streaming kernel. solve estimates
     the Lanczos bounds itself; the plain loop is given them. Returns the
     launch counts of each route's sites."""
@@ -2110,7 +2147,9 @@ def phase_sstep_path(spec, bounds, bounds_seconds: float, b4: dict) -> dict:
     for route, sites in SSTEP_ROUTES.items():
         cfg = SolveConfig(precision="fp32", method="sstep", tolerance=tol,
                           **({"sstep_powers": "pallas"} if route == "pallas" else {}))
-        res, k, seconds, launches, bitwise = solve_twice(lambda: solve(op, b_dev, cfg, device=DEV))
+        capped = dataclasses.replace(cfg, maxiter=REPEAT_ITERS)
+        res, k, seconds, launches, bitwise = solve_capped_repeat(
+            lambda: solve(op, b_dev, cfg, device=DEV), lambda: solve(op, b_dev, capped, device=DEV))
         fallback = launches["stream_iteration"]  # B4 finishes a solve whose replay broke down
         rel = rel64(res.x)
         blocks = launches[sites[0]]
@@ -2328,8 +2367,9 @@ def nccl_mesh():
 def phase_sharded(spec, mesh, b4: dict) -> dict:
     """The sharded route through solve(..., mesh=mesh) on one NCCL rank:
     lap2d_fd(GRID) in fp32 (float64 dots) at tol 1e-5 ||b||, "auto"
-    resolving the local product to B8. The reference method twice
-    (bitwise), against the plain classic loop of the main phase (the same
+    resolving the local product to B8. The reference method (the bitwise
+    repeat on REPEAT_ITERS iterations), against the plain classic
+    loop of the main phase (the same
     recurrence; k within 2%, true residual within 2x); the pipelined
     method likewise against the plain pipelined loop. The collectives of
     each iteration from the recorder; B1 must not run. Returns B8's
@@ -2350,9 +2390,11 @@ def phase_sharded(spec, mesh, b4: dict) -> dict:
     for method, plain_k, plain_rel in (("reference", b4["k_classic"], b4["true_rel_classic"]),
                                        ("pipelined", b4["k_plain"], b4["true_rel_plain"])):
         cfg = SolveConfig(precision="fp32", tolerance=tol, method=method)
-        with collectives.capture() as cap:
-            res, k, seconds, launches, bitwise = solve_twice(
-                lambda: solve(dia, b, cfg, mesh=mesh, device=DEV))
+        capped = dataclasses.replace(cfg, maxiter=REPEAT_ITERS)
+        with collectives.capture() as cap:  # the whole solve takes 12 s: a capped repeat
+            res, k, seconds, launches, bitwise = solve_capped_repeat(
+                lambda: solve(dia, b, cfg, mesh=mesh, device=DEV),
+                lambda: solve(dia, b, capped, mesh=mesh, device=DEV))
         sigs = [cap.signature(i) for i in range(len(cap.programs))]
         rel = rel64(res.x)
         b8 = launches["dia_matvec_stream2d_planes"]
@@ -2362,7 +2404,8 @@ def phase_sharded(spec, mesh, b4: dict) -> dict:
         rec = {"phase": "sharded", "method": method, "problem": f"lap2d_fd({GRID})", "n": n,
                "dtype": "float32", "world": mesh.size, "backend": dist.get_backend(mesh.group),
                "local_kernel": resolved, "tol": tol, "k": k, "converged": bool(res.converged),
-               "bitwise_repeat": bitwise, "seconds": seconds, "setup_seconds": setup_seconds,
+               "bitwise_repeat": bitwise, "bitwise_repeat_iterations": REPEAT_ITERS,
+               "seconds": seconds, "setup_seconds": setup_seconds,
                "us_per_iter": (seconds - setup_seconds) / k * 1e6,
                "b8_bound_us_per_iter": bound_iter * 1e3, "bound_by": bound_by,
                "launches": launches, "b8_launches": b8,
@@ -2375,7 +2418,7 @@ def phase_sharded(spec, mesh, b4: dict) -> dict:
         where = f"sharded {method}"
         check(rec["converged"] and rec["x_finite"] and res.x.shape == (n,),
               f"{where}: did not converge to a finite x")
-        check(bitwise, f"{where}: two runs differ")
+        check(bitwise, f"{where}: two capped runs differ")
         check(b8 >= k + 1 and launches["dia_matvec"] == 0 and not others,
               f"{where}: launches {launches} at k={k}")
         check(all(sg["iter"] == SHARDED_SIGNATURE[method] and sg["uniform"] for sg in sigs),
@@ -2656,7 +2699,8 @@ def mg_cpu_twin(dia, ndim: int, setup: str):
 
 def phase_mg_goldens() -> None:
     """MG-PCG goldens, fp64, tol 1e-10 ||b||: lap2d_fd(100), (130) (the
-    Chebyshev coarsest) and lap3d_fd(128) (3-D, 81- and 125-band levels),
+    Chebyshev coarsest) and lap3d_fd(64) (3-D, 81- and 125-band levels;
+    lap3d_fd(128) would take 75 s more of the script's time limit),
     Richardson and GS, V and W (less MG_SKIP): k on the card equal to the
     same solve's on this machine's CPU or within 1, the true residual
     below 1e-10, no hand-written kernel. Then the device Galerkin build of
@@ -3175,7 +3219,8 @@ def phase_gv_main(spec, b4: dict, mg: dict) -> None:
         k_mg = mg["k"][cycle]
         rec = {"phase": "gv_main_mg", "problem": f"lap2d_operator({GRID})", "n": n,
                "precision": "fp64", "cycle_precision": cycle, "tol": tol64, "k": k,
-               "converged": bool(res.converged), "breakdown": bool(res.breakdown),
+               "converged": res.converged.tolist() if res.converged.dim() else bool(res.converged),
+            "breakdown": bool(res.breakdown),
                "seconds_with_build": seconds, "mg_main_k": k_mg,
                "mg_main_seconds_with_build": mg[f"seconds_{cycle}"],
                "mg_setup_seconds": mg[f"setup_seconds_{cycle}"], "true_rel": rel,
@@ -3233,7 +3278,8 @@ def phase_cheby_main(spec, b4: dict, tmp: Path) -> None:
     the card's operator. At kappa near 4e6 the 64 steps cannot resolve
     lmin; where the estimate is more than 2x above the analytic lmin the
     full-size solve runs on the analytic bounds (chebyshev_solve(bounds=)),
-    else through solve(method="chebyshev"); twice (bitwise), k a multiple
+    else through solve(method="chebyshev"); once, bitwise on two runs
+    capped at REPEAT_ITERS iterations, k a multiple
     of check_every, a profile of 256 iterations, the true residual below
     the larger of 1e-4 and twice the classic loop's. Then
     solve(method="chebyshev") on the reference's lap2D_5pt_n100.mtx in
@@ -3263,7 +3309,8 @@ def phase_cheby_main(spec, b4: dict, tmp: Path) -> None:
             return solve(op, b, SolveConfig(precision="fp32", method="chebyshev", tolerance=tol,
                                             maxiter=maxiter), device=DEV)
     base = reset_peak()
-    res, k, seconds, launches, bitwise = solve_twice(run)
+    res, k, seconds, launches, bitwise = solve_capped_repeat(run,
+                                                             lambda: run(maxiter=REPEAT_ITERS))
     peak = peak_since(base)
     rel = rel64(res.x)
     prof = profile_record(lambda: run(PROFILE_ITERS, 0.0).iterations.item(), PROFILE_ITERS)
@@ -3797,7 +3844,8 @@ def halo_times(spec, dia, kw, n_loc: int) -> dict:
 def sharded_rec(phase: str, mesh, res, k: int, seconds: float, setup_seconds: float,
                 launches: dict, bitwise: bool, **extra) -> dict:
     return {"phase": phase, "world": mesh.size, "backend": dist.get_backend(mesh.group), "k": k,
-            "converged": bool(res.converged), "breakdown": bool(res.breakdown),
+            "converged": res.converged.tolist() if res.converged.dim() else bool(res.converged),
+            "breakdown": bool(res.breakdown),
             "bitwise_repeat": bitwise, "seconds": seconds, "setup_seconds": setup_seconds,
             "time_to_solution_seconds": seconds + setup_seconds,
             "us_per_iter": seconds / max(k, 1) * 1e6,
@@ -3965,13 +4013,14 @@ def sharded_built(public, setup) -> tuple:
     return res, k, seconds, setup_seconds, launches, bitwise, run, public_seconds
 
 
-def phase_sharded_mg(spec, mesh, mg: dict) -> None:
+def phase_sharded_mg(spec, mesh, mg: dict) -> int:
     """MG-PCG on the NCCL group of one rank at N = 10,240,000:
     solve(precond="mg", mesh=) in fp64 with the fp32 cycle at 1e-10 ||b||,
     then sharded_mg_cg_setup's build (on the card) timed apart and its
     solve twice (all three bitwise); k within 2 of mg_main's and the true
     residual (error-free) below mg_main's gate, max(1e-10, 2x the plain
-    fp64 floor); no kernel launches; a profile of the built solve."""
+    fp64 floor); no kernel launches; a profile of the built solve.
+    Returns its k."""
     dia = lap2d_fd(GRID)
     n = dia.shape[0]
     b = source_term(n)
@@ -3996,6 +4045,281 @@ def phase_sharded_mg(spec, mesh, mg: dict) -> None:
     no_kernel_launched(launches, "sharded MG")
     del res, bands64, b64, run
     sync()
+    return k
+
+
+def block_columns(b0: np.ndarray, s: int) -> np.ndarray:
+    """(n, s): b0 and s - 1 seeded normal columns scaled to its norm, as
+    block_main builds its block."""
+    cols = np.random.default_rng(SEED).standard_normal((b0.shape[0], s - 1))
+    cols *= np.linalg.norm(b0) / np.linalg.norm(cols, axis=0)
+    return np.concatenate([b0[:, None], cols], axis=1)
+
+
+def phase_sharded_block_mg(spec, mesh, mg: dict, k_sharded_mg: int) -> None:
+    """Block MG-PCG on the NCCL group of one rank at N = 10,240,000:
+    solve(B, precond="mg", mesh=) in fp64 with the fp32 cycle, B (n, 8)
+    as block_main's, tol 1e-10 ||b0||, twice (bitwise); then
+    sharded_mg_block_cg_setup's build timed apart and its solve (bitwise),
+    with the cycles applied (one of width 8 an iteration) and a profile.
+    Every column's error-free true residual below MG's gate, k at most one
+    above the sharded single-RHS MG-PCG's; no kernel launches."""
+    dia = lap2d_fd(GRID)
+    n = dia.shape[0]
+    b0 = source_term(n)
+    big_b = block_columns(b0, BLOCK_S)
+    tol = 1e-10 * float(np.linalg.norm(b0))
+    gate = max(1e-10, 2 * mg["floor"])
+    cfg = SolveConfig(precision="fp64", precond="mg", mg_cycle_precision="fp32", tolerance=tol)
+    runs = []
+    for _ in range(2):
+        reset_launches()
+        res, k, seconds = timed(lambda: solve(dia, big_b, cfg, mesh=mesh, device=DEV))
+        runs.append((res, k, seconds, read_launches()))
+    (res, k, seconds, launches), (res2, k2, seconds2, _) = runs
+    bitwise = k == k2 and same_x(res, res2)
+    del res2, runs
+    no_kernel_launched(launches, "sharded block MG")
+    bands64 = torch.as_tensor(dia.bands, dtype=torch.float64, device=DEV)
+    b_dev = torch.as_tensor(big_b, device=DEV)
+    rels = [true_rel_compensated(bands64, tuple(dia.offsets), res.x[:, j].contiguous(),
+                                 b_dev[:, j].contiguous()) for j in range(BLOCK_S)]
+    base = reset_peak()
+    t0 = time.perf_counter()
+    run = sharded_mg_block_cg_setup(dia, big_b, mesh=mesh, tol=tol, cycle_precision="fp32",
+                                    device=DEV)
+    sync()
+    setup_seconds = time.perf_counter() - t0
+    peak_build = peak_since(base)
+    widths, call = [], _ShardedVCycle.__call__
+
+    def counting(self, r):
+        widths.append(r.shape[1] if r.dim() > 1 else 1)
+        return call(self, r)
+
+    _ShardedVCycle.__call__ = counting
+    try:
+        base = reset_peak()
+        again, k_again, solve_seconds = timed(run)
+        peak_solve = peak_since(base)
+        cycles = list(widths)
+        same = k_again == k and same_x(again, res)
+        del again
+        prof = profile_record(run, k)
+    finally:
+        _ShardedVCycle.__call__ = call
+    rec = sharded_rec("sharded_block_mg", mesh, res, k, seconds, setup_seconds, launches,
+                      bitwise, problem=f"lap2d_fd({GRID})", n=n, s=BLOCK_S, precision="fp64",
+                      cycle="fp32", tol=tol, seconds_repeat=seconds2,
+                      solve_seconds=solve_seconds, solve_us_per_iter=solve_seconds / k * 1e6,
+                      solve_bitwise_public=same, peak_build_bytes=peak_build,
+                      peak_solve_bytes=peak_solve, vcycles=len(cycles),
+                      vcycle_widths=sorted(set(cycles)), k_sharded_mg=k_sharded_mg,
+                      k_block_main_bound=mg["k"]["fp32"] + 1, true_rel=rels, gate=gate,
+                      idle_share=1 - prof["device_ms_per_iter"] * 1e3 / (solve_seconds / k * 1e6),
+                      **prof)
+    emit(rec)
+    where = "sharded block MG"
+    check(bool(res.converged.all()) and not bool(res.breakdown) and rec["x_finite"]
+          and res.x.shape == (n, BLOCK_S), f"{where}: converged {rec['converged']}")
+    check(all(r < gate for r in rels), f"{where}: true residuals {rels}, the gate {gate}")
+    check(k <= k_sharded_mg + 1, f"{where}: k={k}, the sharded single-RHS k={k_sharded_mg}")
+    check(bitwise and same, f"{where}: bitwise {bitwise}, from the separate build {same}")
+    check(len(cycles) == k + 1 and set(cycles) == {BLOCK_S},
+          f"{where}: {len(cycles)} cycles of widths {set(cycles)} for k={k}")
+    del res, run, bands64, b_dev
+    sync()
+
+
+def rel64_columns(dia, big_b: np.ndarray, xs) -> list:
+    """Each column's ||A x_j - b_j|| / ||b_j|| in fp64 on the card (x_j
+    the j-th row of ``xs``), the bands uploaded once."""
+    bands64 = torch.as_tensor(dia.bands, dtype=torch.float64, device=DEV)
+    out = []
+    for j in range(big_b.shape[1]):
+        b64 = torch.as_tensor(big_b[:, j], dtype=torch.float64, device=DEV)
+        r = dia_spmv.dia_matvec_ref(bands64, xs[j].double(), offsets=tuple(dia.offsets)) - b64
+        out.append(float(torch.linalg.norm(r) / torch.linalg.norm(b64)))
+    return out
+
+
+def batched_yardstick(dia, big_b: np.ndarray, tol: float) -> dict:
+    """The plain loop with the sharded multi-RHS phases' dots: the
+    single-device batched reference recurrence (cgx's cg_solve_batched)
+    on the columns of ``big_b`` in float32, float32 dots, one call; each
+    column's k and true residual."""
+    n = dia.shape[0]
+    op = as_operator(dia, torch.float32, device=DEV)
+    b_rows = torch.as_tensor(np.ascontiguousarray(big_b.T), dtype=torch.float32, device=DEV)
+    sync()
+    t0 = time.perf_counter()
+    res = cg_solve_batched(op, b_rows, tol=tol, maxiter=n, device=DEV)
+    ks = res.iterations.tolist()  # waits for the solve
+    seconds = time.perf_counter() - t0
+    rels = rel64_columns(dia, big_b, res.x)
+    out = {"k": ks, "true_rel": rels, "seconds": seconds, "converged": res.converged.tolist()}
+    del res, op, b_rows
+    sync()
+    return out
+
+
+def phase_sharded_batched(spec, mesh) -> dict:
+    """The 2-D batched solve on make_mesh2d(1, 1) of the NCCL rank (its rows
+    and rhs groups the NCCL world): sharded_cg_solve_batched at N =
+    10,240,000 in float32 (cgx's float32 dots), 8 seeded normal columns
+    scaled to ||b0|| (block_columns' beside source_term's b0), tol
+    BATCHED_RTOL ||b0|| (float32's floor at this conditioning: at 1e-5 the
+    columns' true residuals end near 1e-3 all the same), method="pipelined".
+    Each column's k within 2% of the plain loop with the same dots (the
+    single-device batched reference recurrence, one call for the 8: cgx
+    holds pipelined to reference within one,
+    tests/test_batched2d.py:166; source_term's column is not solved here:
+    in float32 its pipelined recurrence stalls at the floor, a quarter
+    past the reference's count) and its true residual within 2x; the
+    collectives an iteration (the vote, one all-reduce of 16 dots, the
+    halo pair); the bitwise repeat and a profile on REPEAT_ITERS
+    iterations; no kernel launches. Returns b0 and the 8 columns, (n, 9),
+    for the sequence phase."""
+    dia = lap2d_fd(GRID)
+    n = dia.shape[0]
+    b0 = source_term(n)
+    tol = BATCHED_RTOL * float(np.linalg.norm(b0))
+    # b0 and the 8 columns: the batched phase solves the columns, the sequence b0 and two
+    every = block_columns(b0, BLOCK_S + 1).astype(np.float32)
+    big_b = every[:, 1:]
+    yard = batched_yardstick(dia, big_b, tol)
+    mesh2d = make_mesh2d(1, 1, device=DEV)
+    check(mesh2d.rows.group is mesh.group and mesh2d.rhs.group is mesh.group,
+          "make_mesh2d(1, 1) is not over the NCCL world")
+    bt = np.ascontiguousarray(big_b.T)
+    reset_launches()
+    with collectives.capture() as cap:
+        sync()
+        t0 = time.perf_counter()
+        x, k_t, _res, conv, brk = sharded_cg_solve_batched(dia, bt, mesh=mesh2d, tol=tol,
+                                                           method="pipelined", device=DEV)
+        ks = k_t.tolist()  # waits for the solve
+        seconds = time.perf_counter() - t0
+    launches = read_launches()
+    prog = cap.programs[-1]
+    sig_iters = prog.iters
+    rels = rel64_columns(dia, big_b, x)
+    capped = lambda: sharded_cg_solve_batched(  # noqa: E731
+        dia, bt, mesh=mesh2d, tol=tol, method="pipelined", maxiter=REPEAT_ITERS,
+        device=DEV)
+    first, second = capped(), capped()
+    bitwise = torch.equal(first[0].view(torch.int32), second[0].view(torch.int32))
+    del first, second
+    prof = profile_record(lambda: capped()[1].tolist(), REPEAT_ITERS)
+    loop_iters = len(sig_iters)
+    want_sig = [("psum", 1, 1), ("psum", 1, 2 * BLOCK_S), ("ppermute", 1, GRID * BLOCK_S),
+                ("ppermute", 1, GRID * BLOCK_S)]
+    rec = {"phase": "sharded_batched", "world": mesh.size, "mesh2d": list(mesh2d.shape),
+           "backend": dist.get_backend(mesh.group), "problem": f"lap2d_fd({GRID})", "n": n,
+           "s": BLOCK_S, "dtype": "float32", "method": "pipelined", "tol": tol, "k": ks,
+           "converged": conv.tolist(), "breakdown": brk.tolist(), "seconds": seconds,
+           "loop_iterations": loop_iters, "us_per_iter": seconds / loop_iters * 1e6,
+           "bitwise_repeat": bitwise, "bitwise_repeat_iterations": REPEAT_ITERS,
+           "k_plain": yard["k"], "plain_seconds": yard["seconds"], "true_rel": rels,
+           "true_rel_plain": yard["true_rel"], "signature_iter": sig_iters[0],
+           "signature_uniform": all(it == sig_iters[0] for it in sig_iters),
+           "signature_setup": prog.setup,
+           "launches": {name: c for name, c in launches.items() if c},
+           "idle_share": 1 - prof["device_ms_per_iter"] * 1e3 / (seconds / loop_iters * 1e6),
+           "x_finite": bool(torch.isfinite(x).all()), **prof}
+    emit(rec)
+    where = "sharded batched"
+    check(bool(conv.all()) and not bool(brk.any()) and rec["x_finite"]
+          and tuple(x.shape) == (BLOCK_S, n), f"{where}: converged {conv.tolist()}")
+    check(all(yard["converged"]), f"{where}: the yardstick did not converge")
+    check(all(abs(a - c) <= 0.02 * c for a, c in zip(ks, yard["k"])),
+          f"{where}: k={ks}, the plain loop's {yard['k']}")
+    check(all(max(a, c) <= 2 * min(a, c) for a, c in zip(rels, yard["true_rel"])),
+          f"{where}: true residuals {rels}, the plain loop's {yard['true_rel']}")
+    check(rec["signature_uniform"] and sig_iters[0] == want_sig,
+          f"{where}: collectives an iteration {sig_iters[0]}")
+    check(bitwise, f"{where}: two capped runs differ")
+    no_kernel_launched(launches, where)
+    del x
+    sync()
+    return every
+
+
+def phase_sharded_sequence(spec, mesh, every: np.ndarray) -> int:
+    """solve_sequence on the NCCL group of one rank at N = 10,240,000,
+    fp32, tol 1e-5 ||b0||, k = 8: the sharded harvest on source_term, then
+    deflated CG on two seeded columns (the batched phase's first two),
+    "auto" resolving the local product to B8 on both. The harvest's k
+    within 2% of the plain loop with the same dots (batched_yardstick on
+    the three columns), each deflated solve within a tenth of that loop's count on
+    its column (the harvest deflates no low mode at this size) and a true
+    residual within 2x of its; B8 launched by every iteration; the
+    basis's width, the window's gather time and the peak memory. The bitwise
+    repeat on REPEAT_ITERS iterations a solve. Returns B8's
+    launches on the sequence."""
+    dia = lap2d_fd(GRID)
+    n = dia.shape[0]
+    tol = 1e-5 * float(np.linalg.norm(every[:, 0]))
+    bs = [np.ascontiguousarray(every[:, j]) for j in range(3)]
+    yard = batched_yardstick(dia, every[:, :3], tol)
+    cfg = SolveConfig(precision="fp32", tolerance=tol)
+    resolved = sc._resolve_local_kernel("auto", n, torch.float32, mesh.device)
+    check(resolved == "stream2d", f"auto resolved the local product to {resolved!r}")
+    base = reset_peak()
+    reset_launches()
+    with collectives.capture() as cap:
+        sync()
+        t0 = time.perf_counter()
+        seq = solve_sequence(dia, bs, cfg, k=SHARDED_SEQ_K, mesh=mesh, device=DEV)
+        ks = [int(r.iterations) for r in seq]
+        seconds = time.perf_counter() - t0
+    launches = read_launches()
+    peak = peak_since(base)
+    gather_seconds = sharded_cg_solve_harvest.gather_seconds
+    rels = rel64_columns(dia, every[:, :3], [r.x for r in seq])
+    sigs = [cap.signature(i) for i in range(len(cap.programs))]
+    b8 = launches["dia_matvec_stream2d_planes"]
+    capped = SolveConfig(precision="fp32", tolerance=tol, maxiter=REPEAT_ITERS)
+    first = solve_sequence(dia, bs, capped, k=SHARDED_SEQ_K, mesh=mesh, device=DEV)
+    second = solve_sequence(dia, bs, capped, k=SHARDED_SEQ_K, mesh=mesh, device=DEV)
+    bitwise = all(same_x(a, c) for a, c in zip(first, second))
+    del first, second
+    rec = {"phase": "sharded_sequence", "world": mesh.size,
+           "backend": dist.get_backend(mesh.group), "problem": f"lap2d_fd({GRID})", "n": n,
+           "dtype": "float32", "tol": tol, "k_ritz": SHARDED_SEQ_K, "k": ks,
+           "converged": [bool(r.converged) for r in seq], "seconds": seconds,
+           "us_per_iter": seconds / sum(ks) * 1e6, "local_kernel": resolved,
+           "k_plain": yard["k"], "plain_seconds": yard["seconds"], "true_rel": rels,
+           "true_rel_plain": yard["true_rel"],
+           "window_gather_seconds": gather_seconds, "peak_bytes": peak,
+           "ritz_vectors": [e[2] // 2 for e in sigs[1]["iter"] if e[0] == "psum"][1]
+           if len(sigs) > 1 else None,
+           "b8_launches": b8, "launches": {name: c for name, c in launches.items() if c},
+           "signature_iter": [sg["iter"] for sg in sigs],
+           "signature_output": [sg["output"] for sg in sigs],
+           "bitwise_repeat": bitwise, "bitwise_repeat_iterations": REPEAT_ITERS,
+           "x_finite": all(bool(torch.isfinite(r.x).all()) for r in seq)}
+    emit(rec)
+    where = "sharded sequence"
+    check(all(rec["converged"]) and rec["x_finite"], f"{where}: converged {rec['converged']}")
+    check(abs(ks[0] - yard["k"][0]) <= 0.02 * yard["k"][0],
+          f"{where}: the harvest's k={ks[0]}, the plain loop's {yard['k'][0]}")
+    # a 64-row window of a 7477-iteration solve harvests one Ritz pair here and
+    # deflates no low mode, so the deflated solves cannot beat plain CG on this
+    # Laplacian (multi_rhs_paths finds the same on one device, cgx's own counts
+    # with it): they are held within a tenth of the plain loop's, as there
+    check(all(a <= 1.1 * c for a, c in zip(ks[1:], yard["k"][1:])),
+          f"{where}: deflated k={ks[1:]}, the plain loop's {yard['k'][1:]}")
+    check(all(r <= 2 * c for r, c in zip(rels, yard["true_rel"])),
+          f"{where}: true residuals {rels}, the plain loop's {yard['true_rel']}")
+    check(b8 >= sum(ks), f"{where}: B8 launched {b8} times for k={ks}")
+    others = {name: c for name, c in launches.items()
+              if c and name != "dia_matvec_stream2d_planes"}
+    check(not others, f"{where} launched other kernels: {others}")
+    check(bitwise, f"{where}: two capped sequences differ")
+    del seq
+    sync()
+    return b8
 
 
 def phase_sharded_tw(spec, mesh, tw: dict) -> None:
@@ -4148,8 +4472,13 @@ def main() -> int:
     phase_ozaki_dense()
     with nccl_mesh() as mesh:
         phase_sharded_mixed(spec, mesh)
-        phase_sharded_mg(spec, mesh, mg)
+        k_sharded_mg = phase_sharded_mg(spec, mesh, mg)
         phase_sharded_tw(spec, mesh, tw)
+        phase_sharded_block_mg(spec, mesh, mg, k_sharded_mg)
+        every = phase_sharded_batched(spec, mesh)
+        # B8's count on the sequence's path beside the one-RHS route's
+        records["dia_matvec_stream2d_planes"]["sequence_launches"] = phase_sharded_sequence(
+            spec, mesh, every)
     with tempfile.TemporaryDirectory() as tmp:
         replay = start_cli_replay(Path(tmp))
         try:
@@ -4182,7 +4511,9 @@ def main() -> int:
                         "halo_ms": rec.get("halo_ms"), "halo_bound_ms": rec.get("halo_bound_ms"),
                         "halo_plain_ms": rec.get("halo_plain_ms"),
                         "halo_design": rec.get("halo_design"),
-                        "halo_launches": rec.get("halo_launches")})
+                        "halo_launches": rec.get("halo_launches"),
+                        # B8 on the sharded solve_sequence's harvest and deflated solves
+                        "sequence_launches": rec.get("sequence_launches")})
     print(json.dumps({"kernels": kernels, "not_ported": NOT_PORTED}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -290,16 +290,22 @@ def test_sharded_route_takes_x0_and_operators(problem):
 
 
 def test_unported_inputs_raise(problem):
-    """A 2-D b on the sharded route is not ported yet (A14), under either
-    multi_rhs; on one device it solves (tests/test_torch_batched.py). The
+    """A 2-D b on the sharded route, which raised here until the multi-RHS
+    half of ROADMAP A14 landed, now solves under either multi_rhs as on
+    one device (tests/test_torch_sharded_multi_rhs.py against cgx). The
     sparse containers, which raised here until ROADMAP A3 landed, now
-    solve like cgx's."""
+    solve like cgx's; an object that is no matrix still raises."""
     dia, b = problem
     mesh = cgx_torch.make_mesh(device="cpu")
+    bb = np.stack([b, -b], axis=1)
     for multi_rhs in ("block", "batched"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-            cgx_torch.solve(dia, np.stack([b, b], axis=1), SolveConfig(multi_rhs=multi_rhs),
-                            mesh=mesh, device="cpu")
+        cfg = SolveConfig(multi_rhs=multi_rhs, tolerance=1e-8)
+        got = cgx_torch.solve(dia, bb, cfg, mesh=mesh, device="cpu")
+        want = cgx_torch.solve(dia, bb, cfg, device="cpu")
+        assert bool(got.converged.all())
+        assert torch.equal(got.iterations, want.iterations)
+        np.testing.assert_allclose(got.x.numpy(), want.x.numpy(), rtol=0,
+                                   atol=1e-10 * float(want.x.abs().max()))
     with pytest.raises(TypeError):
         cgx_torch.solve(object(), b, device="cpu")
     coo = cgx_torch.mats.generators.lap2d_fd_coo_lower(4)

@@ -125,16 +125,90 @@ def case_a14_programs():
     return out
 
 
+# the multi-RHS half of ROADMAP A14: name -> its solve
+S_BLOCK = 3  # cgx's block signature test: (3s)^2 = 81 elements
+K_DEFL = 8
+G_MGB = 64
+
+
+def _multi_rhs_inputs():
+    rng = np.random.default_rng(0)
+    w4 = np.linalg.qr(rng.standard_normal((N, 4)))[0]
+    bb = rng.standard_normal((N, S_BLOCK))
+    w8 = np.linalg.qr(np.random.default_rng(0).standard_normal((N, K_DEFL)))[0]
+    bmg = np.random.default_rng(1).standard_normal((G_MGB ** 2, 2))
+    bat = np.random.default_rng(0).standard_normal((4, N))
+    return w4, bb, w8, bmg, bat
+
+
+def _multi_rhs_solves():
+    import torch.distributed as dist
+
+    from cgx_torch.parallel import (
+        make_mesh2d,
+        sharded_block_cg_solve,
+        sharded_block_deflated_cg_solve,
+        sharded_cg_solve_batched,
+        sharded_cg_solve_harvest,
+        sharded_deflated_cg_solve,
+        sharded_mg_block_cg_solve,
+    )
+
+    mesh = make_mesh(device="cpu")
+    w4, bb, w8, bmg, bat = _multi_rhs_inputs()
+    dia, b = lap2d_fd(G), source_term(N)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    shape = (2, 2) if world == 4 else (1, 1)
+    out = {
+        "block": lambda: sharded_block_cg_solve(dia, bb, mesh=mesh, maxiter=MAXITER),
+        "deflated": lambda: sharded_deflated_cg_solve(dia, b, w=w4, mesh=mesh, maxiter=MAXITER),
+        "deflated_plain8": lambda: sharded_deflated_cg_solve(dia, b, w=w8, mesh=mesh, tol=1e-8,
+                                                             maxiter=MAXITER),
+        "deflated_pcg": lambda: sharded_deflated_cg_solve(dia, b, w=w8, mesh=mesh, tol=1e-8,
+                                                          precond="jacobi", maxiter=MAXITER),
+        "block_deflated": lambda: sharded_block_deflated_cg_solve(dia, bb, w=w4, mesh=mesh,
+                                                                  maxiter=MAXITER),
+        "harvest": lambda: sharded_cg_solve_harvest(dia, b, k=8, mesh=mesh, strategy="halo",
+                                                    tol=1e-10, maxiter=MAXITER, strict=False),
+        "mg_block": lambda: sharded_mg_block_cg_solve(lap2d_fd(G_MGB), bmg, mesh=mesh, tol=1e-8,
+                                                      maxiter=MAXITER),
+    }
+    for pc in ("jacobi", "neumann", "chebyshev"):
+        out[f"block_{pc}"] = functools.partial(sharded_block_cg_solve, dia, bb, mesh=mesh,
+                                               maxiter=MAXITER, precond=pc, bounds=BOUNDS)
+    mesh2d = make_mesh2d(*shape, device="cpu")  # every rank makes it, and every time
+    for method in ("pipelined", "gvpipe"):
+        out[f"batched_{method}"] = functools.partial(
+            sharded_cg_solve_batched, dia, bat, mesh=mesh2d, method=method, maxiter=MAXITER,
+            tol=0.0, gv_replace_every=CADENCE)
+    return out
+
+
+def case_multi_rhs_programs():
+    """Each multi-RHS solve's record: its set-up, every iteration's list
+    and its output."""
+    out = {}
+    for name, solve in _multi_rhs_solves().items():
+        with C.capture() as cap:
+            solve()
+        prog = cap.programs[-1]
+        out[name] = {"setup": list(prog.setup), "iters": [list(it) for it in prog.iters],
+                     "output": list(prog.output)}
+    return out
+
+
 @pytest.fixture(scope="module")
 def port(tmp_path_factory):
     @functools.lru_cache(maxsize=None)
     def run(world):
         ranks = run_world(str(tmp_path_factory.mktemp(f"world{world}")), world, __name__,
-                          ["case_signatures", "case_iteration_lists", "case_a14_programs"])
+                          ["case_signatures", "case_iteration_lists", "case_a14_programs",
+                           "case_multi_rhs_programs"])
         for other in ranks[1:]:  # a program-level signature: the same on every rank
             assert other == ranks[0]
         return {**ranks[0]["case_signatures"], **ranks[0]["case_iteration_lists"],
-                **ranks[0]["case_a14_programs"]}
+                **ranks[0]["case_a14_programs"],
+                **{f"mrhs_{k}": v for k, v in ranks[0]["case_multi_rhs_programs"].items()}}
 
     return run
 
@@ -349,8 +423,10 @@ def _cgx_traced_signature(solve):
         seen.append((fn, args))
         raise _Traced
 
+    import cgx.parallel.batched2d as cgx_b2d
+
     with pytest.MonkeyPatch.context() as mp:
-        for mod in (cgx_sc, cgx_mg):
+        for mod in (cgx_sc, cgx_mg, cgx_b2d):
             mp.setattr(mod, "run_recorded", record_only)
         with pytest.raises(_Traced):
             solve()
@@ -472,3 +548,140 @@ def test_tw_sweep_signature(port, world):
                               ("all_gather", 1, 256)]
         assert {e[0] for e in sweep} == {e[0] for e in want["iter"]} == {
             "ppermute", "psum", "all_gather"}
+
+
+# ---------------------------------------------------------------------------
+# The multi-RHS half of ROADMAP A14: the block, deflated, block-deflated and
+# harvest solves, the 2-D batched mesh and block MG-PCG against cgx's traces
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def cgx_multi_rhs_signature(p: int, name: str):
+    from cgx.mats.generators import lap2d_fd as cgx_lap2d_fd
+    from cgx.parallel.batched2d import make_mesh2d as cgx_mesh2d
+    from cgx.parallel.batched2d import sharded_cg_solve_batched as cgx_batched
+    from cgx.parallel.mesh import make_mesh as cgx_mesh
+    from cgx.parallel.mg_sharded import sharded_mg_block_cg_solve as cgx_mg_block
+    from cgx.parallel.sharded_cg import (
+        sharded_block_cg_solve as cgx_block,
+        sharded_block_deflated_cg_solve as cgx_block_defl,
+        sharded_cg_solve_harvest as cgx_harvest,
+        sharded_deflated_cg_solve as cgx_defl,
+    )
+
+    mesh = cgx_mesh(p)
+    w4, bb, w8, bmg, bat = _multi_rhs_inputs()
+    dia, b = cgx_lap2d_fd(G), source_term(N)
+    solves = {
+        "block": lambda: cgx_block(dia, bb, mesh=mesh, maxiter=MAXITER),
+        "deflated": lambda: cgx_defl(dia, b, w=w4, mesh=mesh, maxiter=MAXITER),
+        "deflated_plain8": lambda: cgx_defl(dia, b, w=w8, mesh=mesh, tol=1e-8, maxiter=MAXITER),
+        "deflated_pcg": lambda: cgx_defl(dia, b, w=w8, mesh=mesh, tol=1e-8, precond="jacobi",
+                                         maxiter=MAXITER),
+        "block_deflated": lambda: cgx_block_defl(dia, bb, w=w4, mesh=mesh, maxiter=MAXITER),
+        "harvest": lambda: cgx_harvest(dia, b, k=8, mesh=mesh, strategy="halo", tol=1e-10,
+                                       maxiter=MAXITER, strict=False),
+        "mg_block": lambda: cgx_mg_block(cgx_lap2d_fd(G_MGB), bmg, mesh=mesh, tol=1e-8,
+                                         maxiter=MAXITER),
+    }
+    for pc in ("jacobi", "neumann", "chebyshev"):
+        solves[f"block_{pc}"] = functools.partial(cgx_block, dia, bb, mesh=mesh,
+                                                  maxiter=MAXITER, precond=pc, bounds=BOUNDS)
+    shape = (2, 2) if p == 4 else (1, 1)
+    for method in ("pipelined", "gvpipe"):
+        solves[f"batched_{method}"] = functools.partial(
+            cgx_batched, dia, bat, mesh=cgx_mesh2d(*shape), method=method, maxiter=MAXITER,
+            tol=0.0, gv_replace_every=CADENCE)
+    return _cgx_traced_signature(solves[name])
+
+
+def _mrhs_iter(port, world, name):
+    prog = port(world)[f"mrhs_{name}"]
+    assert prog["iters"], name
+    return _uniform_iter(prog)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("name", ["block", "block_jacobi", "block_neumann", "block_chebyshev",
+                                  "deflated", "deflated_plain8", "deflated_pcg",
+                                  "block_deflated"])
+def test_multi_rhs_iteration_equals_cgx(port, world, name):
+    """Block CG: the halo pair of G s elements for the whole block and ONE
+    (3s)^2 Gram all-reduce (tests/test_collective_counts.py:357); a
+    preconditioner adds its applies and the (3s, s) strip's one all-reduce.
+    Deflated CG: the conjugacy dot, the fused (2k,) [W, AW]^T r and <r, r>
+    (:371); deflated PCG the guard's (k,) and ONE launch of width 3 and
+    k + 2 elements for <r, z>, <r, r> and (AW)^T z (:496). Block-deflated
+    CG: three all-reduces (:384)."""
+    got = _mrhs_iter(port, world, name)
+    want = cgx_multi_rhs_signature(cgx_mesh_size(world), name)["iter"]
+    assert got == want
+    s, k = S_BLOCK, K_DEFL
+    psums = [e for e in got if e[0] == "psum"]
+    if name == "block":
+        assert got == [("ppermute", 1, G * s)] * 2 + [("psum", 1, (3 * s) ** 2)]
+    elif name.startswith("block_") and name != "block_deflated":
+        assert psums == [("psum", 1, (3 * s) ** 2), ("psum", 1, 3 * s * s)]
+    elif name == "deflated":
+        assert psums == [("psum", 1, 1), ("psum", 1, 8), ("psum", 1, 1)]
+    elif name == "deflated_plain8":
+        assert psums == [("psum", 1, 1), ("psum", 1, 2 * k), ("psum", 1, 1)]
+    elif name == "deflated_pcg":
+        assert psums == [("psum", 1, 1), ("psum", 1, k), ("psum", 3, k + 2)]
+    else:
+        assert len(psums) == 3
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_harvest_adds_zero_collectives(port, world):
+    """The harvest's iteration is the plain reference solve's (the window
+    is captured locally, tests/test_collective_counts.py:479); the window's
+    one gather follows the gather of x, after the loop."""
+    got = _mrhs_iter(port, world, "harvest")
+    assert got == _iter(port, world, "halo")
+    assert got == cgx_multi_rhs_signature(cgx_mesh_size(world), "harvest")["iter"]
+    out = port(world)["mrhs_harvest"]["output"]
+    assert [e[0] for e in out] == ["all_gather", "all_gather"] and out[0] == ("all_gather", 1, N)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_mg_block_iteration_equals_cgx(port, world):
+    """Block MG-PCG: cgx vmaps its cycle over the columns, and its trace
+    shows one batched message a halo and one tail gather for the whole
+    block (not s chains); the port's cycle takes the block: the same
+    collectives, count and volume, and the two Gram all-reduces."""
+    got = _mrhs_iter(port, world, "mg_block")
+    want = cgx_multi_rhs_signature(cgx_mesh_size(world), "mg_block")["iter"]
+    s = 2
+    assert [e for e in got if e[0] == "psum"] == [("psum", 1, (3 * s) ** 2),
+                                                  ("psum", 1, 3 * s * s)]
+    for op in ("psum", "all_gather"):
+        assert [e for e in got if e[0] == op] == [e for e in want if e[0] == op]
+    halos = [e for e in got if e[0] == "ppermute"]
+    want_halos = [e for e in want if e[0] == "ppermute"]
+    assert len(halos) == len(want_halos) and sum(e[2] for e in halos) == sum(
+        e[2] for e in want_halos)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("method", ["pipelined", "gvpipe"])
+def test_batched2d_signature_equals_cgx(port, world, method):
+    """The 2-D mesh ((2 x 2) on four ranks, (1 x 1) else), each iteration:
+    the vote over rhs, then pipelined's ONE all-reduce of every local
+    column's two dots (tests/test_collective_counts.py:432); gvpipe's
+    replacement vote too, and on the cadence the replacement's four
+    mat-vecs (cgx's eight [cond] ppermutes) before the dots (:521). The
+    loop's exit test, cgx's condition past its last body, is set-up."""
+    iters = port(world)[f"mrhs_batched_{method}"]["iters"]
+    uncond, cond = _split_cond(cgx_multi_rhs_signature(cgx_mesh_size(world),
+                                                       f"batched_{method}"))
+    r_loc = 4 // (2 if world == 4 else 1)
+    assert [e for e in uncond if e[0] == "psum"][-1] == ("psum", 1, 2 * r_loc)
+    assert len(iters) == 32  # MAXITER live, then frozen up to the host's first read
+    for i, got in enumerate(iters):
+        want = uncond[:2] + cond + uncond[2:] if cond and i and i % CADENCE == 0 else uncond
+        assert got == want, (i, got, want)
+    if method == "gvpipe":
+        assert len(cond) == 8 and sorted(e[2] for e in uncond if e[0] == "psum") == [
+            1, 1, 2 * r_loc]

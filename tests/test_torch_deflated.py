@@ -170,5 +170,8 @@ def test_solve_sequence_errors():
     with pytest.raises(ValueError, match="reference recurrence"):
         cgx_torch.solve_sequence(dia, bs, cgx_torch.SolveConfig(method="pipelined"),
                                  device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        cgx_torch.solve_sequence(dia, bs, mesh=cgx_torch.make_mesh(device="cpu"), device="cpu")
+    # on a mesh too (the sharded route's sequence runs since ROADMAP A14's
+    # multi-RHS half; tests/test_torch_sharded_multi_rhs.py)
+    with pytest.raises(ValueError, match="reference recurrence"):
+        cgx_torch.solve_sequence(dia, bs, cgx_torch.SolveConfig(method="pipelined"),
+                                 mesh=cgx_torch.make_mesh(device="cpu"), device="cpu")

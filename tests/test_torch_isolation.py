@@ -39,6 +39,7 @@ def test_import_pulls_in_neither_jax_nor_cgx():
                                     "cgx_torch.parallel.mg_sharded",
                                     "cgx_torch.parallel.tw_sharded",
                                     "cgx_torch.parallel.multihost",
+                                    "cgx_torch.parallel.batched2d",
                                     "cgx_torch.utils.collectives",
                                     "cgx_torch.solver.multigrid", "cgx_torch.solver.precond",
                                     "cgx_torch.mats.device", "cgx_torch.solver.gvpipe",

@@ -699,8 +699,25 @@ def test_dense_fp64_auto_is_emulated_on_the_cpu(monkeypatch):
     ("sharded_cg_solve_batched", "A14"),
 ])
 def test_unported_sharded_solves_raise(name, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        getattr(sc, name)(lap2d_reference(64), source_term(64))
+    """cgx's multi-RHS and recycling solves, which raised naming ROADMAP
+    A14 until its multi-RHS half landed, now solve on a mesh of one rank
+    without a process group (against cgx: tests/test_torch_sharded_multi_rhs.py
+    and tests/test_torch_batched2d.py)."""
+    import cgx_torch.parallel as par
+
+    dia, b = lap2d_reference(64), source_term(64)
+    kw = dict(tol=1e-8, device="cpu")
+    if name == "sharded_cg_solve_batched":
+        res = par.sharded_cg_solve_batched(dia, np.stack([b, -b]), **kw)
+        assert bool(res[3].all()) and res[0].shape == (2, 64)
+        return
+    if name == "sharded_cg_solve_harvest":
+        res, w = par.sharded_cg_solve_harvest(dia, b, k=4, **kw)
+        assert w.shape[0] == 64
+    else:
+        rhs = np.stack([b, -b], axis=1) if "block" in name else b
+        res = getattr(par, name)(dia, rhs, **({"k": 4} if "deflated" in name else {}), **kw)
+    assert bool(res.converged.all())
 
 
 def test_collectives_are_recorded_by_phase():
