@@ -1,11 +1,13 @@
 """Build and bind the hand-written CUDA kernels of ``cgx_torch/csrc``.
 
 Each ``.cu`` source compiles with ``nvcc`` into its own shared library
-with a plain C interface, loaded with ``ctypes``. The libraries go to
-``build/cgx_torch/`` at the root of the checkout, named by a hash of
-the sources, headers and flags, so an edited source rebuilds. All
-sources compile at once, one ``nvcc`` process each. Nothing here runs
-at import time: :func:`load` builds on the first CUDA call.
+with a plain C interface, loaded with ``ctypes``; the sources with the
+most instantiations compile once per entry suffix, a library each
+(:data:`_SPLIT`). The libraries go to ``build/cgx_torch/`` at the root
+of the checkout, named by a hash of the sources, headers and flags, so
+an edited source rebuilds. All libraries compile at once, one ``nvcc``
+process each. Nothing here runs at import time: :func:`load` builds on
+the first CUDA call.
 """
 
 from __future__ import annotations
@@ -101,8 +103,32 @@ _SIGNATURES = {
 _BF16_BANDS = ("cgx_dia_cg_chunk", "cgx_dia_cg_resident", "cgx_cg_stream", "cgx_pcg_wave", "cgx_sstep_gram",
                "cgx_sstep_recover",
                "cgx_sstep_gram_wave", "cgx_sstep_recover_wave")
+# Entries also built on bfloat16 vectors and bands, bound with the suffix _bf16
+# (cgx_torch.ops._util.KERNEL_DTYPES, vector_dtypes): B1's product (both
+# designs), B5 (both designs), B4/B7 and B6 (both designs), B3 (both entries).
+BF16_VECTORS = ("cgx_dia_matvec", "cgx_dia_matvec_stream", "cgx_dia_cg_chunk",
+                "cgx_dia_cg_resident", "cgx_cg_stream", "cgx_pcg_wave", "cgx_dense_matvec",
+                "cgx_dense_matvec_dot")
 # Entries with one variant only: the replay works on the float64 state.
 _ONLY = {"cgx_sstep_replay": ("_f64",)}
+# Sources compiled once per entry suffix (-DCGX_PART_<SUFFIX>, csrc/common.cuh),
+# one library each: their many template instantiations would otherwise take
+# one core for most of the build while the other sources are long done.
+_SPLIT = {
+    "cg_kernel": ("_f32", "_f64", "_f32_bf16b", "_bf16"),
+    "sstep_stream": ("_f32", "_f64", "_f32_bf16b"),
+    "sstep_recover": ("_f32", "_f64", "_f32_bf16b"),
+}
+
+
+def _units() -> dict:
+    """``{library name: (source, extra nvcc flags)}``: a source, or one
+    part of a source that :data:`_SPLIT` names."""
+    units = {}
+    for s in _SIGNATURES:
+        for part in _SPLIT.get(s, ("",)):
+            units[s + part] = (s, (f"-DCGX_PART{part.upper()}",) if part else ())
+    return units
 
 
 def _nvcc() -> str:
@@ -127,31 +153,34 @@ def _digest() -> str:
 
 
 def build() -> dict:
-    """Compile every source whose library is missing; return
-    ``{source: library path}`` and, under ``"ptxas"``, what ``nvcc``
-    reported about each kernel's registers and spills for the sources it
-    compiled."""
+    """Compile every library of :func:`_units` that is missing; return
+    ``{library name: path}`` and, under ``"ptxas"``, what ``nvcc``
+    reported about each kernel's registers and spills for the libraries
+    it compiled."""
     tag = _digest()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    libs = {s: BUILD_DIR / f"libcgx_{s}_{tag}.so" for s in _SIGNATURES}
-    todo = {s: p for s, p in libs.items() if not p.exists()}
+    units = _units()
+    libs = {u: BUILD_DIR / f"libcgx_{u}_{tag}.so" for u in units}
+    todo = {u: p for u, p in libs.items() if not p.exists()}
     procs = {}
     if todo:
         nvcc = _nvcc()
-        for s, lib in todo.items():
+        for u, lib in todo.items():
             tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / f"{s}.cu")]
-            procs[s] = (tmp, subprocess.Popen(
+            s, defines = units[u]
+            cmd = [nvcc, *NVCC_FLAGS, *defines, "-I", str(CSRC), "-o", str(tmp),
+                   str(CSRC / f"{s}.cu")]
+            procs[u] = (tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
             ))
     report = []
     failed = []
-    for s, (tmp, proc) in procs.items():
+    for u, (tmp, proc) in procs.items():
         out, err = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"{s}.cu (nvcc exit {proc.returncode}):\n{out}{err}")
+            failed.append(f"{u} (nvcc exit {proc.returncode}):\n{out}{err}")
             continue
-        os.replace(tmp, libs[s])  # atomic: a concurrent loader sees whole files only
+        os.replace(tmp, libs[u])  # atomic: a concurrent loader sees whole files only
         report += [ln.strip() for ln in err.splitlines()
                    if "registers" in ln or "spill" in ln or "entry function" in ln]
     if failed:
@@ -165,13 +194,14 @@ def load() -> types.SimpleNamespace:
     ``argtypes`` so no pointer is cut to 32 bits). Returns a namespace
     of the bound functions, e.g. ``load().cgx_dia_matvec_f32``."""
     libs = build()
+    cdlls = {u: ctypes.CDLL(libs[u]) for u in _units()}
     ns = types.SimpleNamespace()
     for s, entries in _SIGNATURES.items():
-        cdll = ctypes.CDLL(libs[s])
         for name, argtypes in entries.items():
-            suffixes = ("_f32", "_f64") + (("_f32_bf16b",) if name in _BF16_BANDS else ())
+            suffixes = ("_f32", "_f64") + (("_f32_bf16b",) if name in _BF16_BANDS else ()) + (
+                ("_bf16",) if name in BF16_VECTORS else ())
             for suffix in _ONLY.get(name, suffixes):
-                fn = getattr(cdll, name + suffix)
+                fn = getattr(cdlls[s + suffix if s in _SPLIT else s], name + suffix)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
                 setattr(ns, name + suffix, fn)

@@ -94,7 +94,7 @@ from cgx_torch.solver.precond import block_jacobi, chebyshev_poly, jacobi, neuma
 from cgx_torch.solver.sstep import sstep_cg_solve
 
 DEFAULT_TILES = (256, 512)  # dense_matvec's static defaults (cgx/bench/autotune.py:38)
-_DTYPES = {"fp64": torch.float64, "fp32": torch.float32}
+_DTYPES = {"fp64": torch.float64, "fp32": torch.float32, "bf16": torch.bfloat16}
 
 
 def _build_parser() -> argparse.ArgumentParser:
@@ -143,19 +143,16 @@ class Run(NamedTuple):
     csv_row: str = ""
 
 
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to cgx_torch yet")
-
-
 def run(argv=None) -> Run:
     """Parse ``argv``, solve and report, as :func:`main` does; return
     the :class:`Run` record."""
     args = _build_parser().parse_args(argv)
     pos = args.positionals
-    if args.precision == "bf16":
-        raise _unported("--precision bf16 (bf16 storage, ROADMAP A6)")
     dev = resolve_device(args.device)
     dtype = _DTYPES[args.precision]
+    # bf16 vectors sum their dots in float32, as cgx's CLI does with x64 off
+    # (cgx cli/main.py:132-135); fp32 and fp64 in the vectors' dtype
+    dots = torch.float32 if dtype == torch.bfloat16 else None
     tol = args.tol if args.tol is not None else DEFAULT_TOLERANCE
     tiles = None
 
@@ -230,10 +227,11 @@ def run(argv=None) -> Run:
     pc = _precond(args, op, host, n, dtype, dev)
     if args.method == "pipelined":
         res = pipelined_cg_solve(op, b, tol=tol, maxiter=maxiter, history=args.history,
-                                 precond=pc, device=dev)
+                                 dot_precision=dots, precond=pc, device=dev)
     elif args.method == "gvpipe":
-        res = gv_cg_solve(op, b, tol=tol, maxiter=maxiter, history=args.history, precond=pc,
-                          replace_every=args.gv_replace_every, device=dev)
+        res = gv_cg_solve(op, b, tol=tol, maxiter=maxiter, history=args.history,
+                          dot_precision=dots, precond=pc, replace_every=args.gv_replace_every,
+                          device=dev)
     elif args.method == "chebyshev":
         if pc is not None:
             print("warning: chebyshev takes no preconditioner; ignoring", file=sys.stderr)
@@ -245,8 +243,8 @@ def run(argv=None) -> Run:
                              basis=args.sstep_basis, replace_every=args.sstep_replace_every,
                              powers=args.sstep_powers, device=dev)
     else:
-        res = cg_solve(op, b, tol=tol, maxiter=maxiter, history=args.history, precond=pc,
-                       device=dev)
+        res = cg_solve(op, b, tol=tol, maxiter=maxiter, history=args.history,
+                       dot_precision=dots, precond=pc, device=dev)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     elapsed = time.perf_counter() - t1
@@ -289,7 +287,7 @@ def _report(args, host, b_np, n: int, res: CGResult, fmt: str, elapsed: float, r
             out_file: str) -> str:
     """The ``[STEP k]`` line, the time, and the CSV row appended."""
     if not args.no_debug:
-        x = res.x.cpu().numpy().astype(np.float64)
+        x = res.x.to("cpu", torch.float64).numpy()  # NumPy has no bfloat16
         if n <= 20000:
             r_true = _as_dense_np(host) @ x - b_np
             rel = np.linalg.norm(r_true) / np.linalg.norm(b_np)
@@ -298,9 +296,9 @@ def _report(args, host, b_np, n: int, res: CGResult, fmt: str, elapsed: float, r
         # reference parity: sqrt(rsold), stale by one iteration (cg.cc:152); under a
         # preconditioner rsold is <r, z>, so the residual norm instead (cgx cli/main.py:398-406)
         if args.precond is None:
-            shown = float(np.sqrt(res.rsold.cpu().numpy().astype(np.float64)))
+            shown = float(np.sqrt(res.rsold.to("cpu", torch.float64).numpy()))
         else:
-            shown = float(res.residual_norm.cpu().numpy().astype(np.float64))
+            shown = float(res.residual_norm.to("cpu", torch.float64).numpy())
         print("\t[STEP {}] residual = {:e}, ||x|| = {:e}, ||Ax - b||/||b|| = {:e}".format(
             int(res.iterations), shown, float(np.linalg.norm(x)), rel))
 
@@ -336,6 +334,8 @@ def _run_sharded(args, host, b_np, n: int, tol: float, maxiter, fmt: str, dev, c
         if world != args.devices:
             raise ValueError(f"--devices {args.devices} but the process group has {world} ranks")
         mesh = make_mesh(args.devices, device=dev)
+        if args.precision == "bf16":  # cgx cli/main.py:208-211
+            print("warning: sharded mode runs bf16 requests in fp32", file=sys.stderr)
         host_mat = host if isinstance(host, (DIAMatrix, ELLMatrix, CSRMatrix)) else (
             _as_dense_np(host))
         b_host = b_np if args.precision == "fp64" else b_np.astype(np.float32)

@@ -1,6 +1,6 @@
-// Whole-solve CG kernel for Hopper (sm_90a), float and double: one launch runs a
-// chunk of iterations of the reference recurrence, optionally with the degree-1
-// Neumann preconditioner M^-1 r = 2 D^-1 r - D^-1 A D^-1 r.
+// Whole-solve CG kernel for Hopper (sm_90a), float, double and bfloat16: one
+// launch runs a chunk of iterations of the reference recurrence, optionally with
+// the degree-1 Neumann preconditioner M^-1 r = 2 D^-1 r - D^-1 A D^-1 r.
 //
 // Replaces the Pallas TPU kernels of cgx/ops/cg_kernel.py:
 //   _dia_cg_vmem    (_chunk_kernel,   pallas_call at cg_kernel.py:245)
@@ -38,6 +38,14 @@
 // and beta are bitwise the same in every block and on every run. No float
 // atomics, no ticket. The three dots use three partial buffers: a fast block
 // writes <r, r> partials while a slow one may still read the <p, Ap> ones.
+//
+// bfloat16 vectors (the _bf16 entries, bands in bfloat16 too) keep x, r, p, Ap,
+// c and z in bfloat16, where cgx's kernel keeps them in the vectors' dtype
+// (cg_kernel.py:100-145): each band product, sum and update is formed in float
+// and rounded to bfloat16 right after (bf16.cuh), in the plain version's order.
+// A dot's products are exact in double, as for float (bf16.cuh says why cgx's
+// rounded bfloat16 products are not kept). The resident design fits twice the
+// float rows into its shared memory for the same bytes.
 //
 // Precision: the dots sum in double and the scalars stay in double (a float
 // product is exact in double); alpha and beta round to the data's type only
@@ -174,7 +182,7 @@ __global__ void __launch_bounds__(kThreads, 4) dia_cg_chunk_kernel(ChunkArgs<T, 
     for (long long i = first; i < hi; i += kThreads) {
       const T v = dia_row(a.bands, a.p, a.n, a.o, i);
       a.ap[i] = v;
-      part += static_cast<double>(a.p[i]) * v;
+      part += prod64(a.p[i], v);
     }
     part = block_sum(part);
     if (threadIdx.x == 0) part_pap[blockIdx.x] = part;
@@ -190,7 +198,7 @@ __global__ void __launch_bounds__(kThreads, 4) dia_cg_chunk_kernel(ChunkArgs<T, 
       const T ri = a.r[i] - alpha * a.ap[i];
       a.x[i] = a.x[i] + alpha * pi;
       a.r[i] = ri;
-      part += static_cast<double>(ri) * ri;
+      part += prod64(ri, ri);
       if (kPrecond) a.c[i] = (T(1) / widen(diag[i])) * ri;
     }
     part = block_sum(part);
@@ -202,7 +210,7 @@ __global__ void __launch_bounds__(kThreads, 4) dia_cg_chunk_kernel(ChunkArgs<T, 
       for (long long i = first; i < hi; i += kThreads) {
         const T zi = T(2) * a.c[i] - (T(1) / widen(diag[i])) * dia_row(a.bands, a.c, a.n, a.o, i);
         a.ap[i] = zi;
-        part += static_cast<double>(a.r[i]) * zi;
+        part += prod64(a.r[i], zi);
       }
       part = block_sum(part);
       if (threadIdx.x == 0) part_rz[blockIdx.x] = part;
@@ -383,7 +391,7 @@ __global__ void __launch_bounds__(kResThreads, 1) dia_cg_resident_kernel(Residen
     if (work) {
       if (it == 0) {
         const T* p0 = a.p + lo;
-        for (int l = elo + t; l < ehi; l += kResThreads) psh[l + left] = __ldcg(p0 + l);
+        for (int l = elo + t; l < ehi; l += kResThreads) psh[l + left] = ldcg(p0 + l);
       } else {
 #pragma unroll
         for (int j = 0; j < R; ++j)
@@ -391,10 +399,10 @@ __global__ void __launch_bounds__(kResThreads, 1) dia_cg_resident_kernel(Residen
             psh[row(j) + left] = (kPrecond ? wv[j] : rv[j]) + beta * psh[row(j) + left];
 #pragma unroll 4
         for (int l = elo + t; l < 0; l += kResThreads)
-          psh[l + left] = __ldcg(s_r + l) + beta * __ldcg(p_r + l);
+          psh[l + left] = ldcg(s_r + l) + beta * ldcg(p_r + l);
 #pragma unroll 4
         for (int l = own + t; l < ehi; l += kResThreads)
-          psh[l + left] = __ldcg(s_r + l) + beta * __ldcg(p_r + l);
+          psh[l + left] = ldcg(s_r + l) + beta * ldcg(p_r + l);
       }
       __syncthreads();  // p's rows and halo are in shared memory
       resident_rows(wv, bs, bstride, psh, left, lo, own, n, a.o);
@@ -402,7 +410,7 @@ __global__ void __launch_bounds__(kResThreads, 1) dia_cg_resident_kernel(Residen
       for (int j = 0; j < R; ++j) {
         const T pi = psh[row(j) + left];
         if (mine(j) && published(row(j))) p_w[row(j)] = pi;
-        part = part + (mine(j) ? static_cast<double>(pi) * wv[j] : 0.0);
+        part = part + (mine(j) ? prod64(pi, wv[j]) : 0.0);
       }
     }
     const double conj =
@@ -419,7 +427,7 @@ __global__ void __launch_bounds__(kResThreads, 1) dia_cg_resident_kernel(Residen
         const T ri = rv[j] - alpha * wv[j];
         xv[j] = xv[j] + alpha * psh[l + left];
         rv[j] = ri;
-        part = part + (mine(j) ? static_cast<double>(ri) * ri : 0.0);
+        part = part + (mine(j) ? prod64(ri, ri) : 0.0);
         if (kPrecond) {
           const T ci = (T(1) / widen(diag[l])) * ri;
           if (mine(j)) {
@@ -439,9 +447,9 @@ __global__ void __launch_bounds__(kResThreads, 1) dia_cg_resident_kernel(Residen
       part = 0.0;
       if (work) {
 #pragma unroll 4
-        for (int l = elo + t; l < 0; l += kResThreads) csh[l + left] = __ldcg(c_w + l);
+        for (int l = elo + t; l < 0; l += kResThreads) csh[l + left] = ldcg(c_w + l);
 #pragma unroll 4
-        for (int l = own + t; l < ehi; l += kResThreads) csh[l + left] = __ldcg(c_w + l);
+        for (int l = own + t; l < ehi; l += kResThreads) csh[l + left] = ldcg(c_w + l);
         __syncthreads();  // c's halo is in shared memory
         T ac[R];
         resident_rows(ac, bs, bstride, csh, left, lo, own, n, a.o);
@@ -450,7 +458,7 @@ __global__ void __launch_bounds__(kResThreads, 1) dia_cg_resident_kernel(Residen
           const int l = row(j);
           const T zi = T(2) * csh[l + left] - (T(1) / widen(diag[l])) * ac[j];
           wv[j] = zi;
-          part = part + (mine(j) ? static_cast<double>(rv[j]) * zi : 0.0);
+          part = part + (mine(j) ? prod64(rv[j], zi) : 0.0);
           if (mine(j) && published(l)) s_w[l] = zi;
         }
       }
@@ -638,7 +646,7 @@ static int launch_resident(const void* bands, void* p, void* x, void* r, void* p
     constexpr bool P = decltype(pc)::value;
     if (per_thread == 4) return launch_resident_r<T, B, P, 4>(a, grid, sh, bands_shared, stream);
     if (per_thread == 8) return launch_resident_r<T, B, P, 8>(a, grid, sh, bands_shared, stream);
-    if constexpr (sizeof(T) == 4)
+    if constexpr (sizeof(T) <= 4)
       if (per_thread == 16)
         return launch_resident_r<T, B, P, 16>(a, grid, sh, bands_shared, stream);
     return static_cast<int>(cudaErrorInvalidValue);
@@ -650,6 +658,7 @@ static int launch_resident(const void* bands, void* p, void* x, void* r, void* p
 
 extern "C" {
 
+#ifdef CGX_PART_F32
 int cgx_dia_cg_chunk_f32(const void* bands, void* p, void* x, void* r, void* ap, void* c,
                          void* partials, long long partials_len, const void* scal_in,
                          void* scal_out, long long n, const long long* offsets, int ndiag, int d0,
@@ -659,7 +668,9 @@ int cgx_dia_cg_chunk_f32(const void* bands, void* p, void* x, void* r, void* ap,
                                       scal_out, n, offsets, ndiag, d0, tol, nearzero, maxiter,
                                       chunk, precond, grid_out, stream);
 }
+#endif
 
+#ifdef CGX_PART_F64
 int cgx_dia_cg_chunk_f64(const void* bands, void* p, void* x, void* r, void* ap, void* c,
                          void* partials, long long partials_len, const void* scal_in,
                          void* scal_out, long long n, const long long* offsets, int ndiag, int d0,
@@ -669,7 +680,9 @@ int cgx_dia_cg_chunk_f64(const void* bands, void* p, void* x, void* r, void* ap,
                                                scal_in, scal_out, n, offsets, ndiag, d0, tol,
                                                nearzero, maxiter, chunk, precond, grid_out, stream);
 }
+#endif
 
+#ifdef CGX_PART_F32_BF16B
 int cgx_dia_cg_chunk_f32_bf16b(const void* bands, void* p, void* x, void* r, void* ap, void* c,
                                void* partials, long long partials_len, const void* scal_in,
                                void* scal_out, long long n, const long long* offsets, int ndiag,
@@ -680,7 +693,20 @@ int cgx_dia_cg_chunk_f32_bf16b(const void* bands, void* p, void* x, void* r, voi
                                                      nearzero, maxiter, chunk, precond, grid_out,
                                                      stream);
 }
+#endif
 
+#ifdef CGX_PART_BF16
+int cgx_dia_cg_chunk_bf16(const void* bands, void* p, void* x, void* r, void* ap, void* c,
+                          void* partials, long long partials_len, const void* scal_in,
+                          void* scal_out, long long n, const long long* offsets, int ndiag, int d0,
+                          double tol, double nearzero, double maxiter, int chunk, int precond,
+                          int* grid_out, void* stream) {
+  return cgx::launch_chunk_any<cgx::bf16, cgx::bf16>(bands, p, x, r, ap, c, partials,
+                                                     partials_len, scal_in, scal_out, n, offsets,
+                                                     ndiag, d0, tol, nearzero, maxiter, chunk,
+                                                     precond, grid_out, stream);
+}
+#endif
 
 // The resident design: the chunk's arguments, with the published pairs (4 n
 // values, 6 n with the preconditioner) and the grid barrier's count (one
@@ -697,8 +723,17 @@ int cgx_dia_cg_chunk_f32_bf16b(const void* bands, void* p, void* x, void* r, voi
                                       chunk, precond, plan, plan_len, grid, empty, stream);     \
   }
 
+#ifdef CGX_PART_F32
 CGX_RESIDENT_ENTRY(cgx_dia_cg_resident_f32, float, float)
+#endif
+#ifdef CGX_PART_F64
 CGX_RESIDENT_ENTRY(cgx_dia_cg_resident_f64, double, double)
+#endif
+#ifdef CGX_PART_F32_BF16B
 CGX_RESIDENT_ENTRY(cgx_dia_cg_resident_f32_bf16b, float, __nv_bfloat16)
+#endif
+#ifdef CGX_PART_BF16
+CGX_RESIDENT_ENTRY(cgx_dia_cg_resident_bf16, cgx::bf16, cgx::bf16)
+#endif
 
 }  // extern "C"

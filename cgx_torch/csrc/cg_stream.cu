@@ -80,9 +80,17 @@
 // - Bounds. Terms outside [0, n) are zero (dia_row.cuh), so no padding rows and
 //   no identity rows are needed, and no tail diagonal entry is ever divided by.
 //
+// bfloat16 vectors (the _bf16 entries, bands in bfloat16 too): s', r', p', x', c',
+// u' and w' are formed in float and rounded to bfloat16 after each operation, in
+// the plain version's order (bf16.cuh), where cgx's kernel keeps them in the
+// vectors' dtype (cg_stream.py:296-330); a dot's products are exact in double,
+// as for float (bf16.cuh). The wavefront's rings hold
+// bfloat16, half the float bytes, so its plan fits wherever float's does.
+//
 // Bound: memory. The recurrence must move, per iteration, the bands once, p, x,
 // r, w, s in and out: (ndiag + 10) N words (ndiag/2 + 10 with bfloat16 bands
-// under float vectors); with the preconditioner u as well, (ndiag + 12) N. The
+// under float vectors); with the preconditioner u as well, (ndiag + 12) N. On
+// bfloat16 vectors the words are 2 bytes. The
 // neighbour re-reads of the plain iteration cost load instructions and cache
 // bandwidth, not device memory traffic, so long as a block's halo stays in
 // cache.
@@ -198,7 +206,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) cg_stream_kernel(StreamA
       r_new = r_out[i];
       u_new = a.u[i];
       w_new = dia_row(bands, a.u, n, a.o, i);
-      rr += static_cast<double>(r_new) * r_new;
+      rr += prod64(r_new, r_new);
     } else {  // the whole plain iteration: u' = r', w' = A r', r' formed at each neighbour
       const T s_new = w[i] + beta * s[i];
       r_new = r[i] - alpha * s_new;
@@ -221,8 +229,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) cg_stream_kernel(StreamA
       u_new = r_new;
     }
     w_out[i] = w_new;
-    g += static_cast<double>(r_new) * u_new;
-    dl += static_cast<double>(w_new) * u_new;
+    g += prod64(r_new, u_new);
+    dl += prod64(w_new, u_new);
   }
 
   g = block_sum(g);
@@ -468,7 +476,7 @@ __global__ void __launch_bounds__(kPcgThreads, 1)
           const T un = ur[su];
           const T wn = ring_taps<ND, kFull>(a.o, b2, bands + i2, n, i2, ur, qu, su, un);
           w_out[i2] = wn;
-          dl += static_cast<double>(wn) * un;
+          dl += prod64(wn, un);
         }
         // 3. L1: u' = 2 c' - D^-1 A c' from the c' ring
         T un1 = T(0);
@@ -490,7 +498,7 @@ __global__ void __launch_bounds__(kPcgThreads, 1)
             a.p[i0] = pn;
             r_out[i0] = rn;
             s_out[i0] = sn;
-            rr += static_cast<double>(rn) * rn;
+            rr += prod64(rn, rn);
           }
         }
         // 5. this step's ring values, and u' with gamma' at the slab's rows
@@ -498,7 +506,7 @@ __global__ void __launch_bounds__(kPcgThreads, 1)
           ur[pcg_wrap(u1 + jj, qu)] = un1;
           if (own1) {
             a.u[i1] = un1;
-            g += static_cast<double>(rq[pcg_wrap(r1 + jj, qr)]) * un1;
+            g += prod64(rq[pcg_wrap(r1 + jj, qr)], un1);
           }
         }
         if (ok0) {
@@ -682,6 +690,7 @@ extern "C" {
 CGX_STREAM_ENTRY(cgx_cg_stream_f32, float, float)
 CGX_STREAM_ENTRY(cgx_cg_stream_f64, double, double)
 CGX_STREAM_ENTRY(cgx_cg_stream_f32_bf16b, float, __nv_bfloat16)
+CGX_STREAM_ENTRY(cgx_cg_stream_bf16, cgx::bf16, cgx::bf16)
 
 #undef CGX_STREAM_ENTRY
 
@@ -702,6 +711,7 @@ CGX_STREAM_ENTRY(cgx_cg_stream_f32_bf16b, float, __nv_bfloat16)
 CGX_PCG_WAVE_ENTRY(cgx_pcg_wave_f32, float, float)
 CGX_PCG_WAVE_ENTRY(cgx_pcg_wave_f64, double, double)
 CGX_PCG_WAVE_ENTRY(cgx_pcg_wave_f32_bf16b, float, __nv_bfloat16)
+CGX_PCG_WAVE_ENTRY(cgx_pcg_wave_bf16, cgx::bf16, cgx::bf16)
 
 #undef CGX_PCG_WAVE_ENTRY
 

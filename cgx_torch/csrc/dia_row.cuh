@@ -6,7 +6,9 @@
 // The bands may be stored in a narrower type than the vectors (bfloat16 bands
 // under float vectors): each band value is widened exactly to the vector type as
 // it is loaded, so the product is the one of the widened bands. With the bands
-// in the vectors' own type the code is what it was before, bit for bit.
+// in the vectors' own type the code is what it was before, bit for bit; that
+// includes bfloat16 vectors (cgx::bf16, bf16.cuh), whose product and sum each
+// round to bfloat16.
 //
 // x carries no __restrict__: the whole-solve kernel of cg_kernel.cu rewrites the
 // vector it reads here between grid syncs, so its loads must stay coherent ones.
@@ -14,6 +16,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "bf16.cuh"
 
 namespace cgx {
 
@@ -28,6 +32,7 @@ struct Offsets {
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ double widen(double v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ bf16 widen(bf16 v) { return v; }
 
 template <typename T, typename B>
 __device__ __forceinline__ T dia_row(const B* __restrict__ bands, const T* x, long long n,

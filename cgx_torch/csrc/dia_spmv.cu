@@ -1,4 +1,7 @@
-// Banded (DIA) mat-vec kernels for Hopper (sm_90a), float and double.
+// Banded (DIA) mat-vec kernels for Hopper (sm_90a), float and double; dia_matvec
+// also on bfloat16 vectors and bands (cgx_dia_matvec_bf16: each product and each
+// sum rounds to bfloat16, as cgx's bf16 kernels and the plain version do; the
+// whole-solve kernel's Neumann set-up runs it).
 //
 // Replaces the Pallas TPU kernels of cgx/ops/dia_spmv.py:
 //   dia_matvec      (_dia_kernel, pallas_call at dia_spmv.py:91)
@@ -99,6 +102,11 @@ int cgx_dia_matvec_f32(const void* bands, const void* x, void* y, long long n,
 int cgx_dia_matvec_f64(const void* bands, const void* x, void* y, long long n,
                        const long long* offsets, int ndiag, void* stream) {
   return cgx::launch_matvec<double>(bands, x, y, n, offsets, ndiag, stream);
+}
+
+int cgx_dia_matvec_bf16(const void* bands, const void* x, void* y, long long n,
+                        const long long* offsets, int ndiag, void* stream) {
+  return cgx::launch_matvec<cgx::bf16>(bands, x, y, n, offsets, ndiag, stream);
 }
 
 int cgx_dia_matvec_dot_f32(const void* bands, const void* x, void* y, void* partials,

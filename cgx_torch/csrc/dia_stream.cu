@@ -1,4 +1,10 @@
 // Streaming banded (DIA) mat-vec for Hopper (sm_90a), float and double: kernel B8.
+// The product (no dot) is also built on bfloat16 vectors and bands
+// (cgx_dia_matvec_stream_bf16), for B1's dia_matvec on bfloat16 vectors: each
+// product and each sum rounds to bfloat16 (bf16.cuh), as in the plain version.
+// A bfloat16 thread's four rows are 8 bytes: its band, x and y accesses are
+// 8-byte loads and stores, and x's ring takes 8-byte copies, so the ring
+// layout (values in multiples of 4, the 4-value mirror) is the float one's.
 //
 // Replaces the Pallas TPU kernels of cgx/ops/dia_spmv.py:
 //   dia_matvec_stream           (_dia_stream_kernel, pallas_call at dia_spmv.py:192)
@@ -61,7 +67,7 @@ constexpr int kMirror = 4;           // ring values mirrored past its end
 // blocks an SM of the plan (cgx_torch.ops.dia_spmv.STREAM_BLOCKS_PER_SM), which
 // the registers must leave room for: the grid is that many blocks an SM
 template <typename T>
-constexpr int kStreamBlocksPerSM = sizeof(T) == 4 ? 4 : 2;
+constexpr int kStreamBlocksPerSM = sizeof(T) <= 4 ? 4 : 2;
 
 // The plan of cgx_torch.ops.dia_spmv.stream_plan.
 struct StreamPlan {
@@ -152,11 +158,13 @@ __device__ __forceinline__ long long stream_pos_mod(long long x, long long q) {
 
 // Rows [j0, j1) of x (multiples of 4) into the ring of q values at slot
 // row mod q, zeros outside [0, n); slots 0..3 also at q..q+3. Asynchronous:
-// the caller commits and waits.
+// the caller commits and waits. A copy is 16 bytes of float or double, and
+// 4 values (8 bytes) of bfloat16, so it never crosses a 4-value slot group.
 template <typename T>
 __device__ void stage(T* ring, int q, const T* __restrict__ x, long long n, long long j0,
                       long long j1, bool vec) {
-  const int v = vec ? 16 / static_cast<int>(sizeof(T)) : 1;  // values a copy
+  constexpr int kVec = sizeof(T) == 2 ? 4 : 16 / static_cast<int>(sizeof(T));
+  const int v = vec ? kVec : 1;  // values a copy
   const long long step = static_cast<long long>(blockDim.x) * v;
   long long j = j0 + static_cast<long long>(threadIdx.x) * v;
   if (j >= j1) return;
@@ -166,8 +174,14 @@ __device__ void stage(T* ring, int q, const T* __restrict__ x, long long n, long
     const long long have = j < 0 ? 0 : (n - j < v ? n - j : v);
     const int valid = have > 0 ? static_cast<int>(have) * static_cast<int>(sizeof(T)) : 0;
     const T* src = valid ? x + j : x;
-    cp_async(ring + slot, src, v * static_cast<int>(sizeof(T)), valid);
-    if (slot < kMirror) cp_async(ring + q + slot, src, v * static_cast<int>(sizeof(T)), valid);
+    if (sizeof(T) == 2 && !vec) {  // cp.async has no 2-byte copy: a plain store
+      const T val = valid ? *src : T(0);
+      ring[slot] = val;
+      if (slot < kMirror) ring[q + slot] = val;
+    } else {
+      cp_async(ring + slot, src, v * static_cast<int>(sizeof(T)), valid);
+      if (slot < kMirror) cp_async(ring + q + slot, src, v * static_cast<int>(sizeof(T)), valid);
+    }
     slot += adv;
     slot = slot >= q ? slot - q : slot;
   }
@@ -181,11 +195,19 @@ struct Vec4 {
   T v[4];
 };
 
-// Four values from p, 16-byte aligned
+// Four values from p, aligned to their size (16 bytes; 8 of bfloat16)
 template <typename T>
 __device__ __forceinline__ Vec4<T> load4(const T* p) {
   Vec4<T> r;
-  if constexpr (sizeof(T) == 4) {
+  if constexpr (sizeof(T) == 2) {
+    union {
+      uint2 u;
+      T v[4];
+    } t;
+    t.u = *reinterpret_cast<const uint2*>(p);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) r.v[e] = t.v[e];
+  } else if constexpr (sizeof(T) == 4) {
     const float4 t = *reinterpret_cast<const float4*>(p);
     r.v[0] = t.x, r.v[1] = t.y, r.v[2] = t.z, r.v[3] = t.w;
   } else {
@@ -198,7 +220,15 @@ __device__ __forceinline__ Vec4<T> load4(const T* p) {
 
 template <typename T>
 __device__ __forceinline__ void store4(T* p, const T (&v)[4]) {
-  if constexpr (sizeof(T) == 4) {
+  if constexpr (sizeof(T) == 2) {
+    union {
+      uint2 u;
+      T v[4];
+    } t;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) t.v[e] = v[e];
+    *reinterpret_cast<uint2*>(p) = t.u;
+  } else if constexpr (sizeof(T) == 4) {
     *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
   } else {
     reinterpret_cast<double2*>(p)[0] = make_double2(v[0], v[1]);
@@ -440,6 +470,14 @@ int cgx_dia_matvec_stream_f64(const void* bands, long long stride, const void* x
                               const long long* plan, int plan_len, int grid, void* stream) {
   return cgx::launch_stream<double, false>(bands, stride, x, y, n, offsets, ndiag, plan, plan_len,
                                            grid, {}, stream);
+}
+
+// bfloat16 vectors and bands: the product only
+int cgx_dia_matvec_stream_bf16(const void* bands, long long stride, const void* x, void* y,
+                               long long n, const long long* offsets, int ndiag,
+                               const long long* plan, int plan_len, int grid, void* stream) {
+  return cgx::launch_stream<cgx::bf16, false>(bands, stride, x, y, n, offsets, ndiag, plan,
+                                              plan_len, grid, {}, stream);
 }
 
 // the same, and <x, y>: partials (at least grid of them), the ticket (0), the dot

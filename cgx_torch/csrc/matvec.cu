@@ -1,4 +1,4 @@
-// Dense mat-vec kernels for Hopper (sm_90a), float and double.
+// Dense mat-vec kernels for Hopper (sm_90a), float, double and bfloat16.
 //
 // Replaces the Pallas TPU kernels of cgx/ops/matvec.py:
 //   dense_matvec      (_matvec_kernel, pallas_call at matvec.py:88)
@@ -49,6 +49,15 @@
 // row (lanes strided along each tile), which grouped a tile's products
 // otherwise than dense_matvec, so the two gave different y; it took 0.3189 ms
 // in double at N = 10,000 on an H100 (PERF.md).
+// bfloat16 (the _bf16 entries): A and x are read as bfloat16 (8 a 16-byte load),
+// each product and sum is formed in float (a product of two bfloat16 is exact
+// there), the tile sums and the running sums are float, and y rounds to
+// bfloat16 once, at the store, with the grouping above. cgx's TPU kernel rounds
+// y to bfloat16 after each column tile (matvec.py:58-65), a choice of its
+// tiling; the plain version here sums the tiles in float as this kernel does.
+// dense_matvec_dot's products x[i] * y[i] round to bfloat16 (cgx's xrow * y in
+// the vectors' dtype) and are summed in float: the dot is float32.
+#include "bf16.cuh"
 #include "common.cuh"
 
 namespace cgx {
@@ -68,6 +77,15 @@ struct Vec16<double> {
   using type = double2;
   static constexpr int n = 2;
 };
+template <>
+struct Vec16<bf16> {
+  using type = uint4;
+  static constexpr int n = 8;
+};
+
+// bfloat16 value e of a 32-bit word (e = 0 the low half), widened exactly
+__device__ __forceinline__ float bf_lo(unsigned w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf_hi(unsigned w) { return __uint_as_float(w & 0xffff0000u); }
 
 // p + a . x, element by element in order
 __device__ __forceinline__ float vdot(float p, float4 a, float4 x) {
@@ -94,11 +112,30 @@ __device__ __forceinline__ double vdot(double p, double2 a, const double* x) {
   p += a.y * x[1];
   return p;
 }
+__device__ __forceinline__ float vdot(float p, uint4 a, uint4 x) {
+  const unsigned aw[4] = {a.x, a.y, a.z, a.w}, xw[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    p += bf_lo(aw[k]) * bf_lo(xw[k]);
+    p += bf_hi(aw[k]) * bf_hi(xw[k]);
+  }
+  return p;
+}
+__device__ __forceinline__ float vdot(float p, uint4 a, const bf16* x) {
+  const unsigned aw[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    p += bf_lo(aw[k]) * static_cast<float>(x[2 * k]);
+    p += bf_hi(aw[k]) * static_cast<float>(x[2 * k + 1]);
+  }
+  return p;
+}
 
 // This lane's partial of row arow over columns [c0, c1) on the peeled path:
-// head, vectors in order, tail. xs[c] is x's value at column c.
-template <typename T>
-__device__ __forceinline__ T peeled_part(const T* __restrict__ arow, const T* xs, long long c0,
+// head, vectors in order, tail. xs[c] is x's value at column c. The partial is
+// in the accumulation type A (float for bfloat16).
+template <typename T, typename A = typename Acc<T>::type>
+__device__ __forceinline__ A peeled_part(const T* __restrict__ arow, const T* xs, long long c0,
                                          long long c1, int lane) {
   using V = typename Vec16<T>::type;
   constexpr int VN = Vec16<T>::n;
@@ -107,22 +144,24 @@ __device__ __forceinline__ T peeled_part(const T* __restrict__ arow, const T* xs
   if (head > c1 - c0) head = c1 - c0;
   const long long nvec = (c1 - c0 - head) / VN;
   const long long cb = c0 + head + nvec * VN;
-  T p = T(0);
-  if (lane < head) p += arow[c0 + lane] * xs[c0 + lane];
+  A p = A(0);
+  if (lane < head) p += static_cast<A>(arow[c0 + lane]) * static_cast<A>(xs[c0 + lane]);
   const V* av = reinterpret_cast<const V*>(arow + c0 + head);
   for (long long v = lane; v < nvec; v += 32) p = vdot(p, __ldg(av + v), xs + c0 + head + v * VN);
-  if (lane < c1 - cb) p += arow[cb + lane] * xs[cb + lane];
+  if (lane < c1 - cb) p += static_cast<A>(arow[cb + lane]) * static_cast<A>(xs[cb + lane]);
   return p;
 }
 
 __host__ __device__ inline long long align16(long long bytes) { return (bytes + 15) / 16 * 16; }
 
-// Shared bytes of a block: the staged x chunk, the tile partials of its rows
-// over a chunk, and its rows' running sums.
+// Shared bytes of a block: the staged x chunk (size bytes a value), the tile
+// partials of its rows over a chunk, and its rows' running sums (acc bytes a
+// value: float for bfloat16, else size).
 __host__ __device__ inline long long dense_shared(long long chunk_cols, long long chunk_tiles,
-                                                  long long rows, long long size, int staged) {
-  return (staged ? align16(chunk_cols * size) : 0) + align16(rows * chunk_tiles * size) +
-         rows * size;
+                                                  long long rows, long long size, long long acc,
+                                                  int staged) {
+  return (staged ? align16(chunk_cols * size) : 0) + align16(rows * chunk_tiles * acc) +
+         rows * acc;
 }
 
 // The warp's sums of v[0..7]: lane i ends with the sum of v[t] over the 32
@@ -163,12 +202,13 @@ struct Span {
 // tile's sum to shared memory; then one thread a row adds them, in tile order, to
 // the row's running sum. ALIGNED: every row start, tile and chunk is 16-byte aligned.
 // DOT: where a row's sum is written, also prods[i] = x[i] * y[i] (0 past n_cols).
-template <typename T, bool ALIGNED, bool DOT>
+// Sums run in A = Acc<T>::type; y rounds to T at the store.
+template <typename T, bool ALIGNED, bool DOT, typename A = typename Acc<T>::type>
 __device__ __forceinline__ void dense_rows(const T* __restrict__ a, const T* __restrict__ x,
                                            T* __restrict__ y, long long n_rows,
                                            long long n_cols, long long block_cols,
                                            long long chunk_cols, long long rows_per_cta,
-                                           int staged, T* __restrict__ prods) {
+                                           int staged, A* __restrict__ prods) {
   using V = typename Vec16<T>::type;
   constexpr int VN = Vec16<T>::n;
   constexpr int G = kDenseUnits;
@@ -179,15 +219,15 @@ __device__ __forceinline__ void dense_rows(const T* __restrict__ a, const T* __r
   const long long rows = r0 + rows_per_cta < n_rows ? rows_per_cta : n_rows - r0;
   const long long max_tiles = (chunk_cols + block_cols - 1) / block_cols;
   T* xsh = reinterpret_cast<T*>(smem);
-  T* tsum = reinterpret_cast<T*>(smem + (staged ? align16(chunk_cols * sizeof(T)) : 0));
-  T* run = reinterpret_cast<T*>(reinterpret_cast<unsigned char*>(tsum) +
-                                align16(rows * max_tiles * sizeof(T)));
+  A* tsum = reinterpret_cast<A*>(smem + (staged ? align16(chunk_cols * sizeof(T)) : 0));
+  A* run = reinterpret_cast<A*>(reinterpret_cast<unsigned char*>(tsum) +
+                                align16(rows * max_tiles * sizeof(A)));
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
   const int mine = (lane & 16 ? 4 : 0) + (lane & 8 ? 2 : 0) + (lane & 4 ? 1 : 0);
   if (n_cols == 0)
     for (long long r = threadIdx.x; r < rows; r += blockDim.x) {
       y[r0 + r] = T(0);
-      if (DOT) prods[r0 + r] = T(0);
+      if (DOT) prods[r0 + r] = A(0);
     }
   for (long long k0 = 0; k0 < n_cols; k0 += chunk_cols) {
     const long long k1 = k0 + chunk_cols < n_cols ? k0 + chunk_cols : n_cols;
@@ -211,8 +251,8 @@ __device__ __forceinline__ void dense_rows(const T* __restrict__ a, const T* __r
       const unsigned r = q / spans;
       return Span{r, static_cast<long long>(q - r * spans) * G};
     };
-    auto put = [&](const T (&part)[G], const Span& sp) {
-      const T sum = transpose_sum8(part, lane);
+    auto put = [&](const A (&part)[G], const Span& sp) {
+      const A sum = transpose_sum8(part, lane);
       if ((lane & 3) == 0 && sp.tile + mine < tiles) tsum[sp.row * tiles + sp.tile + mine] = sum;
     };
     if (ALIGNED) {
@@ -234,9 +274,9 @@ __device__ __forceinline__ void dense_rows(const T* __restrict__ a, const T* __r
       unsigned q = warp;
       long long j = 0;
       V cur[G], nxt[G];
-      T part[G];
+      A part[G];
 #pragma unroll
-      for (int g = 0; g < G; ++g) part[g] = T(0);
+      for (int g = 0; g < G; ++g) part[g] = A(0);
       if (q < groups) load(q, 0, cur);  // A's first round flies while x arrives
       if (staged) asm volatile("cp.async.wait_all;" ::);
       __syncthreads();  // x is staged
@@ -258,7 +298,7 @@ __device__ __forceinline__ void dense_rows(const T* __restrict__ a, const T* __r
         if (jn == 0) {
           put(part, sp);
 #pragma unroll
-          for (int g = 0; g < G; ++g) part[g] = T(0);
+          for (int g = 0; g < G; ++g) part[g] = A(0);
         }
 #pragma unroll
         for (int g = 0; g < G; ++g) cur[g] = nxt[g];
@@ -270,23 +310,24 @@ __device__ __forceinline__ void dense_rows(const T* __restrict__ a, const T* __r
       for (unsigned q = warp; q < groups; q += nwarps) {
         const Span sp = span_of(q);
         const T* arow = a + (r0 + sp.row) * n_cols;
-        T part[G];
+        A part[G];
 #pragma unroll
         for (int g = 0; g < G; ++g) {
           const long long c0 = k0 + (sp.tile + g) * block_cols;
           const long long c1 = c0 + block_cols < k1 ? c0 + block_cols : k1;
-          part[g] = sp.tile + g < tiles ? peeled_part(arow, xs, c0, c1, lane) : T(0);
+          part[g] = sp.tile + g < tiles ? peeled_part(arow, xs, c0, c1, lane) : A(0);
         }
         put(part, sp);
       }
     }
     __syncthreads();  // every tile sum of the chunk is in shared memory
     for (long long r = threadIdx.x; r < rows; r += blockDim.x) {
-      T acc = k0 == 0 ? T(0) : run[r];
+      A acc = k0 == 0 ? A(0) : run[r];
       for (long long t = 0; t < tiles; ++t) acc += tsum[r * tiles + t];
       if (k1 == n_cols) {
-        y[r0 + r] = acc;
-        if (DOT) prods[r0 + r] = r0 + r < n_cols ? x[r0 + r] * acc : T(0);
+        const T yv = static_cast<T>(acc);
+        y[r0 + r] = yv;
+        if (DOT) prods[r0 + r] = r0 + r < n_cols ? static_cast<A>(x[r0 + r] * yv) : A(0);
       } else {
         run[r] = acc;
       }
@@ -294,13 +335,14 @@ __device__ __forceinline__ void dense_rows(const T* __restrict__ a, const T* __r
   }
 }
 
-// dense_matvec_dot's outputs and scratch (unused by dense_matvec).
-template <typename T>
+// dense_matvec_dot's outputs and scratch (unused by dense_matvec), in the
+// accumulation type.
+template <typename T, typename A = typename Acc<T>::type>
 struct DenseDot {
-  T* prods;              // x[i] * y[i] a row
-  T* tile_sums;          // one a row tile
+  A* prods;              // x[i] * y[i] a row
+  A* tile_sums;          // one a row tile
   unsigned int* ticket;  // 0 at launch; the last block sets it back to 0
-  T* dot;
+  A* dot;
   long long block_rows;
 };
 
@@ -323,20 +365,21 @@ dense_matvec_persistent_kernel(const T* __restrict__ a, const T* __restrict__ x,
     __syncthreads();
     if (!is_last) return;
     __threadfence();
-    const volatile T* p = dd.prods;  // written by other SMs: bypass L1
+    using A = typename Acc<T>::type;
+    const volatile A* p = dd.prods;  // written by other SMs: bypass L1
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
     const long long tiles = (n_rows + dd.block_rows - 1) / dd.block_rows;
     for (long long t = warp; t < tiles; t += nwarps) {
       const long long r1 = (t + 1) * dd.block_rows < n_rows ? (t + 1) * dd.block_rows : n_rows;
-      T s = T(0);
+      A s = A(0);
       for (long long i = t * dd.block_rows + lane; i < r1; i += 32) s += p[i];
       s = warp_sum(s);
       if (lane == 0) dd.tile_sums[t] = s;
     }
     __syncthreads();  // the tile sums of all warps are visible to thread 0
     if (threadIdx.x == 0) {
-      const volatile T* ts = dd.tile_sums;
-      T d = T(0);
+      const volatile A* ts = dd.tile_sums;
+      A d = A(0);
       for (long long t = 0; t < tiles; ++t) d += ts[t];
       *dd.dot = d;
       *dd.ticket = 0u;
@@ -363,7 +406,7 @@ static int launch_matvec(const void* a, const void* x, void* y, long long n_rows
       rows_per_cta < 1 || rows_per_cta * grid < n_rows || chunk_cols < 1 ||
       (chunk_cols < n_cols && chunk_cols % block_cols != 0) ||
       shared < dense_shared(chunk_cols, (chunk_cols + block_cols - 1) / block_cols,
-                            rows_per_cta, sz, staged) ||
+                            rows_per_cta, sz, sizeof(typename Acc<T>::type), staged) ||
       (aligned && ((n_cols * sz) % 16 != 0 || (block_cols * sz) % 16 != 0 ||
                    reinterpret_cast<unsigned long long>(a) % 16 != 0 ||
                    (!staged && reinterpret_cast<unsigned long long>(x) % 16 != 0))))
@@ -382,11 +425,11 @@ static int launch_matvec(const void* a, const void* x, void* y, long long n_rows
                           allow_shared<dense_matvec_persistent_kernel<T, false, DOT>>());
 }
 
-template <typename T>
+template <typename T, typename A = typename Acc<T>::type>
 static DenseDot<T> dense_dot(void* prods, void* tile_sums, void* ticket, void* dot,
                              long long block_rows) {
-  return DenseDot<T>{static_cast<T*>(prods), static_cast<T*>(tile_sums),
-                     static_cast<unsigned int*>(ticket), static_cast<T*>(dot), block_rows};
+  return DenseDot<T>{static_cast<A*>(prods), static_cast<A*>(tile_sums),
+                     static_cast<unsigned int*>(ticket), static_cast<A*>(dot), block_rows};
 }
 
 }  // namespace cgx
@@ -431,6 +474,26 @@ int cgx_dense_matvec_dot_f64(const void* a, const void* x, void* y, long long n_
   return cgx::launch_matvec<double, true>(
       a, x, y, n_rows, n_cols, block_cols, chunk_cols, rows_per_cta, staged, aligned, shared,
       grid, cgx::dense_dot<double>(prods, tile_sums, ticket, dot, block_rows), stream);
+}
+
+// bfloat16 A, x and y; the dot's products, tile sums and dot in float
+int cgx_dense_matvec_bf16(const void* a, const void* x, void* y, long long n_rows,
+                          long long n_cols, long long block_cols, long long chunk_cols,
+                          long long rows_per_cta, int staged, int aligned, int shared, int grid,
+                          void* stream) {
+  return cgx::launch_matvec<cgx::bf16, false>(a, x, y, n_rows, n_cols, block_cols, chunk_cols,
+                                              rows_per_cta, staged, aligned, shared, grid, {},
+                                              stream);
+}
+
+int cgx_dense_matvec_dot_bf16(const void* a, const void* x, void* y, long long n_rows,
+                              long long n_cols, long long block_cols, long long chunk_cols,
+                              long long rows_per_cta, int staged, int aligned, int shared,
+                              int grid, void* prods, void* tile_sums, void* ticket, void* dot,
+                              long long block_rows, void* stream) {
+  return cgx::launch_matvec<cgx::bf16, true>(
+      a, x, y, n_rows, n_cols, block_cols, chunk_cols, rows_per_cta, staged, aligned, shared,
+      grid, cgx::dense_dot<cgx::bf16>(prods, tile_sums, ticket, dot, block_rows), stream);
 }
 
 }  // extern "C"

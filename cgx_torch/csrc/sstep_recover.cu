@@ -242,9 +242,15 @@ extern "C" {
                                           w_lo, w_hi, stream);                                  \
   }
 
+#ifdef CGX_PART_F32
 CGX_RECOVER_ENTRIES(_f32, float, float)
+#endif
+#ifdef CGX_PART_F64
 CGX_RECOVER_ENTRIES(_f64, double, double)
+#endif
+#ifdef CGX_PART_F32_BF16B
 CGX_RECOVER_ENTRIES(_f32_bf16b, float, __nv_bfloat16)
+#endif
 
 #undef CGX_RECOVER_ENTRIES
 

@@ -349,12 +349,19 @@ extern "C" {
                                        w_hi, part, stream);                                    \
   }
 
+#ifdef CGX_PART_F32
 CGX_SSTEP_ENTRIES(_f32, float, float)
+#endif
+#ifdef CGX_PART_F64
 CGX_SSTEP_ENTRIES(_f64, double, double)
+#endif
+#ifdef CGX_PART_F32_BF16B
 CGX_SSTEP_ENTRIES(_f32_bf16b, float, __nv_bfloat16)
+#endif
 
 #undef CGX_SSTEP_ENTRIES
 
+#ifdef CGX_PART_F64
 int cgx_sstep_replay_f64(void* state, const void* bmat, int s, double tol, double nearzero,
                          double maxiter, int live_only, void* stream) {
   if (s < 1 || s > cgx::kMaxS) return static_cast<int>(cudaErrorInvalidValue);
@@ -363,5 +370,6 @@ int cgx_sstep_replay_f64(void* state, const void* bmat, int s, double tol, doubl
       live_only);
   return static_cast<int>(cudaGetLastError());
 }
+#endif
 
 }  // extern "C"

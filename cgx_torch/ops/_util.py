@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import collections
 import contextlib
 from typing import Optional
 
@@ -31,17 +32,36 @@ def check_device(t: torch.Tensor, dev: torch.device, name: str) -> None:
         raise ValueError(f"{name} is on {t.device}, but the call runs on {dev}")
 
 
-KERNEL_DTYPES = {torch.float32: "_f32", torch.float64: "_f64"}
+# the C entry suffix of each vector dtype (csrc/*.cu; _bf16 only where _build binds one)
+KERNEL_DTYPES = {torch.float32: "_f32", torch.float64: "_f64", torch.bfloat16: "_bf16"}
+FLOAT_VECTORS = (torch.float32, torch.float64)  # the vector dtypes every kernel is built for
 SHARED_OPTIN = 232448  # bytes of shared memory one block may take on the H100 (227 KB)
 MIN_TILE = 1024  # rows of the smallest slab of a slab kernel: a small n takes fewer blocks
 # entries whose bands are stored in bfloat16 under float32 vectors
 BF16_BANDS_SUFFIX = "_f32_bf16b"
 
 
+def vector_dtypes(*entries: str) -> tuple:
+    """The vector dtypes that every one of the C entries ``entries`` is
+    built for: float32 and float64, and bfloat16 where each has a ``_bf16``
+    build (``cgx_torch._build``'s ``BF16_VECTORS``)."""
+    from cgx_torch._build import BF16_VECTORS
+
+    if entries and all(e in BF16_VECTORS for e in entries):
+        return (*FLOAT_VECTORS, torch.bfloat16)
+    return FLOAT_VECTORS
+
+
+def entry_suffix(vec_dtype: torch.dtype, bands_dtype: torch.dtype) -> str:
+    """The C entry suffix for these vectors and bands: the vectors' own,
+    or :data:`BF16_BANDS_SUFFIX` for bfloat16 bands under float32 vectors."""
+    return BF16_BANDS_SUFFIX if bands_dtype != vec_dtype else KERNEL_DTYPES[vec_dtype]
+
+
 def band_storage(vec_dtype: torch.dtype, bands_dtype) -> Optional[torch.dtype]:
     """The narrower band dtype a kernel is asked to stream (None for the
-    vectors' own): bfloat16 under float32 vectors is ported; anything
-    else raises."""
+    vectors' own, which includes bfloat16 bands under bfloat16 vectors):
+    bfloat16 under float32 vectors is ported; anything else raises."""
     if bands_dtype is None or bands_dtype == vec_dtype:
         return None
     if bands_dtype == torch.bfloat16 and vec_dtype == torch.float32:
@@ -49,6 +69,19 @@ def band_storage(vec_dtype: torch.dtype, bands_dtype) -> Optional[torch.dtype]:
     raise NotImplementedError(
         f"bands_dtype={bands_dtype} under {vec_dtype} vectors is not ported to cgx_torch yet: "
         "the kernels take bfloat16 bands under float32 vectors only (ROADMAP A6)")
+
+
+# launches of each build, keyed by site and C entry suffix ("dia_matvec_bf16",
+# "dia_cg_vmem2d_f32_bf16b", ...): the wrappers whose sites have a bfloat16 build
+# count here beside their ``.launches``, on the CPU as the plain version's runs
+BUILD_LAUNCHES: collections.Counter = collections.Counter()
+
+
+def count_build(site: str, vec_dtype: torch.dtype, bands_dtype: torch.dtype,
+                launches: int = 1) -> None:
+    """Add ``launches`` to the count of ``site``'s build for these vectors
+    and bands in :data:`BUILD_LAUNCHES`."""
+    BUILD_LAUNCHES[site + entry_suffix(vec_dtype, bands_dtype)] += launches
 
 
 def round_up(x: int, m: int) -> int:
@@ -83,19 +116,22 @@ def pow2_rhs_scale(b: torch.Tensor, x0: Optional[torch.Tensor] = None):
     return torch.ldexp(one, -e), torch.ldexp(one, e)
 
 
-def check_operands(fn: str, vectors: dict, scalars: dict = None) -> None:
+def check_operands(fn: str, vectors: dict, scalars: dict = None,
+                   dtypes: tuple = FLOAT_VECTORS) -> None:
     """Validate the tensors a kernel wrapper takes, before any pointer
-    reaches C: one float32/float64 dtype and one device (CPU or CUDA)
-    for all, set by the first vector; vectors 1-D, contiguous and of
-    one length; scalars with one element."""
+    reaches C: one dtype of ``dtypes`` (the vector dtypes its kernels are
+    built for, :func:`vector_dtypes`) and one device (CPU or CUDA) for
+    all, set by the first vector; vectors 1-D, contiguous and of one
+    length; scalars with one element."""
     first = None
     for name, t in {**vectors, **(scalars or {})}.items():
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{fn}: {name} must be a torch.Tensor, got {type(t)}")
         if first is None:
             first = t
-            if t.dtype not in KERNEL_DTYPES:
-                raise TypeError(f"{fn}: dtype {t.dtype} (kernels take float32/float64)")
+            if t.dtype not in dtypes:
+                names = "/".join(str(d).removeprefix("torch.") for d in dtypes)
+                raise TypeError(f"{fn}: dtype {t.dtype} (its kernels take {names})")
             if t.device.type not in ("cpu", "cuda"):
                 raise ValueError(f"{fn}: {name} is on {t.device} (cpu or cuda only)")
         if t.dtype != first.dtype:

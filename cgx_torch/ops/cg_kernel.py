@@ -3,9 +3,10 @@
 Counterpart of ``cgx/ops/cg_kernel.py``. One launch of the kernel
 (``cgx_torch/csrc/cg_kernel.cu``, whose header note gives the bound and
 the design) runs a chunk of iterations of the reference recurrence on a
-persistent cooperative grid, on float32 or float64 vectors (cgx's TPU
-kernel has float32 only). The dots sum in float64 and the scalar state,
-packed as ``[rsold, converged, k, breakdown]``, stays in float64: for
+persistent cooperative grid, on float32, float64 or bfloat16 vectors
+(cgx's TPU kernel has float32 and bfloat16). The dots sum in float64
+and the scalar state, packed as ``[rsold, converged, k, breakdown]``,
+stays in float64: for
 float32 data that is the arithmetic of ``cg_solve(...,
 dot_precision=torch.float64)``, the plain loop of
 ``solve(precision="fp32")`` (cgx's kernel keeps float32 scalars; the
@@ -41,27 +42,30 @@ import torch
 from cgx_torch._build import PARTIALS
 from cgx_torch.config import DEFAULT_TOLERANCE, NEARZERO
 from cgx_torch.ops._util import (
-    BF16_BANDS_SUFFIX,
-    KERNEL_DTYPES,
     band_storage,
     check_operands,
+    count_build,
+    entry_suffix,
     launch,
     SHARED_OPTIN,
     resolve_device,
     round_up,
     sms_of,
+    vector_dtypes,
 )
 from cgx_torch.ops.dia_spmv import _check, _offsets_arg, dia_matvec, dia_matvec_ref
 from cgx_torch.solver.cg import CGResult, as_vector
 
 LAYOUTS = ("1d", "2d")
+SITES = {"1d": "dia_cg_vmem", "2d": "dia_cg_vmem2d"}  # the cgx site each layout stands for
 _PARTIALS = 3 * PARTIALS  # the kernel's <p, Ap>, <r, r> and <r, z> partials, one per block
 
 
 RES_THREADS = 512  # kResThreads of csrc/cg_kernel.cu: one block an SM
 # rows a thread keeps in registers (x, r and Ap each), by the vectors' dtype: the
 # kernel is built for these
-RES_ROWS_PER_THREAD = {torch.float32: (4, 8, 16), torch.float64: (4, 8)}
+RES_ROWS_PER_THREAD = {torch.float32: (4, 8, 16), torch.float64: (4, 8),
+                       torch.bfloat16: (4, 8, 16)}
 RES_STATIC = 1024  # shared bytes kept for the kernel's static shared memory (the block sums)
 
 
@@ -126,8 +130,12 @@ def resident_plan(n: int, offsets: Tuple[int, ...], dtype: torch.dtype,
 
 
 def _dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """<u, v> in float64, as the kernel sums its dots."""
+    """<u, v> in float64, as the kernel sums its dots: exact products,
+    bfloat16 ones included."""
     return torch.sum(u.to(torch.float64) * v.to(torch.float64))
+
+
+_ENTRIES = ("cgx_dia_cg_chunk", "cgx_dia_cg_resident")  # B5's two designs
 
 
 def resident_state_bytes(
@@ -219,8 +227,9 @@ def dia_cg_chunk_ref(
 
 
 def _check_chunk(bands, p, x, r, scal, offsets, layout) -> Tuple[int, ...]:
-    offsets = _check("dia_cg_chunk", bands, x, offsets, bf16_bands=True)
-    check_operands("dia_cg_chunk", {"p": p, "x": x, "r": r})
+    dtypes = vector_dtypes(*_ENTRIES)
+    offsets = _check("dia_cg_chunk", bands, x, offsets, bf16_bands=True, dtypes=dtypes)
+    check_operands("dia_cg_chunk", {"p": p, "x": x, "r": r}, dtypes=dtypes)
     if layout not in LAYOUTS:
         raise ValueError(f"unknown layout {layout!r}")
     if not (isinstance(scal, torch.Tensor) and scal.shape == (4,) and scal.dtype == torch.float64
@@ -239,7 +248,7 @@ def _launch_chunk(bands, p, x, r, scal, offsets, tol, nearzero, maxiter, chunk, 
         plan = resident_plan(n, offsets, x.dtype, bands.dtype, bool(precond), sms_of(x.device))
     partials = torch.empty(_PARTIALS, dtype=torch.float64, device=x.device)
     out = torch.empty_like(scal)
-    suffix = BF16_BANDS_SUFFIX if bands.dtype == torch.bfloat16 else KERNEL_DTYPES[x.dtype]
+    suffix = entry_suffix(x.dtype, bands.dtype)
     common = (scal.data_ptr(), out.data_ptr(), n, _offsets_arg(offsets), len(offsets), d0,
               float(tol), float(torch.tensor(nearzero, dtype=x.dtype)), float(maxiter), int(chunk),
               int(precond))
@@ -284,11 +293,12 @@ def dia_cg_chunk(
     """Up to ``chunk`` CG iterations in one launch of the whole-solve
     kernel. Advances p, x and r in place and returns the new packed
     scalars ``[rsold, converged, k, breakdown]`` (a float64 (4,) tensor).
-    ``layout`` names the cgx site the call stands for and picks the
-    launch counter (``launches_bf16`` counts those with bfloat16 bands
-    again); the kernel is the same. ``bands`` are in the vectors'
-    dtype, or bfloat16 under float32 vectors. On a CUDA tensor the
-    kernel runs ``plan``'s design (default :func:`resident_plan`)."""
+    ``layout`` names the cgx site the call stands for (:data:`SITES`) and
+    picks the launch counter, in ``launches`` and by build in
+    ``BUILD_LAUNCHES``; the kernel is the same. ``bands`` are in the vectors'
+    dtype (float32, float64 or bfloat16), or bfloat16 under float32
+    vectors. On a CUDA tensor the kernel runs ``plan``'s design (default
+    :func:`resident_plan`)."""
     offsets = _check_chunk(bands, p, x, r, scal, offsets, layout)
     if x.device.type == "cpu":
         out = dia_cg_chunk_ref(bands, p, x, r, scal, offsets=offsets, tol=tol, nearzero=nearzero,
@@ -297,13 +307,11 @@ def dia_cg_chunk(
         out = _launch_chunk(bands, p, x, r, scal, offsets, tol, nearzero, maxiter, chunk, precond,
                             plan)
     dia_cg_chunk.launches[layout] += 1
-    if bands.dtype == torch.bfloat16:
-        dia_cg_chunk.launches_bf16[layout] += 1
+    count_build(SITES[layout], x.dtype, bands.dtype)
     return out
 
 
 dia_cg_chunk.launches = {layout: 0 for layout in LAYOUTS}
-dia_cg_chunk.launches_bf16 = {layout: 0 for layout in LAYOUTS}  # those with bfloat16 bands
 dia_cg_chunk.grid = None  # blocks of the last CUDA launch
 dia_cg_chunk.plan = None  # the ResidentPlan of the last CUDA launch
 
@@ -396,8 +404,8 @@ def dia_cg_solve_vmem(
 ) -> CGResult:
     """CG on a banded operator, a chunk of iterations per kernel launch.
 
-    ``op`` is a :class:`cgx_torch.DiaOperator` of float32 or float64;
-    ``b`` a tensor on ``device`` (or NumPy) of the same dtype.
+    ``op`` is a :class:`cgx_torch.DiaOperator` of float32, float64 or
+    bfloat16; ``b`` a tensor on ``device`` (or NumPy) of the same dtype.
     ``precond=True`` runs PCG with the degree-1 Neumann preconditioner
     inside the kernel (one more band pass an iteration); then ``rsold``
     holds <r, z>, not <r, r>. ``layout`` is ``"1d"`` or ``"2d"`` (cgx's

@@ -55,16 +55,17 @@ import torch
 
 from cgx_torch.config import DEFAULT_TOLERANCE, NEARZERO
 from cgx_torch.ops._util import (
-    BF16_BANDS_SUFFIX,
-    KERNEL_DTYPES,
     SHARED_OPTIN,
     band_storage,
     check_operands,
+    count_build,
+    entry_suffix,
     pow2_rhs_scale,
     resolve_device,
     round_up,
     slab_grid,
     sms_of,
+    vector_dtypes,
 )
 from cgx_torch.ops.dia_spmv import _check as _check_bands
 from cgx_torch.ops.dia_spmv import _offsets_arg, dia_matvec_ref
@@ -168,8 +169,12 @@ def pcg_plan(n: int, offsets: Tuple[int, ...], dtype: torch.dtype, sms: int) -> 
 
 
 def _dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """<u, v> in float64, as the kernels sum their dots."""
+    """<u, v> in float64, as the kernels sum their dots: exact products,
+    bfloat16 ones included."""
     return torch.sum(u.to(torch.float64) * v.to(torch.float64))
+
+
+_ENTRIES = ("cgx_cg_stream", "cgx_pcg_wave")  # one C entry a design, each with a _bf16 build
 
 
 def _nan_max(a: float, b: float) -> float:
@@ -180,7 +185,8 @@ def _nan_max(a: float, b: float) -> float:
 def _check(fn: str, bands, p, x, u, pairs, scal, offsets) -> Tuple[int, ...]:
     """Validate one launch's operands before any pointer reaches C."""
     vectors = {"p": p, "x": x} if u is None else {"p": p, "x": x, "u": u}
-    check_operands(fn, vectors)
+    dtypes = vector_dtypes(*_ENTRIES)
+    check_operands(fn, vectors, dtypes=dtypes)
     n = x.shape[0]
     for name, t in pairs.items():
         if not (isinstance(t, torch.Tensor) and t.dtype == x.dtype and t.device == x.device
@@ -191,7 +197,7 @@ def _check(fn: str, bands, p, x, u, pairs, scal, offsets) -> Tuple[int, ...]:
             and scal.dtype == torch.float64 and scal.device == x.device and scal.is_contiguous()):
         raise ValueError(f"{fn}: scal must be a contiguous float64 ({_SCALARS},) tensor on x's "
                          "device")
-    return _check_bands(fn, bands, x, offsets, bf16_bands=True)
+    return _check_bands(fn, bands, x, offsets, bf16_bands=True, dtypes=dtypes)
 
 
 class Step(NamedTuple):
@@ -265,10 +271,12 @@ def _iteration_ref(bands, p, x, u, r, w, s, scal, *, offsets, tol, nearzero, max
     new_scalars(scal, st, gamma_new, delta_new, rr_new, tol=tol)
 
 
-def _count(fn, bands, launches: int = 1) -> None:
+def _count(fn, bands, x, launches: int = 1) -> None:
     """Count the kernel launches one call stands for: one, or the PCG
-    plan's one or three (csrc/cg_stream.cu)."""
+    plan's one or three (csrc/cg_stream.cu), in ``fn.launches`` and by
+    build in ``BUILD_LAUNCHES``."""
     fn.launches += launches
+    count_build(fn.__name__.removeprefix("_"), x.dtype, bands.dtype, launches)
     fn.bands_dtype = bands.dtype
 
 
@@ -283,7 +291,7 @@ def _launcher(fn, bands, p, x, u, r, w, s, scal, offsets, tol, nearzero, maxiter
 
     n = x.shape[0]
     work = workspace(x.device, n) if work is None else work
-    suffix = BF16_BANDS_SUFFIX if bands.dtype == torch.bfloat16 else KERNEL_DTYPES[x.dtype]
+    suffix = entry_suffix(x.dtype, bands.dtype)
     lib = _build.load()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     pairs = [t.data_ptr() for t in (r[0], r[1], w[0], w[1], s[0], s[1])]
@@ -317,7 +325,7 @@ def _launcher(fn, bands, p, x, u, r, w, s, scal, offsets, tol, nearzero, maxiter
         fn.grid = grid.value
         if plan is not None:
             fn.design, fn.plan = plan.design, plan
-        _count(fn, bands, launches)
+        _count(fn, bands, x, launches)
 
     # the tensors whose addresses args holds live as long as the call
     go.operands = (bands, p, x, u, c, r, w, s, scal, work)
@@ -340,7 +348,7 @@ def _stream_iteration(bands, p, x, r, w, s, scal, *, offsets: Sequence[int], tol
     if x.device.type == "cpu":
         _iteration_ref(bands, p, x, None, r, w, s, scal, offsets=offsets, tol=tol,
                        nearzero=nearzero, maxiter=maxiter)
-        _count(_stream_iteration, bands)
+        _count(_stream_iteration, bands, x)
     else:
         _launch(_stream_iteration, bands, p, x, None, r, w, s, scal, offsets, tol, nearzero,
                 maxiter, work)
@@ -359,7 +367,7 @@ def _stream_iteration_stacked(bands, p, x, rws, scal, *, offsets: Sequence[int],
     if x.device.type == "cpu":
         _iteration_ref(bands, p, x, None, r, w, s, scal, offsets=offsets, tol=tol,
                        nearzero=nearzero, maxiter=maxiter)
-        _count(_stream_iteration_stacked, bands)
+        _count(_stream_iteration_stacked, bands, x)
     else:
         _launch(_stream_iteration_stacked, bands, p, x, None, r, w, s, scal, offsets, tol,
                 nearzero, maxiter, work)
@@ -379,7 +387,7 @@ def _stream_iteration_pcg(bands, p, x, u, r, w, s, scal, *, offsets: Sequence[in
                        nearzero=nearzero, maxiter=maxiter)
         if plan is None:  # the design is the same on any number of SMs
             plan = pcg_plan(x.shape[0], offsets, x.dtype, 1)
-        _count(_stream_iteration_pcg, bands, plan.launches)
+        _count(_stream_iteration_pcg, bands, x, plan.launches)
     else:
         _launch(_stream_iteration_pcg, bands, p, x, u, r, w, s, scal, offsets, tol, nearzero,
                 maxiter, work, plan)
@@ -581,8 +589,8 @@ def _validate(op, b, rows, cols, dev):
     b = as_vector(b, dev, "b")
     if op.bands.dtype != b.dtype:
         raise TypeError(f"bands are {op.bands.dtype} but b is {b.dtype}")
-    if b.dtype not in KERNEL_DTYPES:
-        raise TypeError(f"the streaming kernels take float32 or float64, not {b.dtype}")
+    if b.dtype not in vector_dtypes(*_ENTRIES):
+        raise TypeError(f"the streaming kernels take float32, float64 or bfloat16, not {b.dtype}")
     return b
 
 
@@ -618,8 +626,8 @@ def dia_cg_solve_stream(
     streaming kernel per iteration: the path of banded solves whose state
     is above the resident budget.
 
-    ``op`` is a :class:`cgx_torch.DiaOperator` of float32 or float64 and
-    ``b`` a tensor on ``device`` (or NumPy) of the same dtype. ``layout``
+    ``op`` is a :class:`cgx_torch.DiaOperator` of float32, float64 or
+    bfloat16 and ``b`` a tensor on ``device`` (or NumPy) of the same dtype. ``layout``
     is ``"split"`` or ``"stacked"`` (cgx's two sites; the same kernel,
     bitwise the same result). ``bands_dtype`` is None, ``torch.bfloat16``
     (the solve then runs on the rounded operator) or ``"auto"`` (bf16

@@ -25,7 +25,9 @@ import torch
 import torch.nn.functional as F
 
 from cgx_torch._build import PARTIALS
-from cgx_torch.ops._util import check_operands, launch, round_up, sms_of
+from cgx_torch.ops._util import (
+    FLOAT_VECTORS, check_operands, count_build, launch, round_up, sms_of, vector_dtypes
+)
 
 MAX_DIAGS = 16  # kMaxDiags of csrc/dia_row.cuh
 LANES = 128  # cgx's lane width: its streaming kernels' block and cols are multiples of it
@@ -35,7 +37,7 @@ STREAM_ROWS = 4  # kStreamRows: consecutive rows a thread owns, 16 bytes of floa
 STREAM_MIRROR = 4  # kMirror: ring values mirrored past its end
 SM_SHARED = 233472  # shared memory of an H100 SM (228 KB), split among its blocks
 # blocks an SM: each holds 4 band values a diagonal a thread in registers
-STREAM_BLOCKS_PER_SM = {torch.float32: 4, torch.float64: 2}
+STREAM_BLOCKS_PER_SM = {torch.float32: 4, torch.float64: 2, torch.bfloat16: 4}
 
 
 def dia_matvec_ref(
@@ -61,10 +63,12 @@ def dia_matvec_dot_ref(
     return y, torch.sum(x * y)
 
 
-def _check(fn: str, bands, x, offsets, *, bf16_bands: bool = False) -> Tuple[int, ...]:
+def _check(fn: str, bands, x, offsets, *, bf16_bands: bool = False,
+           dtypes: tuple = FLOAT_VECTORS) -> Tuple[int, ...]:
     """Validate bands, x and offsets; ``bf16_bands`` also accepts
-    bfloat16 bands under float32 x (the kernels that stream them)."""
-    check_operands(fn, {"x": x})
+    bfloat16 bands under float32 x (the kernels that stream them);
+    ``dtypes`` are x's dtypes the caller's kernels are built for."""
+    check_operands(fn, {"x": x}, dtypes=dtypes)
     if not isinstance(bands, torch.Tensor) or bands.dim() != 2:
         raise ValueError(f"{fn}: bands must be a 2-D (ndiag, n) tensor")
     narrow = bf16_bands and bands.dtype == torch.bfloat16 and x.dtype == torch.float32
@@ -126,8 +130,11 @@ def dia_matvec(
     """``y = A x`` for banded A given as (ndiag, n) bands and offsets.
     On a CUDA tensor it runs the design of ``plan`` (default
     :func:`matvec_plan`; pass :data:`GRID_PLAN` to force the grid-stride
-    kernel), recorded in ``dia_matvec.plan``."""
-    offsets = _check("dia_matvec", bands, x, offsets)
+    kernel), recorded in ``dia_matvec.plan``. Both designs are also built
+    on bfloat16 bands and vectors, each product and sum rounded to
+    bfloat16 as in :func:`dia_matvec_ref` (B5's Neumann set-up runs it)."""
+    offsets = _check("dia_matvec", bands, x, offsets,
+                     dtypes=vector_dtypes("cgx_dia_matvec", "cgx_dia_matvec_stream"))
     if x.device.type == "cpu":
         y = dia_matvec_ref(bands, x, offsets=offsets)
     else:
@@ -143,6 +150,7 @@ def dia_matvec(
                    x.shape[0], _offsets_arg(offsets), len(offsets))
         dia_matvec.plan = plan
     dia_matvec.launches += 1
+    count_build("dia_matvec", x.dtype, bands.dtype)
     return y
 
 

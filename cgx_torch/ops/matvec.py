@@ -16,6 +16,12 @@ counts its runs in ``.launches``. Both kernels run on the persistent
 grid of :func:`dense_plan`, which the CPU tests hold; ``dense_matvec_dot``
 is ``dense_matvec``'s kernel with a dot epilogue, so its ``y`` is
 bitwise ``dense_matvec``'s.
+
+bfloat16 ``a`` and ``x`` (the CLI's ``--precision bf16`` with a dense
+``true``/``--pallas`` run): a row is summed in float and ``y`` rounds to
+bfloat16 once (cgx's TPU kernel rounds after each column tile); the
+dot's products ``x * y`` round to bfloat16 and are summed in float, so
+``dense_matvec_dot`` returns a float32 dot.
 """
 
 from __future__ import annotations
@@ -25,7 +31,9 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from cgx_torch.ops._util import SHARED_OPTIN, check_operands, f32_exact, launch
+from cgx_torch.ops._util import (
+    SHARED_OPTIN, check_operands, count_build, f32_exact, launch, vector_dtypes
+)
 
 DENSE_THREADS = 512  # kDenseThreads of csrc/matvec.cu: one block an SM
 DENSE_MAX_ROWS = 4096  # rows a block: their sums leave room for x (more blocks than SMs past it)
@@ -53,11 +61,20 @@ def _align16(nbytes: int) -> int:
     return -(-nbytes // 16) * 16
 
 
-def dense_shared(chunk_cols: int, block_cols: int, rows: int, item: int, staged: bool) -> int:
-    """csrc/matvec.cu dense_shared: x's chunk, the tile sums, the running sums."""
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype the kernels sum a row and the dot in: float32 for
+    bfloat16 vectors, else the vectors' own (csrc/bf16.cuh Acc)."""
+    return torch.float32 if dtype == torch.bfloat16 else dtype
+
+
+def dense_shared(chunk_cols: int, block_cols: int, rows: int, item: int, staged: bool,
+                 acc_item: int = None) -> int:
+    """csrc/matvec.cu dense_shared: x's chunk (``item`` bytes a value),
+    the tile sums and the running sums (``acc_item``, default ``item``)."""
+    acc_item = item if acc_item is None else acc_item
     tiles = -(-chunk_cols // block_cols)
-    return (_align16(chunk_cols * item) if staged else 0) + _align16(rows * tiles * item) + \
-        rows * item
+    return (_align16(chunk_cols * item) if staged else 0) + _align16(rows * tiles * acc_item) + \
+        rows * acc_item
 
 
 @functools.lru_cache(maxsize=64)  # the CG loop asks for the same plan every iteration
@@ -71,16 +88,17 @@ def dense_plan(n_rows: int, n_cols: int, block_cols: int, dtype: torch.dtype, sm
     N = 10,000 with 128-column tiles: 80,000 bytes of x and 48,032 of
     tile sums; at 40,000, chunks of 66 tiles (8,448 columns)."""
     item = torch.finfo(dtype).bits // 8
+    acc = torch.finfo(acc_dtype(dtype)).bits // 8
     aligned = bool(pointers_aligned and n_cols * item % 16 == 0 and block_cols * item % 16 == 0)
     rows = min(DENSE_MAX_ROWS, max(1, -(-n_rows // max(1, min(sms, n_rows)))))
     grid = max(1, -(-n_rows // rows))  # every block has rows
     tiles = max(1, -(-n_cols // block_cols))
 
     def widest(staged: bool) -> int:  # tiles a chunk may hold
-        per_tile = (block_cols * item if staged else 0) + rows * item
-        t = min(tiles, max(0, (SHARED_OPTIN - rows * item - 32) // per_tile))
+        per_tile = (block_cols * item if staged else 0) + rows * acc
+        t = min(tiles, max(0, (SHARED_OPTIN - rows * acc - 32) // per_tile))
         while t > 0 and dense_shared(min(t * block_cols, max(n_cols, 1)), block_cols, rows, item,
-                                     staged) > SHARED_OPTIN:
+                                     staged, acc) > SHARED_OPTIN:
             t -= 1
         return t
 
@@ -91,7 +109,7 @@ def dense_plan(n_rows: int, n_cols: int, block_cols: int, dtype: torch.dtype, sm
         if t == 0:
             raise ValueError(f"dense_matvec: {rows} rows a block do not fit its shared memory")
     chunk = max(n_cols, 1) if t == tiles else t * block_cols
-    shared = dense_shared(chunk, block_cols, rows, item, staging != "global")
+    shared = dense_shared(chunk, block_cols, rows, item, staging != "global", acc)
     return DensePlan(aligned, staging, chunk, shared, grid, rows)
 
 
@@ -101,12 +119,15 @@ def dense_matvec_ref(
     """Plain ``y = A x``, accumulated over column tiles in index order
     as the TPU kernel does (``matvec.py:54-66``); each tile's product is
     one ``torch.matmul`` at full float32. ``block_rows`` does not change
-    ``y``."""
-    y = torch.zeros(a.shape[0], dtype=a.dtype, device=a.device)
+    ``y``. bfloat16 ``a`` and ``x`` are summed in float32 and ``y``
+    rounds once, as the kernel does."""
+    acc = acc_dtype(a.dtype)
+    y = torch.zeros(a.shape[0], dtype=acc, device=a.device)
     with f32_exact():
         for c0 in range(0, a.shape[1], block_cols):
-            y = y + torch.matmul(a[:, c0 : c0 + block_cols], x[c0 : c0 + block_cols])
-    return y
+            cols = slice(c0, c0 + block_cols)
+            y = y + torch.matmul(a[:, cols].to(acc), x[cols].to(acc))
+    return y.to(a.dtype)
 
 
 def dense_matvec_dot_ref(
@@ -117,15 +138,16 @@ def dense_matvec_dot_ref(
     type. Rows past ``len(x)`` of a tall matrix add nothing."""
     y = dense_matvec_ref(a, x, block_rows=block_rows, block_cols=block_cols)
     m = min(a.shape[0], a.shape[1])
-    prods = x[:m] * y[:m]
-    dot = torch.zeros((), dtype=a.dtype, device=a.device)
+    acc = acc_dtype(a.dtype)
+    prods = (x[:m] * y[:m]).to(acc)  # bfloat16 products round before they are summed
+    dot = torch.zeros((), dtype=acc, device=a.device)
     for r0 in range(0, m, block_rows):
         dot = dot + torch.sum(prods[r0 : r0 + block_rows])
     return y, dot
 
 
 def _check(fn: str, a, x, block_rows, block_cols) -> Tuple[int, int]:
-    check_operands(fn, {"x": x})
+    check_operands(fn, {"x": x}, dtypes=vector_dtypes(f"cgx_{fn}"))
     if not isinstance(a, torch.Tensor) or a.dim() != 2:
         raise ValueError(f"{fn}: a must be a 2-D (n_rows, n_cols) tensor")
     if a.dtype != x.dtype or a.device != x.device:
@@ -171,6 +193,7 @@ def dense_matvec(
                *_plan_args(plan, bc))
         dense_matvec.plan = plan
     dense_matvec.launches += 1
+    count_build("dense_matvec", x.dtype, a.dtype)
     return y
 
 
@@ -186,9 +209,10 @@ def dense_matvec_dot(
     else:
         n_rows, n_cols = a.shape
         y = torch.empty(n_rows, dtype=x.dtype, device=x.device)
-        dot = torch.empty((), dtype=x.dtype, device=x.device)
+        dot = torch.empty((), dtype=acc_dtype(x.dtype), device=x.device)
         # per-row products, then one sum per row tile
-        scratch = torch.empty(n_rows + -(-n_rows // br), dtype=x.dtype, device=x.device)
+        scratch = torch.empty(n_rows + -(-n_rows // br), dtype=acc_dtype(x.dtype),
+                              device=x.device)
         ticket = torch.zeros(1, dtype=torch.int32, device=x.device)
         plan = _plan_of(a, x, bc)
         launch("cgx_dense_matvec_dot", x, a.data_ptr(), x.data_ptr(), y.data_ptr(), n_rows,
@@ -196,6 +220,7 @@ def dense_matvec_dot(
                ticket.data_ptr(), dot.data_ptr(), br)
         dense_matvec_dot.plan = plan
     dense_matvec_dot.launches += 1
+    count_build("dense_matvec_dot", x.dtype, a.dtype)
     return y, dot
 
 

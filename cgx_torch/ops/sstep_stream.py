@@ -55,8 +55,8 @@ import torch
 
 from cgx_torch.config import DEFAULT_TOLERANCE, NEARZERO
 from cgx_torch.ops._util import (
-    BF16_BANDS_SUFFIX,
-    KERNEL_DTYPES,
+    FLOAT_VECTORS,
+    entry_suffix,
     launch,
     pow2_rhs_scale,
     resolve_device,
@@ -221,7 +221,7 @@ def _check_block(fn: str, bands, p, r, x, state, bmat, offsets, s, shifts) -> Tu
 
 
 def _suffix(bands, like) -> str:
-    return BF16_BANDS_SUFFIX if bands.dtype == torch.bfloat16 else KERNEL_DTYPES[like.dtype]
+    return entry_suffix(like.dtype, bands.dtype)
 
 
 def _sstep_gram(bands, p, r, state, bmat, *, offsets: Sequence[int], s: int, theta: float,
@@ -431,7 +431,7 @@ def dia_sstep_stream_solve(
     b = as_vector(b, dev, "b")
     if op.bands.dtype != b.dtype:
         raise TypeError(f"bands are {op.bands.dtype} but b is {b.dtype}")
-    if b.dtype not in KERNEL_DTYPES:
+    if b.dtype not in FLOAT_VECTORS:
         raise TypeError(f"the s-step kernels take float32 or float64, not {b.dtype}")
     n = b.shape[0]
     maxiter = n if maxiter is None else int(maxiter)

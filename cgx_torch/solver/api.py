@@ -11,7 +11,7 @@ device and one right-hand side).
 Dispatch (cgx api.py:322-403):
 - host containers, ndarrays and 2-D tensors become their natural
   operator (:func:`cgx_torch.solver.operators.as_operator`);
-- ``use_pallas`` + banded + fp32 + ``precond in (None, "neumann")`` + no
+- ``use_pallas`` + banded + fp32 or bf16 + ``precond in (None, "neumann")`` + no
   x0 runs the whole-solve kernel (:func:`cgx_torch.ops.cg_kernel.
   dia_cg_solve_vmem`, ``layout="2d"``) while its state fits
   :data:`cgx_torch.config.RESIDENT_BUDGET_BYTES`. Above it
@@ -60,8 +60,13 @@ Dispatch (cgx api.py:322-403):
   ``block_jacobi`` (``precond_block_size``, default min(32, N)),
   ``chebyshev`` (degree 3 on Lanczos bounds) or ``mg`` (a V-cycle, with
   ``mg_smoother`` and ``mg_cycle_precision``);
+- ``precision="bf16"`` keeps the vectors in bfloat16 with float64 dots
+  on one device (the kernel routes on their bfloat16 builds); on a mesh
+  it solves b in float32, as cgx does; multi-RHS solves refuse it, as
+  cgx's do;
 - what is not ported yet raises ``NotImplementedError`` naming its
-  ROADMAP item, rather than running some other path.
+  ROADMAP item (the fused s-step on bfloat16 vectors, A6), rather than
+  running some other path.
 """
 
 from __future__ import annotations
@@ -91,12 +96,8 @@ from cgx_torch.solver.precond import block_jacobi, chebyshev_poly, jacobi, neuma
 from cgx_torch.solver.refine import iterative_refinement, refine_fixed_sweeps, refine_pcg_sweeps_tw
 from cgx_torch.solver.sstep import sstep_cg_solve
 
-_DTYPES = {"fp64": torch.float64, "fp32": torch.float32}
-_UNPORTED_PRECISION = {"bf16": "bf16 vectors (ROADMAP A6)"}
-
-
-def _unported(what: str):
-    return NotImplementedError(f"{what} is not ported to cgx_torch yet")
+_DTYPES = {"fp64": torch.float64, "fp32": torch.float32, "bf16": torch.bfloat16}
+_MULTI_RHS_PRECISIONS = ("fp64", "fp32")
 
 
 def _build_precond(cfg: SolveConfig, op):
@@ -311,11 +312,11 @@ def _solve_sharded(mat, b, cfg: SolveConfig, method: str, dev: torch.device, *, 
     if cfg.precision == "mixed":
         return _solve_mixed(mat, b, cfg, method, dev, sharded=True, n_devices=n_devices,
                             mesh=mesh, strategy=strategy)
-    if cfg.precision in _UNPORTED_PRECISION:
-        raise _unported(f"precision={cfg.precision!r}: {_UNPORTED_PRECISION[cfg.precision]}")
     if cfg.precision not in _DTYPES:
         raise ValueError(f"unknown precision {cfg.precision!r}")
-    b_np = (b.detach().cpu().numpy() if isinstance(b, torch.Tensor) else np.asarray(b))
+    # a bf16 request runs in float32 on the mesh, as cgx's does (api.py:233-234, :248)
+    b_np = (b.detach().cpu().to(torch.float64).numpy() if isinstance(b, torch.Tensor)
+            else np.asarray(b))
     b_np = b_np.astype(np.float64 if cfg.precision == "fp64" else np.float32)
     if x0 is not None:
         x0 = x0.detach().cpu().numpy() if isinstance(x0, torch.Tensor) else np.asarray(x0)
@@ -371,7 +372,7 @@ def _default_maxiter(cfg: SolveConfig, method: str, n: int) -> int:
 
 
 def _multi_rhs_dtype(cfg: SolveConfig) -> torch.dtype:
-    if cfg.precision not in _DTYPES:
+    if cfg.precision not in _MULTI_RHS_PRECISIONS:
         raise ValueError(f"multi-RHS solves support fp64/fp32, not {cfg.precision!r}")
     return _DTYPES[cfg.precision]
 
@@ -567,14 +568,12 @@ def solve(
                               strategy=strategy, x0=x0)
     if cfg.precision == "mixed":
         return _solve_mixed(mat, b, cfg, method, dev)
-    if cfg.precision in _UNPORTED_PRECISION:
-        raise _unported(f"precision={cfg.precision!r}: {_UNPORTED_PRECISION[cfg.precision]}")
     if cfg.precision not in _DTYPES:
         raise ValueError(f"unknown precision {cfg.precision!r}")
     if method not in ("reference", "pipelined", "gvpipe", "chebyshev", "sstep"):
         raise ValueError(f"unknown method {method!r}")
     dtype = _DTYPES[cfg.precision]
-    # fp32 vectors with fp64 dots, as cgx does whenever x64 is on
+    # fp32 and bf16 vectors with fp64 dots, as cgx does whenever x64 is on
     dot_precision = torch.float64 if dtype != torch.float64 else None
 
     op = _maybe_ozaki(_operator_of(mat, dtype, dev), cfg)
@@ -664,8 +663,6 @@ def solve_sequence(
     sharded route runs the same sequence (:func:`_sequence_sharded`)."""
     cfg = config or SolveConfig()
     dev = resolve_device(device)
-    if cfg.precision in _UNPORTED_PRECISION:
-        raise _unported(f"precision={cfg.precision!r}: {_UNPORTED_PRECISION[cfg.precision]}")
     if cfg.precision not in _DTYPES:
         raise ValueError(f"unknown precision {cfg.precision!r}")
     if cfg.method != "reference":
@@ -674,14 +671,17 @@ def solve_sequence(
             f"deflated PCG remainder); method={cfg.method!r} is not supported here - solve "
             "those systems individually via cgx_torch.solve")
     dtype = _DTYPES[cfg.precision]
-    bs = [as_vector(b, dev, "b", dtype) for b in bs]
+    sharded = (n_devices is not None and n_devices > 1) or mesh is not None
+    # the mesh solves a bf16 request's b as float32, unrounded (cgx api.py:935)
+    bs = [as_vector(b, dev, "b", torch.float32 if sharded and dtype == torch.bfloat16 else dtype)
+          for b in bs]
     if not bs:
         return []
     varying = isinstance(mat, (list, tuple))
     mats = list(mat) if varying else [mat] * len(bs)
     if len(mats) != len(bs):
         raise ValueError(f"got {len(mats)} matrices for {len(bs)} right-hand sides")
-    if (n_devices is not None and n_devices > 1) or mesh is not None:
+    if sharded:
         return _sequence_sharded(mats, bs, cfg, varying, k=k, window=window,
                                  warm_start=warm_start, n_devices=n_devices, mesh=mesh,
                                  strategy=strategy, dev=dev)

@@ -211,6 +211,18 @@ def spectral_bounds(
     return lmin, lmax
 
 
+def _host_scalar(dtype: torch.dtype) -> Callable:
+    """A host scalar of ``dtype`` whose arithmetic rounds as cgx's device
+    rounds it in that dtype (cgx chebyshev.py:263-301, :365-367): a NumPy
+    scalar for float64 and float32, a 0-d CPU tensor for bfloat16, which
+    NumPy does not have."""
+    if dtype == torch.float64:
+        return np.float64
+    if dtype == torch.bfloat16:
+        return lambda v: torch.tensor(v, dtype=torch.bfloat16)
+    return np.float32
+
+
 def cheby_loop(
     matvec: Callable,
     b: torch.Tensor,
@@ -235,7 +247,7 @@ def cheby_loop(
     if dot is None:
         dot = vdot
     dev = b.device
-    t = np.float64 if b.dtype == torch.float64 else np.float32
+    t = _host_scalar(b.dtype)
     # the scalars in b's dtype, rounded as cgx's device rounds them
     lo, hi, two, unit = t(lmin), t(lmax), t(2.0), t(1.0)
     theta = (hi + lo) / two
@@ -247,7 +259,7 @@ def cheby_loop(
     x = x0
     # a true division (a CUDA tensor divided by a host scalar is multiplied
     # by its reciprocal instead)
-    p = r / torch.tensor(theta, dtype=b.dtype, device=dev)
+    p = r / torch.tensor(float(theta), dtype=b.dtype, device=dev)
     rho_old = unit / sigma1
     k = 0
     if not bool(conv):

@@ -313,8 +313,9 @@ def cg_solve_harvest(
             torch.tensor(nearzero, dtype=b.dtype, device=dev), maxiter=maxiter, window=window)
     steps = min(int(res.iterations) + 1, window)
     try:
-        w = _ritz_from_cg_window(win[:steps].cpu().numpy(), av.cpu().numpy(),
-                                 bv.cpu().numpy(), steps, k, ritz_tol)
+        # float64 on the host, as the Ritz step takes them (NumPy has no bfloat16)
+        w = _ritz_from_cg_window(*(t.to("cpu", torch.float64).numpy()
+                                   for t in (win[:steps], av, bv)), steps, k, ritz_tol)
     except ValueError:
         if strict:
             raise

@@ -59,15 +59,19 @@ def chebyshev_poly(matvec: Callable, lmin: float, lmax: float, degree: int = 3) 
     sigma1 = theta / delta
 
     def apply(r: torch.Tensor) -> torch.Tensor:
+        # bfloat16 vectors take each host scalar rounded to bfloat16 first, as
+        # cgx's weakly typed Python scalars are; float32 and float64 as before
+        s = (lambda v: torch.tensor(v, dtype=r.dtype, device=r.device)) \
+            if r.dtype == torch.bfloat16 else (lambda v: v)
         z = torch.zeros_like(r)
         res = r
-        p = res / theta
+        p = res / s(theta)
         rho_old = 1.0 / sigma1
         for _ in range(degree):
             z = z + p
             res = res - matvec(p)
             rho = 1.0 / (2.0 * sigma1 - rho_old)
-            p = (rho * rho_old) * p + (2.0 * rho / delta) * res
+            p = s(rho * rho_old) * p + s(2.0 * rho / delta) * res
             rho_old = rho
         return z
 

@@ -410,6 +410,13 @@ def sstep_cg_solve(
     if replace_every is None:
         replace_every = 1 if s > 8 else 0
     b = as_vector(b, dev, "b")
+    if b.dtype == torch.bfloat16:
+        if powers == "fused":
+            raise NotImplementedError(
+                "powers='fused' on bfloat16 vectors is not ported to cgx_torch yet: kernels "
+                "B10 have no bfloat16 build (ROADMAP A6)")
+        raise TypeError(f"powers={powers!r}: cgx's s-step loop does not carry bfloat16 vectors "
+                        "(its loop state changes dtype); use precision='fp32'")
     n = b.shape[0]
     maxiter = n if maxiter is None else int(maxiter)
     x0 = torch.zeros_like(b) if x0 is None else as_vector(x0, dev, "x0", b.dtype)

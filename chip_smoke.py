@@ -228,11 +228,34 @@ Phases, one JSON object per line each:
     10,240,000: block MG-PCG through solve(B, mesh=) with 8 columns, fp64,
     fp32 cycle (k at most one above phase 42's MG, every column below
     MG's gate, one cycle of width 8 an iteration, the build apart);
-    sharded_cg_solve_batched on make_mesh2d(1, 1), fp32, 8 seeded columns,
+    sharded_cg_solve_batched on make_mesh2d(1, 1), fp32, 4 seeded columns,
     pipelined (each column's k within 2% of the single-device batched
     reference loop with the same dots); solve_sequence(mesh=), fp32, k =
-    8 (the harvest's k within 2% of that plain loop's, the deflated solves
-    within a tenth, B8 on every iteration); each bitwise on capped runs.
+    8, on b0 and one column (the harvest's k within 2% of that plain
+    loop's, the deflated solve within a tenth, B8 on every iteration);
+    each bitwise on capped runs;
+44. bf16 CLI (after the fp32 CLI phase): the CUDA grammar on
+    lap2D_5pt_n100.mtx with `true` and --precision bf16 at 5e-2 ||b||, B3's
+    bfloat16 build on every iteration, float32 dots, k within 2% of the
+    plain bfloat16 dense loop's, the [STEP k] line and the CSV row;
+45. bf16 kernels (after the resident path): each bfloat16-vector build
+    bitwise against its plain version on seeded inputs (B1's dia_matvec in
+    both designs at N = 1e6 and 10,240,000; B5 in both designs at N = 1e6,
+    with and without Neumann, 1 and 64 iterations; B4, B7 and B6 in both
+    designs at N = 10,240,000, 1 and 32 launches; B3's two entries at the
+    dense phase's three shapes), with ms, the bound at 2-byte words, the
+    plain version's ms and torch.mv in bfloat16 where it runs;
+46. bf16 resident: solve(lap2d_fd(1000), bf16, use_pallas) through B5,
+    without and with Neumann (its set-up through B1), twice each, k within
+    2% of the plain reference loop with float64 dots, and layout="1d";
+47. bf16 main: solve(lap2d_fd(3200), bf16, use_pallas, 5e-2 ||b||, maxiter
+    20000) through B4, and with precond="neumann" through B6, k within 2%
+    of the plain bfloat16 pipelined loop with float64 dots, the bitwise
+    repeat on 256 capped iterations, us an iteration against the bound,
+    the idle share; the stacked layout (B7) bitwise the split solve;
+48. bf16 mesh (inside phase 25's NCCL group): solve and solve_sequence
+    with precision="bf16" and mesh= on lap2d_fd(256): a float32 x, bitwise
+    the fp32 request's.
 
 The CLI phases call cgx_torch.cli.main.run, the body of the CLI's main,
 in this process. Then a "kernels" line for the ported kernels (every
@@ -251,6 +274,7 @@ import io
 import json
 import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -309,7 +333,7 @@ from cgx_torch.mats.generators import (
 )
 from cgx_torch.ops import axpy, cg_kernel, cg_stream, dia_powers, dia_spmv, matvec, ozaki
 from cgx_torch.ops import sstep_stream as ss
-from cgx_torch.ops._util import f32_exact
+from cgx_torch.ops._util import BF16_BANDS_SUFFIX, BUILD_LAUNCHES, f32_exact
 from cgx_torch.ops.dd import two_prod, two_sum
 from cgx_torch.solver import api, blockcg
 from cgx_torch.solver.chebyshev import (
@@ -380,16 +404,24 @@ SSTEP_PROFILE_BLOCKS = 64
 # both stall at 8.45e-11, so the 1e-11 of the N = 1e6 phases is out of reach
 MIXED_RTOL = 2e-10
 HALO_SHARDS = 4  # the halo phase's cut of lap2d_fd(GRID): 2,560,000 rows a shard
+# The longer sharded solves (s-step, mixed refinement, the 2-D batched solve and
+# the sequence) run on lap2d_fd(SHARDED_GRID): N = 2,560,000, a shard of
+# lap2d_fd(GRID) on HALO_SHARDS ranks, still at least the STREAM_LOCAL_MIN_ELEMS
+# for which "auto" takes B8. Cut from GRID for the script's time: one NCCL rank
+# takes about 2 ms an iteration on the host either way, and k halves with the grid.
+SHARDED_GRID = 1600
 SHARDED_POWERS = ("fused", "off", "deephalo")  # the sharded s-step routes
 GENERIC_GRID = 48  # lap3d_fd(48): N = 110,592, 7 diagonals, reach 2304
 
-# (name substring, HBM bytes/s, float32 FLOP/s, float64 FLOP/s) from
-# NVIDIA's data sheets, dense, without tensor cores; first match wins.
+# (name substring, HBM bytes/s, float32 FLOP/s, float64 FLOP/s, bfloat16 FLOP/s)
+# from NVIDIA's data sheets, dense, without tensor cores; first match wins. The
+# bfloat16 rate outside the tensor cores is twice the float32 one (two values a
+# lane: 133.8 TFLOP/s on the H100 SXM in NVIDIA's H100 architecture paper).
 CARDS = [
-    ("H200", 4.8e12, 67e12, 34e12),
-    ("H100 NVL", 3.9e12, 60e12, 30e12),
-    ("H100 PCIe", 2.0e12, 51e12, 26e12),
-    ("H100", 3.35e12, 67e12, 34e12),  # SXM
+    ("H200", 4.8e12, 67e12, 34e12, 134e12),
+    ("H100 NVL", 3.9e12, 60e12, 30e12, 120e12),
+    ("H100 PCIe", 2.0e12, 51e12, 26e12, 102e12),
+    ("H100", 3.35e12, 67e12, 34e12, 134e12),  # SXM
 ]
 
 # tests/test_golden.py FLAGSHIP: first 8 recursive residuals, fp64, tol 1e-10
@@ -432,6 +464,18 @@ KERNELS = {
     "dia_matvec_stream": ("cgx_torch/csrc/dia_stream.cu", "cgx/ops/dia_spmv.py:192"),
     "dia_matvec_stream2d_planes": ("cgx_torch/csrc/dia_stream.cu", "cgx/ops/dia_spmv.py:354"),
 }
+# the bfloat16-vector builds (ROADMAP A6, first part), a row each in the kernels line
+BF16_KERNELS = {
+    "dia_matvec_bf16": ("cgx_torch/csrc/dia_stream.cu", "cgx/ops/dia_spmv.py:91"),
+    "dia_cg_vmem_bf16": ("cgx_torch/csrc/cg_kernel.cu", "cgx/ops/cg_kernel.py:245"),
+    "dia_cg_vmem2d_bf16": ("cgx_torch/csrc/cg_kernel.cu", "cgx/ops/cg_kernel.py:479"),
+    "stream_iteration_bf16": ("cgx_torch/csrc/cg_stream.cu", "cgx/ops/cg_stream.py:404"),
+    "stream_iteration_stacked_bf16": ("cgx_torch/csrc/cg_stream.cu", "cgx/ops/cg_stream.py:930"),
+    "stream_iteration_pcg_bf16": ("cgx_torch/csrc/cg_stream.cu", "cgx/ops/cg_stream.py:1203"),
+    "dense_matvec_bf16": ("cgx_torch/csrc/matvec.cu", "cgx/ops/matvec.py:88"),
+    "dense_matvec_dot_bf16": ("cgx_torch/csrc/matvec.cu", "cgx/ops/matvec.py:163"),
+}
+KERNELS.update(BF16_KERNELS)
 NOT_PORTED = []  # every pallas_call site of cgx has its kernel
 SSTEP_SITES = {
     "dia_sstep_basis_planes": dia_powers.dia_sstep_basis_planes,
@@ -449,6 +493,20 @@ STREAM_SITES = {
     "stream_iteration_pcg": cg_stream._stream_iteration_pcg,
 }
 THREE_KERNEL = ("dia_matvec", "dia_matvec_dot", "fused_update_rs", "fused_axpby")
+# rows read from the wrappers' counts by build (BUILD_LAUNCHES): the row, and the
+# keys of the builds it sums; the bf16 rows' key is their name
+FLOAT_BUILDS = ("_f32", "_f64", BF16_BANDS_SUFFIX)
+BUILD_ROWS = {
+    **{name: [name + s for s in FLOAT_BUILDS[:2]] for name in RESIDENT_SITES},
+    **{name: [name.removesuffix("_bf16b") + BF16_BANDS_SUFFIX] for name in BF16_SITES},
+    **{name: [name + s for s in FLOAT_BUILDS] for name in (
+        "dia_matvec", *STREAM_SITES, "dense_matvec", "dense_matvec_dot")},
+    **{name: [name] for name in BF16_KERNELS},
+}
+BF16 = torch.bfloat16
+BF16_TOL = 5e-2  # relative to ||b||: cgx's own bf16 test (tests/test_api.py:72-77)
+BF16_MAXITER = 20000
+BF16_MESH_GRID = 256  # lap2d_fd(256): the mesh's bf16 request, a small grid
 WRAPPERS = {
     "dia_matvec": dia_spmv.dia_matvec,
     "dia_matvec_dot": dia_spmv.dia_matvec_dot,
@@ -483,13 +541,21 @@ MG_CONFIGS = (("richardson", "v"), ("richardson", "w"), ("gs", "v"), ("gs", "w")
 MG_SKIP = {("lap3d_fd(64)", "gs", "w")}
 MG_PROBE_GRID = 256  # device against host Galerkin build
 PRECOND_GRID = 1000  # lap2d_fd(1000): N = 1,000,000
+AUTODIFF_GRID = 500  # multi_rhs_paths' differentiable solves (cut from 1000 for the time)
 GV_SLACK = (1.15, 2)  # tests/test_gvpipe.py:61: gvpipe's k <= 1.15 k_classic + 2
 BLOCK_S = 8  # block_main's right-hand sides
 MULTI_S = 4  # multi_rhs_paths' batched and block right-hand sides
 SEQ_K = 16  # solve_sequence's harvested Ritz vectors
 SHARDED_SEQ_K = 8  # the sharded sequence's (its window max(8k, 64) = 64 rows)
+# the sharded batched phase's columns and the sharded sequence's right-hand sides
+# (cut from 8 and 3 for the script's time)
+SHARDED_BATCHED_S = 4
+SEQUENCE_LEN = 2
 REPEAT_ITERS = 256  # the capped bitwise repeats of the longer solves at full size
 BATCHED_RTOL = 1e-3  # the 2-D batched phase's float32 tolerance, relative to ||b0||
+# the sharded sequence's too (cut from 1e-5 for the script's time: the seeded
+# column's float32 floor, as BATCHED_RTOL's note in phase_sharded_batched says)
+SEQUENCE_RTOL = BATCHED_RTOL
 HOST_LANCZOS_M = 16  # Lanczos steps of the host-against-card comparison
 FD_STEP = 1e-4  # the bands scaled by 1 +- FD_STEP for the central difference
 TW_GATE = 1e-10  # bench.py's SECONDARY_REL_GATE: the true relative residual
@@ -505,17 +571,14 @@ def reset_launches() -> None:
     for w in (*WRAPPERS.values(), *STREAM_SITES.values(), *SSTEP_SITES.values()):
         w.launches = 0
     cg_kernel.dia_cg_chunk.launches = {layout: 0 for layout in cg_kernel.LAYOUTS}
-    cg_kernel.dia_cg_chunk.launches_bf16 = {layout: 0 for layout in cg_kernel.LAYOUTS}
+    BUILD_LAUNCHES.clear()
 
 
 def read_launches() -> dict:
     counts = {name: w.launches
               for name, w in (*WRAPPERS.items(), *STREAM_SITES.items(), *SSTEP_SITES.items())}
-    chunk = cg_kernel.dia_cg_chunk
-    for name, layout in RESIDENT_SITES.items():
-        counts[name] = chunk.launches[layout] - chunk.launches_bf16[layout]
-    for name, layout in BF16_SITES.items():
-        counts[name] = chunk.launches_bf16[layout]
+    for name, keys in BUILD_ROWS.items():
+        counts[name] = sum(BUILD_LAUNCHES[key] for key in keys)
     return counts
 
 
@@ -557,10 +620,11 @@ def time_ms(fn, reps: int = REPS, burst: int = BURST) -> float:
 
 
 def card_spec(name: str):
-    for key, bw, f32, f64 in CARDS:
+    for key, bw, f32, f64, bf16 in CARDS:
         if key in name:
             return {"spec": key, "hbm_bytes_per_s": bw,
-                    "flops_per_s": {torch.float32: f32, torch.float64: f64}}
+                    "flops_per_s": {torch.float32: f32, torch.float64: f64,
+                                    torch.bfloat16: bf16}}
     raise AssertionError(f"no data-sheet entry for {name!r}: add it to CARDS")
 
 
@@ -684,7 +748,6 @@ def device_us(fn, kernel: str, calls: int = 200) -> float:
     name holds ``kernel``, from torch.profiler's CUDA events over ``calls``
     back-to-back calls after a warm-up: at a few microseconds a call the
     host's launch time, not the kernel's, sets CUDA-event time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(WARMUP):
@@ -694,8 +757,7 @@ def device_us(fn, kernel: str, calls: int = 200) -> float:
         for _ in range(calls):
             fn()
         sync()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == DeviceType.CUDA and kernel in e.name]
+    us = [t for name, t in cuda_events(prof) if kernel in name]
     check(len(us) == calls, f"profiled {len(us)} {kernel} kernels of {calls} calls")
     return sum(us) / calls
 
@@ -996,12 +1058,23 @@ def phase_main(spec) -> dict:
     return launches, rec
 
 
+def cuda_events(prof) -> list:
+    """(name, µs) of each event the card ran in a finished torch.profiler
+    window, from its raw Kineto records. ``prof.events()`` gives the same
+    device events but first builds a Python object for every host event
+    too: about 70 µs an event, seconds for a profile of a few hundred
+    iterations of the eager loops."""
+    from torch.autograd import DeviceType
+
+    return [(e.name(), e.duration_ns() / 1e3) for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA and not e.is_hidden_event()]
+
+
 def phase_profile(op, b_dev, precond=None) -> None:
     """Where an iteration of the main path (or its precond="neumann"
     twin) spends its time on the card: device time by kernel over
     PROFILE_ITERS iterations, from torch.profiler's CUDA events, and the
     share of the (profiled) wall time in which the card ran nothing."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     cfg = SolveConfig(precision="fp32", use_pallas=True, tolerance=0.0, maxiter=PROFILE_ITERS,
@@ -1013,11 +1086,8 @@ def phase_profile(op, b_dev, precond=None) -> None:
         int(solve(op, b_dev, cfg, device=DEV).iterations)
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name, busy_us, count = {}, 0.0, 0
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        name = next((k for k in ("pcg_wave_kernel", "cg_stream_kernel") if k in e.name), "other")
-        us = e.time_range.elapsed_us()
+    for ename, us in cuda_events(prof):
+        name = next((k for k in ("pcg_wave_kernel", "cg_stream_kernel") if k in ename), "other")
         by_name[name] = by_name.get(name, 0.0) + us / PROFILE_ITERS
         busy_us += us
         count += 1
@@ -1348,17 +1418,22 @@ def resident_words(ndiag: int, n: int, precond: bool) -> int:
 
 
 def resident_bound(spec, ndiag: int, n: int, band_bytes: int, precond: bool, iters: int,
-                   launches: int = 1):
-    """The least time of ``iters`` float32 iterations of the whole-solve
-    function in ``launches`` launches. Bytes: each launch reads the bands,
-    p, x and r once and writes p, x and r once; nothing else need leave
-    the chip. Operations an iteration a row: float32, Ap (2 ndiag), the
-    x, r and p updates (6), with the preconditioner c, Ac and z (2 ndiag
-    + 4); float64, the dots <p, Ap> and <r, r> (4), with <r, z> (6)."""
-    nbytes = launches * n * (ndiag * band_bytes + 6 * 4)
-    f32 = (4 * ndiag + 10 if precond else 2 * ndiag + 6) * n * iters
-    f64 = (6 if precond else 4) * n * iters
-    return bound_mixed(spec, nbytes, {torch.float32: f32, torch.float64: f64})
+                   launches: int = 1, vec_bytes: int = 4):
+    """The least time of ``iters`` iterations of the whole-solve function
+    in ``launches`` launches. Bytes: each launch reads the bands, p, x and
+    r once and writes p, x and r once; nothing else need leave the chip.
+    Operations an iteration a row, float32 vectors: float32, Ap (2 ndiag),
+    the x, r and p updates (6), with the preconditioner c, Ac and z (2
+    ndiag + 4); float64, the dots <p, Ap> and <r, r> (4), with <r, z> (6).
+    bfloat16 vectors (``vec_bytes`` 2) round each vector operation to
+    bfloat16, so at the bfloat16 rate; the dots' products are exact in
+    float (2, with <r, z> 3) and only their sums need float64."""
+    nbytes = launches * n * (ndiag * band_bytes + 6 * vec_bytes)
+    vec = (4 * ndiag + 10 if precond else 2 * ndiag + 6) * n * iters
+    dots = (3 if precond else 2) * n * iters
+    if vec_bytes == 2:
+        return bound_mixed(spec, nbytes, {BF16: vec, torch.float32: dots, torch.float64: dots})
+    return bound_mixed(spec, nbytes, {torch.float32: vec, torch.float64: 2 * dots})
 
 
 def seeded_state(dia, dtype):
@@ -2200,7 +2275,6 @@ def phase_sstep_path(spec, bounds, bounds_seconds: float, b4: dict) -> dict:
 def phase_sstep_profile(op, b_dev, bounds) -> None:
     """Device time by kernel and the card's idle share over
     SSTEP_PROFILE_BLOCKS fused blocks (tol 0, so none stops early)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from cgx_torch import dia_sstep_stream_solve
@@ -2218,15 +2292,12 @@ def phase_sstep_profile(op, b_dev, bounds) -> None:
         k = int(dia_sstep_stream_solve(op, b_dev, **kw).iterations)
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name, busy_us, count = {}, 0.0, 0
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
+    for ename, us in cuda_events(prof):
         name = next((key for key, kn in (("gram_kernel", "gram_wave_kernel"),
                                          ("gram_kernel", "gram_slab_kernel"),
                                          ("recover_kernel", "recover_wave_kernel"),
-                                         ("recover_kernel", "recover_kernel")) if kn in e.name),
+                                         ("recover_kernel", "recover_kernel")) if kn in ename),
                     "other")
-        us = e.time_range.elapsed_us()
         by_name[name] = by_name.get(name, 0.0) + us / SSTEP_PROFILE_BLOCKS
         busy_us += us
         count += 1
@@ -2438,7 +2509,6 @@ def phase_sharded_profile(mesh, dia, b) -> None:
     """Device time by kernel (B8, NCCL, the rest) and the card's idle
     share over PROFILE_ITERS iterations of the sharded reference route,
     from torch.profiler; the shard is built before the window."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     solver = make_sharded_solver(dia, dia.shape[0], dtype=np.float32, mesh=mesh, tol=0.0,
@@ -2450,13 +2520,10 @@ def phase_sharded_profile(mesh, dia, b) -> None:
         k = int(solver.solve(b).iterations)
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name, busy_us, count = {}, 0.0, 0
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        low = e.name.lower()
+    for ename, us in cuda_events(prof):
+        low = ename.lower()
         name = ("b8_dia_stream_kernel" if "dia_stream_kernel" in low else
                 "nccl" if "nccl" in low else "other")
-        us = e.time_range.elapsed_us()
         by_name[name] = by_name.get(name, 0.0) + us / PROFILE_ITERS
         busy_us += us
         count += 1
@@ -2508,7 +2575,6 @@ def device_profile(fn) -> tuple:
     """(device events, device busy us, wall us) of one call of ``fn`` under
     torch.profiler, its result read before the clock stops. A lead kernel
     opens the trace, which may miss its first kernel; it is not counted."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     sync()
@@ -2519,9 +2585,8 @@ def device_profile(fn) -> tuple:
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    cuda = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-            and "spin" not in e.name and "sleep" not in e.name]
-    return len(cuda), sum(e.time_range.elapsed_us() for e in cuda), wall_us
+    cuda = [us for name, us in cuda_events(prof) if "spin" not in name and "sleep" not in name]
+    return len(cuda), sum(cuda), wall_us
 
 
 def level_split(mg, r0) -> list:
@@ -3455,7 +3520,8 @@ def phase_multi_rhs_paths() -> None:
     single-RHS cg_solve (k within 2); solve_sequence of three of them with
     k = 16 against plain CG (the first k within 1, the later ones within
     10% of plain's: on this Laplacian deflation does not pay, as cgx's
-    docstring warns), seconds beside plain's; the differentiable solve at
+    docstring warns), seconds beside plain's; on lap2d_fd(AUTODIFF_GRID)
+    (N = 250,000; its b0 and columns built alike) the differentiable solve at
     1e-10 ||b0||: db against one more solve (1e-10) and the band gradient
     against a central difference of the loss along the bands themselves
     (1e-6); the block version at s = 4 likewise. Plain torch: no hand-written kernel."""
@@ -3503,8 +3569,17 @@ def phase_multi_rhs_paths() -> None:
     # counts, against plain 2855 and 2944
     check(abs(k_seq[0] - k_single[0]) <= 1 and all(a <= 1.1 * c for a, c in zip(
         k_seq[1:], k_single[1:3])), f"solve_sequence: k={k_seq}, plain CG k={k_single[:3]}")
-    del seq
+    del seq, op, big_b
 
+    g = AUTODIFF_GRID
+    dia = lap2d_fd(g)
+    n = dia.shape[0]
+    op = as_operator(dia, torch.float64, device=DEV)
+    b0 = source_term(n)
+    cols = rng.standard_normal((n, MULTI_S - 1))
+    big_b = torch.as_tensor(np.concatenate(
+        [b0[:, None], cols * (np.linalg.norm(b0) / np.linalg.norm(cols, axis=0))], axis=1),
+        device=DEV)
     dtol = 1e-10 * float(np.linalg.norm(b0))
     # the backward solve takes the forward's absolute tolerance (cgx's), so
     # the cotangents are scaled to ||b0||: the same relative accuracy both ways
@@ -3944,14 +4019,15 @@ def phase_sharded_sstep(spec, mesh) -> dict:
 
 
 def phase_sharded_mixed(spec, mesh) -> None:
-    """Mixed refinement on the NCCL group of one rank at N = 10,240,000:
+    """Mixed refinement on the NCCL group of one rank at N = 2,560,000
+    (SHARDED_GRID):
     solve(precision="mixed", mesh=) at rtol MIXED_RTOL, its sweeps within
     one of the single-device mixed solve's (whose inner is the streaming
     PCG, the sharded one plain CG on B8), the true residual below
     MIXED_RTOL, B8 launched by every inner iteration. The bitwise repeat
     and the profile run one sweep of 256 inner iterations (the whole
-    solve takes 42 s)."""
-    dia = lap2d_fd(GRID)
+    solve takes 26 s)."""
+    dia = lap2d_fd(SHARDED_GRID)
     n = dia.shape[0]
     b = source_term(n)
     rel64 = rel64_on_card(dia, b)
@@ -3971,7 +4047,7 @@ def phase_sharded_mixed(spec, mesh) -> None:
     rel = rel64(res.x)
     inner = float(res.history.sum())
     rec = sharded_rec("sharded_mixed", mesh, res, k, seconds, 0.0, launches, bitwise,
-                      problem=f"lap2d_fd({GRID})", n=n, rtol=MIXED_RTOL, sweeps=k,
+                      problem=f"lap2d_fd({SHARDED_GRID})", n=n, rtol=MIXED_RTOL, sweeps=k,
                       inner_iterations=res.history.tolist(), sweeps_single=k_single,
                       single_seconds=single_seconds, true_rel=rel, true_rel_single=rel_single,
                       local_kernel=sc._resolve_local_kernel("auto", n, torch.float32, DEV),
@@ -4166,26 +4242,26 @@ def batched_yardstick(dia, big_b: np.ndarray, tol: float) -> dict:
 def phase_sharded_batched(spec, mesh) -> dict:
     """The 2-D batched solve on make_mesh2d(1, 1) of the NCCL rank (its rows
     and rhs groups the NCCL world): sharded_cg_solve_batched at N =
-    10,240,000 in float32 (cgx's float32 dots), 8 seeded normal columns
-    scaled to ||b0|| (block_columns' beside source_term's b0), tol
+    2,560,000 (SHARDED_GRID) in float32 (cgx's float32 dots), SHARDED_BATCHED_S seeded
+    normal columns scaled to ||b0|| (block_columns' beside source_term's b0), tol
     BATCHED_RTOL ||b0|| (float32's floor at this conditioning: at 1e-5 the
     columns' true residuals end near 1e-3 all the same), method="pipelined".
     Each column's k within 2% of the plain loop with the same dots (the
-    single-device batched reference recurrence, one call for the 8: cgx
+    single-device batched reference recurrence, one call for them all: cgx
     holds pipelined to reference within one,
     tests/test_batched2d.py:166; source_term's column is not solved here:
     in float32 its pipelined recurrence stalls at the floor, a quarter
     past the reference's count) and its true residual within 2x; the
     collectives an iteration (the vote, one all-reduce of 16 dots, the
     halo pair); the bitwise repeat and a profile on REPEAT_ITERS
-    iterations; no kernel launches. Returns b0 and the 8 columns, (n, 9),
-    for the sequence phase."""
-    dia = lap2d_fd(GRID)
+    iterations; no kernel launches. Returns b0 and the columns for the
+    sequence phase."""
+    dia = lap2d_fd(SHARDED_GRID)
     n = dia.shape[0]
     b0 = source_term(n)
     tol = BATCHED_RTOL * float(np.linalg.norm(b0))
-    # b0 and the 8 columns: the batched phase solves the columns, the sequence b0 and two
-    every = block_columns(b0, BLOCK_S + 1).astype(np.float32)
+    # b0 and the columns: the batched phase solves the columns, the sequence b0 and one
+    every = block_columns(b0, SHARDED_BATCHED_S + 1).astype(np.float32)
     big_b = every[:, 1:]
     yard = batched_yardstick(dia, big_b, tol)
     mesh2d = make_mesh2d(1, 1, device=DEV)
@@ -4212,11 +4288,13 @@ def phase_sharded_batched(spec, mesh) -> dict:
     del first, second
     prof = profile_record(lambda: capped()[1].tolist(), REPEAT_ITERS)
     loop_iters = len(sig_iters)
-    want_sig = [("psum", 1, 1), ("psum", 1, 2 * BLOCK_S), ("ppermute", 1, GRID * BLOCK_S),
-                ("ppermute", 1, GRID * BLOCK_S)]
+    want_sig = [("psum", 1, 1), ("psum", 1, 2 * SHARDED_BATCHED_S),
+                ("ppermute", 1, SHARDED_GRID * SHARDED_BATCHED_S),
+                ("ppermute", 1, SHARDED_GRID * SHARDED_BATCHED_S)]
     rec = {"phase": "sharded_batched", "world": mesh.size, "mesh2d": list(mesh2d.shape),
-           "backend": dist.get_backend(mesh.group), "problem": f"lap2d_fd({GRID})", "n": n,
-           "s": BLOCK_S, "dtype": "float32", "method": "pipelined", "tol": tol, "k": ks,
+           "backend": dist.get_backend(mesh.group), "problem": f"lap2d_fd({SHARDED_GRID})", "n": n,
+           "s": SHARDED_BATCHED_S, "dtype": "float32", "method": "pipelined", "tol": tol,
+           "k": ks,
            "converged": conv.tolist(), "breakdown": brk.tolist(), "seconds": seconds,
            "loop_iterations": loop_iters, "us_per_iter": seconds / loop_iters * 1e6,
            "bitwise_repeat": bitwise, "bitwise_repeat_iterations": REPEAT_ITERS,
@@ -4230,7 +4308,7 @@ def phase_sharded_batched(spec, mesh) -> dict:
     emit(rec)
     where = "sharded batched"
     check(bool(conv.all()) and not bool(brk.any()) and rec["x_finite"]
-          and tuple(x.shape) == (BLOCK_S, n), f"{where}: converged {conv.tolist()}")
+          and tuple(x.shape) == (SHARDED_BATCHED_S, n), f"{where}: converged {conv.tolist()}")
     check(all(yard["converged"]), f"{where}: the yardstick did not converge")
     check(all(abs(a - c) <= 0.02 * c for a, c in zip(ks, yard["k"])),
           f"{where}: k={ks}, the plain loop's {yard['k']}")
@@ -4246,22 +4324,23 @@ def phase_sharded_batched(spec, mesh) -> dict:
 
 
 def phase_sharded_sequence(spec, mesh, every: np.ndarray) -> int:
-    """solve_sequence on the NCCL group of one rank at N = 10,240,000,
-    fp32, tol 1e-5 ||b0||, k = 8: the sharded harvest on source_term, then
-    deflated CG on two seeded columns (the batched phase's first two),
+    """solve_sequence on the NCCL group of one rank at N = 2,560,000
+    (SHARDED_GRID),
+    fp32, tol SEQUENCE_RTOL ||b0||, k = 8: the sharded harvest on source_term, then
+    deflated CG on SEQUENCE_LEN - 1 seeded columns (the batched phase's),
     "auto" resolving the local product to B8 on both. The harvest's k
     within 2% of the plain loop with the same dots (batched_yardstick on
-    the three columns), each deflated solve within a tenth of that loop's count on
-    its column (the harvest deflates no low mode at this size) and a true
+    the same columns), each deflated solve within a tenth of that loop's count on
+    its column (the harvest deflates little at this size) and a true
     residual within 2x of its; B8 launched by every iteration; the
     basis's width, the window's gather time and the peak memory. The bitwise
     repeat on REPEAT_ITERS iterations a solve. Returns B8's
     launches on the sequence."""
-    dia = lap2d_fd(GRID)
+    dia = lap2d_fd(SHARDED_GRID)
     n = dia.shape[0]
-    tol = 1e-5 * float(np.linalg.norm(every[:, 0]))
-    bs = [np.ascontiguousarray(every[:, j]) for j in range(3)]
-    yard = batched_yardstick(dia, every[:, :3], tol)
+    tol = SEQUENCE_RTOL * float(np.linalg.norm(every[:, 0]))
+    bs = [np.ascontiguousarray(every[:, j]) for j in range(SEQUENCE_LEN)]
+    yard = batched_yardstick(dia, every[:, :SEQUENCE_LEN], tol)
     cfg = SolveConfig(precision="fp32", tolerance=tol)
     resolved = sc._resolve_local_kernel("auto", n, torch.float32, mesh.device)
     check(resolved == "stream2d", f"auto resolved the local product to {resolved!r}")
@@ -4276,7 +4355,7 @@ def phase_sharded_sequence(spec, mesh, every: np.ndarray) -> int:
     launches = read_launches()
     peak = peak_since(base)
     gather_seconds = sharded_cg_solve_harvest.gather_seconds
-    rels = rel64_columns(dia, every[:, :3], [r.x for r in seq])
+    rels = rel64_columns(dia, every[:, :SEQUENCE_LEN], [r.x for r in seq])
     sigs = [cap.signature(i) for i in range(len(cap.programs))]
     b8 = launches["dia_matvec_stream2d_planes"]
     capped = SolveConfig(precision="fp32", tolerance=tol, maxiter=REPEAT_ITERS)
@@ -4285,7 +4364,7 @@ def phase_sharded_sequence(spec, mesh, every: np.ndarray) -> int:
     bitwise = all(same_x(a, c) for a, c in zip(first, second))
     del first, second
     rec = {"phase": "sharded_sequence", "world": mesh.size,
-           "backend": dist.get_backend(mesh.group), "problem": f"lap2d_fd({GRID})", "n": n,
+           "backend": dist.get_backend(mesh.group), "problem": f"lap2d_fd({SHARDED_GRID})", "n": n,
            "dtype": "float32", "tol": tol, "k_ritz": SHARDED_SEQ_K, "k": ks,
            "converged": [bool(r.converged) for r in seq], "seconds": seconds,
            "us_per_iter": seconds / sum(ks) * 1e6, "local_kernel": resolved,
@@ -4304,10 +4383,10 @@ def phase_sharded_sequence(spec, mesh, every: np.ndarray) -> int:
     check(all(rec["converged"]) and rec["x_finite"], f"{where}: converged {rec['converged']}")
     check(abs(ks[0] - yard["k"][0]) <= 0.02 * yard["k"][0],
           f"{where}: the harvest's k={ks[0]}, the plain loop's {yard['k'][0]}")
-    # a 64-row window of a 7477-iteration solve harvests one Ritz pair here and
-    # deflates no low mode, so the deflated solves cannot beat plain CG on this
-    # Laplacian (multi_rhs_paths finds the same on one device, cgx's own counts
-    # with it): they are held within a tenth of the plain loop's, as there
+    # a 64-row window of a solve of thousands of iterations harvests one Ritz pair
+    # here and deflates little on this Laplacian (multi_rhs_paths finds the same on
+    # one device, cgx's own counts with it): the deflated solves are held within a
+    # tenth of the plain loop's, as there
     check(all(a <= 1.1 * c for a, c in zip(ks[1:], yard["k"][1:])),
           f"{where}: deflated k={ks[1:]}, the plain loop's {yard['k'][1:]}")
     check(all(r <= 2 * c for r, c in zip(rels, yard["true_rel"])),
@@ -4365,11 +4444,24 @@ def cli_method_argv(tmp: Path, method: str, device: str = "cuda") -> list:
     return argv if device == "cuda" else argv + ["--device", "cpu"]
 
 
-def start_cli_replay(tmp: Path) -> subprocess.Popen:
+@contextlib.contextmanager
+def cli_replay(tmp: Path):
     """The CPU replay of phase_cli_methods' two CLI runs, started in a
-    process of its own with REPLAY_THREADS threads, so that it runs while
-    the card's phases before it do (the dense kernel's plain version
-    takes tens of seconds on the host)."""
+    session of its own with REPLAY_THREADS threads just after the build, so
+    that it runs while the card's phases do (the dense kernel's plain
+    version takes about two minutes on the host); killed, with its
+    children, on the way out."""
+    replay = start_cli_replay(tmp)
+    try:
+        yield replay
+    finally:
+        if replay.poll() is None:
+            os.killpg(replay.pid, signal.SIGKILL)
+            replay.wait()
+
+
+def start_cli_replay(tmp: Path) -> subprocess.Popen:
+    """Start the CPU replay of phase_cli_methods' two CLI runs."""
     lap2d_fd_coo_lower(100).write(tmp / "lap2D_5pt_n100.mtx",
                                   comment=" 2D 5-point Laplacian, 100x100 grid")
     runs = "; ".join(
@@ -4378,7 +4470,7 @@ def start_cli_replay(tmp: Path) -> subprocess.Popen:
     env = dict(os.environ, OMP_NUM_THREADS=str(REPLAY_THREADS),
                PYTHONPATH=os.pathsep.join(filter(None, [str(Path(__file__).resolve().parent),
                                                         os.environ.get("PYTHONPATH")])))
-    return subprocess.Popen(["bash", "-c", f"set -e; {runs}"], env=env)
+    return subprocess.Popen(["bash", "-c", f"set -e; {runs}"], env=env, start_new_session=True)
 
 
 def phase_cli_methods(spec, tmp: Path, replay: subprocess.Popen) -> None:
@@ -4421,9 +4513,457 @@ def phase_cli_methods(spec, tmp: Path, replay: subprocess.Popen) -> None:
         check(launches["dense_matvec"] >= k, f"{where} missed the kernel: {launches}")
 
 
+# ---- bfloat16 vectors (ROADMAP A6, first part) ----
+
+
+def bf16_seeded(n: int, count: int):
+    rng = np.random.default_rng(SEED)
+    return [torch.as_tensor(rng.standard_normal(n), dtype=BF16, device=DEV) for _ in range(count)]
+
+
+def bf16_bound(spec, nbytes: float, flops: float, f32: float = 0, f64: float = 0):
+    """The least time of bfloat16-vector work: its bytes, and its
+    operations: ``flops`` each rounded to bfloat16 (a product or sum of two
+    bfloat16 values rounded once is the float-then-round result, so at the
+    card's bfloat16 rate), ``f32`` kept in float (products of two bfloat16
+    values, exact in float; B3's row sums), ``f64`` the dots' sums."""
+    return bound_mixed(spec, nbytes, {BF16: flops, torch.float32: f32, torch.float64: f64})
+
+
+def stream_bf16_bound(spec, ndiag: int, n: int, precond: bool):
+    """bf16_bound of a streaming iteration on bfloat16 vectors and bands:
+    stream_flops, of which the dots (2, with the preconditioner 3) take
+    products exact in float and sums in float64."""
+    dots = (3 if precond else 2) * n
+    return bf16_bound(spec, stream_bytes(ndiag, n, 2, 2, precond),
+                      stream_flops(ndiag, n, precond) - 2 * dots, f32=dots, f64=dots)
+
+
+def bf16_row(rec: dict, **extra) -> dict:
+    return {"max_abs_err": rec["max_abs_err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": rec["library_ms"], "dtype": str(BF16), **extra}
+
+
+def bf16_library(fn):
+    """(ms, None) of a PyTorch call on bfloat16 inputs, or (None, its error)
+    where PyTorch has no bfloat16 form of it."""
+    try:
+        fn()
+        sync()
+    except (RuntimeError, NotImplementedError) as e:
+        return None, f"{type(e).__name__}: {str(e)[:120]}"
+    return time_ms(fn), None
+
+
+def phase_bf16_kernels(spec) -> dict:
+    """Each bfloat16-vector build against its plain version on the same
+    seeded inputs, bit for bit (vectors, and the scalars but the float64
+    dots' sums, whose order differs): B1's dia_matvec in both designs at
+    N = 1e6 and 10,240,000; B5 in both designs at N = 1e6, with and without
+    the Neumann preconditioner, one iteration and one 64-iteration chunk;
+    B4, B7 and B6 in both designs at N = 10,240,000, one launch and
+    STREAM_ITERS; B3's two entries at the three dense shapes of the dense
+    phase. Then each one's median ms against its bound at 2-byte words, its
+    plain version's ms and a PyTorch call's where one computes the same
+    function on bfloat16. Returns the records of the kernels line's bf16
+    rows."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    records = {}
+    # B1
+    for g in (RESIDENT_GRID, GRID):
+        dia = lap2d_fd(g)
+        n, ndiag, offsets = dia.shape[0], len(dia.offsets), tuple(dia.offsets)
+        bands = torch.as_tensor(dia.bands, dtype=BF16, device=DEV)
+        x, = bf16_seeded(n, 1)
+        ref = dia_spmv.dia_matvec_ref(bands, x, offsets=offsets)
+        designs = {"stream": dia_spmv.MatvecPlan("stream",
+                                                 dia_spmv.stream_plan(n, offsets, BF16, sms)),
+                   "grid": dia_spmv.GRID_PLAN}
+        rec = {"phase": "bf16_kernel", "kernel": "dia_matvec", "problem": f"lap2d_fd({g})",
+               "n": n, "dtype": "bfloat16",
+               "picked": dia_spmv.matvec_plan(n, offsets, BF16, sms).design}
+        for d, plan in designs.items():
+            y = dia_spmv.dia_matvec(bands, x, offsets=offsets, plan=plan)
+            sync()
+            rec[f"{d}_bitwise"] = torch.equal(y, ref)
+            rec[f"{d}_max_abs_err"] = float((y.float() - ref.float()).abs().max())
+            rec[f"{d}_ms"] = time_ms(lambda: dia_spmv.dia_matvec(bands, x, offsets=offsets,
+                                                                 plan=plan))
+        rec["plain_ms"] = time_ms(lambda: dia_spmv.dia_matvec_ref(bands, x, offsets=offsets))
+        rec["library_ms"], rec["library_error"] = bf16_library(
+            lambda: torch.mv(csr_of(bands, offsets), x))
+        rec["bound_ms"], rec["bound_by"] = bf16_bound(spec, (ndiag + 2) * n * 2, 2 * ndiag * n)
+        rec["max_abs_err"] = rec[f"{rec['picked']}_max_abs_err"]
+        rec["ms"] = rec[f"{rec['picked']}_ms"]
+        emit(rec)
+        check(rec["stream_bitwise"] and rec["grid_bitwise"],
+              f"B1 bf16 lap2d_fd({g}): not bitwise its plain version: {rec}")
+        if g == RESIDENT_GRID:  # the shape of B5's Neumann set-up, the path that runs it
+            records["dia_matvec_bf16"] = bf16_row(rec, design=rec["picked"],
+                                                  grid_ms=rec["grid_ms"], n=n)
+        del bands, x, ref
+        sync()
+    # B5
+    dia = lap2d_fd(RESIDENT_GRID)
+    n, ndiag, offsets = dia.shape[0], len(dia.offsets), tuple(dia.offsets)
+    bands = torch.as_tensor(dia.bands, dtype=BF16, device=DEV)
+    p, x, r = bf16_seeded(n, 3)
+    zero = torch.zeros((), dtype=torch.float64, device=DEV)
+    state = [p, x, r, torch.stack([torch.sum(r.double() ** 2), zero, zero, zero])]
+    b5 = {}
+    for precond in (False, True):
+        rec = {"phase": "bf16_kernel", "kernel": "dia_cg_chunk", "problem":
+               f"lap2d_fd({RESIDENT_GRID})", "n": n, "dtype": "bfloat16", "precond": precond}
+        for design in ("resident", "global"):
+            plan = chunk_plan(design, n, offsets, BF16, BF16, precond)
+            for chunk in (1, CHUNK):
+                got, ref = [t.clone() for t in state], [t.clone() for t in state]
+                chunk_call(cg_kernel.dia_cg_chunk, bands, got, offsets, chunk, precond,
+                           plan=plan)
+                chunk_call(cg_kernel.dia_cg_chunk_ref, bands, ref, offsets, chunk, precond)
+                sync()
+                key = f"{design}_x{chunk}"
+                rec[f"{key}_bitwise"] = all(torch.equal(a, w) for a, w in zip(got[:3], ref[:3]))
+                rec[f"{key}_max_abs_err"] = max(float((a.float() - w.float()).abs().max())
+                                                for a, w in zip(got[:3], ref[:3]))
+                rec[f"{key}_rsold_rel_err"] = rel_err(got[3][0], ref[3][0], ref[3][0].abs())
+                check(cg_kernel.dia_cg_chunk.plan.design == design and rec[f"{key}_bitwise"]
+                      and torch.equal(got[3][1:], ref[3][1:])
+                      and rec[f"{key}_rsold_rel_err"] <= DOT_RTOL[torch.float64],
+                      f"B5 bf16 {design} precond={precond} x{chunk}: {rec}")
+            rec[f"{design}_ms"] = time_ms(lambda: chunk_call(
+                cg_kernel.dia_cg_chunk, bands, state, offsets, CHUNK, precond, plan=plan),
+                reps=10, burst=2)
+        rec["plain_ms"] = time_ms(lambda: chunk_call(cg_kernel.dia_cg_chunk_ref, bands, state,
+                                                     offsets, CHUNK, precond), reps=3, burst=1)
+        rec["bound_ms"], rec["bound_by"] = resident_bound(spec, ndiag, n, 2, precond, CHUNK,
+                                                          vec_bytes=2)
+        rec.update(ms=rec["resident_ms"], max_abs_err=rec["resident_x1_max_abs_err"],
+                   library_ms=None)  # no one PyTorch call runs a CG chunk
+        emit(rec)
+        b5[precond] = rec
+    for name in ("dia_cg_vmem_bf16", "dia_cg_vmem2d_bf16"):  # one kernel and its numbers
+        records[name] = bf16_row(b5[False], design="resident", global_ms=b5[False]["global_ms"],
+                                 pcg_ms=b5[True]["ms"], pcg_global_ms=b5[True]["global_ms"],
+                                 pcg_bound_ms=b5[True]["bound_ms"], n=n)
+    del bands, p, x, r, state
+    sync()
+    # B4, B7, B6
+    dia = lap2d_fd(GRID)
+    n, ndiag, offsets = dia.shape[0], len(dia.offsets), tuple(dia.offsets)
+    kw = dict(offsets=offsets, tol=0.0, nearzero=1e-14, maxiter=10**9)
+    for site, precond, stacked in (("stream_iteration", False, False),
+                                   ("stream_iteration_stacked", False, True),
+                                   ("stream_iteration_pcg", True, False)):
+        bands, st = stream_state(dia, BF16, precond, stacked)
+        # each timed launch starts from the seeded scalars, so it is an active one: the
+        # bfloat16 recurrence leaves the finite range within a few hundred launches, and a
+        # frozen launch returns at once (the 64-byte copy is in the times)
+        scal0 = st.scal.clone()
+        plans = [None] if not precond else [cg_stream.pcg_plan(n, offsets, BF16, sms),
+                                            cg_stream.three_plan(n)]
+        rec = {"phase": "bf16_kernel", "kernel": site, "problem": f"lap2d_fd({GRID})", "n": n,
+               "dtype": "bfloat16"}
+        for plan in plans:
+            design = "one" if plan is None else plan.design
+            for launches in (1, STREAM_ITERS):
+                got, ref = clone_state(st), clone_state(st)
+                for _ in range(launches):
+                    cg_stream.step(bands, got, plan=plan, **kw)
+                    cg_stream._iteration_ref(bands, *ref[:6], ref.scal, **kw)
+                sync()
+                pairs = [(a, w) for a, w in zip(got[:6], ref[:6]) if a is not None]
+                key = f"{design}_x{launches}"
+                rec[f"{key}_bitwise"] = all(torch.equal(a, w) for a, w in pairs)
+                rec[f"{key}_max_abs_err"] = max(float((a.float() - w.float()).abs().max())
+                                                for a, w in pairs)
+                rec[f"{key}_dot_rel_err"] = float(((got.scal[:3] - ref.scal[:3]).abs()
+                                                  / ref.scal[:3].abs()).max())
+                check(rec[f"{key}_bitwise"] and torch.equal(got.scal[cg_stream.K:],
+                                                            ref.scal[cg_stream.K:])
+                      and rec[f"{key}_dot_rel_err"] <= DOT_RTOL[torch.float64],
+                      f"{site} bf16 {design} x{launches}: {rec}")
+                del got, ref
+            work = cg_stream.workspace(DEV, n)
+            rec[f"{design}_ms"] = time_ms(lambda: (st.scal.copy_(scal0), cg_stream.step(
+                bands, st, work=work, plan=plan, **kw)))
+            del work
+        rec["plain_ms"] = time_ms(lambda: (st.scal.copy_(scal0), cg_stream._iteration_ref(
+            bands, *st[:6], st.scal, **kw)), reps=3, burst=1)
+        rec["bound_ms"], rec["bound_by"] = stream_bf16_bound(spec, ndiag, n, precond)
+        first = "one" if not precond else plans[0].design
+        rec.update(ms=rec[f"{first}_ms"], max_abs_err=rec[f"{first}_x1_max_abs_err"],
+                   library_ms=None)  # no one PyTorch call runs a CG iteration
+        emit(rec)
+        records[f"{site}_bf16"] = bf16_row(rec, design=None if not precond else first,
+                                           three_ms=rec.get("three_ms"), n=n)
+        del bands, st
+        sync()
+    # B3
+    for problem, make, (br, bc) in DENSE_PROBLEMS:
+        a = densify_on_device(as_operator(make(), BF16, device=DEV)).a
+        n = a.shape[0]
+        x, = bf16_seeded(n, 1)
+        recs = {}
+        for name, kern, plain in (
+                ("dense_matvec", lambda: matvec.dense_matvec(a, x, block_rows=br, block_cols=bc),
+                 lambda: matvec.dense_matvec_ref(a, x, block_rows=br, block_cols=bc)),
+                ("dense_matvec_dot",
+                 lambda: matvec.dense_matvec_dot(a, x, block_rows=br, block_cols=bc),
+                 lambda: matvec.dense_matvec_dot_ref(a, x, block_rows=br, block_cols=bc))):
+            got, ref = kern(), plain()
+            sync()
+            y, y_ref = (got, ref) if name == "dense_matvec" else (got[0], ref[0])
+            rec = {"phase": "bf16_kernel", "kernel": name, "problem": f"{problem} dense {br}x{bc}",
+                   "n": n, "dtype": "bfloat16", "bitwise": torch.equal(y, y_ref),
+                   "max_abs_err": float((y.float() - y_ref.float()).abs().max()),
+                   "plan": matvec.dense_matvec.plan._asdict()}
+            if name == "dense_matvec_dot":  # float32 sums in two orders
+                scale = float((x.float() * y_ref.float()).abs().sum())
+                rec["dot_rel_err"] = abs(float(got[1]) - float(ref[1])) / scale
+                rec["y_bitwise_dense_matvec"] = torch.equal(y, recs["dense_matvec"]["y"])
+                check(rec["dot_rel_err"] <= DOT_RTOL[torch.float32]
+                      and rec["y_bitwise_dense_matvec"], f"{name} bf16 {problem}: {rec}")
+            check(rec["bitwise"], f"{name} bf16 {problem}: y is not bitwise its plain version")
+            rec["ms"] = time_ms(kern)
+            rec["plain_ms"] = time_ms(plain)
+            rec["library_ms"], rec["library_error"] = (
+                bf16_library(lambda: torch.mv(a, x)) if name == "dense_matvec" else (None, None))
+            dot = name == "dense_matvec_dot"  # its products rounded to bfloat16, float sums
+            rec["bound_ms"], rec["bound_by"] = bf16_bound(spec, (n * n + 2 * n) * 2, n * dot,
+                                                          f32=2 * n * n + n * dot)
+            emit(rec)
+            recs[name] = {**rec, "y": y}
+            if problem == "lap2d_fd(100)":  # the CLI's shape and tiles
+                records[f"{name}_bf16"] = bf16_row(rec, n=n, tiles=[br, bc])
+        del a, x, recs
+        sync()
+    return records
+
+
+def phase_bf16_main(spec) -> dict:
+    """solve(lap2d_fd(3200), source_term(N), bf16, use_pallas, 5e-2 ||b||,
+    maxiter BF16_MAXITER) above the budget: B4 on bfloat16 vectors and
+    bands, one launch an iteration; and with precond="neumann", B6 in
+    pcg_plan's design. The yardstick is the plain bfloat16 pipelined loop
+    (with the Neumann preconditioner) with float64 dots: the same verdict,
+    and k within 2% of its k or, where its recursive residual leaves the
+    finite range (bfloat16 Chronopoulos-Gear does at this size, in cgx
+    too), of the iteration where it does; the kernel's stop flag ends the
+    solve there, and the plain loop, which runs on to its maxiter, is run
+    only to 64 iterations past it. Then the bitwise repeat on REPEAT_ITERS
+    capped iterations, us an iteration against the bound at 2-byte words,
+    the idle share, and the stacked layout (B7) through
+    dia_cg_solve_stream, bitwise the split solve. Returns the launch counts
+    of the three sites."""
+    dia = lap2d_fd(GRID)
+    n, ndiag = dia.shape[0], len(dia.offsets)
+    b = source_term(n)
+    tol = BF16_TOL * float(np.linalg.norm(b))
+    op = as_operator(dia, BF16, device=DEV)
+    b_dev = torch.as_tensor(b, dtype=BF16, device=DEV)
+    check(cg_kernel.resident_state_bytes(ndiag, n, 2, 2) > config.RESIDENT_BUDGET_BYTES,
+          f"N = {n} in bf16 is within the resident budget: the path would not stream")
+    counts = {}
+    for precond, site in ((None, "stream_iteration_bf16"),
+                          ("neumann", "stream_iteration_pcg_bf16")):
+        cfg = SolveConfig(precision="bf16", use_pallas=True, tolerance=tol, maxiter=BF16_MAXITER,
+                          precond=precond)
+        capped = dataclasses.replace(cfg, tolerance=0.0, maxiter=REPEAT_ITERS)
+        res, k, seconds, launches, bitwise = solve_capped_repeat(
+            lambda: solve(op, b_dev, cfg, device=DEV), lambda: solve(op, b_dev, capped, device=DEV))
+        finite = bool(torch.isfinite(res.x).all())
+        limit = BF16_MAXITER if finite or bool(res.converged) else min(BF16_MAXITER, k + 64)
+        pc = None if precond is None else neumann_banded(op.bands, op.offsets, sweeps=2)
+        plain, k_run, plain_seconds = timed(lambda: pipelined_cg_solve(
+            op, b_dev, tol=tol, maxiter=limit, history=limit, precond=pc,
+            dot_precision=torch.float64, device=DEV))
+        bad = torch.nonzero(~torch.isfinite(plain.history[:k_run])).flatten()
+        k_break = None if bad.numel() == 0 else int(bad[0]) + 1
+        k_plain = k_run if k_break is None else k_break
+        # the capped run stops early where the recursion leaves the finite range
+        k_capped = int(solve(op, b_dev, capped, device=DEV).iterations)
+        prof = profile_record(lambda: solve(op, b_dev, capped, device=DEV), k_capped)
+        bound, bound_by = stream_bf16_bound(spec, ndiag, n, precond is not None)
+        plan = (None if precond is None else
+                cg_stream.pcg_plan(n, tuple(dia.offsets), BF16, dia_powers.sms_of(DEV)))
+        per_iter = 1 if plan is None else plan.launches
+        rec = {"phase": "bf16_main", "problem": f"lap2d_fd({GRID})", "n": n, "dtype": "bfloat16",
+               "precond": precond, "tol": tol, "tol_rel": BF16_TOL, "maxiter": BF16_MAXITER,
+               "k": k, "converged": bool(res.converged), "capped": k >= BF16_MAXITER,
+               "x_finite": finite, "bitwise_repeat_capped": bitwise,
+               "repeat_iterations": REPEAT_ITERS, "capped_iterations": k_capped,
+               "seconds": seconds,
+               "us_per_iter": seconds / k * 1e6, "bound_us_per_iter": bound * 1e3,
+               "bound_by": bound_by,
+               "bands_dtype": str(STREAM_SITES[site.removesuffix("_bf16")].bands_dtype),
+               "launches": launches, "design": None if plan is None else plan.design,
+               "k_plain": k_plain, "plain_iterations_run": k_run,
+               "plain_residual_nonfinite_at": k_break, "converged_plain": bool(plain.converged),
+               "plain_seconds": plain_seconds, "plain_us_per_iter": plain_seconds / k_run * 1e6,
+               "x_dtype": str(res.x.dtype), **prof}
+        emit(rec)
+        others = {name: c for name, c in launches.items()  # the site's all-dtype count too
+                  if name not in (site, site.removesuffix("_bf16")) and name in KERNELS and c}
+        check(launches[site] == per_iter * 32 * -(-k // 32) and not others,
+              f"bf16 main {precond}: {launches} at k={k}")
+        check(res.x.dtype == BF16 and res.x.shape == (n,) and finite == (k_break is None),
+              f"bf16 main {precond}: x {res.x.dtype}, finite {finite}, the plain loop's residual "
+              f"non-finite at {k_break}")
+        check(bool(res.converged) == bool(plain.converged) and abs(k - k_plain) <= 0.02 * k_plain,
+              f"bf16 main {precond}: k={k} ({bool(res.converged)}) vs the plain loop's "
+              f"{k_plain} ({bool(plain.converged)})")
+        check(bitwise, f"bf16 main {precond}: two capped runs differ")
+        counts[site] = launches[site]
+        if precond is None:
+            reset_launches()
+            stacked, k_st, _ = timed(lambda: dia_cg_solve_stream(
+                op, b_dev, tol=tol, maxiter=BF16_MAXITER, layout="stacked", device=DEV))
+            counts["stream_iteration_stacked_bf16"] = read_launches()[
+                "stream_iteration_stacked_bf16"]
+            same = k_st == k and same_x(stacked, res)
+            emit({"phase": "bf16_main_stacked", "k": k_st, "bitwise_equal_to_split": same,
+                  "launches": counts["stream_iteration_stacked_bf16"]})
+            check(same and counts["stream_iteration_stacked_bf16"] >= k,
+                  f"bf16 stacked layout: k={k_st}, bitwise equal to split: {same}")
+        del res, plain
+        sync()
+    return counts
+
+
+def phase_bf16_resident(spec) -> dict:
+    """solve(lap2d_fd(1000), bf16, use_pallas, 5e-2 ||b||) within the budget:
+    B5 on bfloat16 vectors in resident_plan's design, without and with the
+    Neumann preconditioner (whose set-up runs B1's dia_matvec on bfloat16),
+    twice each (bitwise), against the plain reference (P)CG loop with
+    float64 dots (k within 2%, the same verdict); and one direct call with
+    layout="1d" (bitwise the "2d" solve). Returns the launch counts."""
+    dia = lap2d_fd(RESIDENT_GRID)
+    n, ndiag = dia.shape[0], len(dia.offsets)
+    b = source_term(n)
+    tol = BF16_TOL * float(np.linalg.norm(b))
+    op = as_operator(dia, BF16, device=DEV)
+    b_dev = torch.as_tensor(b, dtype=BF16, device=DEV)
+    counts = {}
+    for precond in (None, "neumann"):
+        state = cg_kernel.resident_state_bytes(ndiag, n, 2, 2, precond=precond is not None)
+        check(state <= config.RESIDENT_BUDGET_BYTES,
+              f"bf16 resident: {state} state bytes above the budget")
+        cfg = SolveConfig(precision="bf16", use_pallas=True, tolerance=tol, precond=precond)
+        res, k, seconds, launches, bitwise = solve_twice(lambda: solve(op, b_dev, cfg, device=DEV))
+        pc = None if precond is None else neumann_banded(op.bands, op.offsets, sweeps=2)
+        plain, k_plain, plain_seconds = timed(lambda: cg_solve(
+            op, b_dev, tol=tol, precond=pc, dot_precision=torch.float64, device=DEV))
+        chunks = -(-(k + 1) // CHUNK)
+        bound, bound_by = resident_bound(spec, ndiag, n, 2, precond is not None, k + 1,
+                                         max(1, launches["dia_cg_vmem2d_bf16"]), vec_bytes=2)
+        rec = {"phase": "bf16_resident", "problem": f"lap2d_fd({RESIDENT_GRID})", "n": n,
+               "dtype": "bfloat16", "precond": precond, "tol": tol, "k": k,
+               "converged": bool(res.converged), "bitwise_repeat": bitwise, "seconds": seconds,
+               "us_per_iter": seconds / (k + 1) * 1e6, "bound_us_per_iter": bound / (k + 1) * 1e3,
+               "bound_by": bound_by, "design": cg_kernel.dia_cg_chunk.plan.design,
+               "launches": launches, "k_plain": k_plain, "converged_plain": bool(plain.converged),
+               "plain_seconds": plain_seconds, "x_dtype": str(res.x.dtype),
+               "x_finite": bool(torch.isfinite(res.x).all()), "state_bytes": state}
+        emit(rec)
+        others = {name: c for name, c in launches.items()  # B1 forms the PCG's z0
+                  if name not in ("dia_cg_vmem2d_bf16", "dia_matvec_bf16", "dia_matvec")
+                  and name in KERNELS and c}
+        check(launches["dia_cg_vmem2d_bf16"] >= chunks and not others
+              and launches["dia_matvec_bf16"] == (precond is not None),
+              f"bf16 resident {precond}: {launches} at k={k}")
+        check(rec["design"] == "resident" and bitwise and rec["x_finite"]
+              and res.x.dtype == BF16, f"bf16 resident {precond}: {rec}")
+        check(bool(res.converged) == bool(plain.converged) and abs(k - k_plain) <= 0.02 * k_plain,
+              f"bf16 resident {precond}: k={k} vs the plain loop's {k_plain}")
+        if precond is None:
+            counts["dia_cg_vmem2d_bf16"] = launches["dia_cg_vmem2d_bf16"]
+            reset_launches()
+            res1, k1, _ = timed(lambda: dia_cg_solve_vmem(op, b_dev, tol=tol, layout="1d",
+                                                          device=DEV))
+            counts["dia_cg_vmem_bf16"] = read_launches()["dia_cg_vmem_bf16"]
+            same = k1 == k and same_x(res1, res)
+            emit({"phase": "bf16_resident_1d", "k": k1, "bitwise_equal_to_2d": same,
+                  "launches": counts["dia_cg_vmem_bf16"]})
+            check(same and counts["dia_cg_vmem_bf16"] >= chunks,
+                  f"bf16 layout='1d': k={k1}, bitwise equal to 2d: {same}")
+        else:
+            counts["dia_matvec_bf16"] = launches["dia_matvec_bf16"]
+    return counts
+
+
+def phase_bf16_cli(spec, tmp: Path) -> dict:
+    """The CUDA grammar on lap2D_5pt_n100.mtx with `true` and --precision
+    bf16 at 5e-2 ||b||: B3's bfloat16 build on every iteration, float32
+    dots (cgx's CLI from a shell); against the plain bfloat16 dense loop
+    with float32 dots (k within 2%, the same verdict); the [STEP k] line
+    and the CSV row. Returns its launch counts."""
+    mtx = tmp / "lap2D_5pt_n100.mtx"  # written by phase_cli_reference
+    dia = lap2d_fd(100)
+    b = source_term(dia.shape[0])
+    tol = BF16_TOL * float(np.linalg.norm(b))
+    out = tmp / "bf16.txt"
+    run, m, launches = cli_run([str(mtx), "1024", "16", "true", str(out), "--precision", "bf16",
+                                "--tol", repr(tol)])
+    rec = cli_record(spec, "bf16_cli", run, m, launches, dia.shape[0], BF16)
+    rec["body_iterations"] = launches["dense_matvec_bf16"] - 1
+    rec["us_per_iter"] = run.seconds / rec["body_iterations"] * 1e6
+    sync()
+    t0 = time.perf_counter()
+    plain = cg_solve(DenseOperator(run.op.a), torch.as_tensor(b, dtype=BF16, device=DEV),
+                     tol=tol, dot_precision=torch.float32, device=DEV)
+    k_plain = int(plain.iterations)
+    row = out.read_text().splitlines()[0].split(",")
+    rec.update(tol=tol, k_plain=k_plain, converged_plain=bool(plain.converged),
+               plain_seconds=time.perf_counter() - t0, x_dtype=str(run.result.x.dtype),
+               csv=row)
+    emit(rec)
+    k = rec["k"]
+    check(rec["converged"] == bool(plain.converged) and abs(k - k_plain) <= 0.02 * k_plain,
+          f"bf16 CLI: k={k} vs the plain loop's {k_plain}")
+    check(run.result.x.dtype == BF16 and bool(torch.isfinite(run.result.x).all()),
+          f"bf16 CLI: x is {run.result.x.dtype}")
+    check(row[:2] == ["1024", "16"] and float(row[2]) > 0, f"bf16 CLI: CSV row {row}")
+    check(launches["dense_matvec_bf16"] >= k + 1 and launches["dense_matvec"] == 0,
+          f"bf16 CLI missed the bf16 kernel: {launches}")
+    return {"dense_matvec_bf16": launches["dense_matvec_bf16"],
+            "dense_matvec_dot_bf16": launches["dense_matvec_dot_bf16"]}
+
+
+def phase_bf16_mesh(mesh) -> None:
+    """solve(lap2d_fd(256), precision="bf16", mesh=) on the NCCL group: a
+    float32 x, bitwise the fp32 request's (cgx solves a bf16 request's b
+    in float32 on the mesh, api.py:233-234); solve_sequence likewise."""
+    dia = lap2d_fd(BF16_MESH_GRID)
+    b = source_term(dia.shape[0])
+    tol = BF16_TOL * float(np.linalg.norm(b))
+    runs = {}
+    for precision in ("bf16", "fp32"):
+        cfg = SolveConfig(precision=precision, tolerance=tol)
+        res, k, seconds = timed(lambda: solve(dia, b, cfg, mesh=mesh, device=DEV))
+        seq = solve_sequence(dia, [b, np.roll(b, BF16_MESH_GRID)], cfg, k=4, mesh=mesh,
+                             device=DEV)
+        runs[precision] = (res, k, seconds, seq)
+    (res, k, seconds, seq), (res32, k32, _, seq32) = runs["bf16"], runs["fp32"]
+    same = same_x(res, res32) and all(same_x(a, c) for a, c in zip(seq, seq32))
+    emit({"phase": "bf16_mesh", "problem": f"lap2d_fd({BF16_MESH_GRID})", "k": k, "k_fp32": k32,
+          "x_dtype": str(res.x.dtype), "seconds": seconds,
+          "sequence_k": [int(r.iterations) for r in seq], "bitwise_fp32": same})
+    check(res.x.dtype == torch.float32 and bool(res.converged) and k == k32 and same,
+          f"bf16 mesh: x {res.x.dtype}, k {k} vs fp32 {k32}, bitwise {same}")
+
+
 def main() -> int:
     spec = phase_device()
     phase_build()
+    with tempfile.TemporaryDirectory() as tmp, cli_replay(Path(tmp)) as replay:
+        return run_phases(spec, Path(tmp), replay)
+
+
+def run_phases(spec, replay_tmp: Path, replay: subprocess.Popen) -> int:
+    """Every phase after the build, in order; the CLI's CPU replay runs
+    beside them in ``replay_tmp``."""
     records = phase_kernels(spec)
     phase_b1_sizes(spec)
     # each kernel's launches come from a path that runs it, counted from 0 just before it
@@ -4440,10 +4980,14 @@ def main() -> int:
                          if name.startswith("dense_")})
         phase_cli_mpi(spec, Path(tmp))
         phase_cli_fp32(spec, Path(tmp))
+        launches.update(phase_bf16_cli(spec, Path(tmp)))
     records.update(phase_resident_kernel(spec))
     phase_resident_goldens()
     launches.update({name: n for name, n in phase_resident_path(spec).items()
                      if name in RESIDENT_SITES})
+    records.update(phase_bf16_kernels(spec))
+    launches.update(phase_bf16_resident(spec))
+    launches.update(phase_bf16_main(spec))
     phase_crossover(spec)
     phase_mixed(spec)
     launches.update({name: n for name, n in phase_mixed_above(spec).items() if name in BF16_SITES})
@@ -4457,6 +5001,7 @@ def main() -> int:
     with nccl_mesh() as mesh:
         launches.update(phase_sharded(spec, mesh, b4_main))
         phase_sharded_goldens(mesh)
+        phase_bf16_mesh(mesh)
         phase_sharded_precond(mesh)
         phase_sharded_methods(mesh)
         for site, n_halo in phase_sharded_sstep(spec, mesh).items():
@@ -4479,16 +5024,9 @@ def main() -> int:
         # B8's count on the sequence's path beside the one-RHS route's
         records["dia_matvec_stream2d_planes"]["sequence_launches"] = phase_sharded_sequence(
             spec, mesh, every)
-    with tempfile.TemporaryDirectory() as tmp:
-        replay = start_cli_replay(Path(tmp))
-        try:
-            phase_gv_main(spec, b4_main, mg)
-            phase_cheby_main(spec, b4_main, Path(tmp))
-            phase_cli_methods(spec, Path(tmp), replay)
-        finally:
-            if replay.poll() is None:
-                replay.kill()
-                replay.wait()
+    phase_gv_main(spec, b4_main, mg)
+    phase_cheby_main(spec, b4_main, replay_tmp)
+    phase_cli_methods(spec, replay_tmp, replay)
     phase_block_main(spec, mg)
     phase_multi_rhs_paths()
     kernels = []
@@ -4513,7 +5051,14 @@ def main() -> int:
                         "halo_design": rec.get("halo_design"),
                         "halo_launches": rec.get("halo_launches"),
                         # B8 on the sharded solve_sequence's harvest and deflated solves
-                        "sequence_launches": rec.get("sequence_launches")})
+                        "sequence_launches": rec.get("sequence_launches"),
+                        # the vectors' dtype, and whether the site has a bfloat16-vector
+                        # build (the s-step sites not yet, ROADMAP A6)
+                        "dtype": rec.get("dtype"),
+                        "bf16_build": name in BF16_KERNELS or f"{name}_bf16" in BF16_KERNELS,
+                        # the bf16 rows' other design, preconditioner and shape
+                        "pcg_ms": rec.get("pcg_ms"), "pcg_global_ms": rec.get("pcg_global_ms"),
+                        "pcg_bound_ms": rec.get("pcg_bound_ms"), "n": rec.get("n")})
     print(json.dumps({"kernels": kernels, "not_ported": NOT_PORTED}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -15,6 +15,7 @@ from cgx.solver.refine import iterative_refinement as cgx_iterative
 from cgx.solver.refine import refine_fixed_sweeps as cgx_fixed
 from cgx_torch import SolveConfig, config
 from cgx_torch.ops import cg_kernel, cg_stream
+from cgx_torch.ops._util import BF16_BANDS_SUFFIX, BUILD_LAUNCHES
 
 G = 24
 N = G * G
@@ -90,7 +91,7 @@ def test_iterative_refinement_pallas_routes_by_budget(problem, monkeypatch, inne
     monkeypatch.setattr(config, "RESIDENT_BUDGET_BYTES", budget)
     def counts():
         chunk = cg_kernel.dia_cg_chunk
-        return (chunk.launches["2d"], chunk.launches_bf16["2d"],
+        return (chunk.launches["2d"], BUILD_LAUNCHES["dia_cg_vmem2d" + BF16_BANDS_SUFFIX],
                 cg_stream._stream_iteration_pcg.launches)
 
     before = counts()
