@@ -99,25 +99,34 @@ _SIGNATURES = {
     },
 }
 # Entries that also take bfloat16 bands under float32 vectors, bound with
-# this suffix (cgx_torch.ops._util.BF16_BANDS_SUFFIX).
-_BF16_BANDS = ("cgx_dia_cg_chunk", "cgx_dia_cg_resident", "cgx_cg_stream", "cgx_pcg_wave", "cgx_sstep_gram",
+# the suffix _f32_bf16b (cgx_torch.ops._util.NARROW_BANDS).
+BF16_BANDS = ("cgx_dia_cg_chunk", "cgx_dia_cg_resident", "cgx_cg_stream", "cgx_pcg_wave", "cgx_sstep_gram",
                "cgx_sstep_recover",
                "cgx_sstep_gram_wave", "cgx_sstep_recover_wave")
+# Entries that also take float16 bands under float32 vectors, bound with the
+# suffix _f32_f16b (cgx_torch.ops._util.NARROW_BANDS): those whose cgx
+# counterpart takes an explicit bands_dtype, B5, B4/B7 and B10 (B6's PCG takes
+# "auto" only, so it has none).
+F16_BANDS = ("cgx_dia_cg_chunk", "cgx_dia_cg_resident", "cgx_cg_stream", "cgx_sstep_gram",
+             "cgx_sstep_recover", "cgx_sstep_gram_wave", "cgx_sstep_recover_wave")
 # Entries also built on bfloat16 vectors and bands, bound with the suffix _bf16
 # (cgx_torch.ops._util.KERNEL_DTYPES, vector_dtypes): B1's product (both
-# designs), B5 (both designs), B4/B7 and B6 (both designs), B3 (both entries).
+# designs), B5 (both designs), B4/B7 and B6 (both designs), B3 (both entries),
+# B10's Gram and recover and B9 (both designs each).
 BF16_VECTORS = ("cgx_dia_matvec", "cgx_dia_matvec_stream", "cgx_dia_cg_chunk",
                 "cgx_dia_cg_resident", "cgx_cg_stream", "cgx_pcg_wave", "cgx_dense_matvec",
-                "cgx_dense_matvec_dot")
+                "cgx_dense_matvec_dot", "cgx_sstep_gram", "cgx_sstep_gram_wave",
+                "cgx_sstep_recover", "cgx_sstep_recover_wave", "cgx_dia_sstep_basis",
+                "cgx_dia_sstep_basis_wave")
 # Entries with one variant only: the replay works on the float64 state.
 _ONLY = {"cgx_sstep_replay": ("_f64",)}
 # Sources compiled once per entry suffix (-DCGX_PART_<SUFFIX>, csrc/common.cuh),
 # one library each: their many template instantiations would otherwise take
 # one core for most of the build while the other sources are long done.
 _SPLIT = {
-    "cg_kernel": ("_f32", "_f64", "_f32_bf16b", "_bf16"),
-    "sstep_stream": ("_f32", "_f64", "_f32_bf16b"),
-    "sstep_recover": ("_f32", "_f64", "_f32_bf16b"),
+    "cg_kernel": ("_f32", "_f64", "_f32_bf16b", "_f32_f16b", "_bf16"),
+    "sstep_stream": ("_f32", "_f64", "_f32_bf16b", "_f32_f16b", "_bf16"),
+    "sstep_recover": ("_f32", "_f64", "_f32_bf16b", "_f32_f16b", "_bf16"),
 }
 
 
@@ -198,7 +207,8 @@ def load() -> types.SimpleNamespace:
     ns = types.SimpleNamespace()
     for s, entries in _SIGNATURES.items():
         for name, argtypes in entries.items():
-            suffixes = ("_f32", "_f64") + (("_f32_bf16b",) if name in _BF16_BANDS else ()) + (
+            suffixes = ("_f32", "_f64") + (("_f32_bf16b",) if name in BF16_BANDS else ()) + (
+                ("_f32_f16b",) if name in F16_BANDS else ()) + (
                 ("_bf16",) if name in BF16_VECTORS else ())
             for suffix in _ONLY.get(name, suffixes):
                 fn = getattr(cdlls[s + suffix if s in _SPLIT else s], name + suffix)

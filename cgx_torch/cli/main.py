@@ -37,6 +37,10 @@ Where the port differs from cgx's CLI, by design:
 preconditioner, chebyshev on its Lanczos bounds without one (a given one
 is ignored with a warning), sstep with ``--sstep-s``, ``--sstep-basis``,
 ``--sstep-powers`` and ``--sstep-replace-every`` passed through.
+``--sstep-powers`` also takes ``fused`` (kernels B10, with
+``--sstep-replace-every 0``, on ``--format dia``), which cgx's CLI does not
+offer but its ``sstep_cg_solve`` runs; with ``--precision bf16`` that is
+the one s-step route on bfloat16 vectors.
 ``--precond jacobi|block_jacobi|neumann|chebyshev|mg`` run as cgx builds
 them (cli/main.py:285-340): ``block_jacobi`` with
 ``--precond-block-size`` (default min(32, N)), ``chebyshev`` degree 3 on
@@ -63,10 +67,10 @@ divisor of the shard size), and so do ``--method gvpipe`` (with
 ``--gv-replace-every``) and ``--method chebyshev`` (on the host
 matrix's Lanczos bounds).
 
-``--method sstep`` (with ``--sstep-powers off|deephalo``) and
+``--method sstep`` (with ``--sstep-powers off|deephalo|fused``) and
 ``--precond mg`` (``--mg-smoother``, ``--mg-cycle``; a banded operator,
-else rc 1) run sharded too. ``--precision bf16`` (A6) raises
-``NotImplementedError`` naming its ROADMAP item.
+else rc 1) run sharded too. ``--precision bf16`` there solves in float32,
+as cgx's does, and says so.
 """
 
 from __future__ import annotations
@@ -121,7 +125,8 @@ def _build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mg-cycle", default="fp64", choices=["fp32", "fp64"])
     p.add_argument("--sstep-s", type=int, default=4)
     p.add_argument("--sstep-basis", default="chebyshev", choices=["chebyshev", "newton"])
-    p.add_argument("--sstep-powers", default="off", choices=["off", "deephalo", "pallas"])
+    p.add_argument("--sstep-powers", default="off",
+                   choices=["off", "deephalo", "pallas", "fused"])
     p.add_argument("--sstep-replace-every", type=int, default=2)
     p.add_argument("--gv-replace-every", type=int, default=25)
     p.add_argument("--no-debug", action="store_true")

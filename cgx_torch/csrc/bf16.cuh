@@ -24,6 +24,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstring>
+
 namespace cgx {
 
 struct bf16 {
@@ -41,6 +43,25 @@ struct bf16 {
   }
 };
 static_assert(sizeof(bf16) == 2, "bf16 is 16 bits");
+
+// A scalar the host hands a kernel in the vectors' type (the s-step basis's
+// theta, delta and shifts): static_cast, and for bfloat16 the device
+// constructor's rounding done on the host, through float to nearest even.
+template <typename T>
+inline T host_scalar(double d) {
+  return static_cast<T>(d);
+}
+template <>
+inline bf16 host_scalar<bf16>(double d) {
+  const float f = static_cast<float>(d);
+  unsigned int u;
+  memcpy(&u, &f, sizeof(u));
+  bf16 out;
+  out.bits = (u & 0x7fffffffu) > 0x7f800000u
+                 ? static_cast<unsigned short>(0x7fc0u)  // NaN
+                 : static_cast<unsigned short>((u + 0x7fffu + ((u >> 16) & 1u)) >> 16);
+  return out;
+}
 
 __device__ __forceinline__ bf16 operator+(bf16 a, bf16 b) {
   return bf16(static_cast<float>(a) + static_cast<float>(b));

@@ -9,9 +9,10 @@
 // (rows, cols) planes for the TPU's (8, 128) registers and Mosaic's tiling. On
 // Hopper one kernel over flat vectors serves both. As in cgx, the bands may be
 // stored in bfloat16 under float vectors (entry cgx_dia_cg_chunk_f32_bf16b, the
-// refinement's inner solve): each band value is widened to float as it is loaded
-// (dia_row.cuh), which halves the bands' share of the traffic; the float and
-// double entries compute what they did before, bit for bit.
+// refinement's inner solve), or in float16 (the _f32_f16b entries, cgx's
+// explicit bands_dtype=float16): each band value is widened to float as it is
+// loaded (dia_row.cuh), which halves the bands' share of the traffic; the float
+// and double entries compute what they did before, bit for bit.
 //
 // Two designs, picked on the host by cgx_torch.ops.cg_kernel.resident_plan:
 // "resident" (dia_cg_resident_kernel, below) where a block's vectors fit on
@@ -695,6 +696,19 @@ int cgx_dia_cg_chunk_f32_bf16b(const void* bands, void* p, void* x, void* r, voi
 }
 #endif
 
+#ifdef CGX_PART_F32_F16B
+int cgx_dia_cg_chunk_f32_f16b(const void* bands, void* p, void* x, void* r, void* ap, void* c,
+                              void* partials, long long partials_len, const void* scal_in,
+                              void* scal_out, long long n, const long long* offsets, int ndiag,
+                              int d0, double tol, double nearzero, double maxiter, int chunk,
+                              int precond, int* grid_out, void* stream) {
+  return cgx::launch_chunk_any<float, __half>(bands, p, x, r, ap, c, partials, partials_len,
+                                              scal_in, scal_out, n, offsets, ndiag, d0, tol,
+                                              nearzero, maxiter, chunk, precond, grid_out,
+                                              stream);
+}
+#endif
+
 #ifdef CGX_PART_BF16
 int cgx_dia_cg_chunk_bf16(const void* bands, void* p, void* x, void* r, void* ap, void* c,
                           void* partials, long long partials_len, const void* scal_in,
@@ -731,6 +745,9 @@ CGX_RESIDENT_ENTRY(cgx_dia_cg_resident_f64, double, double)
 #endif
 #ifdef CGX_PART_F32_BF16B
 CGX_RESIDENT_ENTRY(cgx_dia_cg_resident_f32_bf16b, float, __nv_bfloat16)
+#endif
+#ifdef CGX_PART_F32_F16B
+CGX_RESIDENT_ENTRY(cgx_dia_cg_resident_f32_f16b, float, __half)
 #endif
 #ifdef CGX_PART_BF16
 CGX_RESIDENT_ENTRY(cgx_dia_cg_resident_bf16, cgx::bf16, cgx::bf16)

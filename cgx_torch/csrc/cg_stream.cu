@@ -87,6 +87,11 @@
 // as for float (bf16.cuh). The wavefront's rings hold
 // bfloat16, half the float bytes, so its plan fits wherever float's does.
 //
+// Band storage under float vectors: bfloat16 (the _f32_bf16b entries, "auto"'s
+// pick where it is exact) or, for the plain iteration only, float16 (the
+// _f32_f16b entry, cgx's explicit bands_dtype=float16), each value widened
+// exactly on load (dia_row.cuh).
+//
 // Bound: memory. The recurrence must move, per iteration, the bands once, p, x,
 // r, w, s in and out: (ndiag + 10) N words (ndiag/2 + 10 with bfloat16 bands
 // under float vectors); with the preconditioner u as well, (ndiag + 12) N. On
@@ -95,6 +100,7 @@
 // bandwidth, not device memory traffic, so long as a block's halo stays in
 // cache.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 
 #include <type_traits>
 
@@ -690,6 +696,7 @@ extern "C" {
 CGX_STREAM_ENTRY(cgx_cg_stream_f32, float, float)
 CGX_STREAM_ENTRY(cgx_cg_stream_f64, double, double)
 CGX_STREAM_ENTRY(cgx_cg_stream_f32_bf16b, float, __nv_bfloat16)
+CGX_STREAM_ENTRY(cgx_cg_stream_f32_f16b, float, __half)
 CGX_STREAM_ENTRY(cgx_cg_stream_bf16, cgx::bf16, cgx::bf16)
 
 #undef CGX_STREAM_ENTRY

@@ -12,14 +12,15 @@
 #include <cuda_runtime.h>
 
 // A source that _build.py splits (its _SPLIT) compiles once per entry
-// suffix, with -DCGX_PART_F32, _F64, _F32_BF16B or _BF16, and its library
-// holds that suffix's entries only: the template instantiations build on
-// several cores at once. With no such define a source holds them all.
+// suffix, with -DCGX_PART_F32, _F64, _F32_BF16B, _F32_F16B or _BF16, and its
+// library holds that suffix's entries only: the template instantiations build
+// on several cores at once. With no such define a source holds them all.
 #if !defined(CGX_PART_F32) && !defined(CGX_PART_F64) && !defined(CGX_PART_F32_BF16B) && \
-    !defined(CGX_PART_BF16)
+    !defined(CGX_PART_F32_F16B) && !defined(CGX_PART_BF16)
 #define CGX_PART_F32
 #define CGX_PART_F64
 #define CGX_PART_F32_BF16B
+#define CGX_PART_F32_F16B
 #define CGX_PART_BF16
 #endif
 

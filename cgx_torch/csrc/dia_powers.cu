@@ -21,6 +21,11 @@
 // Each level is formed by the plain version's operations in its order, so the
 // basis equals cgx_torch.ops.dia_powers.dia_sstep_basis_ref bit for bit.
 //
+// Vectors: float, double and bfloat16 (the _bf16 entries, the bands in
+// bfloat16 too, cgx's kernel being dtype-generic): on bfloat16 each operation
+// rounds to bfloat16 right after it (sstep_basis.cuh), as the plain version's
+// does.
+//
 // Bound: memory. The function must read the bands and p and r once and write
 // the basis: (ndiag + 2 + 2s + 1) N values, the basis most of them. The
 // wavefront reads p and r once and the bands once an application, from L2
@@ -158,8 +163,10 @@ extern "C" {
 
 CGX_POWERS_ENTRY(cgx_dia_sstep_basis_f32, float)
 CGX_POWERS_ENTRY(cgx_dia_sstep_basis_f64, double)
+CGX_POWERS_ENTRY(cgx_dia_sstep_basis_bf16, cgx::bf16)
 CGX_POWERS_WAVE_ENTRY(cgx_dia_sstep_basis_wave_f32, float)
 CGX_POWERS_WAVE_ENTRY(cgx_dia_sstep_basis_wave_f64, double)
+CGX_POWERS_WAVE_ENTRY(cgx_dia_sstep_basis_wave_bf16, cgx::bf16)
 
 #undef CGX_POWERS_ENTRY
 #undef CGX_POWERS_WAVE_ENTRY

@@ -3,10 +3,11 @@
 //
 //   y[i] = sum_d bands[d*n + i] * x[i + off_d]   (terms with i + off_d outside [0, n) are 0)
 //
-// The bands may be stored in a narrower type than the vectors (bfloat16 bands
-// under float vectors): each band value is widened exactly to the vector type as
-// it is loaded, so the product is the one of the widened bands. With the bands
-// in the vectors' own type the code is what it was before, bit for bit; that
+// The bands may be stored in a narrower type than the vectors (bfloat16 or
+// float16 bands under float vectors): each band value is widened exactly to the
+// vector type as it is loaded, so the product is the one of the widened bands.
+// With the bands in the vectors' own type the code is what it was before, bit
+// for bit; that
 // includes bfloat16 vectors (cgx::bf16, bf16.cuh), whose product and sum each
 // round to bfloat16.
 //
@@ -15,6 +16,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include "bf16.cuh"
@@ -32,6 +34,7 @@ struct Offsets {
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ double widen(double v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float widen(__half v) { return __half2float(v); }
 __device__ __forceinline__ bf16 widen(bf16 v) { return v; }
 
 template <typename T, typename B>

@@ -42,6 +42,15 @@
 // rides in a ring of its own. The lags, ring lengths and W are planned on the
 // host (cgx_torch.ops.dia_powers.basis_plan), so the CPU tests can walk the
 // same schedule.
+//
+// bfloat16 vectors (T = cgx::bf16, bf16.cuh; the bands in bfloat16 too): each
+// product, sum, difference and quotient above is done in float and rounded to
+// bfloat16 right after it, in this order, as torch does on the plain version's
+// bfloat16 tensors; theta, delta, delta/2 and the shifts round to bfloat16 on
+// the host (host_scalar), as the plain version's constants do. The wavefront's
+// rings hold bfloat16, half float's bytes; no ring is filled by cp.async (a
+// level is formed in registers and stored), so 2-byte values need no copy of
+// their own.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -95,10 +104,10 @@ __host__ bool make_basis(Basis<T, B>* a, const void* bands, long long n, const l
   }
   a->s = s;
   a->newton = nshifts != 0;
-  a->theta = static_cast<T>(theta);
-  a->delta = static_cast<T>(delta);
-  a->sigma = static_cast<T>(delta / 2.0);
-  for (int i = 0; i < kMaxS; ++i) a->shifts[i] = static_cast<T>(i < nshifts ? shifts[i] : 0.0);
+  a->theta = host_scalar<T>(theta);
+  a->delta = host_scalar<T>(delta);
+  a->sigma = host_scalar<T>(delta / 2.0);
+  for (int i = 0; i < kMaxS; ++i) a->shifts[i] = host_scalar<T>(i < nshifts ? shifts[i] : 0.0);
   return true;
 }
 

@@ -35,11 +35,17 @@
 //   regenerates its slab's levels into its scratch in device memory with
 //   gen_chain, a latency-bound pass a level, then combines them row by row.
 //
+// Vectors and bands as the Gram launch's (sstep_stream.cu). On bfloat16 vectors
+// the coefficients round to bfloat16 where they scale a level, and each
+// product and sum of the combinations rounds to bfloat16, in level order, as
+// the plain version's bfloat16 tensors do; x's increment is added once.
+//
 // Bound: memory. The launch must read the bands, p, r and x once and write x,
 // r and p: (ndiag b + 6 v) N bytes for b-byte bands and v-byte vectors. The
 // wavefront reads p and r once and the bands once an application, from L2
 // for all but the first (a block's window of them is a few thousand rows).
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 
 #include "common.cuh"
 #include "sstep_block.cuh"
@@ -250,6 +256,12 @@ CGX_RECOVER_ENTRIES(_f64, double, double)
 #endif
 #ifdef CGX_PART_F32_BF16B
 CGX_RECOVER_ENTRIES(_f32_bf16b, float, __nv_bfloat16)
+#endif
+#ifdef CGX_PART_F32_F16B
+CGX_RECOVER_ENTRIES(_f32_f16b, float, __half)
+#endif
+#ifdef CGX_PART_BF16
+CGX_RECOVER_ENTRIES(_bf16, cgx::bf16, cgx::bf16)
 #endif
 
 #undef CGX_RECOVER_ENTRIES

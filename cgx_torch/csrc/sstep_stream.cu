@@ -37,6 +37,13 @@
 // writes [xc, d, c] and the scalars [k, rsold, rsnew, conv, brk] to the packed
 // state and marks the block live.
 //
+// Vectors and bands: float, double, float under bfloat16 or float16 bands
+// (widened on load, dia_row.cuh), and bfloat16 vectors and bands (the _bf16
+// entries, cgx::bf16 of bf16.cuh): there each basis operation is done in float
+// and rounded to bfloat16 right after it, in the plain version's order
+// (sstep_basis.cuh), the products the Gram sums are exact in double as for
+// float, and the replay is the float64 one of every build.
+//
 // Bound: memory. A block of s iterations must read the bands and p and r twice
 // (once a launch) and x once, and write x, r and p: (2 ndiag + 3 + 2 + 3) N
 // values, in bytes (2 ndiag b + 8 v) N for b-byte bands and v-byte vectors;
@@ -46,6 +53,7 @@
 // The wavefront reads the bands once an application too, but from L2 (a
 // block's window of them is the lags' few thousand rows), and p and r twice.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 
 #include "common.cuh"
 #include "sstep_block.cuh"
@@ -357,6 +365,12 @@ CGX_SSTEP_ENTRIES(_f64, double, double)
 #endif
 #ifdef CGX_PART_F32_BF16B
 CGX_SSTEP_ENTRIES(_f32_bf16b, float, __nv_bfloat16)
+#endif
+#ifdef CGX_PART_F32_F16B
+CGX_SSTEP_ENTRIES(_f32_f16b, float, __half)
+#endif
+#ifdef CGX_PART_BF16
+CGX_SSTEP_ENTRIES(_bf16, cgx::bf16, cgx::bf16)
 #endif
 
 #undef CGX_SSTEP_ENTRIES

@@ -37,8 +37,9 @@ KERNEL_DTYPES = {torch.float32: "_f32", torch.float64: "_f64", torch.bfloat16: "
 FLOAT_VECTORS = (torch.float32, torch.float64)  # the vector dtypes every kernel is built for
 SHARED_OPTIN = 232448  # bytes of shared memory one block may take on the H100 (227 KB)
 MIN_TILE = 1024  # rows of the smallest slab of a slab kernel: a small n takes fewer blocks
-# entries whose bands are stored in bfloat16 under float32 vectors
-BF16_BANDS_SUFFIX = "_f32_bf16b"
+# the C entry suffix of each narrower band dtype under float32 vectors
+NARROW_BANDS = {torch.bfloat16: "_f32_bf16b", torch.float16: "_f32_f16b"}
+BF16_BANDS_SUFFIX = NARROW_BANDS[torch.bfloat16]
 
 
 def vector_dtypes(*entries: str) -> tuple:
@@ -52,23 +53,43 @@ def vector_dtypes(*entries: str) -> tuple:
     return FLOAT_VECTORS
 
 
+def band_dtypes(*entries: str) -> tuple:
+    """The narrower band dtypes under float32 vectors that every one of the
+    C entries ``entries`` is built for (``cgx_torch._build``'s ``BF16_BANDS``
+    and ``F16_BANDS``)."""
+    from cgx_torch._build import BF16_BANDS, F16_BANDS
+
+    built = {torch.bfloat16: BF16_BANDS, torch.float16: F16_BANDS}
+    return tuple(d for d, names in built.items() if entries and all(e in names for e in entries))
+
+
 def entry_suffix(vec_dtype: torch.dtype, bands_dtype: torch.dtype) -> str:
     """The C entry suffix for these vectors and bands: the vectors' own,
-    or :data:`BF16_BANDS_SUFFIX` for bfloat16 bands under float32 vectors."""
-    return BF16_BANDS_SUFFIX if bands_dtype != vec_dtype else KERNEL_DTYPES[vec_dtype]
+    or :data:`NARROW_BANDS`'s for bfloat16 or float16 bands under float32
+    vectors."""
+    if bands_dtype == vec_dtype:
+        return KERNEL_DTYPES[vec_dtype]
+    if vec_dtype == torch.float32 and bands_dtype in NARROW_BANDS:
+        return NARROW_BANDS[bands_dtype]
+    raise NotImplementedError(_unbuilt(vec_dtype, bands_dtype))
+
+
+def _unbuilt(vec_dtype: torch.dtype, bands_dtype) -> str:
+    return (f"bands_dtype={bands_dtype} under {vec_dtype} vectors: cgx_torch's kernels take "
+            "bfloat16 or float16 bands under float32 vectors only (no route of solve asks for "
+            "another pair; ROADMAP C)")
 
 
 def band_storage(vec_dtype: torch.dtype, bands_dtype) -> Optional[torch.dtype]:
     """The narrower band dtype a kernel is asked to stream (None for the
     vectors' own, which includes bfloat16 bands under bfloat16 vectors):
-    bfloat16 under float32 vectors is ported; anything else raises."""
+    bfloat16 or float16 under float32 vectors; any other pair raises,
+    naming it."""
     if bands_dtype is None or bands_dtype == vec_dtype:
         return None
-    if bands_dtype == torch.bfloat16 and vec_dtype == torch.float32:
-        return torch.bfloat16
-    raise NotImplementedError(
-        f"bands_dtype={bands_dtype} under {vec_dtype} vectors is not ported to cgx_torch yet: "
-        "the kernels take bfloat16 bands under float32 vectors only (ROADMAP A6)")
+    if vec_dtype == torch.float32 and bands_dtype in NARROW_BANDS:
+        return bands_dtype
+    raise NotImplementedError(_unbuilt(vec_dtype, bands_dtype))
 
 
 # launches of each build, keyed by site and C entry suffix ("dia_matvec_bf16",

@@ -42,6 +42,8 @@ import torch
 from cgx_torch._build import PARTIALS
 from cgx_torch.config import DEFAULT_TOLERANCE, NEARZERO
 from cgx_torch.ops._util import (
+    NARROW_BANDS,
+    band_dtypes,
     band_storage,
     check_operands,
     count_build,
@@ -184,7 +186,8 @@ def dia_cg_chunk_ref(
     ``[rsold, converged, k, breakdown]`` (float64). Dots and scalars are
     float64; alpha and beta round to the data's dtype where they scale
     vectors, as in the kernel and in ``cg_solve(dot_precision=float64)``.
-    bfloat16 bands widen exactly to the vectors' dtype, as in the kernel."""
+    bfloat16 or float16 bands widen exactly to the vectors' dtype, as in
+    the kernel."""
     offsets = tuple(int(o) for o in offsets)
     bands = bands.to(x.dtype)
 
@@ -228,7 +231,8 @@ def dia_cg_chunk_ref(
 
 def _check_chunk(bands, p, x, r, scal, offsets, layout) -> Tuple[int, ...]:
     dtypes = vector_dtypes(*_ENTRIES)
-    offsets = _check("dia_cg_chunk", bands, x, offsets, bf16_bands=True, dtypes=dtypes)
+    offsets = _check("dia_cg_chunk", bands, x, offsets, narrow=band_dtypes(*_ENTRIES),
+                     dtypes=dtypes)
     check_operands("dia_cg_chunk", {"p": p, "x": x, "r": r}, dtypes=dtypes)
     if layout not in LAYOUTS:
         raise ValueError(f"unknown layout {layout!r}")
@@ -296,8 +300,8 @@ def dia_cg_chunk(
     ``layout`` names the cgx site the call stands for (:data:`SITES`) and
     picks the launch counter, in ``launches`` and by build in
     ``BUILD_LAUNCHES``; the kernel is the same. ``bands`` are in the vectors'
-    dtype (float32, float64 or bfloat16), or bfloat16 under float32
-    vectors. On a CUDA tensor the kernel runs ``plan``'s design (default
+    dtype (float32, float64 or bfloat16), or bfloat16 or float16 under
+    float32 vectors. On a CUDA tensor the kernel runs ``plan``'s design (default
     :func:`resident_plan`)."""
     offsets = _check_chunk(bands, p, x, r, scal, offsets, layout)
     if x.device.type == "cpu":
@@ -335,7 +339,7 @@ def _solve(bands, b, *, offsets, tol, nearzero, maxiter, chunk, precond, layout,
     loop, from x0 = 0, on flat vectors; every chunk in ``plan``'s design
     (default :func:`resident_plan`'s; checks pass ``GLOBAL_PLAN``)."""
     offsets = tuple(int(o) for o in offsets)
-    if bands.dtype != b.dtype and not (bands.dtype == torch.bfloat16 and b.dtype == torch.float32):
+    if bands.dtype != b.dtype and not (b.dtype == torch.float32 and bands.dtype in NARROW_BANDS):
         raise TypeError(f"bands are {bands.dtype} but b is {b.dtype}")
     x = torch.zeros_like(b)
     r = b.clone()
@@ -412,10 +416,10 @@ def dia_cg_solve_vmem(
     two sites; the same kernel here) and ``cols`` the 2-D plane width,
     kept for cgx's signature. cgx's TPU guard against VMEM capacity has
     no counterpart: the resident budget only routes ``solve``.
-    ``bands_dtype=torch.bfloat16`` (float32 only) streams the bands in
-    bfloat16: the solve then runs on the rounded operator, exact for
-    stencil constants and a nearby SPD matrix otherwise (the
-    refinement's inner, cgx cg_kernel.py:549-582)."""
+    ``bands_dtype=torch.bfloat16`` or ``torch.float16`` (float32 only)
+    streams the bands in that dtype: the solve then runs on the rounded
+    operator, exact for stencil constants and a nearby SPD matrix
+    otherwise (the refinement's inner, cgx cg_kernel.py:549-582)."""
     dev = resolve_device(device)
     if layout not in LAYOUTS:
         raise ValueError(f"unknown layout {layout!r}")

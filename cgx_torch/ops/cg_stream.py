@@ -56,6 +56,7 @@ import torch
 from cgx_torch.config import DEFAULT_TOLERANCE, NEARZERO
 from cgx_torch.ops._util import (
     SHARED_OPTIN,
+    band_dtypes,
     band_storage,
     check_operands,
     count_build,
@@ -186,6 +187,9 @@ def _check(fn: str, bands, p, x, u, pairs, scal, offsets) -> Tuple[int, ...]:
     """Validate one launch's operands before any pointer reaches C."""
     vectors = {"p": p, "x": x} if u is None else {"p": p, "x": x, "u": u}
     dtypes = vector_dtypes(*_ENTRIES)
+    # the PCG's designs (cgx_pcg_wave, or cgx_cg_stream's three launches) stream
+    # bfloat16 bands only; the plain iteration float16 ones too
+    narrow = band_dtypes(*(_ENTRIES if u is not None else _ENTRIES[:1]))
     check_operands(fn, vectors, dtypes=dtypes)
     n = x.shape[0]
     for name, t in pairs.items():
@@ -197,7 +201,7 @@ def _check(fn: str, bands, p, x, u, pairs, scal, offsets) -> Tuple[int, ...]:
             and scal.dtype == torch.float64 and scal.device == x.device and scal.is_contiguous()):
         raise ValueError(f"{fn}: scal must be a contiguous float64 ({_SCALARS},) tensor on x's "
                          "device")
-    return _check_bands(fn, bands, x, offsets, bf16_bands=True, dtypes=dtypes)
+    return _check_bands(fn, bands, x, offsets, narrow=narrow, dtypes=dtypes)
 
 
 class Step(NamedTuple):

@@ -7,9 +7,12 @@ of ``cgx/ops/dia_powers.py``).
 kernel in ``cgx_torch/csrc/dia_powers.cu``, whose header note gives the
 bound and the designs; :func:`dia_sstep_basis_ref` is the plain version,
 the 2s-1 mat-vecs of :func:`cgx_torch.solver.sstep.basis_columns_fn`,
-which the kernel equals bit for bit. On a CUDA tensor the wrapper
-launches the kernel or raises; on a CPU tensor it runs the plain
-version. It counts its calls in ``.launches``.
+which the kernel equals bit for bit, on float32, float64 or bfloat16
+vectors (the bands in the vectors' dtype; on bfloat16 each operation
+rounds to bfloat16, as cgx's dtype-generic kernel does). On a CUDA
+tensor the wrapper launches the kernel or raises; on a CPU tensor it
+runs the plain version. It counts its calls in ``.launches``, and by
+build in ``cgx_torch.ops._util.BUILD_LAUNCHES``.
 
 :func:`basis_plan` is the host-side plan of the basis generator that B9
 and both launches of the fused s-step block (B10,
@@ -41,11 +44,14 @@ import torch
 from cgx_torch.ops._util import (
     MIN_TILE,
     SHARED_OPTIN,
+    band_dtypes,
     check_operands,
+    count_build,
     launch,
     round_up,
     slab_grid,
     sms_of,
+    vector_dtypes,
 )
 from cgx_torch.ops.cg_stream import LANES
 from cgx_torch.ops.dia_spmv import _check as _check_bands
@@ -58,6 +64,7 @@ WAVE_THREADS = 512  # kWaveThreads: one block an SM, and W, the rows a level adv
 WAVE_MAX_S = 4  # kWaveMaxS: the Gram's 45 float64 sums of s = 4 in two threads' registers
 WAVE_STATIC = 2048  # of them kept for a kernel's static shared memory (slots, coefficients)
 GRAM_SLAB_SHARED = 64 * 1024  # kGramShared: the slab design's Gram sub-tile
+_ENTRIES = ("cgx_dia_sstep_basis", "cgx_dia_sstep_basis_wave")  # B9's two designs
 
 
 def sublanes(dtype: torch.dtype) -> int:
@@ -230,15 +237,18 @@ def shifts_arg(shifts: Sequence[float]):
     return (ctypes.c_double * max(1, len(shifts)))(*shifts), len(shifts)
 
 
-def check_basis(fn: str, bands, vectors: dict, offsets, s: int, shifts) -> Tuple[int, ...]:
-    """Validate a basis kernel's operands before any pointer reaches C."""
-    check_operands(fn, vectors)
+def check_basis(fn: str, bands, vectors: dict, offsets, s: int, shifts,
+                entries: Tuple[str, ...]) -> Tuple[int, ...]:
+    """Validate a basis kernel's operands before any pointer reaches C:
+    vectors and bands of dtypes that all the C ``entries`` are built for."""
+    check_operands(fn, vectors, dtypes=vector_dtypes(*entries))
     first = next(iter(vectors.values()))
     if not 1 <= int(s) <= MAX_S:
         raise ValueError(f"{fn}: s must be in 1..{MAX_S}, got {s}")
     if shifts and len(shifts) < int(s):
         raise ValueError(f"{fn}: {len(shifts)} Newton shifts for s = {s}")
-    return _check_bands(fn, bands, first, offsets, bf16_bands=True)
+    return _check_bands(fn, bands, first, offsets, narrow=band_dtypes(*entries),
+                        dtypes=vector_dtypes(*entries))
 
 
 def dia_sstep_basis_planes(bands_pl: torch.Tensor, p: torch.Tensor, r: torch.Tensor, *,
@@ -250,10 +260,10 @@ def dia_sstep_basis_planes(bands_pl: torch.Tensor, p: torch.Tensor, r: torch.Ten
     design of :func:`basis_plan` (``plan=slab_plan(...)`` forces the slab
     design on the card)."""
     _check_layout(rows, cols)
-    offsets = check_basis("dia_sstep_basis_planes", bands_pl, {"p": p, "r": r}, offsets, s,
-                          shifts)
-    if bands_pl.dtype != p.dtype:
+    if getattr(bands_pl, "dtype", None) != getattr(p, "dtype", None):
         raise ValueError("dia_sstep_basis_planes: the bands must be in the vectors' dtype")
+    offsets = check_basis("dia_sstep_basis_planes", bands_pl, {"p": p, "r": r}, offsets, s,
+                          shifts, _ENTRIES)
     s = int(s)
     if p.device.type == "cpu":
         out = dia_sstep_basis_ref(bands_pl, p, r, offsets=offsets, s=s, theta=theta,
@@ -276,6 +286,7 @@ def dia_sstep_basis_planes(bands_pl: torch.Tensor, p: torch.Tensor, r: torch.Ten
         dia_sstep_basis_planes.design = plan.design
         dia_sstep_basis_planes.plan = plan
     dia_sstep_basis_planes.launches += 1
+    count_build("dia_sstep_basis_planes", p.dtype, bands_pl.dtype)
     return out
 
 

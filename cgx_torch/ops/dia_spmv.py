@@ -63,16 +63,17 @@ def dia_matvec_dot_ref(
     return y, torch.sum(x * y)
 
 
-def _check(fn: str, bands, x, offsets, *, bf16_bands: bool = False,
+def _check(fn: str, bands, x, offsets, *, narrow: tuple = (),
            dtypes: tuple = FLOAT_VECTORS) -> Tuple[int, ...]:
-    """Validate bands, x and offsets; ``bf16_bands`` also accepts
-    bfloat16 bands under float32 x (the kernels that stream them);
-    ``dtypes`` are x's dtypes the caller's kernels are built for."""
+    """Validate bands, x and offsets; ``narrow`` are the band dtypes also
+    accepted under float32 x (those the caller's kernels stream,
+    :func:`cgx_torch.ops._util.band_dtypes`); ``dtypes`` are x's dtypes
+    the caller's kernels are built for."""
     check_operands(fn, {"x": x}, dtypes=dtypes)
     if not isinstance(bands, torch.Tensor) or bands.dim() != 2:
         raise ValueError(f"{fn}: bands must be a 2-D (ndiag, n) tensor")
-    narrow = bf16_bands and bands.dtype == torch.bfloat16 and x.dtype == torch.float32
-    if (bands.dtype != x.dtype and not narrow) or bands.device != x.device:
+    narrower = bands.dtype in narrow and x.dtype == torch.float32
+    if (bands.dtype != x.dtype and not narrower) or bands.device != x.device:
         raise ValueError(f"{fn}: bands ({bands.dtype}, {bands.device}) and x "
                          f"({x.dtype}, {x.device}) differ")
     offsets = tuple(int(o) for o in offsets)

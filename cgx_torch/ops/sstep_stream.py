@@ -39,11 +39,17 @@ and reads the stop flag once per ``_BLOCKS`` blocks.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs the plain version beside it, which reads the state on the
-host. Each counts its calls in ``.launches``. :func:`dia_sstep_stream_solve`
-keeps cgx's signature; ``rows`` and ``cols`` were TPU tiling (validated
-as cgx validates them, otherwise unused: cgx's auto-grow of ``rows``
-guarded an in-place hazard the ping-pong pairs do not have). float64
-runs too, which cgx's TPU kernels refuse.
+host. Each counts its calls in ``.launches``, the two launches also by
+build in ``cgx_torch.ops._util.BUILD_LAUNCHES``.
+:func:`dia_sstep_stream_solve` keeps cgx's signature; ``rows`` and
+``cols`` were TPU tiling (validated as cgx validates them, otherwise
+unused: cgx's auto-grow of ``rows`` guarded an in-place hazard the
+ping-pong pairs do not have). float64 runs too, which cgx's TPU kernels
+refuse. bfloat16 vectors (with bfloat16 bands) run on the ``_bf16``
+builds, each basis operation and each recovery product and sum rounded
+to bfloat16 as the plain versions' bfloat16 tensors round them, the Gram
+and the replay in float64 as on every build; float32 vectors stream
+bfloat16 or float16 bands.
 """
 
 from __future__ import annotations
@@ -55,11 +61,12 @@ import torch
 
 from cgx_torch.config import DEFAULT_TOLERANCE, NEARZERO
 from cgx_torch.ops._util import (
-    FLOAT_VECTORS,
+    count_build,
     entry_suffix,
     launch,
     pow2_rhs_scale,
     resolve_device,
+    vector_dtypes,
 )
 from cgx_torch.ops.cg_stream import _resolve_bands_dtype
 from cgx_torch.ops.dia_powers import (
@@ -78,6 +85,9 @@ from cgx_torch.solver.cg import CGResult, as_vector
 from cgx_torch.solver.operators import DiaOperator
 from cgx_torch.solver.sstep import _BLOCKS, _basis_matrix, newton_shifts, replay_block
 
+# each launch's C entries, one a design (both built for bfloat16 vectors too)
+_GRAM = ("cgx_sstep_gram", "cgx_sstep_gram_wave")
+_RECOVER = ("cgx_sstep_recover", "cgx_sstep_recover_wave")
 # the packed float64 state (csrc/sstep_basis.cuh, enum State)
 K, RSOLD, RSNEW, CONV, BRK, BLK, LIVE = range(7)
 MAX_M = 2 * MAX_S + 1
@@ -206,8 +216,10 @@ def _check_state(fn: str, state, bmat, s: int, dev) -> None:
         raise ValueError(f"{fn}: bmat must be a contiguous float64 ({m}, {m}) tensor on {dev}")
 
 
-def _check_block(fn: str, bands, p, r, x, state, bmat, offsets, s, shifts) -> Tuple[int, ...]:
-    """Validate one launch's operands before any pointer reaches C."""
+def _check_block(fn: str, bands, p, r, x, state, bmat, offsets, s, shifts,
+                 entries) -> Tuple[int, ...]:
+    """Validate one launch's operands before any pointer reaches C, for
+    the vectors and bands its C ``entries`` are built for."""
     for name, t in (("p", p), ("r", r)):
         if not (isinstance(t, torch.Tensor) and t.dim() == 2 and t.shape[0] == 2
                 and t.is_contiguous()):
@@ -215,7 +227,7 @@ def _check_block(fn: str, bands, p, r, x, state, bmat, offsets, s, shifts) -> Tu
     vectors = {"p0": p[0], "p1": p[1], "r0": r[0], "r1": r[1]}
     if x is not None:
         vectors["x"] = x
-    offsets = check_basis(fn, bands, vectors, offsets, s, shifts)
+    offsets = check_basis(fn, bands, vectors, offsets, s, shifts, entries)
     _check_state(fn, state, bmat, s, p.device)
     return offsets
 
@@ -231,7 +243,8 @@ def _sstep_gram(bands, p, r, state, bmat, *, offsets: Sequence[int], s: int, the
     """The Gram launch of one s-step block (kernel B10) and its replay;
     in the halo mode over ``window``, and with ``part`` the Gram only.
     ``work`` is a workspace for the window's rows."""
-    offsets = _check_block("_sstep_gram", bands, p, r, None, state, bmat, offsets, s, shifts)
+    offsets = _check_block("_sstep_gram", bands, p, r, None, state, bmat, offsets, s, shifts,
+                           _GRAM)
     s = int(s)
     kw = dict(offsets=offsets, s=s, theta=theta, delta=delta, shifts=tuple(shifts))
     lo, hi = _window(window, p.shape[1])
@@ -259,6 +272,7 @@ def _sstep_gram(bands, p, r, state, bmat, *, offsets: Sequence[int], s: int, the
         _sstep_gram.design = plan.design
         _sstep_gram.plan = plan
     _sstep_gram.launches += 1
+    count_build("sstep_gram", p.dtype, bands.dtype)
     _sstep_gram.bands_dtype = bands.dtype
 
 
@@ -267,7 +281,8 @@ def _sstep_recover(bands, p, r, x, state, *, offsets: Sequence[int], s: int, the
                    work: Optional[Workspace] = None, window=None) -> None:
     """The recover launch of one s-step block (kernel B10); in the halo
     mode over ``window``."""
-    offsets = _check_block("_sstep_recover", bands, p, r, x, state, None, offsets, s, shifts)
+    offsets = _check_block("_sstep_recover", bands, p, r, x, state, None, offsets, s, shifts,
+                           _RECOVER)
     s = int(s)
     kw = dict(offsets=offsets, s=s, theta=theta, delta=delta, shifts=tuple(shifts))
     lo, hi = _window(window, p.shape[1])
@@ -292,6 +307,7 @@ def _sstep_recover(bands, p, r, x, state, *, offsets: Sequence[int], s: int, the
         _sstep_recover.design = plan.design
         _sstep_recover.plan = plan
     _sstep_recover.launches += 1
+    count_build("sstep_recover", p.dtype, bands.dtype)
 
 
 def sstep_replay(state, bmat, *, s: int, tol: float, nearzero: float, maxiter: int,
@@ -366,8 +382,8 @@ def _sstep_stream_loop(bands, b, x0, tol: float, nearzero: float, *, offsets, s:
                        bands_dtype=None) -> CGResult:
     """Chain blocks until the stop or maxiter, reading the state once per
     ``_BLOCKS`` blocks (cgx ``_sstep_stream_loop``). With
-    ``bands_dtype=torch.bfloat16`` the launches stream rounded bands and
-    the set-up mat-vec uses the same rounded operator."""
+    ``bands_dtype`` bfloat16 or float16 the launches stream rounded
+    bands and the set-up mat-vec uses the same rounded operator."""
     offsets = tuple(int(o) for o in offsets)
     if bands_dtype is not None:
         bands = bands.to(bands_dtype)
@@ -411,13 +427,15 @@ def dia_sstep_stream_solve(
     """s-step CG by the fused two-launch block (kernels B10): the Krylov
     basis never reaches device memory.
 
-    ``op`` is a :class:`cgx_torch.DiaOperator` of float32 or float64 and
-    ``b`` a tensor on ``device`` (or NumPy) of its dtype; ``x0`` a start.
+    ``op`` is a :class:`cgx_torch.DiaOperator` of float32, float64 or
+    bfloat16 and ``b`` a tensor on ``device`` (or NumPy) of its dtype;
+    ``x0`` a start.
     ``bounds`` (lmin, lmax) come from :func:`cgx_torch.solver.chebyshev.
     spectral_bounds` when omitted; ``basis`` is "chebyshev" or "newton".
-    ``bands_dtype``: None, ``torch.bfloat16`` (the solve runs on the
-    rounded operator) or "auto" (bf16 only when that rounding is exact,
-    so the recurrence is bitwise the one of float32 bands). ``b`` is
+    ``bands_dtype``: None, ``torch.bfloat16`` or ``torch.float16`` under
+    float32 vectors (the solve runs on the rounded operator) or "auto"
+    (bf16 only when that rounding is exact, so the recurrence is bitwise
+    the one of float32 bands; bfloat16 vectors stream bfloat16 bands). ``b`` is
     prescaled by an exact power of two, so that the Gram of a huge ``b``
     stays finite. The Gram and the replay are float64 (ROADMAP C), so the
     result follows :func:`cgx_torch.solver.sstep.sstep_cg_loop` with
@@ -431,8 +449,8 @@ def dia_sstep_stream_solve(
     b = as_vector(b, dev, "b")
     if op.bands.dtype != b.dtype:
         raise TypeError(f"bands are {op.bands.dtype} but b is {b.dtype}")
-    if b.dtype not in FLOAT_VECTORS:
-        raise TypeError(f"the s-step kernels take float32 or float64, not {b.dtype}")
+    if b.dtype not in vector_dtypes(*_GRAM, *_RECOVER):
+        raise TypeError(f"the s-step kernels take float32, float64 or bfloat16, not {b.dtype}")
     n = b.shape[0]
     maxiter = n if maxiter is None else int(maxiter)
     if bounds is None:

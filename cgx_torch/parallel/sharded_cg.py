@@ -68,7 +68,7 @@ from cgx_torch.config import DEFAULT_TOLERANCE, NEARZERO
 from cgx_torch.mats.containers import COOMatrix, CSRMatrix, DenseMatrix, DIAMatrix, ELLMatrix
 from cgx_torch.ops import dia_spmv
 from cgx_torch.ops.ozaki import _ozaki_apply, _pad_cols, build_slices_np
-from cgx_torch.ops._util import f32_exact
+from cgx_torch.ops._util import band_storage, f32_exact
 from cgx_torch.ops.reduce import vdot
 from cgx_torch.ops.tw32 import comp_block_gram
 from cgx_torch.parallel.mesh import ROWS_AXIS, Mesh, local_device, make_mesh
@@ -664,7 +664,8 @@ def make_sharded_solver(
         None: cgx's arithmetic); "fused" always in float64.
       sstep_bands_dtype: the streamed bands of ``"fused"``: "auto"
         (bfloat16 where every band value is exact in it), None (the
-        solve's dtype) or a dtype (the operator rounded to it).
+        solve's dtype) or a dtype (the operator rounded to it: bfloat16
+        or float16 under float32 vectors).
       gv_replace_every: the gvpipe method's residual-replacement cadence
         (0 = off).
       axis_name: the name of the mesh's axis, when the mesh is made here.
@@ -794,8 +795,8 @@ def _sstep_loop(mat, n: int, n_loc: int, mesh: Mesh, mv, dtype: torch.dtype, bou
             t = torch.from_numpy(host)
             exact = bool(torch.equal(t.to(torch.bfloat16).to(t.dtype), t))
             bdt = torch.bfloat16 if exact else None
-        else:
-            bdt = _torch_dtype(bands_dtype, None)
+        else:  # bfloat16 or float16 under float32 vectors; other pairs raise, naming them
+            bdt = band_storage(dtype, _torch_dtype(bands_dtype, None))
         rows, cols, pm = fused_plane_geometry(mv.offsets, s, n_loc, dtype, bdt)
         return _SStepFusedLoop(mesh, mv.flat, mv.offsets, n_loc, s, maxiter, theta, delta,
                                shifts, rows, cols, pm, bdt)

@@ -108,7 +108,7 @@ class _SStepFusedLoop:
     ``_SStepFusedLoop``): ``(b_loc, x0_loc, tol, nearzero) -> CGResult``
     with the shard's x and the mesh's scalars. ``bands_loc`` is the shard's
     flat (ndiag, n_loc) bands in the solve's dtype; ``bands_dtype`` the
-    streamed bands' (bfloat16 or None)."""
+    streamed bands' (bfloat16, float16 or None)."""
 
     def __init__(self, mesh: Mesh, bands_loc: torch.Tensor, offsets, n_loc: int, s: int,
                  maxiter: int, theta: float, delta: float, shifts, rows: int, cols: int,

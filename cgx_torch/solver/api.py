@@ -61,12 +61,10 @@ Dispatch (cgx api.py:322-403):
   ``chebyshev`` (degree 3 on Lanczos bounds) or ``mg`` (a V-cycle, with
   ``mg_smoother`` and ``mg_cycle_precision``);
 - ``precision="bf16"`` keeps the vectors in bfloat16 with float64 dots
-  on one device (the kernel routes on their bfloat16 builds); on a mesh
-  it solves b in float32, as cgx does; multi-RHS solves refuse it, as
-  cgx's do;
-- what is not ported yet raises ``NotImplementedError`` naming its
-  ROADMAP item (the fused s-step on bfloat16 vectors, A6), rather than
-  running some other path.
+  on one device (the kernel routes on their bfloat16 builds, the fused
+  s-step among them); on a mesh it solves b in float32, as cgx does;
+  multi-RHS solves and the s-step's ``"off"`` and ``"pallas"`` routes
+  refuse it, as cgx's do.
 """
 
 from __future__ import annotations
@@ -133,8 +131,8 @@ def _build_precond(cfg: SolveConfig, op):
 def _single_powers(cfg: SolveConfig, op) -> str:
     """The single-device ``powers`` mode of an s-step solve (cgx
     ``_single_powers``): "auto" is "fused" for a banded operator of
-    float32 on CUDA with ``sstep_s <= 6`` (cgx: on an accelerator; the
-    fp32 basis-conditioning cap), else "off"."""
+    float32 or bfloat16 on CUDA with ``sstep_s <= 6`` (cgx: on an
+    accelerator; the fp32 basis-conditioning cap), else "off"."""
     if cfg.sstep_powers == "auto":
         if (isinstance(op, DiaOperator) and op.dtype != torch.float64 and int(cfg.sstep_s) <= 6
                 and op.bands.device.type == "cuda"):

@@ -394,7 +394,9 @@ def sstep_cg_solve(
     down to 2 first) or "off". ``gram_precision`` applies to
     ``powers="off"``: None for cgx's arithmetic, ``torch.float64`` for
     the kernels'. float64 runs on every route (cgx's TPU kernels refuse
-    it). ``b`` is prescaled by an exact power of two."""
+    it), bfloat16 on ``"fused"`` only (cgx's loop, and so its ``"off"`` and
+    ``"pallas"`` routes, does not carry it). ``b`` is prescaled by an exact
+    power of two."""
     if fallback not in ("auto", "adaptive", "off"):
         raise ValueError(f"unknown fallback {fallback!r}")
     if powers not in POWERS:
@@ -410,13 +412,9 @@ def sstep_cg_solve(
     if replace_every is None:
         replace_every = 1 if s > 8 else 0
     b = as_vector(b, dev, "b")
-    if b.dtype == torch.bfloat16:
-        if powers == "fused":
-            raise NotImplementedError(
-                "powers='fused' on bfloat16 vectors is not ported to cgx_torch yet: kernels "
-                "B10 have no bfloat16 build (ROADMAP A6)")
+    if b.dtype == torch.bfloat16 and powers != "fused":  # the fused block runs bfloat16
         raise TypeError(f"powers={powers!r}: cgx's s-step loop does not carry bfloat16 vectors "
-                        "(its loop state changes dtype); use precision='fp32'")
+                        "(its loop state changes dtype); use precision='fp32' or powers='fused'")
     n = b.shape[0]
     maxiter = n if maxiter is None else int(maxiter)
     x0 = torch.zeros_like(b) if x0 is None else as_vector(x0, dev, "x0", b.dtype)

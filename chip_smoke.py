@@ -255,7 +255,25 @@ Phases, one JSON object per line each:
     the idle share; the stacked layout (B7) bitwise the split solve;
 48. bf16 mesh (inside phase 25's NCCL group): solve and solve_sequence
     with precision="bf16" and mesh= on lap2d_fd(256): a float32 x, bitwise
-    the fp32 request's.
+    the fp32 request's;
+49. bf16 sstep kernels (after the s-step goldens): the bfloat16-vector
+    builds of B9 and of B10's Gram and recover on lap2d_fd(3200), each in
+    both designs, Chebyshev and Newton, against their plain versions (the
+    basis and x, r, p bitwise, G within 1e-12 of sum |v_i v_j|), timed
+    against the bound at 2-byte words; B9 once through dia_sstep_basis;
+50. bf16 sstep: solve(lap2d_fd(3200), bf16, method="sstep", 5e-2 ||b||),
+    "auto" resolving to B10's bfloat16 builds: two runs capped at 256
+    iterations bitwise, and k, the flags and x bitwise the chained plain
+    versions'; the run to its stop (maxiter 4096, or 64 iterations past
+    the first non-finite read where bfloat16 leaves the finite range), us
+    an iteration against the bound; then lap2d_fd(1000) to convergence,
+    bitwise the chained plain versions';
+51. f16 bands: the float16-band builds under float32 vectors (B4 on
+    lap2d_fd(3200), B5 on lap2d_fd(1000) in both designs, B10's Gram and
+    recover in both designs) against their plain versions and, bitwise,
+    their bfloat16-band builds on the same inputs, timed; then one solve
+    each (dia_cg_solve_stream, dia_sstep_stream_solve, dia_cg_solve_vmem
+    with bands_dtype=float16), x bitwise the bfloat16-band run's.
 
 The CLI phases call cgx_torch.cli.main.run, the body of the CLI's main,
 in this process. Then a "kernels" line for the ported kernels (every
@@ -272,6 +290,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import math
 import os
 import re
 import signal
@@ -333,7 +352,7 @@ from cgx_torch.mats.generators import (
 )
 from cgx_torch.ops import axpy, cg_kernel, cg_stream, dia_powers, dia_spmv, matvec, ozaki
 from cgx_torch.ops import sstep_stream as ss
-from cgx_torch.ops._util import BF16_BANDS_SUFFIX, BUILD_LAUNCHES, f32_exact
+from cgx_torch.ops._util import BF16_BANDS_SUFFIX, BUILD_LAUNCHES, f32_exact, pow2_rhs_scale
 from cgx_torch.ops.dd import two_prod, two_sum
 from cgx_torch.solver import api, blockcg
 from cgx_torch.solver.chebyshev import (
@@ -388,10 +407,14 @@ STREAM_CASES = {
 STREAM_MAIN_CASE = {"stream_iteration": "split_f32_bf16b", "stream_iteration_stacked":
                     "stacked_f32", "stream_iteration_pcg": "pcg_f32"}
 SSTEP_S = 4  # cgx's default sstep_s
-# name: (vector dtype, bfloat16 bands); the matrix-powers kernel takes the
-# bands in the vectors' dtype only
-SSTEP_CASES = {"f32": (torch.float32, False), "f32_bf16b": (torch.float32, True),
-               "f64": (torch.float64, False)}
+# name: (vector dtype, the bands' narrower storage or None); the matrix-powers
+# kernel takes the bands in the vectors' dtype only
+SSTEP_CASES = {"f32": (torch.float32, None), "f32_bf16b": (torch.float32, torch.bfloat16),
+               "f64": (torch.float64, None)}
+# the cases of ROADMAP A6's rest, checked in phases of their own: bfloat16
+# vectors (bf16_sstep_kernels) and float16 bands (f16_bands)
+SSTEP_CASE_DTYPES = {**SSTEP_CASES, "bf16": (torch.bfloat16, None),
+                     "f32_f16b": (torch.float32, torch.float16)}
 # the case whose shapes and dtypes the s-step paths give each site: solve's
 # "fused" route streams bfloat16 bands, its "pallas" route float32 ones
 SSTEP_MAIN_CASE = {"dia_sstep_basis_planes": "f32", "sstep_gram": "f32_bf16b",
@@ -476,6 +499,29 @@ BF16_KERNELS = {
     "dense_matvec_dot_bf16": ("cgx_torch/csrc/matvec.cu", "cgx/ops/matvec.py:163"),
 }
 KERNELS.update(BF16_KERNELS)
+# ROADMAP A6's rest: the s-step builds on bfloat16 vectors and the float16-band
+# builds under float32 vectors, a row each: (source, the cgx site, the
+# BUILD_LAUNCHES key its launches are counted by)
+A6_KERNELS = {
+    "dia_sstep_basis_planes_bf16": ("cgx_torch/csrc/dia_powers.cu", "cgx/ops/dia_powers.py:299",
+                                    "dia_sstep_basis_planes_bf16"),
+    "sstep_gram_bf16": ("cgx_torch/csrc/sstep_stream.cu", "cgx/ops/sstep_stream.py:395",
+                        "sstep_gram_bf16"),
+    "sstep_recover_bf16": ("cgx_torch/csrc/sstep_recover.cu", "cgx/ops/sstep_stream.py:466",
+                           "sstep_recover_bf16"),
+    "dia_cg_vmem_f16b": ("cgx_torch/csrc/cg_kernel.cu", "cgx/ops/cg_kernel.py:245",
+                         "dia_cg_vmem_f32_f16b"),
+    "stream_iteration_f16b": ("cgx_torch/csrc/cg_stream.cu", "cgx/ops/cg_stream.py:404",
+                              "stream_iteration_f32_f16b"),
+    "sstep_gram_f16b": ("cgx_torch/csrc/sstep_stream.cu", "cgx/ops/sstep_stream.py:395",
+                        "sstep_gram_f32_f16b"),
+    "sstep_recover_f16b": ("cgx_torch/csrc/sstep_recover.cu", "cgx/ops/sstep_stream.py:466",
+                           "sstep_recover_f32_f16b"),
+}
+KERNELS.update({name: row[:2] for name, row in A6_KERNELS.items()})
+# the rows of a bfloat16-vector build
+BF16_BUILT = {*BF16_KERNELS, "dia_sstep_basis_planes_bf16", "sstep_gram_bf16",
+              "sstep_recover_bf16"}
 NOT_PORTED = []  # every pallas_call site of cgx has its kernel
 SSTEP_SITES = {
     "dia_sstep_basis_planes": dia_powers.dia_sstep_basis_planes,
@@ -502,11 +548,16 @@ BUILD_ROWS = {
     **{name: [name + s for s in FLOAT_BUILDS] for name in (
         "dia_matvec", *STREAM_SITES, "dense_matvec", "dense_matvec_dot")},
     **{name: [name] for name in BF16_KERNELS},
+    **{name: [row[2]] for name, row in A6_KERNELS.items()},
 }
 BF16 = torch.bfloat16
 BF16_TOL = 5e-2  # relative to ||b||: cgx's own bf16 test (tests/test_api.py:72-77)
 BF16_MAXITER = 20000
 BF16_MESH_GRID = 256  # lap2d_fd(256): the mesh's bf16 request, a small grid
+# maxiter of bf16_sstep's full-size run (cut from BF16_MAXITER for the script's
+# time: on an H100 80GB HBM3 the bf16 s-step there had not converged at 20,000
+# iterations, 10.5 s, its x non-finite)
+BF16_SSTEP_MAXITER = 4096
 WRAPPERS = {
     "dia_matvec": dia_spmv.dia_matvec,
     "dia_matvec_dot": dia_spmv.dia_matvec_dot,
@@ -556,7 +607,9 @@ BATCHED_RTOL = 1e-3  # the 2-D batched phase's float32 tolerance, relative to ||
 # the sharded sequence's too (cut from 1e-5 for the script's time: the seeded
 # column's float32 floor, as BATCHED_RTOL's note in phase_sharded_batched says)
 SEQUENCE_RTOL = BATCHED_RTOL
-HOST_LANCZOS_M = 16  # Lanczos steps of the host-against-card comparison
+# Lanczos steps of the host-against-card comparison (cut from 16 for the script's
+# time: the host's NumPy steps at N = 10,240,000 took 14.2 s at 16)
+HOST_LANCZOS_M = 8
 FD_STEP = 1e-4  # the bands scaled by 1 +- FD_STEP for the central difference
 TW_GATE = 1e-10  # bench.py's SECONDARY_REL_GATE: the true relative residual
 # bench.py's refine_pcg_sweeps_tw arguments (bench.py:140-144); solve(precision="tw") the same
@@ -1055,7 +1108,7 @@ def phase_main(spec) -> dict:
     check(max(rel_fast, rel_plain) <= 2 * min(rel_fast, rel_plain),
           f"true residuals {rel_fast} and {rel_plain} differ by more than 2x")
     phase_profile(op, b_dev)
-    return launches, rec
+    return launches, rec, res.x
 
 
 def cuda_events(prof) -> list:
@@ -1945,24 +1998,24 @@ def slab_plan_of(n: int, dtype):
 def sstep_inputs(case: str, dia):
     """The case's bands on the card, the bands its kernels stream, and
     seeded p and r."""
-    dtype, bf16 = SSTEP_CASES[case]
+    dtype, narrow = SSTEP_CASE_DTYPES[case]
     bands = torch.as_tensor(dia.bands, dtype=dtype, device=DEV)
     rng = np.random.default_rng(SEED)
     p, r = (torch.as_tensor(rng.standard_normal(dia.shape[0]), dtype=dtype, device=DEV)
             for _ in range(2))
-    return bands, bands.to(torch.bfloat16) if bf16 else bands, p, r
+    return bands, bands.to(narrow) if narrow is not None else bands, p, r
 
 
 def sstep_checks(case: str, basis: str, dia, kw, problem: str = f"lap2d_fd({GRID})") -> dict:
     """One case of the s-step kernels against their plain versions from
     seeded p and r; returns each site's max abs error."""
-    dtype, bf16 = SSTEP_CASES[case]
+    dtype, narrow = SSTEP_CASE_DTYPES[case]
     n = dia.shape[0]
     bands, kb, p, r = sstep_inputs(case, dia)
     errs = {}
     where = f"sstep {problem} {case} {basis}"
     powers_designs = {}
-    if not bf16:  # the matrix-powers kernel: bands in the vectors' dtype
+    if narrow is None:  # the matrix-powers kernel: bands in the vectors' dtype
         want = ss.dia_sstep_basis_ref(bands, p, r, **kw)
         got = dia_powers.dia_sstep_basis_planes(bands, p, r, **kw)
         design = dia_powers.dia_sstep_basis_planes.design  # basis_plan's for this shape
@@ -2053,7 +2106,7 @@ def sstep_checks(case: str, basis: str, dia, kw, problem: str = f"lap2d_fd({GRID
           "problem": problem, "n": n, "dtype": str(dtype),
           "bands_dtype": str(kb.dtype), "max_abs_err": errs, "gram_rel_err": gram_rel,
           "gram_rel_err_to_exact": kern_exact, "plain_gram_rel_err_to_exact": plain_exact,
-          "coef_rel_err": coef_rel, "powers_checked": not bf16, "recover_bitwise": same,
+          "coef_rel_err": coef_rel, "powers_checked": narrow is None, "recover_bitwise": same,
           "state_after_gram": got.state[:ss.COEF].tolist(),
           "grid": {"gram": plan.grid, "recover": plan.grid},
           "gram_design": plan.design, "gram_plan": {"width": plan.width, "shared": plan.shared,
@@ -2066,7 +2119,7 @@ def sstep_checks(case: str, basis: str, dia, kw, problem: str = f"lap2d_fd({GRID
 def sstep_times(spec, case: str, dia, kw) -> dict:
     """ms of a launch of each s-step site in this case (Chebyshev), beside
     its bound, the plain version's ms and the peak device memory."""
-    dtype, bf16 = SSTEP_CASES[case]
+    dtype, narrow = SSTEP_CASE_DTYPES[case]
     n, ndiag = dia.shape[0], len(dia.offsets)
     bands, kb, p, r = sstep_inputs(case, dia)
     st = seeded_block(bands, p, r, kw)
@@ -2099,7 +2152,7 @@ def sstep_times(spec, case: str, dia, kw) -> dict:
             "sstep_recover": lambda: recover(ss._sstep_recover, work=slab),
             "dia_sstep_basis_planes": lambda: dia_powers.dia_sstep_basis_planes(
                 bands, p, r, plan=slab_plan, **kw)}
-    if not bf16:
+    if narrow is None:
         runs["dia_sstep_basis_planes"] = (lambda: dia_powers.dia_sstep_basis_planes(bands, p, r,
                                                                                     **kw),
                                           lambda: ss.dia_sstep_basis_ref(bands, p, r, **kw))
@@ -2111,7 +2164,7 @@ def sstep_times(spec, case: str, dia, kw) -> dict:
         peak = torch.cuda.max_memory_allocated()
         plain_ms = time_ms(plain, reps=3, burst=1)
         bound, bound_by = sstep_bound(spec, site, ndiag, n, dtype,
-                                      2 if bf16 else torch.finfo(dtype).bits // 8)
+                                      torch.finfo(kb.dtype).bits // 8)
         rec = {"phase": "sstep_kernel", "site": site, "case": case,
                "problem": f"lap2d_fd({GRID})", "n": n, "s": SSTEP_S, "dtype": str(dtype),
                "bands_dtype": str(kb.dtype), "ms": ms, "bound_ms": bound, "bound_by": bound_by,
@@ -2218,7 +2271,7 @@ def phase_sstep_path(spec, bounds, bounds_seconds: float, b4: dict) -> dict:
         gram_precision=torch.float64, device=DEV))
     rel_plain = rel64(plain.x)
     check(bool(plain.converged), "the plain s-step loop did not converge")
-    counts = {}
+    counts, xs = {}, {}
     for route, sites in SSTEP_ROUTES.items():
         cfg = SolveConfig(precision="fp32", method="sstep", tolerance=tol,
                           **({"sstep_powers": "pallas"} if route == "pallas" else {}))
@@ -2268,8 +2321,9 @@ def phase_sstep_path(spec, bounds, bounds_seconds: float, b4: dict) -> dict:
         check(max(rel, rel_plain) <= 2 * min(rel, rel_plain),
               f"{where}: true residuals {rel} and {rel_plain} differ by more than 2x")
         counts.update({site: launches[site] for site in sites})
+        xs[route] = res.x if fallback == 0 else None  # the kernels' x alone, for f16_bands
     phase_sstep_profile(op, b_dev, bounds)
-    return counts
+    return counts, xs["fused"]
 
 
 def phase_sstep_profile(op, b_dev, bounds) -> None:
@@ -3809,9 +3863,8 @@ def halo_plain_checks(dia, kw, n_loc: int) -> dict:
     c = torch.as_tensor(rng.standard_normal(3 * m), dtype=torch.float64, device=DEV)
     out = {}
     for case in ("f32", "f32_bf16b"):
-        dtype, bf16 = SSTEP_CASES[case]
-        d = fused_plane_geometry(offsets, SSTEP_S, n_loc, dtype,
-                                 torch.bfloat16 if bf16 else None)
+        dtype, narrow = SSTEP_CASE_DTYPES[case]
+        d = fused_plane_geometry(offsets, SSTEP_S, n_loc, dtype, narrow)
         d = d[2] * d[1]
         bands, kb, p, r = sstep_inputs(case, dia)
         start = seeded_block(bands, p, r, kw)
@@ -3930,8 +3983,13 @@ def sharded_rec(phase: str, mesh, res, k: int, seconds: float, setup_seconds: fl
 
 def same_x(a, b) -> bool:
     """Two results' x bit for bit."""
-    return a.x.shape == b.x.shape and torch.equal(a.x.contiguous().view(torch.uint8),
-                                                  b.x.contiguous().view(torch.uint8))
+    return same_bits(a.x, b.x)
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Two tensors bit for bit."""
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
 
 
 def phase_sharded_sstep(spec, mesh) -> dict:
@@ -4954,6 +5012,359 @@ def phase_bf16_mesh(mesh) -> None:
           f"bf16 mesh: x {res.x.dtype}, k {k} vs fp32 {k32}, bitwise {same}")
 
 
+# ---- ROADMAP A6's rest: bfloat16 vectors through the fused s-step, float16 bands ----
+
+
+def sstep_row(rec: dict, err: float, **extra) -> dict:
+    """A kernels-line row from an sstep_times record and its check's error."""
+    return {"max_abs_err": err, "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": None,  # no one PyTorch call builds a Krylov basis
+            "design": rec.get("design"), "slab_ms": rec.get("slab_ms"), "n": rec["n"], **extra}
+
+
+def phase_bf16_sstep_kernels(spec, bounds) -> tuple:
+    """The s-step kernels' bfloat16-vector builds against their plain
+    versions on lap2d_fd(GRID) from seeded p, r and x (sstep_checks,
+    Chebyshev and Newton): B9's basis, and B10's recovered x, r and p,
+    bitwise, G within GRAM_RTOL of sum |v_i v_j|, each in basis_plan's
+    design (the wavefront) and the slab design forced; then each one's ms
+    against its bound at 2-byte words, the plain version's ms and the slab
+    design's ms. No route of solve runs B9 on bfloat16 (the "pallas" loop
+    refuses it, as cgx's does), so its row's launches are one call of
+    cgx's entry, dia_sstep_basis. Returns the rows and that count."""
+    dia = lap2d_fd(GRID)
+    op = as_operator(dia, torch.float32, device=DEV)
+    shifts = newton_shifts(op, dia.shape[0], SSTEP_S, bounds)
+    del op
+    errs = {}
+    for basis, sh in (("chebyshev", ()), ("newton", shifts)):
+        e = sstep_checks("bf16", basis, dia, sstep_kw(dia, bounds, sh))
+        errs = errs or e
+        sync()
+    recs = sstep_times(spec, "bf16", dia, sstep_kw(dia, bounds))
+    rows = {f"{site}_bf16": sstep_row(recs[site], errs[site], dtype=str(BF16))
+            for site in ("dia_sstep_basis_planes", "sstep_gram", "sstep_recover")}
+    bands, _, p, r = sstep_inputs("bf16", dia)
+    reset_launches()
+    dia_powers.dia_sstep_basis(bands, p, r, **sstep_kw(dia, bounds))
+    sync()
+    count = read_launches()["dia_sstep_basis_planes_bf16"]
+    check(count == 1 and dia_powers.dia_sstep_basis_planes.design == "wavefront",
+          f"B9 bf16 through dia_sstep_basis: {count} launches, "
+          f"{dia_powers.dia_sstep_basis_planes.design}")
+    return rows, {"dia_sstep_basis_planes_bf16": count}
+
+
+def plain_fused_solve(bands, offsets, b, bounds, tol: float, maxiter: int):
+    """dia_sstep_stream_solve from x0 = 0 (Chebyshev, s = SSTEP_S) with
+    each launch replaced by its plain version on the card, chained as
+    _sstep_stream_loop chains the launches (a block after the stop
+    changes nothing, so one a host read): the yardstick of the fused
+    route's k, flags and x. Returns (k, converged, breakdown, x)."""
+    lmin, lmax = bounds
+    kw = dict(offsets=tuple(offsets), s=SSTEP_S, theta=(lmax + lmin) / 2.0,
+              delta=(lmax - lmin) / 2.0, shifts=())
+    x0 = torch.zeros_like(b)
+    down, up = (float(v) for v in pow2_rhs_scale(b, x0))
+    st = ss.initial_state(bands.to(b.dtype), b * down, x0, tol * down, **kw)
+    nearzero = SolveConfig().nearzero
+    while not ss._stopped(st.state[:ss.COEF].tolist(), maxiter):
+        ss._gram_ref(bands, st.p, st.r, st.state, st.bmat, tol=tol * down, nearzero=nearzero,
+                     maxiter=maxiter, **kw)
+        ss._recover_ref(bands, st.p, st.r, st.x, st.state, **kw)
+    h = st.state[:ss.COEF].tolist()
+    return int(h[ss.K]), h[ss.CONV] != 0.0, h[ss.BRK] != 0.0, st.x * up
+
+
+def fused_nonfinite_at(op, b, bounds, tol: float, maxiter: int):
+    """The kernel chain of dia_sstep_stream_solve from x0 = 0 (Chebyshev,
+    s = SSTEP_S), its state read every 8 blocks as the solve reads it:
+    the k of the first read at which the recursive residual (the state's
+    rsnew) or the x the solve would return is not finite, or None where
+    the solve stops first. The replay has no stop on either (cgx's
+    neither), so a bfloat16 solve that leaves the finite range runs on to
+    maxiter."""
+    lmin, lmax = bounds
+    kw = dict(offsets=tuple(op.offsets), s=SSTEP_S, theta=(lmax + lmin) / 2.0,
+              delta=(lmax - lmin) / 2.0, shifts=())
+    x0 = torch.zeros_like(b)
+    down, up = (float(v) for v in pow2_rhs_scale(b, x0))
+    st = ss.initial_state(op.bands, b * down, x0, tol * down, **kw)
+    work = ss.workspace(DEV, b.shape[0], kw["offsets"], SSTEP_S, b.dtype)
+    nearzero = SolveConfig().nearzero
+    while True:
+        h = st.state[:ss.COEF].tolist()
+        if not (math.isfinite(h[ss.RSNEW]) and bool(torch.isfinite(st.x * up).all())):
+            return int(h[ss.K])
+        if ss._stopped(h, maxiter):
+            return None
+        for _ in range(8):
+            ss.block(op.bands, st, tol=tol * down, nearzero=nearzero, maxiter=maxiter, work=work,
+                     **kw)
+
+
+def fused_matches_plain(res, plain) -> bool:
+    """A fused solve's k, flags and x against plain_fused_solve's, bit for bit."""
+    k, conv, brk, x = plain
+    return (int(res.iterations) == k and bool(res.converged) == conv
+            and bool(res.breakdown) == brk and same_bits(res.x, x))
+
+
+def phase_bf16_sstep(spec) -> dict:
+    """solve(lap2d_fd(GRID), source_term(N), bf16, method="sstep", 5e-2
+    ||b||, maxiter BF16_MAXITER): "auto" resolves to the fused kernels'
+    bfloat16 builds (B10's Gram and recover, in basis_plan's wavefront).
+    On REPEAT_ITERS capped iterations: two runs bitwise, and k, the flags
+    and x bitwise the chained plain versions' on the card
+    (plain_fused_solve, on the bounds solve estimates: spectral_bounds of
+    the same operator). Then the run to its stop, reported as it ends: k,
+    us an iteration against the bound at 2-byte words, and the stop
+    (converged; or a replay breakdown, then the fallback on B4's bfloat16
+    build; or maxiter, BF16_SSTEP_MAXITER at this size). Where the
+    recursion or x leaves the finite range (fused_nonfinite_at) the
+    replay runs on to maxiter on non-finite values, so the run is cut 64
+    iterations past the first non-finite read, as bf16_main cuts its plain
+    loop. Then
+    lap2d_fd(RESIDENT_GRID) (N = 1e6) to convergence, twice (bitwise), k,
+    the flags and x bitwise the chained plain versions'. Returns the fused
+    route's launches by build on the full-size run."""
+    counts = {}
+    for g, full in ((GRID, True), (RESIDENT_GRID, False)):
+        dia = lap2d_fd(g)
+        n, ndiag = dia.shape[0], len(dia.offsets)
+        b = source_term(n)
+        tol = BF16_TOL * float(np.linalg.norm(b))
+        op = as_operator(dia, BF16, device=DEV)
+        b_dev = torch.as_tensor(b, dtype=BF16, device=DEV)
+        sync()
+        t0 = time.perf_counter()
+        bounds = spectral_bounds(op, n)  # what solve estimates, timed apart as set-up
+        bounds_seconds = time.perf_counter() - t0
+        limit = BF16_SSTEP_MAXITER if full else BF16_MAXITER
+        nonfinite = fused_nonfinite_at(op, b_dev, bounds, tol, limit) if full else None
+        maxiter = limit if nonfinite is None else min(limit, nonfinite + 64)
+        cfg = SolveConfig(precision="bf16", method="sstep", tolerance=tol, maxiter=maxiter)
+        capped = dataclasses.replace(cfg, maxiter=REPEAT_ITERS)
+        reset_launches()
+        res, k, seconds = timed(lambda: solve(op, b_dev, cfg, device=DEV))
+        launches = read_launches()
+        builds = {key: c for key, c in BUILD_LAUNCHES.items() if c}
+        where = f"bf16 sstep lap2d_fd({g})"
+        if full:  # the capped runs against each other and the chained plain versions
+            capped_runs = [solve(op, b_dev, capped, device=DEV) for _ in range(2)]
+            bitwise = same_x(*capped_runs)
+            kern = ss.dia_sstep_stream_solve(op, b_dev, s=SSTEP_S, bounds=bounds, tol=tol,
+                                             maxiter=REPEAT_ITERS, device=DEV)
+            plain = plain_fused_solve(op.bands, dia.offsets, b_dev, bounds, tol, REPEAT_ITERS)
+            same_plain = fused_matches_plain(kern, plain)
+            same_solve = bool(kern.breakdown) or (
+                int(capped_runs[0].iterations) == int(kern.iterations)
+                and same_x(capped_runs[0], kern))
+        else:  # the whole solve against them
+            bitwise = same_x(res, solve(op, b_dev, cfg, device=DEV))
+            plain = plain_fused_solve(op.bands, dia.offsets, b_dev, bounds, tol, BF16_MAXITER)
+            same_plain = fused_matches_plain(res, plain)
+            same_solve = True
+        blocks = launches["sstep_gram_bf16"]
+        fallback = launches["stream_iteration_bf16"]
+        finite = bool(torch.isfinite(res.x).all())
+        stop = ("converged" if bool(res.converged) else
+                "breakdown, B4 fallback" if bool(res.breakdown) else
+                "maxiter" if nonfinite is None else
+                f"non-finite by k = {nonfinite}, cut at maxiter {maxiter}")
+        bound = sum(sstep_bound(spec, site, ndiag, n, BF16, 2)[0]
+                    for site in ("sstep_gram", "sstep_recover"))
+        rec = {"phase": "bf16_sstep", "problem": f"lap2d_fd({g})", "n": n, "dtype": "bfloat16",
+               "s": SSTEP_S, "tol": tol, "tol_rel": BF16_TOL, "maxiter": maxiter, "k": k,
+               "nonfinite_at": nonfinite,
+               "converged": bool(res.converged), "breakdown": bool(res.breakdown),
+               "stop": stop, "x_finite": finite, "fell_back_to_b4": fallback > 0,
+               "b4_launches": fallback, "seconds": seconds, "bounds_seconds": bounds_seconds,
+               "us_per_iter": (seconds - bounds_seconds) / k * 1e6,
+               "bound_us_per_iter": bound / SSTEP_S * 1e3, "blocks_launched": blocks,
+               "launches_by_build": builds, "gram_design": ss._sstep_gram.design,
+               "recover_design": ss._sstep_recover.design,
+               "bounds": list(bounds), "bitwise_repeat_capped": bitwise,
+               "repeat_iterations": REPEAT_ITERS if full else None, "k_plain": plain[0],
+               "plain_converged": plain[1], "plain_breakdown": plain[2],
+               "bitwise_chained_plain": same_plain, "capped_solve_is_kernel_chain": same_solve,
+               "x_dtype": str(res.x.dtype)}
+        emit(rec)
+        allowed = {"sstep_gram_bf16", "sstep_recover_bf16", "stream_iteration_bf16"}
+        check(blocks >= 1 and launches["sstep_recover_bf16"] == blocks
+              and set(builds) <= allowed, f"{where}: launches by build {builds}")
+        check(rec["gram_design"] == rec["recover_design"] == "wavefront",
+              f"{where}: the designs ran were {rec['gram_design']}, {rec['recover_design']}")
+        check(res.x.dtype == BF16 and res.x.shape == (n,), f"{where}: x {res.x.dtype}")
+        check(bitwise, f"{where}: two runs differ")
+        check(same_plain and same_solve,
+              f"{where}: k, flags or x differ from the chained plain versions' ({plain[:3]})")
+        if not full:
+            check(bool(res.converged) and finite and not rec["fell_back_to_b4"],
+                  f"{where}: did not converge on the fused route: {rec['stop']}")
+        else:
+            counts = {key: builds.get(key, 0) for key in ("sstep_gram_bf16", "sstep_recover_bf16")}
+        del op, b_dev, res
+        sync()
+    return counts
+
+
+def phase_f16_bands(spec, main_x, fused_x, bounds) -> tuple:
+    """The float16-band builds (float32 vectors; cgx's explicit
+    bands_dtype=float16), each against its plain version on seeded inputs
+    and against its bfloat16-band build on the same inputs (the stencil is
+    exact in both, so the two builds agree bit for bit): B4 on
+    lap2d_fd(GRID), one launch (bitwise the plain one) and STREAM_ITERS
+    (within CHUNK_RTOL of it, as float32 bands); B5 on
+    lap2d_fd(RESIDENT_GRID) in both designs, one iteration and a CHUNK;
+    B10's Gram and recover in both designs (sstep_checks, Chebyshev: x, r
+    and p bitwise the plain ones); each timed against its bound at 2-byte
+    bands. Then one solve each, x bitwise the bfloat16-band run's:
+    dia_cg_solve_stream and dia_sstep_stream_solve on lap2d_fd(GRID)
+    against the main path's and the fused s-step path's x (both on
+    bfloat16 bands by "auto"), dia_cg_solve_vmem on lap2d_fd(RESIDENT_GRID)
+    against the same call with bfloat16 bands. Returns the rows of the
+    kernels line and each build's launches on its solve."""
+    F16 = torch.float16
+    rows, counts = {}, {}
+    # B4
+    dia = lap2d_fd(GRID)
+    n, ndiag, offsets = dia.shape[0], len(dia.offsets), tuple(dia.offsets)
+    kw = dict(offsets=offsets, tol=0.0, nearzero=1e-14, maxiter=10**9)
+    bands, st = stream_state(dia, torch.float32, False, False)
+    kb = {F16: bands.to(F16), torch.bfloat16: bands.to(torch.bfloat16)}
+    del bands
+    rec = {"phase": "f16_kernel", "kernel": "stream_iteration", "problem": f"lap2d_fd({GRID})",
+           "n": n, "dtype": "float32", "bands_dtype": "torch.float16"}
+    for launches in (1, STREAM_ITERS):
+        got, ref, twin = clone_state(st), clone_state(st), clone_state(st)
+        for _ in range(launches):
+            cg_stream.step(kb[F16], got, **kw)
+            cg_stream.step(kb[torch.bfloat16], twin, **kw)
+            cg_stream._iteration_ref(kb[F16], *ref[:6], ref.scal, **kw)
+        sync()
+        pairs = [(a, w) for a, w in zip(got[:6], ref[:6]) if a is not None]
+        key = f"x{launches}"
+        rec[f"{key}_bitwise"] = all(torch.equal(a, w) for a, w in pairs)
+        rec[f"{key}_max_abs_err"] = max(float((a - w).abs().max()) for a, w in pairs)
+        rec[f"{key}_vec_rel_err"] = max(rel_err(a, w, w.abs().max()) for a, w in pairs)
+        rec[f"{key}_bitwise_bf16_bands"] = all(
+            torch.equal(a, w) for a, w in zip(got, twin) if a is not None)
+        check(rec[f"{key}_bitwise_bf16_bands"]
+              and (rec[f"{key}_bitwise"] if launches == 1
+                   else rec[f"{key}_vec_rel_err"] <= CHUNK_RTOL[torch.float32]),
+              f"B4 f16 bands x{launches}: {rec}")
+        del got, ref, twin
+    work = cg_stream.workspace(DEV, n)
+    rec["ms"] = time_ms(lambda: cg_stream.step(kb[F16], st, work=work, **kw))
+    rec["bf16_bands_ms"] = time_ms(lambda: cg_stream.step(kb[torch.bfloat16], st, work=work,
+                                                          **kw))
+    rec["plain_ms"] = time_ms(lambda: cg_stream._iteration_ref(kb[F16], *st[:6], st.scal, **kw),
+                              reps=3, burst=1)
+    rec["bound_ms"], rec["bound_by"] = bound_of(spec, torch.float32,
+                                                stream_bytes(ndiag, n, 2, 4, False),
+                                                stream_flops(ndiag, n, False))
+    emit(rec)
+    rows["stream_iteration_f16b"] = {
+        "max_abs_err": rec["x1_max_abs_err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+        "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"], "library_ms": None,
+        "n": n, "dtype": "float32", "bf16_bands_ms": rec["bf16_bands_ms"]}
+    del kb, st, work
+    sync()
+    # B5
+    dia1 = lap2d_fd(RESIDENT_GRID)
+    n1, offsets1 = dia1.shape[0], tuple(dia1.offsets)
+    bands, state = seeded_state(dia1, torch.float32)
+    kb = {F16: bands.to(F16), torch.bfloat16: bands.to(torch.bfloat16)}
+    del bands
+    rec = {"phase": "f16_kernel", "kernel": "dia_cg_chunk",
+           "problem": f"lap2d_fd({RESIDENT_GRID})", "n": n1, "dtype": "float32",
+           "bands_dtype": "torch.float16"}
+    for design in ("resident", "global"):
+        plan = chunk_plan(design, n1, offsets1, torch.float32, F16, False)
+        for chunk, rtol in ((1, VEC_RTOL[torch.float32]), (CHUNK, CHUNK_RTOL[torch.float32])):
+            got, ref, twin = ([t.clone() for t in state] for _ in range(3))
+            chunk_call(cg_kernel.dia_cg_chunk, kb[F16], got, offsets1, chunk, False, plan=plan)
+            ran = cg_kernel.dia_cg_chunk.plan.design
+            chunk_call(cg_kernel.dia_cg_chunk, kb[torch.bfloat16], twin, offsets1, chunk, False,
+                       plan=plan)
+            chunk_call(cg_kernel.dia_cg_chunk_ref, kb[F16], ref, offsets1, chunk, False)
+            sync()
+            key = f"{design}_x{chunk}"
+            rec[f"{key}_bitwise"] = all(torch.equal(a, w) for a, w in zip(got[:3], ref[:3]))
+            rec[f"{key}_max_abs_err"] = max(float((a - w).abs().max())
+                                            for a, w in zip(got[:3], ref[:3]))
+            vec_rel = max(rel_err(a, w, w.abs().max()) for a, w in zip(got[:3], ref[:3]))
+            rec[f"{key}_bitwise_bf16_bands"] = all(torch.equal(a, w) for a, w in zip(got, twin))
+            check(ran == design and rec[f"{key}_bitwise_bf16_bands"] and vec_rel <= rtol
+                  and torch.equal(got[3][1:], ref[3][1:]),
+                  f"B5 f16 bands {design} x{chunk}: {ran}, vectors {vec_rel}, {rec}")
+            del got, ref, twin
+        rec[f"{design}_ms"] = time_ms(lambda: chunk_call(
+            cg_kernel.dia_cg_chunk, kb[F16], state, offsets1, CHUNK, False, plan=plan),
+            reps=10, burst=2)
+    rec["plain_ms"] = time_ms(lambda: chunk_call(cg_kernel.dia_cg_chunk_ref, kb[F16], state,
+                                                 offsets1, CHUNK, False), reps=3, burst=1)
+    rec["bound_ms"], rec["bound_by"] = resident_bound(spec, len(offsets1), n1, 2, False, CHUNK)
+    emit(rec)
+    rows["dia_cg_vmem_f16b"] = {
+        "max_abs_err": rec["resident_x1_max_abs_err"], "ms": rec["resident_ms"],
+        "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+        "library_ms": None, "design": "resident", "global_ms": rec["global_ms"], "n": n1,
+        "dtype": "float32"}
+    del kb, state
+    sync()
+    # B10
+    e = sstep_checks("f32_f16b", "chebyshev", dia, sstep_kw(dia, bounds))
+    recs = sstep_times(spec, "f32_f16b", dia, sstep_kw(dia, bounds))
+    for site in ("sstep_gram", "sstep_recover"):
+        rows[f"{site}_f16b"] = sstep_row(recs[site], e[site], dtype="float32")
+    sync()
+    # the solves, against the bfloat16-band runs
+    b = source_term(n)
+    tol = 1e-5 * float(np.linalg.norm(b))
+    op = as_operator(dia, torch.float32, device=DEV)
+    b_dev = torch.as_tensor(b, dtype=torch.float32, device=DEV)
+    nearzero = SolveConfig().nearzero
+    b1 = source_term(n1)
+    tol1 = 1e-5 * float(np.linalg.norm(b1))
+    op1 = as_operator(dia1, torch.float32, device=DEV)
+    b1_dev = torch.as_tensor(b1, dtype=torch.float32, device=DEV)
+    vmem_bf16 = dia_cg_solve_vmem(op1, b1_dev, tol=tol1, bands_dtype=torch.bfloat16, device=DEV)
+    if fused_x is None:  # the fused path fell back to B4: its bfloat16-band kernels alone
+        fused_x = ss.dia_sstep_stream_solve(op, b_dev, s=SSTEP_S, bounds=bounds, tol=tol,
+                                            nearzero=nearzero, bands_dtype=torch.bfloat16,
+                                            device=DEV).x
+    solves = {
+        "stream_iteration_f16b": ("stream_iteration_f32_f16b", main_x, lambda: dia_cg_solve_stream(
+            op, b_dev, tol=tol, nearzero=nearzero, bands_dtype=F16, device=DEV)),
+        "sstep_gram_f16b": ("sstep_gram_f32_f16b", fused_x, lambda: ss.dia_sstep_stream_solve(
+            op, b_dev, s=SSTEP_S, bounds=bounds, tol=tol, nearzero=nearzero, bands_dtype=F16,
+            device=DEV)),
+        "dia_cg_vmem_f16b": ("dia_cg_vmem_f32_f16b", vmem_bf16.x, lambda: dia_cg_solve_vmem(
+            op1, b1_dev, tol=tol1, bands_dtype=F16, device=DEV)),
+    }
+    for row, (key, want, fn) in solves.items():
+        reset_launches()
+        res, k, seconds = timed(fn)
+        builds = {name: c for name, c in BUILD_LAUNCHES.items() if c}
+        same = same_bits(res.x, want)
+        emit({"phase": "f16_solve", "row": row, "k": k, "converged": bool(res.converged),
+              "seconds": seconds, "launches_by_build": builds, "bitwise_bf16_bands": same})
+        check(bool(res.converged) and same and builds.get(key, 0) >= 1
+              and all(name.endswith("_f32_f16b") for name in builds),
+              f"f16 bands {row}: converged {bool(res.converged)}, x bitwise the bf16-band "
+              f"run's: {same}, launches {builds}")
+        counts[row] = builds[key]
+        if row == "sstep_gram_f16b":
+            counts["sstep_recover_f16b"] = builds["sstep_recover_f32_f16b"]
+        del res
+    del op, op1, b_dev, b1_dev, vmem_bf16
+    sync()
+    return rows, counts
+
+
 def main() -> int:
     spec = phase_device()
     phase_build()
@@ -4969,7 +5380,7 @@ def run_phases(spec, replay_tmp: Path, replay: subprocess.Popen) -> int:
     # each kernel's launches come from a path that runs it, counted from 0 just before it
     launches = {name: n for name, n in phase_goldens().items() if name in THREE_KERNEL}
     records.update(phase_stream_kernel(spec))
-    main_launches, b4_main = phase_main(spec)
+    main_launches, b4_main, main_x = phase_main(spec)
     launches.update({name: n for name, n in main_launches.items()
                      if name in ("stream_iteration", "stream_iteration_stacked")})
     launches["stream_iteration_pcg"] = phase_stream_pcg(spec)["stream_iteration_pcg"]
@@ -4993,8 +5404,19 @@ def run_phases(spec, replay_tmp: Path, replay: subprocess.Popen) -> int:
     launches.update({name: n for name, n in phase_mixed_above(spec).items() if name in BF16_SITES})
     bounds, bounds_seconds = phase_sstep_bounds()
     records.update(phase_sstep_kernels(spec, bounds))
-    launches.update(phase_sstep_path(spec, bounds, bounds_seconds, b4_main))
+    sstep_launches, fused_x = phase_sstep_path(spec, bounds, bounds_seconds, b4_main)
+    launches.update(sstep_launches)
     phase_sstep_goldens()
+    # ROADMAP A6's rest
+    rows, counts = phase_bf16_sstep_kernels(spec, bounds)
+    records.update(rows)
+    launches.update(counts)
+    launches.update(phase_bf16_sstep(spec))
+    rows, counts = phase_f16_bands(spec, main_x, fused_x, bounds)
+    records.update(rows)
+    launches.update(counts)
+    del main_x, fused_x
+    sync()
     for site, halo in phase_sstep_halo(spec).items():
         records[site].update(halo)
     records.update(phase_stream_matvec(spec))
@@ -5053,9 +5475,11 @@ def run_phases(spec, replay_tmp: Path, replay: subprocess.Popen) -> int:
                         # B8 on the sharded solve_sequence's harvest and deflated solves
                         "sequence_launches": rec.get("sequence_launches"),
                         # the vectors' dtype, and whether the site has a bfloat16-vector
-                        # build (the s-step sites not yet, ROADMAP A6)
+                        # build (all but the replay, which works on the float64 state)
                         "dtype": rec.get("dtype"),
-                        "bf16_build": name in BF16_KERNELS or f"{name}_bf16" in BF16_KERNELS,
+                        "bf16_build": name in BF16_BUILT or f"{name}_bf16" in BF16_BUILT,
+                        # a float16-band row's bfloat16-band twin on the same inputs
+                        "bf16_bands_ms": rec.get("bf16_bands_ms"),
                         # the bf16 rows' other design, preconditioner and shape
                         "pcg_ms": rec.get("pcg_ms"), "pcg_global_ms": rec.get("pcg_global_ms"),
                         "pcg_bound_ms": rec.get("pcg_bound_ms"), "n": rec.get("n")})

@@ -1,6 +1,8 @@
 """cgx_torch.solve against cgx.solve: routing, devices and what is not
 ported yet."""
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -147,19 +149,28 @@ def test_precond_without_pallas_matches_cgx(problem, precond, precision):
 
 @pytest.mark.parametrize("sharded", [False, True], ids=["bf16", "bf16_n_devices"])
 def test_unported_configs_raise(problem, sharded):
-    """precision="bf16" runs since ROADMAP A6's first part: bfloat16
-    vectors on one device, a float32 solve on the mesh (cgx api.py:233-234).
-    What still raises: the fused s-step on one device (kernels B10 have no
-    bfloat16 build yet, naming A6) and, on the mesh as on one device, a 2-D
-    b (cgx's multi-RHS refusal, before any mesh is made)."""
+    """precision="bf16" runs since ROADMAP A6: bfloat16 vectors on one
+    device, a float32 solve on the mesh (cgx api.py:233-234). The fused
+    s-step on bfloat16 vectors, which raised naming A6 until kernels B10
+    had their bfloat16 builds, runs on one device (here it leaves
+    bfloat16's finite range before 5e-2 ||b||, as cgx's interpreted route
+    does; its parity with cgx: tests/test_torch_bf16_sstep.py); its "off"
+    and "pallas" routes keep cgx's TypeError. What still raises, on the
+    mesh as on one device: a 2-D b (cgx's multi-RHS refusal, before any
+    mesh is made)."""
     dia, b = problem
     cfg = SolveConfig(precision="bf16", tolerance=5e-2 * np.linalg.norm(b), maxiter=2000)
     if not sharded:
         res = cgx_torch.solve(dia, b, cfg, device="cpu")
         assert res.x.dtype == torch.bfloat16 and bool(res.converged)
-        with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-            cgx_torch.solve(dia, b, SolveConfig(precision="bf16", method="sstep",
-                                                sstep_powers="fused"), device="cpu")
+        fused = cgx_torch.solve(dia, b, dataclasses.replace(cfg, method="sstep",
+                                                            sstep_powers="fused"), device="cpu")
+        assert fused.x.dtype == torch.bfloat16 and fused.x.shape == (256,)
+        assert int(fused.iterations) == cfg.maxiter and not bool(fused.converged)
+        for powers in ("off", "pallas"):
+            with pytest.raises(TypeError, match="bfloat16"):
+                cgx_torch.solve(dia, b, dataclasses.replace(cfg, method="sstep",
+                                                            sstep_powers=powers), device="cpu")
         return
     from cgx_torch.parallel import make_mesh
 

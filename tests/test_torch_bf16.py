@@ -221,10 +221,28 @@ def test_sstep_refuses_bfloat16_as_cgx(powers):
 
 
 def test_fused_sstep_raises_naming_a6():
+    """The fused s-step on bfloat16 vectors raised naming ROADMAP A6 until
+    kernels B10 had their bfloat16 builds; now solve runs it on them (their
+    plain versions here), one Gram and one recover launch a block, each
+    counted by its _bf16 build, x bit for bit the fused block's own solve
+    on the same Lanczos bounds. Its parity with cgx's interpreted route:
+    tests/test_torch_bf16_sstep.py."""
+    from cgx_torch.ops import sstep_stream
+    from cgx_torch.solver.chebyshev import spectral_bounds
+
     dia, b, tol = _problem()
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        cgx_torch.solve(dia, b, SolveConfig(precision="bf16", tolerance=tol, method="sstep",
-                                            sstep_powers="fused"), device="cpu")
+    before = {k: BUILD_LAUNCHES[k] for k in ("sstep_gram_bf16", "sstep_recover_bf16")}
+    got = cgx_torch.solve(dia, b, SolveConfig(precision="bf16", tolerance=tol, method="sstep",
+                                              sstep_powers="fused"), device="cpu")
+    blocks = {k: BUILD_LAUNCHES[k] - v for k, v in before.items()}
+    assert bool(got.converged) and not bool(got.breakdown) and got.x.dtype == torch.bfloat16
+    assert blocks["sstep_gram_bf16"] == blocks["sstep_recover_bf16"] >= int(got.iterations) / 4
+    op = cgx_torch.operator_from_numpy(dia.bands, dia.offsets, dtype=torch.bfloat16,
+                                       device="cpu")
+    direct = sstep_stream.dia_sstep_stream_solve(
+        op, torch.as_tensor(b).to(torch.bfloat16), bounds=spectral_bounds(op, b.shape[0]),
+        tol=tol, maxiter=MAXITER, device="cpu")
+    assert int(direct.iterations) == int(got.iterations) and torch.equal(direct.x, got.x)
 
 
 def test_multi_rhs_refusal_unchanged():

@@ -117,12 +117,26 @@ def test_unknown_layout_raises():
 
 
 def test_bands_dtype_raises_naming_a6():
-    """bfloat16 bands under float32 vectors are ported (below); other band
-    storage still raises naming A6."""
-    with pytest.raises(NotImplementedError, match="A6"):
-        _vmem(lap2d_fd(4), np.ones(16), bands_dtype=torch.float16)
-    with pytest.raises(NotImplementedError, match="A6"):
+    """float16 bands under float32 vectors raised naming ROADMAP A6 until
+    their builds landed; now they run as cgx's bands_dtype=float16 does,
+    interpreted (lap2d_fd(24) at 1e-4 ||b||: the same k, and on this
+    f16-exact stencil x bitwise the bfloat16-band run's). A pair no route
+    of solve asks for still raises, naming the pair (ROADMAP C)."""
+    dia = lap2d_fd(24)
+    b = np.asarray(source_term(576), np.float32)
+    tol = 1e-4 * float(np.linalg.norm(b.astype(np.float64)))
+    op32 = cgx.DiaOperator(jnp.asarray(np.asarray(dia.bands, np.float32)), tuple(dia.offsets))
+    want = cgx_vmem(op32, jnp.asarray(b), tol=tol, chunk=32, interpret=True,
+                    bands_dtype=jnp.float16, layout="2d", cols=128)
+    got, bf16 = (_vmem(dia, b, tol=tol, chunk=32, bands_dtype=bd, layout="2d")
+                 for bd in (torch.float16, torch.bfloat16))
+    assert bool(got.converged) and bool(want.converged)
+    assert int(got.iterations) == int(want.iterations) == int(bf16.iterations)
+    assert torch.equal(got.x, bf16.x)
+    with pytest.raises(NotImplementedError, match="bfloat16 under torch.float64"):
         _vmem(lap2d_fd(4), np.ones(16), torch.float64, bands_dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="float16 under torch.float64"):
+        _vmem(lap2d_fd(4), np.ones(16), torch.float64, bands_dtype=torch.float16)
 
 
 @pytest.mark.parametrize("precond", [False, True])
