@@ -62,9 +62,9 @@ _SIGNATURES = {
         "cgx_fused_axpby": (_p, _p, _p, _p, _p, _n, _p),
     },
     "matvec": {
-        "cgx_dense_matvec": (_p, _p, _p, _n, _n, _n, _n, _n, _i, _i, _i, _i, _p),
-        "cgx_dense_matvec_dot": (_p, _p, _p, _n, _n, _n, _n, _n, _i, _i, _i, _i, _p, _p, _p, _p,
-                                 _n, _p),
+        "cgx_dense_matvec": (_p, _p, _p, _n, _n, _n, _n, _n, _i, _i, _i, _i, _i, _p),
+        "cgx_dense_matvec_dot": (_p, _p, _p, _n, _n, _n, _n, _n, _i, _i, _i, _i, _i, _p, _p, _p,
+                                 _p, _n, _p),
     },
     "cg_kernel": {
         "cgx_dia_cg_chunk": (_p, _p, _p, _p, _p, _p, _p, _n, _p, _p, _n, _offs, _i, _i,
@@ -77,6 +77,8 @@ _SIGNATURES = {
                           _i, _i, _d, _d, _d, _i, _i_out, _p),
         "cgx_pcg_wave": (_p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _n, _p, _p, _n, _offs, _i,
                          _d, _d, _d, _offs, _i, _i, _p),
+        "cgx_cg_stream_wave": (_p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _n, _p, _p, _n, _offs, _i,
+                               _d, _d, _d, _offs, _i, _i, _p),
     },
     "dia_powers": {
         "cgx_dia_sstep_basis": (_p, _p, _p, _p, _p, _n, _n, _offs, _i, _i, _d, _d, _d_in, _i,
@@ -100,22 +102,23 @@ _SIGNATURES = {
 }
 # Entries that also take bfloat16 bands under float32 vectors, bound with
 # the suffix _f32_bf16b (cgx_torch.ops._util.NARROW_BANDS).
-BF16_BANDS = ("cgx_dia_cg_chunk", "cgx_dia_cg_resident", "cgx_cg_stream", "cgx_pcg_wave", "cgx_sstep_gram",
-               "cgx_sstep_recover",
-               "cgx_sstep_gram_wave", "cgx_sstep_recover_wave")
+BF16_BANDS = ("cgx_dia_cg_chunk", "cgx_dia_cg_resident", "cgx_cg_stream", "cgx_pcg_wave",
+              "cgx_cg_stream_wave", "cgx_sstep_gram", "cgx_sstep_recover",
+              "cgx_sstep_gram_wave", "cgx_sstep_recover_wave")
 # Entries that also take float16 bands under float32 vectors, bound with the
 # suffix _f32_f16b (cgx_torch.ops._util.NARROW_BANDS): those whose cgx
 # counterpart takes an explicit bands_dtype, B5, B4/B7 and B10 (B6's PCG takes
 # "auto" only, so it has none).
-F16_BANDS = ("cgx_dia_cg_chunk", "cgx_dia_cg_resident", "cgx_cg_stream", "cgx_sstep_gram",
-             "cgx_sstep_recover", "cgx_sstep_gram_wave", "cgx_sstep_recover_wave")
+F16_BANDS = ("cgx_dia_cg_chunk", "cgx_dia_cg_resident", "cgx_cg_stream", "cgx_cg_stream_wave",
+             "cgx_sstep_gram", "cgx_sstep_recover", "cgx_sstep_gram_wave",
+             "cgx_sstep_recover_wave")
 # Entries also built on bfloat16 vectors and bands, bound with the suffix _bf16
 # (cgx_torch.ops._util.KERNEL_DTYPES, vector_dtypes): B1's product (both
-# designs), B5 (both designs), B4/B7 and B6 (both designs), B3 (both entries),
+# designs), B5 (both designs), B4/B7 and B6 (both designs each), B3 (both entries),
 # B10's Gram and recover and B9 (both designs each).
 BF16_VECTORS = ("cgx_dia_matvec", "cgx_dia_matvec_stream", "cgx_dia_cg_chunk",
-                "cgx_dia_cg_resident", "cgx_cg_stream", "cgx_pcg_wave", "cgx_dense_matvec",
-                "cgx_dense_matvec_dot", "cgx_sstep_gram", "cgx_sstep_gram_wave",
+                "cgx_dia_cg_resident", "cgx_cg_stream", "cgx_pcg_wave", "cgx_cg_stream_wave",
+                "cgx_dense_matvec", "cgx_dense_matvec_dot", "cgx_sstep_gram", "cgx_sstep_gram_wave",
                 "cgx_sstep_recover", "cgx_sstep_recover_wave", "cgx_dia_sstep_basis",
                 "cgx_dia_sstep_basis_wave")
 # Entries with one variant only: the replay works on the float64 state.

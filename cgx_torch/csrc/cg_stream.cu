@@ -20,6 +20,32 @@
 //   gamma' = <r', u'>, delta' = <w', u'> (and rr' = <r', r'>)
 // with u == r without the preconditioner, so p' = r + beta p there.
 //
+// The plain iteration (B4, B7) has two designs, picked on the host by
+// cgx_torch.ops.cg_stream.stream_plan:
+// - "wavefront" (stream_wave_kernel), where its ring fits one block's shared
+//   memory, n is even and every pointer lies on its pairs' grid: all of the
+//   port's solves at R = 3200 in bfloat16, float32 and float64. One 512-thread
+//   block an SM walks one contiguous slab in steps of W = 1024 rows, two levels
+//   at once (the scheme of pcg_wave_kernel): L0 at the frontier forms s' and
+//   r' (and at the slab's own rows p' and x') and keeps r' in a ring; L1,
+//   R + W rows behind, forms w' = A r' from the ring with the dots. So r' is
+//   formed once a row, where the grid design forms it again at each of the
+//   stencil's neighbours (on bfloat16 vectors at N = 10,240,000 that re-forming
+//   took a fifth of the grid design's time: 288.4 us on the device, 236.6
+//   with the neighbours' r' read instead, an ablation of redesign_probe.py on
+//   an H100 80GB HBM3 at 700 W). A thread
+//   takes two neighbouring rows, loaded and stored as one pair (bfloat16: 4
+//   bytes, both rounded by one cvt.rn.bf16x2.f32, which gives the bits of two
+//   __float2bfloat16_rn), and rows are 32-bit indices. The next step's loads
+//   issue before this step's arithmetic. The halo, R rows of r' past each end
+//   of the slab, is formed again from the read halves of r, w and s: 2R rows
+//   of three vectors a slab, 1.65% more traffic at N = 10,240,000 over 132
+//   slabs. The ring holds 2R + 2W values (16.9 KB in bfloat16 at R = 3200).
+// - "grid" (cg_stream_kernel<kPlain>), elsewhere: a block for each 1024 rows,
+//   r'[j] formed again at each neighbour j (the halo window below).
+// Both give s', r', p', x' and w' bit for bit alike; the dots' sums differ in
+// order (one partial a slab against one a 1024-row block).
+//
 // The preconditioned iteration applies the bands twice: c' = D^-1 r', then
 // u' = 2 c' - D^-1 A c', then w' = A u'. Each application needs the level
 // below at its neighbours, R = max |offset| rows away. Two designs, picked on
@@ -57,12 +83,13 @@
 //   however many frozen launches the host queues. p, x and u are read and written
 //   at their own index only and stay in place.
 // - The halo window. The TPU recomputes r' over a window of rows + 2 m_rows (and
-//   u' over a 2 p_rows margin). Here r'[j] = r[j] - alpha (w[j] + beta s[j]) is
-//   formed again at each neighbour j from the old r, w and s; with -fmad=false
-//   the value is bit for bit the one its own thread writes. The neighbours of a
-//   block's rows are rows of the blocks beside it, read while those blocks run,
-//   so L1 and L2 serve the re-reads and device memory sees each vector about
-//   once. The preconditioned wavefront recomputes its halo the same way.
+//   u' over a 2 p_rows margin). The grid design forms r'[j] = r[j] - alpha
+//   (w[j] + beta s[j]) again at each neighbour j from the old r, w and s; with
+//   -fmad=false the value is bit for bit the one its own thread writes. The
+//   neighbours of a block's rows are rows of the blocks beside it, read while
+//   those blocks run, so L1 and L2 serve the re-reads and device memory sees
+//   each vector about once. The wavefronts form their halo rows once a slab,
+//   from the same reads.
 // - Dots. Each block owns a contiguous range of rows, sums its products in
 //   double in thread order and by a shuffle tree (common.cuh), and writes one
 //   partial per dot; the last block to take the ticket sums all partials in
@@ -95,10 +122,13 @@
 // Bound: memory. The recurrence must move, per iteration, the bands once, p, x,
 // r, w, s in and out: (ndiag + 10) N words (ndiag/2 + 10 with bfloat16 bands
 // under float vectors); with the preconditioner u as well, (ndiag + 12) N. On
-// bfloat16 vectors the words are 2 bytes. The
-// neighbour re-reads of the plain iteration cost load instructions and cache
-// bandwidth, not device memory traffic, so long as a block's halo stays in
-// cache.
+// bfloat16 vectors the words are 2 bytes: 0.0917 ms at N = 10,240,000 and
+// 3.35 TB/s. The grid design's neighbour re-reads cost load instructions and
+// cache bandwidth, not device memory traffic, so long as a block's halo stays
+// in cache; they and their re-formed r' hold its bfloat16 build at 31% of the
+// bound, the wavefront's at 55% (0.1673 ms against the grid's 0.3003 in one
+// run; float32 with bfloat16 bands 0.2178 against 0.2752; H100 80GB HBM3,
+// 700 W, chip_smoke.py, PERF.md).
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 
@@ -574,6 +604,299 @@ __global__ void __launch_bounds__(kPcgThreads, 1)
   }
 }
 
+// ---- the plain iteration on a wavefront (one launch, r' formed once a row) ----
+
+constexpr int kWaveThreads = kPcgThreads;  // threads of a block; one block an SM
+constexpr int kWaveRows = 2;               // neighbouring rows a thread, loaded as one pair
+constexpr int kWaveWidth = kWaveThreads * kWaveRows;  // W: rows a level advances a step
+constexpr int kWavePlanLen = 5;            // see WavePlan
+
+// The plan array of cgx_torch.ops.cg_stream.stream_plan: [width, slab, shared
+// bytes, lag, ring]. L1 forms the rows lag behind L0's; the ring holds r'.
+struct WavePlan {
+  int slab, lag, ring;
+};
+
+// The arithmetic type of the vectors' type T (float for bfloat16) and two
+// neighbouring rows as one load or store: float2, double2, or a bfloat16 pair
+// in 32 bits, the even row in the low half.
+template <typename T>
+struct Wave {
+  using F = T;
+  using raw = std::conditional_t<std::is_same_v<T, float>, float2, double2>;
+  __device__ static void get(raw v, F& a, F& b) {
+    a = v.x;
+    b = v.y;
+  }
+  // a and b after an operation, rounded to T as T's operation rounds (a float
+  // or double operation rounds itself), and as stored
+  __device__ static raw rnd(F& a, F& b) { return raw{a, b}; }
+};
+template <>
+struct Wave<bf16> {
+  using F = float;
+  using raw = unsigned;
+  __device__ static void get(raw v, F& a, F& b) {
+    a = __uint_as_float(v << 16);
+    b = __uint_as_float(v & 0xffff0000u);
+  }
+  // One cvt.rn.bf16x2.f32 rounds both: the bits of two __float2bfloat16_rn,
+  // each to nearest even, as cgx::bf16 rounds every operation (bf16.cuh).
+  __device__ static raw rnd(F& a, F& b) {
+    unsigned v;
+    asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(v) : "f"(b), "f"(a));
+    get(v, a, b);
+    return v;
+  }
+};
+
+// Two neighbouring band values of storage B, widened exactly to F.
+template <typename B, typename F>
+__device__ __forceinline__ void band2(const B* p, F& a, F& b) {
+  if constexpr (std::is_same_v<B, float> || std::is_same_v<B, double>) {
+    Wave<B>::get(__ldg(reinterpret_cast<const typename Wave<B>::raw*>(p)), a, b);
+  } else {
+    const unsigned v = __ldg(reinterpret_cast<const unsigned*>(p));
+    if constexpr (std::is_same_v<B, __half>) {
+      a = __half2float(__ushort_as_half(static_cast<unsigned short>(v & 0xffffu)));
+      b = __half2float(__ushort_as_half(static_cast<unsigned short>(v >> 16)));
+    } else {  // bfloat16, either type
+      Wave<bf16>::get(v, a, b);
+    }
+  }
+}
+
+__device__ __forceinline__ int wave_wrap(int slot, int q) {
+  return slot < 0 ? slot + q : (slot >= q ? slot - q : slot);
+}
+
+// One plain Chronopoulos-Gear iteration in one launch, r' formed once a row
+// (see the header note). Block b owns the slab [t0, t1) = [b slab, (b + 1)
+// slab). At step t, L0 forms s', r' (and at the slab's rows p', x') for rows
+// [f + t W, + W) of [lo0, hi0) = [t0 - R, t1 + R) clipped to [0, n), and puts
+// r' in the ring; L1 forms w' = A r' from the ring and the dots for the rows
+// lag behind, in [t0, t1). Thread jj takes rows 2 jj and 2 jj + 1 of each
+// window. The next step's loads from device memory are issued before this
+// step's arithmetic; the ring is read (L1) before it is written (L0) and one
+// barrier ends a step. A step whose windows and stencil lie inside their
+// ranges and [0, n) (a uniform test) runs a copy with no test a tap. Each value
+// is formed by cg_stream_kernel<T, B, kPlain>'s operations, so with -fmad=false
+// s', r', p', x' and w' are its values bit for bit.
+template <typename T, typename B, int ND>
+__global__ void __launch_bounds__(kWaveThreads, 1)
+    stream_wave_kernel(StreamArgs<T, B> a, WavePlan pl) {
+  using Wv = Wave<T>;
+  using F = typename Wv::F;
+  using P = typename Wv::raw;
+  const double* sc = a.scal;
+  const double gamma = sc[kGamma], delta = sc[kDelta], gamma_old = sc[kGammaOld];
+  const double alpha_old = sc[kAlphaOld], k = sc[kK];
+  double brk = sc[kBreakdown];
+  if (sc[kStop] != 0.0 || !(k < a.maxiter)) return;  // frozen: the same in every block
+
+  const bool first = k == 0.0;
+  const double beta_d = first ? 0.0 : gamma / gamma_old;
+  const double denom = first ? delta : delta - beta_d * gamma / alpha_old;
+  if (denom <= 0.0) brk = 1.0;
+  const T alpha_t = static_cast<T>(gamma / nan_max(denom, gamma * a.nearzero));
+  const F alpha = static_cast<F>(alpha_t), beta = static_cast<F>(static_cast<T>(beta_d));
+
+  const int q = static_cast<long long>(k) & 1;
+  const P* __restrict__ r = reinterpret_cast<const P*>(a.r[q]);
+  const P* __restrict__ w = reinterpret_cast<const P*>(a.w[q]);
+  const P* __restrict__ s = reinterpret_cast<const P*>(a.s[q]);
+  P* r_out = reinterpret_cast<P*>(a.r[q ^ 1]);
+  P* w_out = reinterpret_cast<P*>(a.w[q ^ 1]);
+  P* s_out = reinterpret_cast<P*>(a.s[q ^ 1]);
+  P* pv = reinterpret_cast<P*>(a.p);
+  P* xv = reinterpret_cast<P*>(a.x);
+  const int n = static_cast<int>(a.n);
+  const B* __restrict__ bands = a.bands;
+
+  extern __shared__ __align__(16) unsigned char wave_smem[];
+  P* ring = reinterpret_cast<P*>(wave_smem);  // r' by pairs: slot / 2 of row mod Q
+  const int Q = pl.ring;
+  constexpr int W = kWaveWidth;
+  const int jj = threadIdx.x;
+  constexpr int NB = ND ? ND : 1;
+
+  const int t0 = static_cast<int>(blockIdx.x) * pl.slab;
+  const int t1 = t0 + pl.slab < n ? t0 + pl.slab : n;
+  double g = 0.0, dl = 0.0;
+  if (t0 < t1) {
+    int reach = 0;
+#pragma unroll
+    for (int d = 0; d < (ND ? ND : kMaxDiags); ++d)
+      if (ND || d < a.o.ndiag) {
+        const int o = static_cast<int>(a.o.off[d]);
+        reach = max(reach, o < 0 ? -o : o);
+      }
+    const int lo0 = (t0 - reach > 0 ? t0 - reach : 0) & ~1;  // pairs: even bounds
+    const int hi0 = ((t1 + reach < n ? t1 + reach : n) + 1) & ~1;
+    const int f = lo0;
+    const int steps = (t1 - f + pl.lag + W - 1) / W;
+    int s0 = f % Q;                                  // ring slot of L0's first row
+    int s1 = static_cast<int>(pcg_pos_mod(f - pl.lag, Q));  // and of L1's
+    // this thread's loads of a step: L0's r, w, s (p, x at the slab's rows) and
+    // L1's bands (ND > 0)
+    struct Loads {
+      P r, w, s, p, x;
+      F b0[NB], b1[NB];
+    };
+    const auto load = [&](int t, Loads& ld) {
+      const int i0 = f + t * W + 2 * jj, i1 = i0 - pl.lag;
+      if (i0 >= lo0 && i0 < hi0) {
+        ld.r = __ldg(r + i0 / 2);
+        ld.w = __ldg(w + i0 / 2);
+        ld.s = __ldg(s + i0 / 2);
+        if (i0 >= t0 && i0 < t1) {
+          ld.p = pv[i0 / 2];
+          ld.x = xv[i0 / 2];
+        }
+      }
+      if (ND && i1 >= t0 && i1 < t1) {
+#pragma unroll
+        for (int d = 0; d < NB; ++d) band2(bands + static_cast<long long>(d) * n + i1, ld.b0[d],
+                                           ld.b1[d]);
+      }
+    };
+    Loads cur, nxt;
+    load(0, cur);
+    for (int t = 0; t < steps; ++t) {
+      if (t + 1 < steps) load(t + 1, nxt);
+      const int a0 = f + t * W, a1 = a0 - pl.lag;
+      const auto step = [&](auto all_full) {
+        constexpr bool kFull = decltype(all_full)::value;
+        const int i0 = a0 + 2 * jj, i1 = a1 + 2 * jj;
+        const bool ok0 = kFull || (i0 >= lo0 && i0 < hi0);
+        const bool ok1 = kFull || (i1 >= t0 && i1 < t1);
+        // L1: w' = A r' from the ring, and the dots' terms of delta'
+        if (ok1) {
+          const int sl = s1 + 2 * jj;  // < Q + W
+          F rc0, rc1, w0 = F(0), w1 = F(0);
+          Wv::get(ring[wave_wrap(sl, Q) / 2], rc0, rc1);
+#pragma unroll
+          for (int d = 0; d < (ND ? ND : kMaxDiags); ++d) {
+            if (ND || d < a.o.ndiag) {
+              const int off = static_cast<int>(a.o.off[d]);
+              F v0, v1;
+              if (off == 0) {
+                v0 = rc0;
+                v1 = rc1;
+              } else if ((off & 1) == 0) {
+                Wv::get(ring[wave_wrap(sl + off, Q) / 2], v0, v1);
+              } else {  // rows i1 + off (odd: a pair's high half) and i1 + off + 1
+                F lo, hi;
+                Wv::get(ring[wave_wrap(sl + off - 1, Q) / 2], lo, v0);
+                Wv::get(ring[wave_wrap(sl + off + 1, Q) / 2], v1, hi);
+              }
+              F b0, b1;
+              if (ND) {
+                b0 = cur.b0[ND ? d : 0];
+                b1 = cur.b1[ND ? d : 0];
+              } else {
+                band2(bands + static_cast<long long>(d) * n + i1, b0, b1);
+              }
+              F p0 = b0 * v0, p1 = b1 * v1;
+              Wv::rnd(p0, p1);
+              const bool in0 = kFull || (i1 + off >= 0 && i1 + off < n);
+              const bool in1 = kFull || (i1 + 1 + off >= 0 && i1 + 1 + off < n);
+              F n0 = in0 ? w0 + p0 : w0, n1 = in1 ? w1 + p1 : w1;
+              Wv::rnd(n0, n1);
+              w0 = n0;
+              w1 = n1;
+            }
+          }
+          F o0 = w0, o1 = w1;
+          w_out[i1 / 2] = Wv::rnd(o0, o1);
+          dl += prod64(w0, rc0);
+          dl += prod64(w1, rc1);
+        }
+        // L0: s' = w + beta s, r' = r - alpha s'; at the slab's rows p' = r +
+        // beta p, x' = x + alpha p' and the dots' terms of gamma'
+        if (ok0) {
+          F r0, r1, w0, w1, s0v, s1v;
+          Wv::get(cur.r, r0, r1);
+          Wv::get(cur.w, w0, w1);
+          Wv::get(cur.s, s0v, s1v);
+          F t0v = beta * s0v, t1v = beta * s1v;
+          Wv::rnd(t0v, t1v);
+          F sn0 = w0 + t0v, sn1 = w1 + t1v;
+          const P sn = Wv::rnd(sn0, sn1);
+          F u0 = alpha * sn0, u1 = alpha * sn1;
+          Wv::rnd(u0, u1);
+          F rn0 = r0 - u0, rn1 = r1 - u1;
+          const P rn = Wv::rnd(rn0, rn1);
+          ring[(s0 + 2 * jj < Q ? s0 + 2 * jj : s0 + 2 * jj - Q) / 2] = rn;
+          if (i0 >= t0 && i0 < t1) {
+            F p0, p1, x0, x1;
+            Wv::get(cur.p, p0, p1);
+            Wv::get(cur.x, x0, x1);
+            F bp0 = beta * p0, bp1 = beta * p1;
+            Wv::rnd(bp0, bp1);
+            F pn0 = r0 + bp0, pn1 = r1 + bp1;
+            const P pn = Wv::rnd(pn0, pn1);
+            F ap0 = alpha * pn0, ap1 = alpha * pn1;
+            Wv::rnd(ap0, ap1);
+            F xn0 = x0 + ap0, xn1 = x1 + ap1;
+            xv[i0 / 2] = Wv::rnd(xn0, xn1);
+            pv[i0 / 2] = pn;
+            r_out[i0 / 2] = rn;
+            s_out[i0 / 2] = sn;
+            g += prod64(rn0, rn0);
+            g += prod64(rn1, rn1);
+          }
+        }
+      };
+      const bool full = a0 >= lo0 && a0 + W <= hi0 && a1 >= t0 && a1 + W <= t1 &&
+                        a1 - reach >= 0 && a1 + W + reach <= n;
+      if (full)
+        step(std::true_type{});
+      else
+        step(std::false_type{});
+      s0 = s0 + W >= Q ? s0 + W - Q : s0 + W;
+      s1 = s1 + W >= Q ? s1 + W - Q : s1 + W;
+      cur = nxt;
+      __syncthreads();  // this step's ring values are in place
+    }
+  }
+
+  __shared__ double part[kPcgWarps];
+  g = pcg_block_sum(g, part);
+  dl = pcg_block_sum(dl, part);
+  __shared__ bool is_last;
+  if (threadIdx.x == 0) {
+    a.partials[blockIdx.x] = g;
+    a.partials[gridDim.x + blockIdx.x] = dl;
+    __threadfence();  // the partials are visible before the ticket is taken
+    is_last = atomicAdd(a.ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  const volatile double* parts = a.partials;  // written by other SMs: bypass L1
+  double sums[2];
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    double v = 0.0;
+    for (int j = threadIdx.x; j < static_cast<int>(gridDim.x); j += kWaveThreads)
+      v += parts[c * gridDim.x + j];
+    sums[c] = pcg_block_sum(v, part);
+  }
+  if (threadIdx.x == 0) {
+    double* out = a.scal;
+    out[kGamma] = sums[0];
+    out[kDelta] = sums[1];
+    out[kRr] = sums[0];
+    out[kGammaOld] = gamma;
+    out[kAlphaOld] = static_cast<double>(alpha_t);
+    out[kK] = k + 1.0;
+    out[kStop] = (sums[0] > 0.0 && sqrt(sums[0]) >= a.tol) ? 0.0 : 1.0;
+    out[kBreakdown] = brk;
+    *a.ticket = 0u;
+  }
+}
+
 template <typename T, typename B>
 static int launch_stream(const void* bands, void* p, void* x, void* u, void* c, void* const* rws,
                          void* partials, long long partials_len, void* ticket, void* scal,
@@ -625,8 +948,8 @@ static int launch_stream(const void* bands, void* p, void* x, void* u, void* c, 
 
 // Launches wavefront kernel K with the plan's shared bytes, after letting K
 // take them (once a process); the launch's error
-template <auto K, typename A>
-static int pcg_launch(int grid, long long shared, void* stream, const A& a, const PcgPlan& pl) {
+template <auto K, typename A, typename PL>
+static int pcg_launch(int grid, long long shared, void* stream, const A& a, const PL& pl) {
   const cudaError_t allowed = allow_shared<K>();
   if (allowed != cudaSuccess) return static_cast<int>(allowed);
   K<<<grid, kPcgThreads, static_cast<size_t>(shared), static_cast<cudaStream_t>(stream)>>>(a, pl);
@@ -677,11 +1000,67 @@ static int launch_pcg_wave(const void* bands, void* p, void* x, void* u, void* c
   return pcg_launch<pcg_wave_kernel<T, B, 0>>(grid, plan[2], stream, a, pl);
 }
 
+// The plain iteration on the wavefront of stream_plan's plan ([width, slab,
+// shared bytes, lag, ring]), grid blocks. Refused unless W is the kernel's, n is
+// even and the rows fit 32-bit indices with the halo and the lag, the slabs
+// (even) cover [0, n), the lag (even) covers the stencil (L1 reads only rows L0
+// formed in an earlier step), the ring (even) holds its oldest read row and its newest
+// written row of a step, it fits the shared bytes, and every vector and the
+// bands are aligned to their pairs.
+template <typename T, typename B>
+static int launch_stream_wave(const void* bands, void* p, void* x, void* const* rws,
+                              void* partials, long long partials_len, void* ticket, void* scal,
+                              long long n, const long long* offsets, int ndiag, double tol,
+                              double nearzero, double maxiter, const long long* plan,
+                              int plan_len, int grid, void* stream) {
+  StreamArgs<T, B> a;
+  if (n < 1 || !make_offsets(offsets, ndiag, &a.o) || plan_len != kWavePlanLen || grid < 1 ||
+      partials_len < 3LL * grid)
+    return static_cast<int>(cudaErrorInvalidValue);
+  long long reach = 0;
+  for (int d = 0; d < ndiag; ++d) {
+    const long long r = offsets[d] < 0 ? -offsets[d] : offsets[d];
+    reach = r > reach ? r : reach;
+  }
+  const long long slab = plan[1], shared = plan[2], lag = plan[3], ring = plan[4];
+  const long long item = sizeof(T);
+  bool ok = plan[0] == kWaveWidth && n % 2 == 0 && slab >= 2 && slab % 2 == 0 &&
+            slab * grid >= n && lag >= reach + kWaveWidth && lag % 2 == 0 && ring % 2 == 0 &&
+            ring >= lag + kWaveWidth + reach && ring * item <= shared &&
+            shared <= kSharedOptin && n + 2 * (reach + lag + kWaveWidth) < (1LL << 31);
+  const void* vecs[8] = {p, x, rws[0], rws[1], rws[2], rws[3], rws[4], rws[5]};
+  for (const void* v : vecs) ok = ok && reinterpret_cast<unsigned long long>(v) % (2 * item) == 0;
+  ok = ok && reinterpret_cast<unsigned long long>(bands) % (2 * sizeof(B)) == 0;
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  a.bands = static_cast<const B*>(bands);
+  a.p = static_cast<T*>(p);
+  a.x = static_cast<T*>(x);
+  a.u = nullptr;
+  a.c = nullptr;
+  for (int t = 0; t < 2; ++t) {
+    a.r[t] = static_cast<T*>(rws[t]);
+    a.w[t] = static_cast<T*>(rws[2 + t]);
+    a.s[t] = static_cast<T*>(rws[4 + t]);
+  }
+  a.partials = static_cast<double*>(partials);
+  a.ticket = static_cast<unsigned int*>(ticket);
+  a.scal = static_cast<double*>(scal);
+  a.n = n;
+  a.rows = slab;
+  a.d0 = 0;
+  a.tol = tol;
+  a.nearzero = nearzero;
+  a.maxiter = maxiter;
+  const WavePlan pl{static_cast<int>(slab), static_cast<int>(lag), static_cast<int>(ring)};
+  if (ndiag == 5) return pcg_launch<stream_wave_kernel<T, B, 5>>(grid, shared, stream, a, pl);
+  return pcg_launch<stream_wave_kernel<T, B, 0>>(grid, shared, stream, a, pl);
+}
+
 }  // namespace cgx
 
 extern "C" {
 
-#define CGX_STREAM_ENTRY(NAME, T, B)                                                         \
+#define CGX_STREAM_ENTRY(NAME, T, B)                                                      \
   int NAME(const void* bands, void* p, void* x, void* u, void* c, void* r0, void* r1,       \
            void* w0, void* w1, void* s0, void* s1, void* partials, long long partials_len,  \
            void* ticket, void* scal, long long n, const long long* offsets, int ndiag,      \
@@ -721,5 +1100,27 @@ CGX_PCG_WAVE_ENTRY(cgx_pcg_wave_f32_bf16b, float, __nv_bfloat16)
 CGX_PCG_WAVE_ENTRY(cgx_pcg_wave_bf16, cgx::bf16, cgx::bf16)
 
 #undef CGX_PCG_WAVE_ENTRY
+
+// The plain iteration in the wavefront design: plan from
+// cgx_torch.ops.cg_stream.stream_plan, grid blocks.
+#define CGX_STREAM_WAVE_ENTRY(NAME, T, B)                                                     \
+  int NAME(const void* bands, void* p, void* x, void* r0, void* r1, void* w0, void* w1,      \
+           void* s0, void* s1, void* partials, long long partials_len, void* ticket,         \
+           void* scal, long long n, const long long* offsets, int ndiag, double tol,         \
+           double nearzero, double maxiter, const long long* plan, int plan_len, int grid,   \
+           void* stream) {                                                                   \
+    void* rws[6] = {r0, r1, w0, w1, s0, s1};                                                 \
+    return cgx::launch_stream_wave<T, B>(bands, p, x, rws, partials, partials_len, ticket,   \
+                                         scal, n, offsets, ndiag, tol, nearzero, maxiter,    \
+                                         plan, plan_len, grid, stream);                      \
+  }
+
+CGX_STREAM_WAVE_ENTRY(cgx_cg_stream_wave_f32, float, float)
+CGX_STREAM_WAVE_ENTRY(cgx_cg_stream_wave_f64, double, double)
+CGX_STREAM_WAVE_ENTRY(cgx_cg_stream_wave_f32_bf16b, float, __nv_bfloat16)
+CGX_STREAM_WAVE_ENTRY(cgx_cg_stream_wave_f32_f16b, float, __half)
+CGX_STREAM_WAVE_ENTRY(cgx_cg_stream_wave_bf16, cgx::bf16, cgx::bf16)
+
+#undef CGX_STREAM_WAVE_ENTRY
 
 }  // extern "C"

@@ -51,12 +51,27 @@
 // in double at N = 10,000 on an H100 (PERF.md).
 // bfloat16 (the _bf16 entries): A and x are read as bfloat16 (8 a 16-byte load),
 // each product and sum is formed in float (a product of two bfloat16 is exact
-// there), the tile sums and the running sums are float, and y rounds to
-// bfloat16 once, at the store, with the grouping above. cgx's TPU kernel rounds
-// y to bfloat16 after each column tile (matvec.py:58-65), a choice of its
-// tiling; the plain version here sums the tiles in float as this kernel does.
-// dense_matvec_dot's products x[i] * y[i] round to bfloat16 (cgx's xrow * y in
-// the vectors' dtype) and are summed in float: the dot is float32.
+// there, so one fused multiply-add rounds as the product and the sum did), the
+// tile sums and the running sums are float, and y rounds to bfloat16 once, at
+// the store, with the grouping above. cgx's TPU kernel rounds y to bfloat16
+// after each column tile (matvec.py:58-65), a choice of its tiling; the plain
+// version here sums the tiles in float as this kernel does. dense_matvec_dot's
+// products x[i] * y[i] round to bfloat16 (cgx's xrow * y in the vectors'
+// dtype) and are summed in float: the dot is float32.
+// A bfloat16 tile of 128 columns (the CLI's "1024 16") is 16 vectors, so a
+// span on a whole warp left lanes 16-31 idle: 0.1387 ms at N = 10,000 against
+// torch.mv's 0.0731, and 0.0793 ms with 256-column tiles, whose 32 vectors
+// fill the warp (H100 80GB HBM3, 700 W; redesign_probe.py). So where a tile has
+// at most 16 or 8 vectors (dense_plan's lanes, cgx_torch.ops.matvec.span_lanes),
+// a span takes a half or a quarter of a warp and the warp works on two or four
+// spans at once (SUB below); their lanes also ask L2 for their spans
+// kDensePrefetch units ahead. Bound: 0.0597 ms at N = 10,000 (200 MB at
+// 3.35 TB/s). With 1024 x 128 tiles the kernel takes 0.0743 ms on the device
+// (0.0767 without the prefetch) against 0.1283 on whole warps and torch.mv's
+// 0.0699: a static split waits for its last block, 3% after the mean one
+// (PERF.md). float32 and float64 keep whole-warp spans, bit for bit as before.
+#include <type_traits>
+
 #include "bf16.cuh"
 #include "common.cuh"
 
@@ -64,6 +79,13 @@ namespace cgx {
 
 constexpr int kDenseThreads = 512;  // cgx_torch.ops.matvec.DENSE_THREADS; one block an SM
 constexpr int kDenseUnits = 8;      // neighbouring tiles of a row a warp works on at once
+// bfloat16 spans on a half or a quarter warp: a warp asks L2 for its spans this
+// many units ahead (cp.async.bulk.prefetch.L2), beyond the next round that its
+// registers hold. On an H100 at N = 10,000 with 1024 x 128 tiles it took the
+// kernel from 76.7 to 74.3 us (one and four units ahead: 80.2, 102.2); on
+// whole-warp spans of 512-column tiles (8 KB a span) it made it slower (183.9
+// to 270.3 us at N = 16,384), so those take none.
+constexpr int kDensePrefetch = 2;
 
 template <typename T>
 struct Vec16;  // 16 bytes of T
@@ -112,12 +134,14 @@ __device__ __forceinline__ double vdot(double p, double2 a, const double* x) {
   p += a.y * x[1];
   return p;
 }
+// bfloat16: a product of two bfloat16 values is exact in float, so one fused
+// multiply-add rounds as the product and the sum did (one rounding, the sum's)
 __device__ __forceinline__ float vdot(float p, uint4 a, uint4 x) {
   const unsigned aw[4] = {a.x, a.y, a.z, a.w}, xw[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
-    p += bf_lo(aw[k]) * bf_lo(xw[k]);
-    p += bf_hi(aw[k]) * bf_hi(xw[k]);
+    p = __fmaf_rn(bf_lo(aw[k]), bf_lo(xw[k]), p);
+    p = __fmaf_rn(bf_hi(aw[k]), bf_hi(xw[k]), p);
   }
   return p;
 }
@@ -164,28 +188,32 @@ __host__ __device__ inline long long dense_shared(long long chunk_cols, long lon
          rows * acc;
 }
 
-// The warp's sums of v[0..7]: lane i ends with the sum of v[t] over the 32
-// lanes for tile t = its lane bits 4, 3, 2 (read as 4, 2, 1), by recursive
-// halving: 9 shuffles for the 8 sums, against 40 for 8 trees. Each sum is
+// The sums of v[0..7] over each group of SUB neighbouring lanes (32: the
+// warp; 16 or 8: its half or quarter): lane i ends with the sum of v[t] over
+// its group for tile t = its lane bits SUB/2, SUB/4, SUB/8 (read as 4, 2, 1),
+// by recursive halving, then a tree over the SUB/8 lanes that share a tile: 9
+// shuffles for the 8 sums of a warp, against 40 for 8 trees. Each sum is
 // formed in a fixed order, in every lane that holds it alike.
-template <typename T>
+template <int SUB, typename T>
 __device__ __forceinline__ T transpose_sum8(const T (&v)[8], int lane) {
-  const bool h4 = lane & 16, h3 = lane & 8, h2 = lane & 4;
+  static_assert(SUB == 8 || SUB == 16 || SUB == 32, "a warp, or its half or quarter");
+  const bool h4 = lane & (SUB / 2), h3 = lane & (SUB / 4), h2 = lane & (SUB / 8);
   T a[4], b[2];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const T send = h4 ? v[i] : v[i + 4], keep = h4 ? v[i + 4] : v[i];
-    a[i] = keep + __shfl_xor_sync(0xffffffffu, send, 16);
+    a[i] = keep + __shfl_xor_sync(0xffffffffu, send, SUB / 2);
   }
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const T send = h3 ? a[i] : a[i + 2], keep = h3 ? a[i + 2] : a[i];
-    b[i] = keep + __shfl_xor_sync(0xffffffffu, send, 8);
+    b[i] = keep + __shfl_xor_sync(0xffffffffu, send, SUB / 4);
   }
   const T send = h2 ? b[0] : b[1], keep = h2 ? b[1] : b[0];
-  T c = keep + __shfl_xor_sync(0xffffffffu, send, 4);
-  c = c + __shfl_xor_sync(0xffffffffu, c, 2);
-  return c + __shfl_xor_sync(0xffffffffu, c, 1);
+  T c = keep + __shfl_xor_sync(0xffffffffu, send, SUB / 8);
+#pragma unroll
+  for (int o = SUB / 16; o >= 1; o >>= 1) c = c + __shfl_xor_sync(0xffffffffu, c, o);
+  return c;
 }
 
 // A warp's span of kDenseUnits neighbouring tiles of a row: the row in the
@@ -201,9 +229,12 @@ struct Span {
 // warps take kDenseUnits neighbouring tiles of a row at a time, and write each
 // tile's sum to shared memory; then one thread a row adds them, in tile order, to
 // the row's running sum. ALIGNED: every row start, tile and chunk is 16-byte aligned.
+// SUB (aligned path only): lanes a span, 32 or, where a tile has at most 16 or 8
+// vectors (bfloat16 tiles of 128 or 64 columns), 16 or 8, so that a warp works on
+// 32 / SUB spans at once (spans q NS + h, h = lane / SUB) and every lane loads.
 // DOT: where a row's sum is written, also prods[i] = x[i] * y[i] (0 past n_cols).
 // Sums run in A = Acc<T>::type; y rounds to T at the store.
-template <typename T, bool ALIGNED, bool DOT, typename A = typename Acc<T>::type>
+template <typename T, bool ALIGNED, bool DOT, int SUB, typename A = typename Acc<T>::type>
 __device__ __forceinline__ void dense_rows(const T* __restrict__ a, const T* __restrict__ x,
                                            T* __restrict__ y, long long n_rows,
                                            long long n_cols, long long block_cols,
@@ -223,7 +254,10 @@ __device__ __forceinline__ void dense_rows(const T* __restrict__ a, const T* __r
   A* run = reinterpret_cast<A*>(reinterpret_cast<unsigned char*>(tsum) +
                                 align16(rows * max_tiles * sizeof(A)));
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-  const int mine = (lane & 16 ? 4 : 0) + (lane & 8 ? 2 : 0) + (lane & 4 ? 1 : 0);
+  static_assert(ALIGNED || SUB == 32, "the peeled path takes a warp a span");
+  constexpr int NS = 32 / SUB;                   // spans a warp works on at once
+  const int sub = lane / SUB, sl = lane % SUB;  // the lane's span of them, its lane in it
+  const int mine = (sl & (SUB / 2) ? 4 : 0) + (sl & (SUB / 4) ? 2 : 0) + (sl & (SUB / 8) ? 1 : 0);
   if (n_cols == 0)
     for (long long r = threadIdx.x; r < rows; r += blockDim.x) {
       y[r0 + r] = T(0);
@@ -251,58 +285,81 @@ __device__ __forceinline__ void dense_rows(const T* __restrict__ a, const T* __r
       const unsigned r = q / spans;
       return Span{r, static_cast<long long>(q - r * spans) * G};
     };
-    auto put = [&](const A (&part)[G], const Span& sp) {
-      const A sum = transpose_sum8(part, lane);
-      if ((lane & 3) == 0 && sp.tile + mine < tiles) tsum[sp.row * tiles + sp.tile + mine] = sum;
+    auto put = [&](const A (&part)[G], const Span& sp, bool live) {
+      const A sum = transpose_sum8<SUB>(part, lane);
+      if ((sl & (SUB / 8 - 1)) == 0 && live && sp.tile + mine < tiles)
+        tsum[sp.row * tiles + sp.tile + mine] = sum;
     };
     if (ALIGNED) {
       const long long full = block_cols / VN;  // vectors of a whole tile
       const long long last = (k1 - (k0 + (tiles - 1) * block_cols)) / VN;  // of the last tile
-      const long long nr = (full + 31) / 32;  // rounds of a span: a vector a lane and tile each
+      const long long nr = (full + SUB - 1) / SUB;  // rounds of a span: a vector a lane and tile
+      const unsigned supers = (groups + NS - 1) / NS;  // the warps' units: NS spans each
       auto nvec = [&](long long t) { return t < tiles - 1 ? full : (t == tiles - 1 ? last : 0); };
       auto load = [&](unsigned q, long long j, V (&dst)[G]) {
+        if (NS > 1 && q >= groups) return;  // a sub-warp past the last span
         const Span sp = span_of(q);
         const V* av0 = reinterpret_cast<const V*>(a + (r0 + sp.row) * n_cols + k0 +
                                                   sp.tile * block_cols);
-        const long long v = lane + 32 * j;
+        const long long v = sl + SUB * j;
 #pragma unroll
         for (int g = 0; g < G; ++g)
           if (v < nvec(sp.tile + g)) dst[g] = __ldg(av0 + g * full + v);
       };
-      // rounds (span q, j) in order; the next round's loads issue before this
-      // round's products and sums
-      unsigned q = warp;
+      // bfloat16 on sub-warp spans: the first lane of each span of unit w asks L2
+      // for the span's bytes, one bulk prefetch
+      constexpr int PF = std::is_same_v<T, bf16> && SUB < 32 ? kDensePrefetch : 0;
+      auto prefetch = [&](unsigned w) {
+        const unsigned q = w * NS + sub;
+        if (PF == 0 || sl != 0 || w >= supers || q >= groups) return;
+        const Span sp = span_of(q);
+        const long long cols = k1 - k0 - sp.tile * block_cols;
+        const unsigned bytes =
+            static_cast<unsigned>((cols < G * block_cols ? cols : G * block_cols) * sizeof(T));
+        asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;" ::"l"(
+                         a + (r0 + sp.row) * n_cols + k0 + sp.tile * block_cols),
+                     "r"(bytes)
+                     : "memory");
+      };
+      // rounds (unit u, j) in order, the lane on span u NS + sub; the next
+      // round's loads issue before this round's products and sums
+      unsigned u = warp;
       long long j = 0;
+#pragma unroll
+      for (int k = 1; k < PF; ++k) prefetch(u + k * nwarps);
       V cur[G], nxt[G];
       A part[G];
 #pragma unroll
       for (int g = 0; g < G; ++g) part[g] = A(0);
-      if (q < groups) load(q, 0, cur);  // A's first round flies while x arrives
+      if (u < supers) load(u * NS + sub, 0, cur);  // A's first round flies while x arrives
       if (staged) asm volatile("cp.async.wait_all;" ::);
       __syncthreads();  // x is staged
-      while (q < groups) {
-        unsigned qn = q;
+      while (u < supers) {
+        unsigned un = u;
         long long jn = j + 1;
         if (jn == nr) {
           jn = 0;
-          qn = q + nwarps;
+          un = u + nwarps;
         }
-        if (qn < groups) load(qn, jn, nxt);
-        const Span sp = span_of(q);
+        if (un < supers) load(un * NS + sub, jn, nxt);
+        if (j == 0) prefetch(u + PF * nwarps);
+        const unsigned q = u * NS + sub;
+        const bool live = NS == 1 || q < groups;  // a whole warp's span is always live
+        const Span sp = span_of(live ? q : 0);
         const T* xv0 = xs + k0 + sp.tile * block_cols;
-        const long long v = lane + 32 * j;
+        const long long v = sl + SUB * j;
 #pragma unroll
         for (int g = 0; g < G; ++g)
-          if (v < nvec(sp.tile + g))
+          if (live && v < nvec(sp.tile + g))
             part[g] = vdot(part[g], cur[g], *reinterpret_cast<const V*>(xv0 + (g * full + v) * VN));
         if (jn == 0) {
-          put(part, sp);
+          put(part, sp, live);
 #pragma unroll
           for (int g = 0; g < G; ++g) part[g] = A(0);
         }
 #pragma unroll
         for (int g = 0; g < G; ++g) cur[g] = nxt[g];
-        q = qn;
+        u = un;
         j = jn;
       }
     } else {
@@ -317,7 +374,7 @@ __device__ __forceinline__ void dense_rows(const T* __restrict__ a, const T* __r
           const long long c1 = c0 + block_cols < k1 ? c0 + block_cols : k1;
           part[g] = sp.tile + g < tiles ? peeled_part(arow, xs, c0, c1, lane) : A(0);
         }
-        put(part, sp);
+        put(part, sp, true);
       }
     }
     __syncthreads();  // every tile sum of the chunk is in shared memory
@@ -349,14 +406,14 @@ struct DenseDot {
 // y = A x on the persistent grid; with DOT also <x, y>: the last block to take
 // the ticket sums the products per row tile (a warp a tile) and the tile sums
 // in order.
-template <typename T, bool ALIGNED, bool DOT>
+template <typename T, bool ALIGNED, bool DOT, int SUB>
 __global__ void __launch_bounds__(kDenseThreads, 1)
 dense_matvec_persistent_kernel(const T* __restrict__ a, const T* __restrict__ x,
                                T* __restrict__ y, long long n_rows, long long n_cols,
                                long long block_cols, long long chunk_cols,
                                long long rows_per_cta, int staged, DenseDot<T> dd) {
-  dense_rows<T, ALIGNED, DOT>(a, x, y, n_rows, n_cols, block_cols, chunk_cols, rows_per_cta,
-                              staged, dd.prods);
+  dense_rows<T, ALIGNED, DOT, SUB>(a, x, y, n_rows, n_cols, block_cols, chunk_cols,
+                                   rows_per_cta, staged, dd.prods);
   if constexpr (DOT) {
     __threadfence();  // this block's products are visible before its ticket is taken
     __syncthreads();
@@ -394,15 +451,20 @@ static bool bad_shape(long long n_rows, long long n_cols, long long block_rows,
 
 // The plan of cgx_torch.ops.matvec.dense_plan. Refused unless the grid's row
 // ranges cover the rows, chunks hold whole tiles, x fits the shared bytes when
-// staged, and the aligned path's rows, tiles and pointers are 16-byte aligned.
-// With DOT the kernel also runs on n_rows = 0 (the dot is 0).
+// staged, the aligned path's rows, tiles and pointers are 16-byte aligned, and
+// the lanes a span are 32 or, on the aligned path of bfloat16, 16 or 8 with a
+// tile of at most that many vectors. With DOT the kernel also runs on
+// n_rows = 0 (the dot is 0).
 template <typename T, bool DOT>
 static int launch_matvec(const void* a, const void* x, void* y, long long n_rows,
                          long long n_cols, long long block_cols, long long chunk_cols,
                          long long rows_per_cta, int staged, int aligned, int shared, int grid,
-                         DenseDot<T> dd, void* stream) {
+                         int lanes, DenseDot<T> dd, void* stream) {
   const long long sz = sizeof(T);
-  if (bad_shape(n_rows, n_cols, DOT ? dd.block_rows : 1, block_cols) || grid < 1 ||
+  const bool narrow_ok = std::is_same_v<T, bf16> && aligned &&
+                         (lanes == 16 || lanes == 8) && block_cols * sz <= 16LL * lanes;
+  if ((lanes != 32 && !narrow_ok) ||
+      bad_shape(n_rows, n_cols, DOT ? dd.block_rows : 1, block_cols) || grid < 1 ||
       rows_per_cta < 1 || rows_per_cta * grid < n_rows || chunk_cols < 1 ||
       (chunk_cols < n_cols && chunk_cols % block_cols != 0) ||
       shared < dense_shared(chunk_cols, (chunk_cols + block_cols - 1) / block_cols,
@@ -419,10 +481,19 @@ static int launch_matvec(const void* a, const void* x, void* y, long long n_rows
         block_cols, chunk_cols, rows_per_cta, staged, dd);
     return static_cast<int>(cudaGetLastError());
   };
-  return aligned ? launch(dense_matvec_persistent_kernel<T, true, DOT>,
-                          allow_shared<dense_matvec_persistent_kernel<T, true, DOT>>())
-                 : launch(dense_matvec_persistent_kernel<T, false, DOT>,
-                          allow_shared<dense_matvec_persistent_kernel<T, false, DOT>>());
+  if (!aligned)
+    return launch(dense_matvec_persistent_kernel<T, false, DOT, 32>,
+                  allow_shared<dense_matvec_persistent_kernel<T, false, DOT, 32>>());
+  if constexpr (std::is_same_v<T, bf16>) {
+    if (lanes == 16)
+      return launch(dense_matvec_persistent_kernel<T, true, DOT, 16>,
+                    allow_shared<dense_matvec_persistent_kernel<T, true, DOT, 16>>());
+    if (lanes == 8)
+      return launch(dense_matvec_persistent_kernel<T, true, DOT, 8>,
+                    allow_shared<dense_matvec_persistent_kernel<T, true, DOT, 8>>());
+  }
+  return launch(dense_matvec_persistent_kernel<T, true, DOT, 32>,
+                allow_shared<dense_matvec_persistent_kernel<T, true, DOT, 32>>());
 }
 
 template <typename T, typename A = typename Acc<T>::type>
@@ -439,61 +510,62 @@ extern "C" {
 int cgx_dense_matvec_f32(const void* a, const void* x, void* y, long long n_rows,
                          long long n_cols, long long block_cols, long long chunk_cols,
                          long long rows_per_cta, int staged, int aligned, int shared, int grid,
-                         void* stream) {
+                         int lanes, void* stream) {
   return cgx::launch_matvec<float, false>(a, x, y, n_rows, n_cols, block_cols, chunk_cols,
-                                          rows_per_cta, staged, aligned, shared, grid, {},
+                                          rows_per_cta, staged, aligned, shared, grid, lanes, {},
                                           stream);
 }
 
 int cgx_dense_matvec_f64(const void* a, const void* x, void* y, long long n_rows,
                          long long n_cols, long long block_cols, long long chunk_cols,
                          long long rows_per_cta, int staged, int aligned, int shared, int grid,
-                         void* stream) {
+                         int lanes, void* stream) {
   return cgx::launch_matvec<double, false>(a, x, y, n_rows, n_cols, block_cols, chunk_cols,
-                                           rows_per_cta, staged, aligned, shared, grid, {},
+                                           rows_per_cta, staged, aligned, shared, grid, lanes, {},
                                            stream);
 }
 
 // dense_matvec's arguments, then the products (n_rows), the tile sums (one a
-// row tile), the ticket (0), the dot and the row tile.
+// row tile), the ticket (0), the dot and the row tile. lanes: a span's (32, or
+// for bfloat16 16 or 8).
 int cgx_dense_matvec_dot_f32(const void* a, const void* x, void* y, long long n_rows,
                              long long n_cols, long long block_cols, long long chunk_cols,
                              long long rows_per_cta, int staged, int aligned, int shared,
-                             int grid, void* prods, void* tile_sums, void* ticket, void* dot,
-                             long long block_rows, void* stream) {
+                             int grid, int lanes, void* prods, void* tile_sums, void* ticket,
+                             void* dot, long long block_rows, void* stream) {
   return cgx::launch_matvec<float, true>(
       a, x, y, n_rows, n_cols, block_cols, chunk_cols, rows_per_cta, staged, aligned, shared,
-      grid, cgx::dense_dot<float>(prods, tile_sums, ticket, dot, block_rows), stream);
+      grid, lanes, cgx::dense_dot<float>(prods, tile_sums, ticket, dot, block_rows), stream);
 }
 
 int cgx_dense_matvec_dot_f64(const void* a, const void* x, void* y, long long n_rows,
                              long long n_cols, long long block_cols, long long chunk_cols,
                              long long rows_per_cta, int staged, int aligned, int shared,
-                             int grid, void* prods, void* tile_sums, void* ticket, void* dot,
-                             long long block_rows, void* stream) {
+                             int grid, int lanes, void* prods, void* tile_sums, void* ticket,
+                             void* dot, long long block_rows, void* stream) {
   return cgx::launch_matvec<double, true>(
       a, x, y, n_rows, n_cols, block_cols, chunk_cols, rows_per_cta, staged, aligned, shared,
-      grid, cgx::dense_dot<double>(prods, tile_sums, ticket, dot, block_rows), stream);
+      grid, lanes, cgx::dense_dot<double>(prods, tile_sums, ticket, dot, block_rows), stream);
 }
 
 // bfloat16 A, x and y; the dot's products, tile sums and dot in float
 int cgx_dense_matvec_bf16(const void* a, const void* x, void* y, long long n_rows,
                           long long n_cols, long long block_cols, long long chunk_cols,
                           long long rows_per_cta, int staged, int aligned, int shared, int grid,
-                          void* stream) {
+                          int lanes, void* stream) {
   return cgx::launch_matvec<cgx::bf16, false>(a, x, y, n_rows, n_cols, block_cols, chunk_cols,
-                                              rows_per_cta, staged, aligned, shared, grid, {},
-                                              stream);
+                                              rows_per_cta, staged, aligned, shared, grid, lanes,
+                                              {}, stream);
 }
 
 int cgx_dense_matvec_dot_bf16(const void* a, const void* x, void* y, long long n_rows,
                               long long n_cols, long long block_cols, long long chunk_cols,
                               long long rows_per_cta, int staged, int aligned, int shared,
-                              int grid, void* prods, void* tile_sums, void* ticket, void* dot,
-                              long long block_rows, void* stream) {
+                              int grid, int lanes, void* prods, void* tile_sums, void* ticket,
+                              void* dot, long long block_rows, void* stream) {
   return cgx::launch_matvec<cgx::bf16, true>(
       a, x, y, n_rows, n_cols, block_cols, chunk_cols, rows_per_cta, staged, aligned, shared,
-      grid, cgx::dense_dot<cgx::bf16>(prods, tile_sums, ticket, dot, block_rows), stream);
+      grid, lanes, cgx::dense_dot<cgx::bf16>(prods, tile_sums, ticket, dot, block_rows), stream);
 }
 
 }  // extern "C"

@@ -14,10 +14,14 @@ each launch derives alpha and beta from what the launch before left
 scalars moved the counts past the 2% gate, ROADMAP C).
 
 - :func:`_stream_iteration` (site ``cg_stream.py:404``): r, w and s in
-  three ping-pong pairs, each a (2, N) tensor;
+  three ping-pong pairs, each a (2, N) tensor, in the design
+  :func:`stream_plan` picks: one launch on a wavefront that forms r' once
+  a row and keeps it in a shared-memory ring where the ring fits (every
+  vector dtype at the main reach), else the grid design, which forms r'
+  again at each neighbour;
 - :func:`_stream_iteration_stacked` (site ``cg_stream.py:930``): r, w
   and s in one (2, 3, N) tensor, the TPU's (3, rows, cols) stack with
-  its ping-pong pair; the same kernel, so bitwise the split result;
+  its ping-pong pair; the same kernels, so bitwise the split result;
 - :func:`_stream_iteration_pcg` (site ``cg_stream.py:1203``): the
   iteration with the degree-1 Neumann preconditioner
   ``M^-1 = 2 D^-1 - D^-1 A D^-1``, in the design :func:`pcg_plan`
@@ -81,6 +85,9 @@ ROWS_PER_BLOCK = 1024  # kThreads * kRowsPerThread of csrc/cg_stream.cu
 # The PCG's wavefront design (csrc/cg_stream.cu pcg_wave_kernel)
 PCG_THREADS = 512  # kPcgThreads: one block an SM, and W, the rows a level advances a step
 PCG_STATIC = 1024  # shared bytes kept for the kernel's static shared memory (the block sums)
+# The plain iteration's wavefront design (csrc/cg_stream.cu stream_wave_kernel)
+WAVE_ROWS = 2  # kWaveRows: neighbouring rows a thread, loaded and stored as one pair
+WAVE_WIDTH = PCG_THREADS * WAVE_ROWS  # kWaveWidth: W, the rows a level advances a step
 
 
 class Workspace(NamedTuple):
@@ -169,13 +176,83 @@ def pcg_plan(n: int, offsets: Tuple[int, ...], dtype: torch.dtype, sms: int) -> 
     return PcgPlan("wavefront", PCG_THREADS, lags, rings, offs, shared, grid, -(-n // grid))
 
 
+class StreamPlan(NamedTuple):
+    """How the plain iteration (B4, B7) runs. ``design`` is "wavefront"
+    (``stream_wave_kernel``: ``grid`` blocks, one an SM, each on one
+    ``slab`` of rows, W = ``width`` rows a step, L1 ``lag`` rows behind L0,
+    r' in a ``ring`` of values taking ``shared`` bytes) or "grid"
+    (``cg_stream_kernel``: a block for each ROWS_PER_BLOCK rows, r' formed
+    again at each neighbour). One launch either way."""
+
+    design: str
+    width: int
+    slab: int
+    grid: int
+    lag: int
+    ring: int
+    shared: int
+
+    @property
+    def launches(self) -> int:
+        return 1
+
+    def as_arg(self):
+        """The plan array of csrc/cg_stream.cu launch_stream_wave, and its length."""
+        vals = (self.width, self.slab, self.shared, self.lag, self.ring)
+        return (ctypes.c_longlong * len(vals))(*vals), len(vals)
+
+
+def grid_plan(n: int) -> StreamPlan:
+    """The grid design's plan: a block for each ROWS_PER_BLOCK rows (what
+    stream_plan picks where the wavefront does not run; ``chip_smoke.py``
+    also runs it beside the wavefront)."""
+    return StreamPlan("grid", 0, ROWS_PER_BLOCK, -(-n // ROWS_PER_BLOCK), 0, 0, 0)
+
+
+@functools.lru_cache(maxsize=64)
+def stream_plan(n: int, offsets: Tuple[int, ...], dtype: torch.dtype, sms: int, *,
+                aligned: bool = True) -> StreamPlan:
+    """The design of the plain iteration on n rows. The rule: the
+    wavefront where it runs, else the grid design. It runs where n is
+    even, every pointer lies on its pairs' grid (``aligned``), the rows
+    with the halo and the lag fit 32-bit indices, and the ring of r' (in
+    the vectors' dtype) fits one block's shared memory. L1 lags L0 by
+    R + W, rounded up to even (its stencil reaches R rows ahead and reads
+    only rows L0 formed in an earlier step); the ring holds r' from R rows
+    before L1's window to the end of L0's: 2R + 2W values (8,448 at
+    R = 3200: 16,896 bytes in bfloat16, 33,792 in float32, 67,584 in
+    float64). One block an SM (fewer where a slab would have fewer than
+    MIN_TILE rows), slabs even. The design depends on the dtype, n's
+    parity, the reach and the pointers' alignment, not on ``sms``. Every
+    dtype takes the wavefront at the main reach: on an H100 it was no
+    slower than the grid design in float32 or float64 either (PERF.md)."""
+    item = torch.finfo(dtype).bits // 8
+    reach = max(abs(int(o)) for o in offsets)
+    lag = round_up(reach + WAVE_WIDTH, 2)  # even: L1's pairs start on even rows too
+    ring = round_up(lag + WAVE_WIDTH + reach, 2)
+    shared = ring * item
+    if (n % 2 or not aligned or shared + PCG_STATIC > SHARED_OPTIN
+            or n + 2 * (reach + lag + WAVE_WIDTH) >= 2**31):
+        return grid_plan(n)
+    slab = round_up(-(-n // slab_grid(n, sms)), 2)
+    return StreamPlan("wavefront", WAVE_WIDTH, slab, -(-n // slab), lag, ring, shared)
+
+
+def _pairs_aligned(*tensors) -> bool:
+    """Whether every tensor's storage starts on the grid of its pairs of
+    values (the wavefront's loads and stores)."""
+    return all(t.data_ptr() % (2 * t.element_size()) == 0 for t in tensors)
+
+
 def _dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """<u, v> in float64, as the kernels sum their dots: exact products,
     bfloat16 ones included."""
     return torch.sum(u.to(torch.float64) * v.to(torch.float64))
 
 
-_ENTRIES = ("cgx_cg_stream", "cgx_pcg_wave")  # one C entry a design, each with a _bf16 build
+# one C entry a design, each with a _bf16 build: the plain iteration's, the PCG's
+_PLAIN_ENTRIES = ("cgx_cg_stream", "cgx_cg_stream_wave")
+_PCG_ENTRIES = ("cgx_cg_stream", "cgx_pcg_wave")
 
 
 def _nan_max(a: float, b: float) -> float:
@@ -186,10 +263,10 @@ def _nan_max(a: float, b: float) -> float:
 def _check(fn: str, bands, p, x, u, pairs, scal, offsets) -> Tuple[int, ...]:
     """Validate one launch's operands before any pointer reaches C."""
     vectors = {"p": p, "x": x} if u is None else {"p": p, "x": x, "u": u}
-    dtypes = vector_dtypes(*_ENTRIES)
+    dtypes = vector_dtypes(*_PLAIN_ENTRIES, *_PCG_ENTRIES)
     # the PCG's designs (cgx_pcg_wave, or cgx_cg_stream's three launches) stream
-    # bfloat16 bands only; the plain iteration float16 ones too
-    narrow = band_dtypes(*(_ENTRIES if u is not None else _ENTRIES[:1]))
+    # bfloat16 bands only; the plain iteration's float16 ones too
+    narrow = band_dtypes(*(_PCG_ENTRIES if u is not None else _PLAIN_ENTRIES))
     check_operands(fn, vectors, dtypes=dtypes)
     n = x.shape[0]
     for name, t in pairs.items():
@@ -289,8 +366,9 @@ def _launcher(fn, bands, p, x, u, r, w, s, scal, offsets, tol, nearzero, maxiter
     """A call that launches the kernel for site ``fn`` on these operands
     (already checked) and counts it. Its C arguments are built once, so a
     host loop on buffers that stay put pays only the call; it runs on
-    the stream that was current here, with x's device current. The PCG
-    runs ``plan`` (default :func:`pcg_plan`'s)."""
+    the stream that was current here, with x's device current. It runs
+    ``plan``: by default :func:`pcg_plan`'s for the PCG, else
+    :func:`stream_plan`'s."""
     from cgx_torch import _build
 
     n = x.shape[0]
@@ -301,9 +379,21 @@ def _launcher(fn, bands, p, x, u, r, w, s, scal, offsets, tol, nearzero, maxiter
     pairs = [t.data_ptr() for t in (r[0], r[1], w[0], w[1], s[0], s[1])]
     grid = ctypes.c_int(0)
     c = None
-    if u is not None and plan is None:
+    if plan is None and u is not None:
         plan = pcg_plan(n, offsets, x.dtype, sms_of(x.device))
-    if plan is not None and plan.design == "wavefront":
+    elif plan is None:
+        plan = stream_plan(n, offsets, x.dtype, sms_of(x.device),
+                           aligned=_pairs_aligned(bands, p, x, r[0], r[1], w[0], w[1], s[0],
+                                                  s[1]))
+    if u is None and plan.design == "wavefront":
+        entry = getattr(lib, "cgx_cg_stream_wave" + suffix)
+        grid.value = plan.grid
+        plan_arg, plan_len = plan.as_arg()
+        args = (bands.data_ptr(), p.data_ptr(), x.data_ptr(), *pairs, work.partials.data_ptr(),
+                work.partials.numel(), work.ticket.data_ptr(), scal.data_ptr(), n,
+                _offsets_arg(offsets), len(offsets), float(tol), float(nearzero),
+                float(maxiter), plan_arg, plan_len, plan.grid, stream)
+    elif plan.design == "wavefront":
         entry = getattr(lib, "cgx_pcg_wave" + suffix)
         grid.value = plan.grid
         plan_arg, plan_len = plan.as_arg()
@@ -320,15 +410,14 @@ def _launcher(fn, bands, p, x, u, r, w, s, scal, offsets, tol, nearzero, maxiter
                 scal.data_ptr(), n, _offsets_arg(offsets), len(offsets),
                 offsets.index(0) if u is not None else -1, float(tol), float(nearzero),
                 float(maxiter), int(u is not None), ctypes.byref(grid), stream)
-    launches = 1 if plan is None else plan.launches
+    launches = plan.launches
 
     def go() -> None:
         rc = entry(*args)
         if rc != 0:
             raise RuntimeError(f"{entry.__name__}: the CUDA launch failed with cudaError {rc}")
         fn.grid = grid.value
-        if plan is not None:
-            fn.design, fn.plan = plan.design, plan
+        fn.design, fn.plan = plan.design, plan
         _count(fn, bands, x, launches)
 
     # the tensors whose addresses args holds live as long as the call
@@ -345,8 +434,11 @@ def _launch(fn, bands, p, x, u, r, w, s, scal, offsets, tol, nearzero, maxiter, 
 
 
 def _stream_iteration(bands, p, x, r, w, s, scal, *, offsets: Sequence[int], tol: float,
-                      nearzero: float, maxiter: int, work: Optional[Workspace] = None) -> None:
-    """One Chronopoulos-Gear iteration, r, w and s each a (2, N) pair."""
+                      nearzero: float, maxiter: int, work: Optional[Workspace] = None,
+                      plan: Optional[StreamPlan] = None) -> None:
+    """One Chronopoulos-Gear iteration, r, w and s each a (2, N) pair. On
+    the card in the design of :func:`stream_plan` (``plan=grid_plan(n)``
+    forces the grid design)."""
     offsets = _check("_stream_iteration", bands, p, x, None, {"r": r, "w": w, "s": s}, scal,
                      offsets)
     if x.device.type == "cpu":
@@ -355,14 +447,15 @@ def _stream_iteration(bands, p, x, r, w, s, scal, *, offsets: Sequence[int], tol
         _count(_stream_iteration, bands, x)
     else:
         _launch(_stream_iteration, bands, p, x, None, r, w, s, scal, offsets, tol, nearzero,
-                maxiter, work)
+                maxiter, work, plan)
 
 
 def _stream_iteration_stacked(bands, p, x, rws, scal, *, offsets: Sequence[int], tol: float,
-                              nearzero: float, maxiter: int,
-                              work: Optional[Workspace] = None) -> None:
+                              nearzero: float, maxiter: int, work: Optional[Workspace] = None,
+                              plan: Optional[StreamPlan] = None) -> None:
     """One iteration with r, w and s stacked in one (2, 3, N) tensor:
-    ``rws[q]`` holds the (3, N) stack of parity q."""
+    ``rws[q]`` holds the (3, N) stack of parity q; the design as
+    :func:`_stream_iteration`'s, through the stacked slices' pointers."""
     n = x.shape[0]
     if not (isinstance(rws, torch.Tensor) and rws.shape == (2, 3, n) and rws.is_contiguous()):
         raise ValueError(f"_stream_iteration_stacked: rws must be a contiguous (2, 3, {n}) tensor")
@@ -374,7 +467,7 @@ def _stream_iteration_stacked(bands, p, x, rws, scal, *, offsets: Sequence[int],
         _count(_stream_iteration_stacked, bands, x)
     else:
         _launch(_stream_iteration_stacked, bands, p, x, None, r, w, s, scal, offsets, tol,
-                nearzero, maxiter, work)
+                nearzero, maxiter, work, plan)
 
 
 def _stream_iteration_pcg(bands, p, x, u, r, w, s, scal, *, offsets: Sequence[int], tol: float,
@@ -401,8 +494,8 @@ for _fn in (_stream_iteration, _stream_iteration_stacked, _stream_iteration_pcg)
     _fn.launches = 0
     _fn.grid = None  # blocks of the last CUDA launch
     _fn.bands_dtype = None  # the band storage of the last call
-_stream_iteration_pcg.design = None  # pcg_plan's design of the last CUDA launch, and the plan
-_stream_iteration_pcg.plan = None
+    _fn.design = None  # the design of the last CUDA launch (stream_plan's or pcg_plan's)
+    _fn.plan = None  # and its plan
 
 
 def _diag_index(offsets: Sequence[int]) -> int:
@@ -460,13 +553,14 @@ def initial_state(bands, b, tol: float, *, offsets, precond: bool = False,
 
 
 def step(bands, st: StreamState, *, offsets, tol: float, nearzero: float, maxiter: int,
-         work: Optional[Workspace] = None, plan: Optional[PcgPlan] = None) -> None:
-    """One iteration on ``st``, through the wrapper of its site: the PCG
-    kernel (in ``plan``'s design) when ``st`` carries u, else the stacked
-    or the split one."""
-    kw = dict(offsets=offsets, tol=tol, nearzero=nearzero, maxiter=maxiter, work=work)
+         work: Optional[Workspace] = None, plan=None) -> None:
+    """One iteration on ``st``, through the wrapper of its site, in
+    ``plan``'s design (a PcgPlan or a StreamPlan, default the site's
+    plan function's): the PCG kernel when ``st`` carries u, else the
+    stacked or the split one."""
+    kw = dict(offsets=offsets, tol=tol, nearzero=nearzero, maxiter=maxiter, work=work, plan=plan)
     if st.u is not None:
-        _stream_iteration_pcg(bands, st.p, st.x, st.u, st.r, st.w, st.s, st.scal, plan=plan, **kw)
+        _stream_iteration_pcg(bands, st.p, st.x, st.u, st.r, st.w, st.s, st.scal, **kw)
     elif st.rws is not None:
         _stream_iteration_stacked(bands, st.p, st.x, st.rws, st.scal, **kw)
     else:
@@ -593,7 +687,7 @@ def _validate(op, b, rows, cols, dev):
     b = as_vector(b, dev, "b")
     if op.bands.dtype != b.dtype:
         raise TypeError(f"bands are {op.bands.dtype} but b is {b.dtype}")
-    if b.dtype not in vector_dtypes(*_ENTRIES):
+    if b.dtype not in vector_dtypes(*_PLAIN_ENTRIES, *_PCG_ENTRIES):
         raise TypeError(f"the streaming kernels take float32, float64 or bfloat16, not {b.dtype}")
     return b
 

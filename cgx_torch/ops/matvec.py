@@ -21,7 +21,10 @@ bfloat16 ``a`` and ``x`` (the CLI's ``--precision bf16`` with a dense
 ``true``/``--pallas`` run): a row is summed in float and ``y`` rounds to
 bfloat16 once (cgx's TPU kernel rounds after each column tile); the
 dot's products ``x * y`` round to bfloat16 and are summed in float, so
-``dense_matvec_dot`` returns a float32 dot.
+``dense_matvec_dot`` returns a float32 dot. A bfloat16 tile of 128 or
+64 columns holds 16 or 8 of the kernel's 16-byte vectors, so its spans
+take a half or a quarter of a warp (:func:`span_lanes`, the plan's
+``lanes``) and every lane loads.
 """
 
 from __future__ import annotations
@@ -47,7 +50,9 @@ class DensePlan(NamedTuple):
     (read in place, a tile being wider than a block's shared memory);
     ``shared`` bytes a block (x's chunk, its rows' tile sums over a chunk,
     their running sums); ``grid`` blocks, one an SM, each on
-    ``rows_per_cta`` contiguous rows."""
+    ``rows_per_cta`` contiguous rows; ``lanes`` a span of eight tiles
+    takes (32, a warp; 16 or 8 for bfloat16 tiles of at most 16 or 8
+    16-byte vectors on the aligned path, so that every lane loads)."""
 
     aligned: bool
     staging: str
@@ -55,6 +60,7 @@ class DensePlan(NamedTuple):
     shared: int
     grid: int
     rows_per_cta: int
+    lanes: int = 32
 
 
 def _align16(nbytes: int) -> int:
@@ -110,7 +116,23 @@ def dense_plan(n_rows: int, n_cols: int, block_cols: int, dtype: torch.dtype, sm
             raise ValueError(f"dense_matvec: {rows} rows a block do not fit its shared memory")
     chunk = max(n_cols, 1) if t == tiles else t * block_cols
     shared = dense_shared(chunk, block_cols, rows, item, staging != "global", acc)
-    return DensePlan(aligned, staging, chunk, shared, grid, rows)
+    return DensePlan(aligned, staging, chunk, shared, grid, rows,
+                     span_lanes(block_cols, dtype) if aligned else 32)
+
+
+def span_lanes(block_cols: int, dtype: torch.dtype) -> int:
+    """Lanes a span of eight tiles takes on the aligned path: a lane loads
+    one 16-byte vector of each tile a round, so a tile of ``v`` vectors
+    keeps ``v`` lanes busy. bfloat16 tiles of 128 columns (the CLI's
+    "1024 16" maps to 1024 x 128) hold 16 vectors and tiles of 64 hold 8:
+    they take a half or a quarter of a warp, and a warp two or four spans
+    at once. Wider bfloat16 tiles, and every float32 and float64 tile,
+    take the whole warp (the float builds keep their grouping bit for
+    bit)."""
+    if dtype != torch.bfloat16:
+        return 32
+    vectors = -(-block_cols * 2 // 16)
+    return 8 if vectors <= 8 else 16 if vectors <= 16 else 32
 
 
 def dense_matvec_ref(
@@ -175,20 +197,23 @@ def _plan_of(a: torch.Tensor, x: torch.Tensor, block_cols: int) -> DensePlan:
 
 def _plan_args(plan: DensePlan, block_cols: int) -> tuple:
     return (block_cols, plan.chunk_cols, plan.rows_per_cta, int(plan.staging != "global"),
-            int(plan.aligned), plan.shared, plan.grid)
+            int(plan.aligned), plan.shared, plan.grid, plan.lanes)
 
 
 def dense_matvec(
-    a: torch.Tensor, x: torch.Tensor, *, block_rows: int = 256, block_cols: int = 512
+    a: torch.Tensor, x: torch.Tensor, *, block_rows: int = 256, block_cols: int = 512,
+    plan: DensePlan = None
 ) -> torch.Tensor:
-    """``y = A x`` with the (block_rows x block_cols) summation grouping."""
+    """``y = A x`` with the (block_rows x block_cols) summation grouping,
+    on :func:`dense_plan`'s plan (``plan=`` forces another, e.g. with
+    ``lanes=32`` the whole-warp spans on bfloat16)."""
     br, bc = _check("dense_matvec", a, x, block_rows, block_cols)
     if x.device.type == "cpu":
         y = dense_matvec_ref(a, x, block_rows=br, block_cols=bc)
     else:
         n_rows, n_cols = a.shape
         y = torch.empty(n_rows, dtype=x.dtype, device=x.device)
-        plan = _plan_of(a, x, bc)
+        plan = _plan_of(a, x, bc) if plan is None else plan
         launch("cgx_dense_matvec", x, a.data_ptr(), x.data_ptr(), y.data_ptr(), n_rows, n_cols,
                *_plan_args(plan, bc))
         dense_matvec.plan = plan
@@ -198,11 +223,13 @@ def dense_matvec(
 
 
 def dense_matvec_dot(
-    a: torch.Tensor, x: torch.Tensor, *, block_rows: int = 256, block_cols: int = 512
+    a: torch.Tensor, x: torch.Tensor, *, block_rows: int = 256, block_cols: int = 512,
+    plan: DensePlan = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(A x, <x, A x>)`` in one pass over A; the dot is a 0-d tensor
     on the device. The kernel is ``dense_matvec``'s on the same plan
-    with a dot epilogue, so ``y`` is bitwise ``dense_matvec``'s."""
+    (``plan=`` as there) with a dot epilogue, so ``y`` is bitwise
+    ``dense_matvec``'s."""
     br, bc = _check("dense_matvec_dot", a, x, block_rows, block_cols)
     if x.device.type == "cpu":
         y, dot = dense_matvec_dot_ref(a, x, block_rows=br, block_cols=bc)
@@ -214,7 +241,7 @@ def dense_matvec_dot(
         scratch = torch.empty(n_rows + -(-n_rows // br), dtype=acc_dtype(x.dtype),
                               device=x.device)
         ticket = torch.zeros(1, dtype=torch.int32, device=x.device)
-        plan = _plan_of(a, x, bc)
+        plan = _plan_of(a, x, bc) if plan is None else plan
         launch("cgx_dense_matvec_dot", x, a.data_ptr(), x.data_ptr(), y.data_ptr(), n_rows,
                n_cols, *_plan_args(plan, bc), scratch.data_ptr(), scratch[n_rows:].data_ptr(),
                ticket.data_ptr(), dot.data_ptr(), br)

@@ -395,6 +395,10 @@ CHUNK = 64  # iterations per launch of dia_cg_solve_vmem's default
 CROSSOVER_GRIDS = (500, 1000, 1414, 2000)  # N = 250,000 .. 4,000,000
 CROSSOVER_ITERS = 512
 STREAM_ITERS = 32  # launches of the stream kernel phase's second comparison
+DEVICE_CALLS = 20  # calls under torch.profiler for a kernel's device-only time
+# a redesign is taken only where it is no slower than the design before it in
+# the same run, within this share (the float builds of B4/B7 on the wavefront)
+REDESIGN_SLACK = 1.03
 # name: (kernel site, vector dtype, bfloat16 bands, preconditioner, stacked layout)
 STREAM_CASES = {
     "split_f32": ("stream_iteration", torch.float32, False, False, False),
@@ -670,6 +674,32 @@ def time_ms(fn, reps: int = REPS, burst: int = BURST) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / burst)
     return statistics.median(times)
+
+
+def device_ms(fn, names, calls: int = DEVICE_CALLS):
+    """Device-only milliseconds of one call of ``fn``: for each kernel whose
+    name holds one of ``names`` ("" for every kernel), the median of its
+    Kineto durations over ``calls`` calls under torch.profiler (after one
+    call outside it), times its launches a call; summed over the kernels.
+    Unlike time_ms's events, no gap between launches and no host time
+    enters it. The profiler may drop some of a window's device records, so
+    a median and not a sum over the window; None where it kept none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for name, t in cuda_events(prof):
+        if any(k in name for k in names):
+            by_name.setdefault(name, []).append(t)
+    if not by_name:
+        return None
+    return sum(statistics.median(us) * max(1, round(len(us) / calls))
+               for us in by_name.values()) / 1e3
 
 
 def card_spec(name: str):
@@ -1095,6 +1125,7 @@ def phase_main(spec) -> dict:
            "bands_dtype": str(bands_dtype), "tol": tol, "k": k, "converged": True,
            "bitwise_repeat": bitwise, "seconds": seconds, "us_per_iter": seconds / k * 1e6,
            "launches_run": launches["stream_iteration"], "grid": cg_stream._stream_iteration.grid,
+           "design": cg_stream._stream_iteration.design,
            "bound_us_per_iter": bound_iter * 1e3, "bound_by": bound_by, "launches": launches,
            "k_stacked": k_stacked, "stacked_seconds": stacked_seconds, "stacked_bitwise": same,
            "k_plain": k_plain, "plain_seconds": plain_seconds,
@@ -1105,6 +1136,9 @@ def phase_main(spec) -> dict:
     emit(rec)
     check(rec["x_finite"] and res.x.shape == (n,), "main path result is not finite")
     check(abs(k - k_plain) <= 0.02 * k_plain, f"k={k} vs plain k={k_plain}: more than 2% apart")
+    pick = cg_stream.stream_plan(n, tuple(dia.offsets), torch.float32, dia_powers.sms_of(DEV))
+    check(rec["design"] == pick.design,
+          f"main path ran the {rec['design']} design, stream_plan picks {pick.design}")
     check(max(rel_fast, rel_plain) <= 2 * min(rel_fast, rel_plain),
           f"true residuals {rel_fast} and {rel_plain} differ by more than 2x")
     phase_profile(op, b_dev)
@@ -1140,7 +1174,7 @@ def phase_profile(op, b_dev, precond=None) -> None:
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name, busy_us, count = {}, 0.0, 0
     for ename, us in cuda_events(prof):
-        name = next((k for k in ("pcg_wave_kernel", "cg_stream_kernel") if k in ename), "other")
+        name = next((k for k in STREAM_KERNELS if k in ename), "other")
         by_name[name] = by_name.get(name, 0.0) + us / PROFILE_ITERS
         busy_us += us
         count += 1
@@ -1176,25 +1210,49 @@ def clone_state(st):
                                  st.scal.clone())
 
 
-def stream_designs(case: str, n: int, offsets, dtype):
-    """The designs a streaming case runs: the PCG's pcg_plan pick first
-    (the wavefront at N = 10,240,000), then the three-launch design; one
-    (None) for the others."""
-    if not STREAM_CASES[case][3]:
-        return [None]
-    return [cg_stream.pcg_plan(n, offsets, dtype, dia_powers.sms_of(DEV)),
-            cg_stream.three_plan(n)]
+def stream_designs(n: int, offsets, dtype, precond: bool):
+    """The designs a streaming case runs: the plan function's pick first
+    (the wavefront at N = 10,240,000), then the design before it: the
+    three-launch design for the PCG (pcg_plan), the grid design for the
+    plain iteration (stream_plan)."""
+    sms = dia_powers.sms_of(DEV)
+    if precond:
+        return [cg_stream.pcg_plan(n, offsets, dtype, sms), cg_stream.three_plan(n)]
+    pick = cg_stream.stream_plan(n, offsets, dtype, sms)
+    return [pick] if pick.design == "grid" else [pick, cg_stream.grid_plan(n)]
+
+
+STREAM_KERNELS = ("stream_wave_kernel", "cg_stream_kernel", "pcg_wave_kernel")
+
+
+def stream_call(bands, st, plan, kw, work, scal0=None):
+    """One launch of ``st``'s streaming site in ``plan``'s design with its C
+    arguments built once (cg_stream._launcher), as the solvers' host loop
+    launches it, so that its time is the card's and not the wrapper's
+    checks; from the scalars ``scal0`` each time where given (an active
+    launch: the 64-byte copy is in the event times, not in device_ms)."""
+    site = (cg_stream._stream_iteration_pcg if st.u is not None
+            else cg_stream._stream_iteration_stacked if st.rws is not None
+            else cg_stream._stream_iteration)
+    go = cg_stream._launcher(site, bands, st.p, st.x, st.u, st.r, st.w, st.s, st.scal,
+                             tuple(kw["offsets"]), kw["tol"], kw["nearzero"], kw["maxiter"],
+                             work, plan)
+    if scal0 is None:
+        return go
+    return lambda: (st.scal.copy_(scal0), go())
 
 
 def phase_stream_kernel(spec) -> dict:
     """Each streaming case against its plain version from one seeded
-    state at N = 10,240,000: one launch (vectors within VEC_RTOL, for the
-    PCG in each design p, x, u, r', s' and w' bitwise; dots within
-    DOT_RTOL) and STREAM_ITERS launches (within CHUNK_RTOL: a dot's last
-    bit can flip a float alpha, and the difference compounds), split
-    against stacked bitwise; then the time of an iteration, the PCG's in
-    both designs. Returns the records of the kernels line for the three
-    streaming sites."""
+    state at N = 10,240,000, in each design (stream_designs): one launch
+    (vectors within VEC_RTOL, for the PCG p, x, u, r', s' and w' bitwise;
+    dots within DOT_RTOL) and STREAM_ITERS launches (within CHUNK_RTOL: a
+    dot's last bit can flip a float alpha, and the difference compounds),
+    split against stacked bitwise in each design; then the time of an
+    iteration in each design, by events and on the device alone, the plan
+    function's pick no slower than the design before it (REDESIGN_SLACK).
+    Returns the records of the kernels line for the three streaming
+    sites."""
     dia = lap2d_fd(GRID)
     n, ndiag, offsets = dia.shape[0], len(dia.offsets), tuple(dia.offsets)
     kw = dict(offsets=offsets, tol=0.0, nearzero=1e-14, maxiter=10**9)
@@ -1203,9 +1261,9 @@ def phase_stream_kernel(spec) -> dict:
         bands, st = stream_state(dia, dtype, precond, stacked)
         kb = bands.to(torch.bfloat16) if bf16 else bands
         del bands
-        times = {}
-        for plan in stream_designs(case, n, offsets, dtype):
-            design = None if plan is None else plan.design
+        times, dev = {}, {}
+        for plan in stream_designs(n, offsets, dtype, precond):
+            design = plan.design
             one_err = None
             for launches, vec_rtol, dot_rtol in ((1, VEC_RTOL[dtype], DOT_RTOL[dtype]),
                                                  (STREAM_ITERS, CHUNK_RTOL[dtype],
@@ -1238,12 +1296,14 @@ def phase_stream_kernel(spec) -> dict:
                           f"stream {case} {design}: one launch is not bitwise the plain one")
                 elif case in ("split_f32", "stacked_f32"):
                     q = int(got.scal[cg_stream.K]) & 1
-                    after[case] = [got.p, got.x, got.r[q], got.w[q], got.s[q]]
+                    after[case, design] = [got.p, got.x, got.r[q], got.w[q], got.s[q]]
                 del got, ref
             sync()
             torch.cuda.reset_peak_memory_stats()
             work = cg_stream.workspace(DEV, n)
-            ms = time_ms(lambda: cg_stream.step(kb, st, work=work, plan=plan, **kw))
+            call = stream_call(kb, st, plan, kw, work)
+            ms = time_ms(call)
+            dev[design] = device_ms(call, STREAM_KERNELS)
             peak = torch.cuda.max_memory_allocated()
             held = sum(t.numel() * t.element_size() for t in (kb, *st, *work)
                        if t is not None and t is not st.rws)
@@ -1256,7 +1316,7 @@ def phase_stream_kernel(spec) -> dict:
             rec = {"phase": "stream_kernel", "case": case, "site": site, "design": design,
                    "problem": f"lap2d_fd({GRID})", "n": n, "dtype": str(dtype),
                    "bands_dtype": str(kb.dtype), "ms_per_iter": ms,
-                   "launches_per_iter": 1 if plan is None else plan.launches,
+                   "device_ms_per_iter": dev[design], "launches_per_iter": plan.launches,
                    "bound_ms_per_iter": bound, "bound_by": bound_by, "bound_share": bound / ms,
                    "plain_ms_per_iter": plain_ms, "state_bytes": held,
                    "max_memory_allocated": peak, "grid": STREAM_SITES[site].grid,
@@ -1267,15 +1327,24 @@ def phase_stream_kernel(spec) -> dict:
                 records[site] = {"max_abs_err": one_err, "ms": ms, "plain_ms": plain_ms,
                                  "bound_ms": bound, "bound_by": bound_by,
                                  "library_ms": None,  # no one PyTorch call runs a CG iteration
-                                 "design": design}
-            del work
-        if precond:
-            records[site]["three_ms"] = times["three"]
+                                 "design": design, "device_ms": dev[design]}
+            del work, call
+        if STREAM_MAIN_CASE[site] == case:
+            other = "three" if precond else "grid"
+            records[site][f"{other}_ms"] = times.get(other)
+            records[site][f"{other}_device_ms"] = dev.get(other)
+        if "wavefront" in times and not precond:
+            check(times["wavefront"] <= REDESIGN_SLACK * times["grid"],
+                  f"stream {case}: the wavefront ({times['wavefront']} ms) is slower than the "
+                  f"grid design ({times['grid']} ms) that stream_plan would replace")
         del kb, st
         sync()
-    same = all(torch.equal(a, b) for a, b in zip(after["split_f32"], after["stacked_f32"]))
-    emit({"phase": "stream_layouts", "launches": STREAM_ITERS, "split_equals_stacked": same})
-    check(same, "split and stacked layouts differ")
+    for design in ("wavefront", "grid"):
+        same = all(torch.equal(a, b) for a, b in zip(after["split_f32", design],
+                                                     after["stacked_f32", design]))
+        emit({"phase": "stream_layouts", "design": design, "launches": STREAM_ITERS,
+              "split_equals_stacked": same})
+        check(same, f"split and stacked layouts differ on the {design} design")
     return records
 
 
@@ -4719,12 +4788,11 @@ def phase_bf16_kernels(spec) -> dict:
         # bfloat16 recurrence leaves the finite range within a few hundred launches, and a
         # frozen launch returns at once (the 64-byte copy is in the times)
         scal0 = st.scal.clone()
-        plans = [None] if not precond else [cg_stream.pcg_plan(n, offsets, BF16, sms),
-                                            cg_stream.three_plan(n)]
+        plans = stream_designs(n, offsets, BF16, precond)
         rec = {"phase": "bf16_kernel", "kernel": site, "problem": f"lap2d_fd({GRID})", "n": n,
                "dtype": "bfloat16"}
         for plan in plans:
-            design = "one" if plan is None else plan.design
+            design = plan.design
             for launches in (1, STREAM_ITERS):
                 got, ref = clone_state(st), clone_state(st)
                 for _ in range(launches):
@@ -4744,57 +4812,83 @@ def phase_bf16_kernels(spec) -> dict:
                       f"{site} bf16 {design} x{launches}: {rec}")
                 del got, ref
             work = cg_stream.workspace(DEV, n)
-            rec[f"{design}_ms"] = time_ms(lambda: (st.scal.copy_(scal0), cg_stream.step(
-                bands, st, work=work, plan=plan, **kw)))
-            del work
+            call = stream_call(bands, st, plan, kw, work, scal0)
+            rec[f"{design}_ms"] = time_ms(call)
+            rec[f"{design}_device_ms"] = device_ms(call, STREAM_KERNELS)
+            del work, call
         rec["plain_ms"] = time_ms(lambda: (st.scal.copy_(scal0), cg_stream._iteration_ref(
             bands, *st[:6], st.scal, **kw)), reps=3, burst=1)
         rec["bound_ms"], rec["bound_by"] = stream_bf16_bound(spec, ndiag, n, precond)
-        first = "one" if not precond else plans[0].design
+        first, other = plans[0].design, "three" if precond else "grid"
         rec.update(ms=rec[f"{first}_ms"], max_abs_err=rec[f"{first}_x1_max_abs_err"],
+                   device_ms=rec[f"{first}_device_ms"],
                    library_ms=None)  # no one PyTorch call runs a CG iteration
         emit(rec)
-        records[f"{site}_bf16"] = bf16_row(rec, design=None if not precond else first,
-                                           three_ms=rec.get("three_ms"), n=n)
+        if not precond and first == "wavefront":
+            check(rec["wavefront_ms"] <= REDESIGN_SLACK * rec["grid_ms"],
+                  f"{site} bf16: the wavefront is slower than the grid design: {rec}")
+        records[f"{site}_bf16"] = bf16_row(rec, design=first, n=n, device_ms=rec["device_ms"],
+                                           **{f"{other}_ms": rec.get(f"{other}_ms"),
+                                              f"{other}_device_ms": rec.get(f"{other}_device_ms")})
         del bands, st
         sync()
-    # B3
+    # B3, on dense_plan's plan and with its spans forced onto whole warps (the design before)
     for problem, make, (br, bc) in DENSE_PROBLEMS:
         a = densify_on_device(as_operator(make(), BF16, device=DEV)).a
         n = a.shape[0]
         x, = bf16_seeded(n, 1)
+        plan = matvec._plan_of(a, x, bc)
+        warp = plan._replace(lanes=32)
         recs = {}
-        for name, kern, plain in (
-                ("dense_matvec", lambda: matvec.dense_matvec(a, x, block_rows=br, block_cols=bc),
+        for name, fn, plain in (
+                ("dense_matvec", matvec.dense_matvec,
                  lambda: matvec.dense_matvec_ref(a, x, block_rows=br, block_cols=bc)),
-                ("dense_matvec_dot",
-                 lambda: matvec.dense_matvec_dot(a, x, block_rows=br, block_cols=bc),
+                ("dense_matvec_dot", matvec.dense_matvec_dot,
                  lambda: matvec.dense_matvec_dot_ref(a, x, block_rows=br, block_cols=bc))):
-            got, ref = kern(), plain()
+            def kern(p=None):
+                return fn(a, x, block_rows=br, block_cols=bc, plan=p)
+
+            got = kern()
+            ran = fn.plan
+            ref, old = plain(), kern(warp)
             sync()
-            y, y_ref = (got, ref) if name == "dense_matvec" else (got[0], ref[0])
+            y, y_ref, y_old = ((got, ref, old) if name == "dense_matvec"
+                               else (got[0], ref[0], old[0]))
             rec = {"phase": "bf16_kernel", "kernel": name, "problem": f"{problem} dense {br}x{bc}",
                    "n": n, "dtype": "bfloat16", "bitwise": torch.equal(y, y_ref),
+                   "warp_bitwise": torch.equal(y_old, y_ref),
                    "max_abs_err": float((y.float() - y_ref.float()).abs().max()),
-                   "plan": matvec.dense_matvec.plan._asdict()}
+                   "plan": plan._asdict()}
+            check(ran == plan, f"{name} bf16 {problem}: ran {ran}, not {plan}")
             if name == "dense_matvec_dot":  # float32 sums in two orders
                 scale = float((x.float() * y_ref.float()).abs().sum())
                 rec["dot_rel_err"] = abs(float(got[1]) - float(ref[1])) / scale
                 rec["y_bitwise_dense_matvec"] = torch.equal(y, recs["dense_matvec"]["y"])
                 check(rec["dot_rel_err"] <= DOT_RTOL[torch.float32]
                       and rec["y_bitwise_dense_matvec"], f"{name} bf16 {problem}: {rec}")
-            check(rec["bitwise"], f"{name} bf16 {problem}: y is not bitwise its plain version")
+            check(rec["bitwise"] and rec["warp_bitwise"],
+                  f"{name} bf16 {problem}: y is not bitwise its plain version: {rec}")
             rec["ms"] = time_ms(kern)
+            rec["device_ms"] = device_ms(kern, ("dense_matvec",))
+            if plan.lanes != 32:
+                rec["warp_ms"] = time_ms(lambda: kern(warp))
+                rec["warp_device_ms"] = device_ms(lambda: kern(warp), ("dense_matvec",))
             rec["plain_ms"] = time_ms(plain)
             rec["library_ms"], rec["library_error"] = (
                 bf16_library(lambda: torch.mv(a, x)) if name == "dense_matvec" else (None, None))
+            if rec["library_ms"] is not None:
+                rec["library_device_ms"] = device_ms(lambda: torch.mv(a, x), ("",))
             dot = name == "dense_matvec_dot"  # its products rounded to bfloat16, float sums
             rec["bound_ms"], rec["bound_by"] = bf16_bound(spec, (n * n + 2 * n) * 2, n * dot,
                                                           f32=2 * n * n + n * dot)
             emit(rec)
             recs[name] = {**rec, "y": y}
             if problem == "lap2d_fd(100)":  # the CLI's shape and tiles
-                records[f"{name}_bf16"] = bf16_row(rec, n=n, tiles=[br, bc])
+                records[f"{name}_bf16"] = bf16_row(
+                    rec, n=n, tiles=[br, bc], design=f"{plan.lanes} lanes a span",
+                    device_ms=rec["device_ms"], warp_ms=rec.get("warp_ms"),
+                    warp_device_ms=rec.get("warp_device_ms"),
+                    library_device_ms=rec.get("library_device_ms"))
         del a, x, recs
         sync()
     return records
@@ -5256,10 +5350,27 @@ def phase_f16_bands(spec, main_x, fused_x, bounds) -> tuple:
                    else rec[f"{key}_vec_rel_err"] <= CHUNK_RTOL[torch.float32]),
               f"B4 f16 bands x{launches}: {rec}")
         del got, ref, twin
+    # the grid design (the design before stream_plan's wavefront) on one launch
+    got, ref = clone_state(st), clone_state(st)
+    grid = cg_stream.grid_plan(n)
+    cg_stream.step(kb[F16], got, plan=grid, **kw)
+    cg_stream._iteration_ref(kb[F16], *ref[:6], ref.scal, **kw)
+    sync()
+    rec["grid_x1_bitwise"] = all(torch.equal(a, w) for a, w in zip(got[:6], ref[:6])
+                                 if a is not None)
+    check(rec["grid_x1_bitwise"], f"B4 f16 bands, grid design: {rec}")
+    del got, ref
     work = cg_stream.workspace(DEV, n)
-    rec["ms"] = time_ms(lambda: cg_stream.step(kb[F16], st, work=work, **kw))
-    rec["bf16_bands_ms"] = time_ms(lambda: cg_stream.step(kb[torch.bfloat16], st, work=work,
-                                                          **kw))
+    sms = dia_powers.sms_of(DEV)
+    rec["design"] = cg_stream.stream_plan(n, offsets, torch.float32, sms).design
+    timed_calls = {"ms": (kb[F16], None), "bf16_bands_ms": (kb[torch.bfloat16], None),
+                   "grid_ms": (kb[F16], grid)}
+    for key, (bands16, plan) in timed_calls.items():
+        call = stream_call(bands16, st, plan, kw, work)
+        rec[key] = time_ms(call)
+        rec[key.replace("ms", "device_ms")] = device_ms(call, STREAM_KERNELS)
+    check(rec["design"] == "grid" or rec["ms"] <= REDESIGN_SLACK * rec["grid_ms"],
+          f"B4 f16 bands: the wavefront is slower than the grid design: {rec}")
     rec["plain_ms"] = time_ms(lambda: cg_stream._iteration_ref(kb[F16], *st[:6], st.scal, **kw),
                               reps=3, burst=1)
     rec["bound_ms"], rec["bound_by"] = bound_of(spec, torch.float32,
@@ -5269,7 +5380,9 @@ def phase_f16_bands(spec, main_x, fused_x, bounds) -> tuple:
     rows["stream_iteration_f16b"] = {
         "max_abs_err": rec["x1_max_abs_err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
         "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"], "library_ms": None,
-        "n": n, "dtype": "float32", "bf16_bands_ms": rec["bf16_bands_ms"]}
+        "n": n, "dtype": "float32", "bf16_bands_ms": rec["bf16_bands_ms"],
+        "design": rec["design"], "grid_ms": rec["grid_ms"], "device_ms": rec["device_ms"],
+        "grid_device_ms": rec["grid_device_ms"]}
     del kb, st, work
     sync()
     # B5
@@ -5482,7 +5595,15 @@ def run_phases(spec, replay_tmp: Path, replay: subprocess.Popen) -> int:
                         "bf16_bands_ms": rec.get("bf16_bands_ms"),
                         # the bf16 rows' other design, preconditioner and shape
                         "pcg_ms": rec.get("pcg_ms"), "pcg_global_ms": rec.get("pcg_global_ms"),
-                        "pcg_bound_ms": rec.get("pcg_bound_ms"), "n": rec.get("n")})
+                        "pcg_bound_ms": rec.get("pcg_bound_ms"), "n": rec.get("n"),
+                        # device-only ms (Kineto) of the design that ran and of the design
+                        # before a redesign (grid: B4/B7's grid design; three: B6's three
+                        # launches; warp: B3's whole-warp spans), and of the library call
+                        "device_ms": rec.get("device_ms"),
+                        "grid_device_ms": rec.get("grid_device_ms"),
+                        "three_device_ms": rec.get("three_device_ms"),
+                        "warp_ms": rec.get("warp_ms"), "warp_device_ms": rec.get("warp_device_ms"),
+                        "library_device_ms": rec.get("library_device_ms")})
     print(json.dumps({"kernels": kernels, "not_ported": NOT_PORTED}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -522,6 +522,45 @@ def test_cuda_pcg_designs_bitwise(cuda, g, dtype, design):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("design", ["wavefront", "grid"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16])
+@pytest.mark.parametrize("case", ["split", "stacked"])
+@pytest.mark.parametrize("g", [30, 700])  # a grid of one block, and of many
+def test_cuda_plain_stream_designs_bitwise(cuda, g, case, dtype, design):
+    """B4 and B7 in both designs of stream_plan from one seeded state:
+    after a launch p, x, r', s' and w' are bitwise the plain version's,
+    the float64 dots within 1e-12 (another summation order); the launch
+    counts one and records its design; a frozen launch changes nothing."""
+    from cgx_torch.ops import cg_stream
+    from cgx_torch.ops._util import sms_of
+
+    bands, offs, st = _stream_case(g, dtype, cuda, case)
+    n = g * g
+    plan = (cg_stream.stream_plan(n, offs, dtype, sms_of(cuda)) if design == "wavefront"
+            else cg_stream.grid_plan(n))
+    assert plan.design == design
+    site = cg_stream._stream_iteration_stacked if case == "stacked" else cg_stream._stream_iteration
+    got, want = _clone_state(st), _clone_state(st)
+    before = site.launches
+    cg_stream.step(bands, got, offsets=offs, plan=plan, **STREAM_KW)
+    _plain_step(bands, want, offs)
+    torch.cuda.synchronize()
+    assert site.launches - before == 1 and site.design == design
+    q = 1  # the halves the launch wrote
+    for a, w in zip((got.p, got.x, got.r[q], got.s[q], got.w[q]),
+                    (want.p, want.x, want.r[q], want.s[q], want.w[q])):
+        assert torch.equal(a, w)
+    assert torch.equal(got.scal[cg_stream.K:], want.scal[cg_stream.K:])
+    assert float(((got.scal[:3] - want.scal[:3]).abs() / want.scal[:3].abs()).max()) <= 1e-12
+    got.scal[cg_stream.STOP] = 1.0
+    frozen = _clone_state(got)
+    cg_stream.step(bands, got, offsets=offs, plan=plan, **STREAM_KW)
+    torch.cuda.synchronize()
+    for a, w in zip(got, frozen):
+        assert (a is None and w is None) or torch.equal(a, w)
+
+
+@pytest.mark.cuda
 def test_cuda_stream_frozen_launch_changes_nothing(cuda):
     from cgx_torch.ops import cg_stream
 
