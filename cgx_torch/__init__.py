@@ -64,6 +64,7 @@ from cgx_torch.solver.operators import (
     DenseOperator,
     DiaOperator,
     EllOperator,
+    GridDiaOperator,
     PallasDenseOperator,
     as_operator,
     basis_from_cgx,
@@ -83,5 +84,12 @@ from cgx_torch.solver.refine import (
     refine_pcg_sweeps_tw,
 )
 from cgx_torch.solver.sstep import sstep_cg_solve
+from cgx_torch.utils.checkpoint import (
+    CGCheckpoint,
+    cg_solve_resumable,
+    sharded_cg_solve_resumable,
+)
+from cgx_torch.utils.records import SolveRecord
+from cgx_torch.utils.timer import PhaseTimer, trace
 
 __version__ = "0.1.0"

@@ -19,7 +19,10 @@ CUDA grammar (CUDA/cg_main.cc:16-63):
   ``torch.matmul``. Appends ``NUM_THREADS,BLOCK_WIDTH,elapsed``.
 
 Options as cgx's, plus ``--device {cuda,cpu}`` (default ``cuda``, which
-raises without a card). Both grammars print the reference's DEBUG line
+raises without a card). ``--pallas`` without tiles (the MPI grammar)
+takes the tiles :mod:`cgx_torch.bench.autotune` tuned for this device,
+N and dtype (``$CGX_TORCH_AUTOTUNE_CACHE``), else :data:`DEFAULT_TILES`.
+Both grammars print the reference's DEBUG line
 
     \\t[STEP k] residual = R, ||x|| = X, ||Ax - b||/||b|| = E
 
@@ -84,6 +87,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from cgx_torch.bench.autotune import tuned_tiles
 from cgx_torch.config import DEFAULT_TOLERANCE
 from cgx_torch.mats.containers import COOMatrix, CSRMatrix, DIAMatrix, ELLMatrix
 from cgx_torch.mats.generators import lap2d_reference, source_term
@@ -97,7 +101,9 @@ from cgx_torch.solver.pipelined import pipelined_cg_solve
 from cgx_torch.solver.precond import block_jacobi, chebyshev_poly, jacobi, neumann_banded
 from cgx_torch.solver.sstep import sstep_cg_solve
 
-DEFAULT_TILES = (256, 512)  # dense_matvec's static defaults (cgx/bench/autotune.py:38)
+# the untuned tiles, dense_matvec's static defaults: what --pallas without tiles takes
+# until cgx_torch.bench.autotune has tuned this device, n and dtype (tuned_tiles)
+DEFAULT_TILES = (256, 512)
 _DTYPES = {"fp64": torch.float64, "fp32": torch.float32, "bf16": torch.bfloat16}
 
 
@@ -210,7 +216,9 @@ def run(argv=None) -> Run:
         return _run_sharded(args, host, b_np, n, tol, maxiter, fmt, dev, csv_row_fn, out_file)
 
     if args.pallas and fmt == "dense":
-        nt, bw = tiles or DEFAULT_TILES
+        # no explicit tiles: the device's autotune cache, the static
+        # defaults when never tuned (cgx cli/main.py:267-270)
+        nt, bw = tiles or tuned_tiles(n, dtype, device=dev)
         # the reference's NUM_THREADS x BLOCK_WIDTH sweep, clamped as cgx clamps it
         br = max(8, min((nt // 8) * 8 or 8, 1024))
         bc = max(128, min((bw // 128) * 128 or 128, 4096))

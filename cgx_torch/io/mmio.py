@@ -11,8 +11,9 @@ mmio.c:189, typecode queries mmio.h:30-47) and the subset consumed by
 the reference loader (``MatrixCOO::read`` matrix_coo.cc:7-58: sparse
 coordinate real matrices, general or symmetric, 1-based indices).
 
-Parsing is vectorised with NumPy. The optional native C++ parser of
-``cgx.io.native`` is not ported yet (ROADMAP A2).
+Parsing is vectorised with NumPy. The native C++ parser,
+:mod:`cgx_torch.io.native`, takes large files when it builds; this
+module is its fallback.
 """
 
 from __future__ import annotations

@@ -46,8 +46,12 @@ class COOMatrix:
     @classmethod
     def read(cls, filename) -> "COOMatrix":
         """Load from a MatrixMarket file (MatrixCOO::read parity,
-        matrix_coo.cc:7-58: requires a sparse coordinate matrix)."""
-        data = mmio.mmread(filename)
+        matrix_coo.cc:7-58: requires a sparse coordinate matrix).
+        Large files route through the native C++ parser when it builds
+        (:mod:`cgx_torch.io.native`)."""
+        from cgx_torch.io.native import mmread_auto
+
+        data = mmread_auto(filename)
         if not data.typecode.is_sparse:
             raise mmio.MMIOError("expected a sparse (coordinate) matrix")
         if data.typecode.is_skew:

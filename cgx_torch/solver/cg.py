@@ -43,7 +43,7 @@ import torch
 from cgx_torch.config import DEFAULT_TOLERANCE, NEARZERO
 from cgx_torch.ops._util import check_device, f32_exact, resolve_device
 from cgx_torch.ops.reduce import vdot
-from cgx_torch.solver.operators import DenseOperator
+from cgx_torch.solver.operators import DenseOperator, GridDiaOperator
 
 _CHUNK = 32  # iterations between host reads of `converged`
 
@@ -183,7 +183,9 @@ def cg_solve(
 
     Args:
       a: an operator with ``.matvec``, a 2-D tensor, or a callable
-        ``x -> A x``; its tensors must be on ``device``.
+        ``x -> A x``; its tensors must be on ``device``. A
+        :class:`~cgx_torch.solver.operators.GridDiaOperator` without a
+        preconditioner runs the loop on grid-shaped vectors.
       b: right-hand side (tensor on ``device``, or NumPy).
       x0: initial guess (zeros by default).
       tol: *absolute* tolerance ``sqrt(<r,r>) < tol``.
@@ -200,16 +202,26 @@ def cg_solve(
     b = as_vector(b, dev, "b")
     x0 = torch.zeros_like(b) if x0 is None else as_vector(x0, dev, "x0", b.dtype)
     acc = b.dtype if dot_precision is None else dot_precision
+    n = b.shape[0]
+    mv = _as_matvec(a, dev)
+    grid = isinstance(a, GridDiaOperator) and precond is None
+    if grid:
+        # a grid-stencil operator runs the whole loop in its (g,)*ndim
+        # layout, as cgx's does (cg.py:222-245): every vector grid-shaped,
+        # the dots summed over all axes
+        shape = (a.g,) * a.ndim
+        mv, b, x0 = a.matvec_grid, b.reshape(shape), x0.reshape(shape)
     with f32_exact():
-        return cg_loop(
-            _as_matvec(a, dev), b, x0,
+        res = cg_loop(
+            mv, b, x0,
             dots=lambda pairs: tuple(vdot(u, v, precision=dot_precision) for u, v in pairs),
             precond=precond,
             tol=torch.tensor(tol, dtype=acc, device=dev),
             nearzero=torch.tensor(nearzero, dtype=b.dtype, device=dev),
-            maxiter=b.shape[0] if maxiter is None else int(maxiter),
+            maxiter=n if maxiter is None else int(maxiter),
             history=int(history),
         )
+    return res._replace(x=res.x.reshape(-1)) if grid else res
 
 
 def cg_loop(

@@ -4,6 +4,8 @@
   in plain torch, with the zero-outside-``[0, n)`` semantics of cgx's
   ``banded_matvec`` (cgx leaves this mat-vec to XLA). The solvers that
   want the CUDA kernel call :mod:`cgx_torch.ops.dia_spmv` on its bands.
+  :class:`GridDiaOperator` is one whose mat-vec shifts along the axes of
+  its grid (cgx's, a subclass with the same results).
 - :class:`DenseOperator`: ``A @ x`` through ``torch.matmul``.
 - :class:`PallasDenseOperator`: ``A @ x`` through the dense CUDA kernel
   (:mod:`cgx_torch.ops.matvec`), with cgx's name so that a reader finds
@@ -90,6 +92,157 @@ class DiaOperator:
 
     def diagonal(self) -> torch.Tensor:
         return self.bands[self.offsets.index(0)]
+
+
+def _decode_grid_offsets(offsets, g: int, ndim: int, max_reach: int = 8):
+    """Flat DIA offsets -> per-axis deltas on a row-major g^ndim grid
+    (slowest axis first, matching the mat-vec's reshape), or None (cgx
+    ``operators.py:277``, copied)."""
+    out = []
+    for o in offsets:
+        o = int(o)
+        coords = []
+        rem = o
+        # peel from the SLOWEST axis (stride g^(ndim-1)) down
+        for axis in range(ndim - 1, 0, -1):
+            step = g**axis
+            d = int(round(rem / step))
+            if abs(d) > max_reach:
+                return None
+            coords.append(d)
+            rem -= d * step
+        if abs(rem) > max_reach:
+            return None
+        coords.append(rem)
+        out.append(tuple(coords))
+    return out
+
+
+def _wrap_positions_zero(bands: np.ndarray, offsets, deltas, g: int, ndim: int) -> bool:
+    """True iff every band value at a flat position whose grid decode
+    would WRAP (a per-axis coordinate leaves [0, g)) is exactly zero: the
+    condition under which per-axis shifts give the flat banded mat-vec
+    bit for bit (cgx ``_wrap_positions_zero``, copied)."""
+    n = g**ndim
+    idx = np.arange(n)
+    coords = []
+    rem = idx
+    for axis in range(ndim):
+        step = g ** (ndim - 1 - axis)
+        coords.append(rem // step)
+        rem = rem % step
+    bands = np.asarray(bands)
+    for k, (off, delta) in enumerate(zip(offsets, deltas)):
+        lo, hi = max(0, -int(off)), min(n, n - int(off))
+        rows = idx[lo:hi]
+        ok = np.ones(hi - lo, bool)
+        for axis in range(ndim):
+            c = coords[axis][lo:hi] + delta[axis]
+            ok &= (c >= 0) & (c < g)
+        wrap = ~ok
+        if wrap.any() and np.any(bands[k, rows[wrap]] != 0.0):
+            return False
+    return True
+
+
+def _axis_shift(a: torch.Tensor, axis: int, d: int) -> torch.Tensor:
+    """shifted[c] = a[c + d] along one axis, zero (Dirichlet) fill."""
+    if d == 0:
+        return a
+    out = torch.zeros_like(a)
+    n = a.shape[axis]
+    if abs(d) >= n:
+        return out
+    if d > 0:
+        out.narrow(axis, 0, n - d).copy_(a.narrow(axis, d, n - d))
+    else:
+        out.narrow(axis, -d, n + d).copy_(a.narrow(axis, 0, n + d))
+    return out
+
+
+@dataclasses.dataclass
+class GridDiaOperator(DiaOperator):
+    """Banded grid-stencil operator with per-axis shifts (cgx's
+    ``GridDiaOperator``).
+
+    A :class:`DiaOperator` (the same ``bands``/``offsets``, so every
+    isinstance gate and banded preconditioner takes it) whose mat-vec
+    shifts x along each axis of its (g,)*ndim grid, with zero fill,
+    instead of along the flat vector. :func:`cgx_torch.solver.cg.cg_solve`
+    keeps every vector grid-shaped when handed one and no preconditioner,
+    as cgx's does; the refinement keeps the class when it lowers the
+    bands; :func:`as_operator` still gives the flat :class:`DiaOperator`.
+
+    Exactness: per-axis shifts zero the cross-row neighbours, which
+    equals the flat banded product iff every band value at a would-wrap
+    flat position is zero: true for the lap2d_fd / lap3d_fd families and
+    every Galerkin coarse level, false for lap2d_reference's
+    quasi-stencil (its +-1 band wraps). ``from_host`` checks the
+    condition and refuses otherwise, with cgx's message. The sums run
+    band by band in cgx's order, so the product is the flat one bit for
+    bit.
+    """
+
+    g: int = 0
+    ndim: int = 2
+    deltas: Tuple[Tuple[int, ...], ...] = ()
+
+    def matvec_grid(self, a: torch.Tensor) -> torch.Tensor:
+        """y = A x with x and y in the (g,)*ndim layout."""
+        shape = (self.g,) * self.ndim
+        y = torch.zeros(shape, dtype=a.dtype, device=a.device)
+        for k, delta in enumerate(self.deltas):
+            s = a
+            for axis, d in enumerate(delta):
+                s = _axis_shift(s, axis, d)
+            y = y + self.bands[k].reshape(shape) * s
+        return y
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        shape = (self.g,) * self.ndim
+        return self.matvec_grid(x.reshape(shape)).reshape(-1)
+
+    @classmethod
+    def from_host(cls, mat: DIAMatrix, dtype=None, *, g=None, ndim=None,
+                  device="cuda") -> "GridDiaOperator":
+        """From a host ``DIAMatrix`` on a square or cubic grid (``g`` and
+        ``ndim`` found from N and the offsets unless given), its bands
+        on ``device`` in ``dtype`` (default float64)."""
+        dev = resolve_device(device)
+        n = mat.shape[0]
+        if ndim is None:
+            for nd in (2, 3):
+                s = round(n ** (1.0 / nd))
+                if s**nd == n and _decode_grid_offsets(mat.offsets, s, nd):
+                    ndim = nd
+                    g = s
+                    break
+            else:
+                raise ValueError(
+                    f"offsets {mat.offsets} do not decode on a square/"
+                    f"cubic grid of {n} points"
+                )
+        if g is None:
+            g = round(n ** (1.0 / ndim))
+        deltas = _decode_grid_offsets(mat.offsets, g, ndim)
+        if deltas is None:
+            raise ValueError(
+                f"offsets {mat.offsets} do not decode on the {g}^{ndim} grid"
+            )
+        if not _wrap_positions_zero(mat.bands, mat.offsets, deltas, g, ndim):
+            raise ValueError(
+                "band values at wrapping flat positions are nonzero "
+                "(e.g. lap2d_reference's quasi-stencil) — the grid "
+                "shifts would change the product; use DiaOperator"
+            )
+        return cls(
+            torch.tensor(np.asarray(mat.bands), dtype=_torch_dtype(dtype, torch.float64),
+                         device=dev).contiguous(),
+            tuple(int(o) for o in mat.offsets),
+            int(g),
+            int(ndim),
+            tuple(tuple(int(d) for d in dd) for dd in deltas),
+        )
 
 
 @dataclasses.dataclass

@@ -20,6 +20,7 @@ certify a true residual below fp64's evaluation floor.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
@@ -39,7 +40,7 @@ from cgx_torch.ops.cg_stream import dia_cg_solve_stream_pcg
 from cgx_torch.ops.reduce import vdot
 from cgx_torch.solver.cg import CGResult, as_vector, cg_loop, cg_solve
 from cgx_torch.solver.fast import dia_cg_solve_pallas
-from cgx_torch.solver.operators import DenseOperator, DiaOperator
+from cgx_torch.solver.operators import DenseOperator, DiaOperator, GridDiaOperator
 
 
 class RefineResult(NamedTuple):
@@ -94,6 +95,8 @@ def iterative_refinement(
 
     if inner_op is not None:
         op_lo = inner_op
+    elif isinstance(op64, GridDiaOperator):  # keeps its class (cgx refine.py:83-86)
+        op_lo = dataclasses.replace(op64, bands=op64.bands.to(inner_dtype))
     elif isinstance(op64, DiaOperator):
         op_lo = DiaOperator(op64.bands.to(inner_dtype), tuple(op64.offsets))
     elif isinstance(op64, DenseOperator):

@@ -273,7 +273,35 @@ Phases, one JSON object per line each:
     recover in both designs) against their plain versions and, bitwise,
     their bfloat16-band builds on the same inputs, timed; then one solve
     each (dia_cg_solve_stream, dia_sstep_stream_solve, dia_cg_solve_vmem
-    with bands_dtype=float16), x bitwise the bfloat16-band run's.
+    with bands_dtype=float16), x bitwise the bfloat16-band run's;
+52. slope (after multi_rhs_paths): measure_dia_cg on lap2d_fd(3200),
+    fp64, and measure_dense_cg on lap2d_fd(100) densified, fp32, through
+    B3 and torch.matmul: s/iter, the Theil-Sen spread, the share of the
+    data sheet's 3.35 TB/s and row_trusted; B3's s/iter no less than 0.9x
+    its ms of phase 10;
+53. autotune: autotune_dense_tiles(10000, float32) with the cache in the
+    run's temporary directory, tuned_tiles, and the CLI with --pallas and
+    no tiles on N = 10,000 building its operator with the tuned pair (k
+    within 2% of the plain dense loop's);
+54. native: the C++ MatrixMarket parser built, lap2d_fd(1000)'s lower
+    COO written by it and read back through COOMatrix.read (bitwise the
+    NumPy parser's), then solved through B5, bitwise the generator's;
+55. grid_dia: GridDiaOperator on lap2d_fd(3200), fp64: its mat-vec
+    bitwise the flat one, cg_solve capped at 512 iterations within 1e-13
+    of the flat run, lap2d_reference(10000) refused;
+56. checkpoint (in a third NCCL group of one rank): cg_solve_resumable on
+    lap2d_fd(3200), fp64, segments of 512, uninterrupted to 1024 and
+    interrupted at 512 (bitwise), and sharded_cg_solve_resumable resumed
+    from the single-device file (within 1e-13), with each segment's and
+    each checkpoint write's seconds;
+57. sweeps (the same group): kernel_sweep(10000) over threads (128, 256,
+    1024) x widths (128, 512, 4096), strong_scaling((1024, 2048)) and
+    weak_scaling((1024,)), every row in cgx's schema;
+58. records_timer: a PhaseTimer around one B3 call on lap2d_fd(100)
+    densified, float32 (it waits for the card), trace() around 20 (in a
+    process of its own, started before phase 54: its Chrome trace names
+    B3's kernel), and a SolveRecord of a 64-iteration dense solve through
+    B3 with its JSON, CSV rows and [STEP k] line.
 
 The CLI phases call cgx_torch.cli.main.run, the body of the CLI's main,
 in this process. Then a "kernels" line for the ported kernels (every
@@ -293,6 +321,7 @@ import json
 import math
 import os
 import re
+import shutil
 import signal
 import statistics
 import subprocess
@@ -307,7 +336,15 @@ import torch
 import torch.distributed as dist
 
 from cgx_torch import (
+    CGCheckpoint,
     DenseOperator,
+    GridDiaOperator,
+    PallasDenseOperator,
+    PhaseTimer,
+    SolveRecord,
+    cg_solve_resumable,
+    sharded_cg_solve_resumable,
+    trace,
     gv_cg_solve,
     DiaOperator,
     SolveConfig,
@@ -330,7 +367,9 @@ from cgx_torch import (
     solve,
     solve_sequence,
 )
+from cgx_torch.bench import autotune, slope, sweeps
 from cgx_torch.cli import main as cli
+from cgx_torch.io import mmio, native
 from cgx_torch.mats.device import lap2d_operator, source_term_device
 from cgx_torch.parallel import make_mesh, make_mesh2d, make_sharded_solver
 from cgx_torch.parallel import sharded_cg as sc
@@ -342,7 +381,7 @@ from cgx_torch.parallel.mg_sharded import (
 )
 from cgx_torch.parallel.sstep_fused import fused_plane_geometry
 from cgx_torch.parallel.tw_sharded import sharded_tw_setup
-from cgx_torch.mats.containers import COOMatrix
+from cgx_torch.mats.containers import COOMatrix, DIAMatrix
 from cgx_torch.mats.generators import (
     lap2d_fd,
     lap2d_fd_coo_lower,
@@ -830,13 +869,17 @@ def device_us(fn, kernel: str, calls: int = 200) -> float:
     """Microseconds of device time a call of ``fn`` spends in kernels whose
     name holds ``kernel``, from torch.profiler's CUDA events over ``calls``
     back-to-back calls after a warm-up: at a few microseconds a call the
-    host's launch time, not the kernel's, sets CUDA-event time."""
+    host's launch time, not the kernel's, sets CUDA-event time. A lead
+    kernel, waited for, opens the window (as in device_profile): the
+    profiler can miss the first kernel of a window."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(WARMUP):
         fn()
     sync()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)  # the lead
+        torch.cuda.synchronize()
         for _ in range(calls):
             fn()
         sync()
@@ -982,18 +1025,21 @@ def dense_kernel_cases(spec, problem: str, dia, dtype, tiles) -> dict:
     return records
 
 
-def phase_dense_kernels(spec) -> dict:
+def phase_dense_kernels(spec) -> tuple:
     """Returns the records at the reference run's shape and dtype:
-    lap2d_fd(100), 1024 x 128 tiles, float64."""
-    main_records = {}
+    lap2d_fd(100), 1024 x 128 tiles, float64; and B3's ms there in
+    float32 (the slope phase's yardstick)."""
+    main_records, b3_fp32_ms = {}, None
     for problem, make, tiles in DENSE_PROBLEMS:
         dia = make()
         for dtype in (torch.float32, torch.float64):
             recs = dense_kernel_cases(spec, problem, dia, dtype, tiles)
             if problem == "lap2d_fd(100)" and dtype == torch.float64:
                 main_records = recs
+            if problem == "lap2d_fd(100)" and dtype == torch.float32:
+                b3_fp32_ms = recs["dense_matvec"]["ms"]
             sync()
-    return main_records
+    return main_records, b3_fp32_ms
 
 
 def true_rel(dia, x: np.ndarray, b: np.ndarray) -> float:
@@ -5478,6 +5524,453 @@ def phase_f16_bands(spec, main_x, fused_x, bounds) -> tuple:
     return rows, counts
 
 
+# ---------------------------------------------------------------------------
+# The last modules of cgx (A13, A15, A2/A3): records and the phase timer,
+# checkpoint and resume, the slope method, the autotuner, the sweeps, the
+# native MatrixMarket parser and GridDiaOperator
+# ---------------------------------------------------------------------------
+
+DENSE_N_GRID = 100  # lap2d_fd(100) densified: N = 10,000, the reference's dense regime
+DENSE_N_TILES = (1024, 128)  # the dense kernel phase's tiles there (the CLI's "1024 16")
+CKPT_SEGMENT = 512
+CKPT_MAXITER = 1024
+CKPT_RTOL = 1e-13  # the sharded resume's x against the single-device one's, relative
+SLOPE_KS_DIA = (64, 128, 192)
+SLOPE_KS_DENSE = (50, 100, 150)
+SLOPE_REPS = 3
+SLOPE_B3_FLOOR = 0.9  # an iteration's s/iter against its own mat-vec's ms
+SLOPE_PCT_GATE = 105.0
+SWEEP_THREADS = (128, 256, 1024)
+SWEEP_WIDTHS = (128, 512, 4096)
+SWEEP_STRONG = (1024, 2048)
+SWEEP_WEAK = (1024,)
+NATIVE_GRID = 1000  # lap2d_fd(1000): N = 1e6, its lower COO a file of about 49 MB
+GRID_DIA_ITERS = 512
+GRID_DIA_RTOL = 1e-13
+
+
+def dense_reference_problem(dtype):
+    """lap2d_fd(100) densified on the card, and a seeded x."""
+    a = densify_on_device(as_operator(lap2d_fd(DENSE_N_GRID), dtype, device=DEV)).a
+    x = torch.as_tensor(np.random.default_rng(SEED).standard_normal(a.shape[0]), dtype=dtype,
+                        device=DEV)
+    return a, x
+
+
+# trace() around B3 calls in a process of its own (argv: log dir, device,
+# calls). Late in this script's process a torch.profiler window has kept no
+# device record at all (on an H100 80GB HBM3: none of 1 or 20 B3 calls, nor
+# of a lead kernel), where short processes keep every one; a fresh process
+# checks trace() itself.
+TRACE_PROBE = """
+import sys
+import torch
+from cgx_torch.mats.generators import lap2d_fd
+from cgx_torch.ops import matvec
+from cgx_torch.solver.operators import as_operator, densify_on_device
+from cgx_torch.utils.timer import trace
+log_dir, dev, calls = sys.argv[1], sys.argv[2], int(sys.argv[3])
+a = densify_on_device(as_operator(lap2d_fd(100), torch.float32, device=dev)).a
+x = torch.ones(a.shape[0], dtype=torch.float32, device=dev)
+matvec.dense_matvec(a, x, block_rows=1024, block_cols=128)
+with trace(log_dir):
+    for _ in range(calls):
+        matvec.dense_matvec(a, x, block_rows=1024, block_cols=128)
+"""
+
+
+def start_trace_probe(tmp: Path) -> tuple:
+    """TRACE_PROBE started beside the phases that follow (it takes about
+    20 s to reach the card and trace); phase_records_timer waits for it.
+    Returns (its log directory, the process, its start time)."""
+    log_dir = tmp / "trace"
+    proc = subprocess.Popen([sys.executable, "-c", TRACE_PROBE, str(log_dir), DEV,
+                             str(DEVICE_CALLS)], cwd=Path(__file__).resolve().parent)
+    return log_dir, proc, time.perf_counter()
+
+
+def phase_records_timer(spec, tmp: Path, trace_run: tuple) -> None:
+    """A PhaseTimer around one B3 call (N = 10,000, float32), synchronised
+    on the card: its end event has completed when the phase stops, and its
+    seconds cover the call's device time. trace() around DEVICE_CALLS B3
+    calls, in a process of its own (TRACE_PROBE, ``trace_run`` from
+    start_trace_probe), writes a Chrome trace naming B3's kernel. A SolveRecord of a capped dense
+    solve through B3, with its JSON, both CSV rows and the [STEP k] line."""
+    br, bc = DENSE_N_TILES
+    a, x = dense_reference_problem(torch.float32)
+    matvec.dense_matvec(a, x, block_rows=br, block_cols=bc)  # first touch
+    sync()
+    timer = PhaseTimer()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with timer.phase("dense_matvec", x):
+        start.record()
+        y = matvec.dense_matvec(a, x, block_rows=br, block_cols=bc)
+        end.record()
+    done = end.query()  # the phase waited for the card
+    device_s = start.elapsed_time(end) / 1e3
+    log_dir, proc, started = trace_run
+    check(proc.wait(timeout=600) == 0, f"records_timer: the trace process exited {proc.returncode}")
+    trace_seconds = time.perf_counter() - started
+    files = sorted(log_dir.glob("*.json"))
+    text = files[0].read_text() if len(files) == 1 else ""
+    b = torch.as_tensor(source_term(a.shape[0]), dtype=torch.float32, device=DEV)
+    reset_launches()
+    t0 = time.perf_counter()
+    res = cg_solve(PallasDenseOperator(a, br, bc), b, maxiter=64, history=16, device=DEV)
+    k = int(res.iterations)
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    r = torch.mv(a.double(), res.x.double()) - b.double()
+    rec = SolveRecord.from_result(
+        res, n=a.shape[0], elapsed_s=seconds, fmt="dense", precision="fp32",
+        true_relative_residual=float(torch.linalg.norm(r) / torch.linalg.norm(b.double())))
+    rows = tmp / "rows"
+    rows.mkdir()
+    rec.append_mpi_row(rows / "mpi.txt")
+    rec.append_cuda_row(rows / "cuda.txt", br, bc)
+    mpi_row = (rows / "mpi.txt").read_text().strip()
+    cuda_row = (rows / "cuda.txt").read_text().strip()
+    print(rec.debug_line(), flush=True)
+    out = {"phase": "records_timer", "n": a.shape[0], "dtype": "float32", "tiles": [br, bc],
+           "timer_seconds": timer.report()["dense_matvec"], "device_seconds": device_s,
+           "end_event_done": done, "timer_summary": timer.summary(),
+           "trace_files": [f.name for f in files], "trace_calls": DEVICE_CALLS,
+           "trace_b3_mentions": text.count("dense_matvec_persistent_kernel"),
+           "trace_kernels": text.count('"cat": "kernel"'), "trace_seconds": trace_seconds,
+           "trace_names_b3": "dense_matvec_persistent_kernel" in text,
+           "record": json.loads(rec.to_json()), "mpi_row": mpi_row, "cuda_row": cuda_row,
+           "step_line": rec.debug_line().strip(), "b3_launches": launches["dense_matvec"]}
+    emit(out)
+    check(done and out["timer_seconds"] >= device_s,
+          f"records_timer: the phase did not wait for the card ({out['timer_seconds']} s "
+          f"against {device_s} s of device time)")
+    check(timer.counts == {"dense_matvec": 1} and "dense_matvec" in out["timer_summary"],
+          f"records_timer: counts {timer.counts}")
+    check(out["trace_names_b3"], f"records_timer: the trace {out['trace_files']} has no B3 kernel")
+    check(k == 64 and rec.iterations == 64 and not rec.converged and rec.history is not None
+          and 0 < len(rec.history) <= 16 and all(math.isfinite(h) for h in rec.history),
+          f"records_timer: record {out['record']}")
+    check(mpi_row == f"{a.shape[0]},1,{seconds}" and cuda_row == f"{br},{bc},{seconds}"
+          and rec.debug_line().startswith("\t[STEP 64] residual = "),
+          f"records_timer: rows {mpi_row!r}, {cuda_row!r}")
+    check(launches["dense_matvec"] == 65, f"records_timer: B3 launches {launches}")
+    del a, x, y
+
+
+def phase_slope(spec, b3_fp32_ms: float) -> None:
+    """The slope method on the card: measure_dia_cg on lap2d_fd(3200) in
+    fp64 (the plain reference recurrence) and measure_dense_cg on
+    lap2d_fd(100) densified in fp32 with B3 ("pallas", the dense phase's
+    tiles) and torch.matmul ("xla"); s/iter, the Theil-Sen spread, the
+    share of the data sheet's memory rate and row_trusted. Gates: a
+    positive slope, no share above 105%, and B3's s/iter no less than 0.9x
+    this run's B3 ms (an iteration holds its mat-vec)."""
+    check(slope.chip_hbm_gbps(device=DEV) * 1e9 == spec["hbm_bytes_per_s"],
+          f"slope: HBM_GBPS {slope.HBM_GBPS} against the card's {spec['hbm_bytes_per_s']}")
+    br, bc = DENSE_N_TILES
+    runs = []
+    reset_launches()
+    runs.append(("dia", slope.measure_dia_cg(lap2d_fd(GRID), dtype="float64", ks=SLOPE_KS_DIA,
+                                             reps=SLOPE_REPS, device=DEV)))
+    sync()
+    dense = lap2d_fd(DENSE_N_GRID).to_dense()
+    for kernel in ("pallas", "xla"):
+        runs.append((kernel, slope.measure_dense_cg(dense, dtype="float32", block_rows=br,
+                                                    block_cols=bc, kernel=kernel,
+                                                    ks=SLOPE_KS_DENSE, reps=SLOPE_REPS,
+                                                    device=DEV)))
+        sync()
+    launches = read_launches()
+    for name, out in runs:
+        us = out["s_per_iter"] * 1e6
+        pct = 100.0 * out["fraction_of_peak"]
+        rec = {"phase": "slope", "run": name, "n": out["n"], "dtype": out["dtype"],
+               "ks": list(out["ks"]), "reps": out["reps"], "us_per_iter": us,
+               "us_per_iter_lsq": out["s_per_iter_lsq"] * 1e6, "floor_s": out["floor"],
+               "fit_rel_err": out["fit_rel_err"], "ts_spread": out["ts_spread"],
+               "bytes_per_iter": out["bytes_per_iter"], "achieved_gbps": out["achieved_gbps"],
+               "peak_gbps": out["peak_gbps"], "pct_of_peak": pct,
+               "row_trusted": slope.row_trusted(us, out["ts_spread"], pct),
+               "gflops": out.get("gflops"), "b3_ms": b3_fp32_ms if name == "pallas" else None,
+               "b3_launches": launches["dense_matvec"] if name == "pallas" else None}
+        emit(rec)
+        check(us > 0, f"slope {name}: s/iter {us} us is not positive")
+        check(pct <= SLOPE_PCT_GATE, f"slope {name}: {pct}% of the memory rate's peak")
+        if name == "pallas":
+            check(out["s_per_iter"] * 1e3 >= SLOPE_B3_FLOOR * b3_fp32_ms,
+                  f"slope: B3's iteration {us} us beats its own mat-vec {b3_fp32_ms} ms")
+    check(launches["dense_matvec"] > 0, f"slope: B3 did not run: {launches}")
+
+
+def phase_autotune(spec, tmp: Path) -> None:
+    """autotune_dense_tiles(10000, float32, force=True) with the cache in
+    this run's temporary directory; tuned_tiles returns its pair; the CLI
+    with --pallas and no tiles on N = 10,000 (fp32, 1e-5 ||b||) builds its
+    operator with that pair, and its k is within 2% of the plain dense
+    loop's with the same tiles and dots."""
+    cache = tmp / "autotune.json"
+    saved = os.environ.get("CGX_TORCH_AUTOTUNE_CACHE")
+    os.environ["CGX_TORCH_AUTOTUNE_CACHE"] = str(cache)
+    try:
+        n = DENSE_N_GRID ** 2
+        reset_launches()
+        t0 = time.perf_counter()
+        pair = autotune.autotune_dense_tiles(n, torch.float32, force=True, device=DEV)
+        tune_seconds = time.perf_counter() - t0
+        tune_launches = read_launches()["dense_matvec"]
+        name = torch.cuda.get_device_name(0) if DEV == "cuda" else "cpu"
+        entry = json.loads(cache.read_text())[f"{name}|{n}|float32"]
+        tuned = autotune.tuned_tiles(n, torch.float32, device=DEV)
+        b = source_term(n)
+        tol = 1e-5 * float(np.linalg.norm(b))
+        run, m, launches = cli_run([str(n), str(tmp / "strong.txt"), "--pallas", "--precision",
+                                    "fp32", "--tol", repr(tol)])
+        k = int(m.group(1))
+        br, bc = run.op.block_rows, run.op.block_cols
+        a = run.op.a
+        plain = cg_solve(lambda v: matvec.dense_matvec_ref(a, v, block_rows=br, block_cols=bc),
+                         torch.as_tensor(b, dtype=torch.float32, device=DEV), tol=tol,
+                         device=DEV)
+        k_plain = int(plain.iterations)
+    finally:
+        if saved is None:
+            os.environ.pop("CGX_TORCH_AUTOTUNE_CACHE", None)
+        else:
+            os.environ["CGX_TORCH_AUTOTUNE_CACHE"] = saved
+    clamped = (max(8, min((pair[0] // 8) * 8 or 8, 1024)),
+               max(128, min((pair[1] // 128) * 128 or 128, 4096)))
+    rec = {"phase": "autotune", "n": n, "dtype": "float32", "pair": list(pair),
+           "seconds": entry["seconds"], "candidates_tried": entry["candidates_tried"],
+           "candidates": [list(c) for c in autotune.DEFAULT_CANDIDATES],
+           "tune_seconds": tune_seconds, "tune_b3_launches": tune_launches,
+           "tuned_tiles": list(tuned), "cli_tiles": [br, bc], "cli_k": k, "k_plain": k_plain,
+           "cli_seconds": run.seconds, "cli_converged": bool(run.result.converged),
+           "cli_b3_launches": launches["dense_matvec"], "tol": tol}
+    emit(rec)
+    check(tuned == pair, f"autotune: tuned_tiles {tuned} against the tuned pair {pair}")
+    check(entry["candidates_tried"] == len(autotune.DEFAULT_CANDIDATES),
+          f"autotune: {entry['candidates_tried']} candidates of {autotune.DEFAULT_CANDIDATES}")
+    check((br, bc) == clamped, f"autotune: the CLI took {(br, bc)}, the cache holds {pair}")
+    check(rec["cli_converged"] and launches["dense_matvec"] >= k + 1,
+          f"autotune: the CLI run converged={rec['cli_converged']}, launches {launches}")
+    check(abs(k - k_plain) <= 0.02 * k_plain, f"autotune: CLI k={k} vs plain k={k_plain}")
+    del run, plain, a
+
+
+def phase_sweeps(spec, mesh) -> None:
+    """kernel_sweep(10000) over threads (128, 256, 1024) x widths (128,
+    512, 4096), and strong_scaling((1024, 2048)) and weak_scaling((1024,))
+    on the one-rank NCCL mesh: every row in cgx's schema with positive
+    seconds, one row for each configuration dense_plan accepts."""
+    reset_launches()
+    t0 = time.perf_counter()
+    tiles = sweeps.kernel_sweep(DENSE_N_GRID ** 2, threads=SWEEP_THREADS,
+                                block_widths=SWEEP_WIDTHS, device=DEV)
+    tile_seconds = time.perf_counter() - t0
+    b3 = read_launches()["dense_matvec"]
+    accepted = [(t, w) for t in SWEEP_THREADS for w in SWEEP_WIDTHS
+                if autotune.feasible(DENSE_N_GRID ** 2, max(128, min(w, DENSE_N_GRID ** 2)),
+                                     torch.float32, mesh.device)]
+    t0 = time.perf_counter()
+    strong = sweeps.strong_scaling(SWEEP_STRONG, device=DEV)
+    weak = sweeps.weak_scaling(SWEEP_WEAK, device=DEV)
+    scaling_seconds = time.perf_counter() - t0
+    rec = {"phase": "sweeps", "world": mesh.size, "backend": dist.get_backend(mesh.group),
+           "kernel_rows": tiles, "strong_rows": strong, "weak_rows": weak,
+           "kernel_seconds": tile_seconds, "scaling_seconds": scaling_seconds,
+           "b3_launches": b3, "accepted": [list(c) for c in accepted]}
+    emit(rec)
+
+    def schema(rows, firsts):
+        parts = [r.split(",") for r in rows]
+        return [tuple(int(v) for v in p[:2]) for p in parts] == firsts and all(
+            len(p) == 3 and float(p[2]) > 0 for p in parts)
+
+    check(schema(tiles, accepted), f"sweeps: kernel rows {tiles} against {accepted}")
+    check(schema(strong, [(n, 1) for n in SWEEP_STRONG]), f"sweeps: strong rows {strong}")
+    check(schema(weak, [(n, 1) for n in SWEEP_WEAK]), f"sweeps: weak rows {weak}")
+    check(b3 >= 3 * len(accepted), f"sweeps: B3 launches {b3}")
+
+
+def phase_native(spec, tmp: Path) -> None:
+    """The native parser on the card's host: it must build (no silent
+    NumPy fallback). lap2d_fd(1000)'s lower COO written by mmwrite_native,
+    read back through COOMatrix.read (the native route above 1 MiB), its
+    arrays the NumPy parser's bit for bit; then solved through the
+    whole-solve kernel B5 (solve, fp32, use_pallas; the resident budget
+    raised to N = 1e6 where the crossover phase set it lower), with the
+    generator's operator's k and x bit for bit."""
+    check(native.native_available(), "native: the MatrixMarket parser did not build")
+    coo = lap2d_fd_coo_lower(NATIVE_GRID)
+    path = tmp / f"lap2d_fd_{NATIVE_GRID}.mtx"
+    t0 = time.perf_counter()
+    native.mmwrite_native(path, coo.shape, coo.rows, coo.cols, coo.values, symmetric=True)
+    write_s = time.perf_counter() - t0
+    calls = []
+    real_read = native.mmread_native
+    native.mmread_native = lambda p: (calls.append(p), real_read(p))[1]
+    try:
+        t0 = time.perf_counter()
+        read = COOMatrix.read(path)
+        native_s = time.perf_counter() - t0
+    finally:
+        native.mmread_native = real_read
+    t0 = time.perf_counter()
+    ref = mmio.mmread(path)
+    numpy_s = time.perf_counter() - t0
+    same = all(np.array_equal(getattr(read, f), getattr(ref, f)) and
+               getattr(read, f).dtype == getattr(ref, f).dtype for f in ("rows", "cols", "values"))
+    dia_file = DIAMatrix.from_coo(read)
+    dia_gen = lap2d_fd(NATIVE_GRID)
+    n, ndiag = dia_gen.shape[0], len(dia_gen.offsets)
+    b = source_term(n)
+    tol = 1e-5 * float(np.linalg.norm(b))
+    cfg = SolveConfig(precision="fp32", use_pallas=True, tolerance=tol)
+    state = cg_kernel.resident_state_bytes(ndiag, n, 4, 4, precond=False)
+    budget = config.RESIDENT_BUDGET_BYTES
+    config.RESIDENT_BUDGET_BYTES = max(budget, state)
+    try:
+        runs = {}
+        for name, dia in (("file", dia_file), ("generator", dia_gen)):
+            reset_launches()
+            res, k, seconds = timed(lambda: solve(dia, b, cfg, device=DEV))
+            runs[name] = (res, k, seconds, read_launches())
+    finally:
+        config.RESIDENT_BUDGET_BYTES = budget
+    (rf, kf, sf, lf), (rg, kg, _, _) = runs["file"], runs["generator"]
+    rec = {"phase": "native", "problem": f"lap2d_fd({NATIVE_GRID})", "n": n,
+           "file_bytes": os.path.getsize(path), "nnz": int(len(coo.values)),
+           "write_seconds": write_s, "native_read_seconds": native_s,
+           "numpy_read_seconds": numpy_s, "native_route": calls == [path],
+           "arrays_bitwise_numpy": same, "bands_equal_generator": bool(
+               np.array_equal(dia_file.bands, dia_gen.bands)
+               and tuple(dia_file.offsets) == tuple(dia_gen.offsets)),
+           "library": native.library_path().name, "tol": tol, "k": kf, "k_generator": kg,
+           "seconds": sf, "converged": bool(rf.converged), "x_bitwise": same_x(rf, rg),
+           "b5_launches": lf.get("dia_cg_vmem2d", 0), "budget_raised": state > budget}
+    emit(rec)
+    path.unlink()
+    check(rec["file_bytes"] > 1 << 20 and rec["native_route"],
+          f"native: COOMatrix.read took the native parser: {rec['native_route']}")
+    check(same and rec["bands_equal_generator"], "native: the arrays differ from NumPy's")
+    check(rec["converged"] and kf == kg and rec["x_bitwise"],
+          f"native: k={kf} vs the generator's {kg}, x bitwise {rec['x_bitwise']}")
+    check(rec["b5_launches"] > 0, f"native: B5 did not run: {lf}")
+
+
+def phase_grid_dia(spec) -> None:
+    """GridDiaOperator.from_host(lap2d_fd(3200)) in fp64: its mat-vec the
+    flat operator's bit for bit; cg_solve capped at 512 iterations with
+    the flat run's k and x within 1e-13 relative (the dots sum over the
+    grid in another order); from_host(lap2d_reference(10000)) refused."""
+    dia = lap2d_fd(GRID)
+    n = dia.shape[0]
+    t0 = time.perf_counter()
+    grid = GridDiaOperator.from_host(dia, device=DEV)
+    build_s = time.perf_counter() - t0
+    flat = as_operator(dia, device=DEV)
+    x = torch.as_tensor(np.random.default_rng(SEED).standard_normal(n), device=DEV)
+    matvec_bitwise = same_bits(grid.matvec(x), flat.matvec(x))
+    b = torch.as_tensor(source_term(n), device=DEV)
+    rg, kg, sg = timed(lambda: cg_solve(grid, b, maxiter=GRID_DIA_ITERS, device=DEV))
+    rf, kf, sfl = timed(lambda: cg_solve(flat, b, maxiter=GRID_DIA_ITERS, device=DEV))
+    rel = float((rg.x - rf.x).abs().max() / rf.x.abs().max())
+    try:
+        GridDiaOperator.from_host(lap2d_reference(10000), device=DEV)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    rec = {"phase": "grid_dia", "problem": f"lap2d_fd({GRID})", "n": n, "dtype": "float64",
+           "g": grid.g, "ndim": grid.ndim, "deltas": [list(d) for d in grid.deltas],
+           "build_seconds": build_s, "matvec_bitwise": matvec_bitwise, "k": kg, "k_flat": kf,
+           "x_rel_diff": rel, "x_bitwise": same_x(rg, rf), "seconds": sg, "flat_seconds": sfl,
+           "us_per_iter": sg / GRID_DIA_ITERS * 1e6, "flat_us_per_iter": sfl / GRID_DIA_ITERS * 1e6,
+           "reference_refused": refused}
+    emit(rec)
+    check(matvec_bitwise, "grid_dia: the grid mat-vec differs from the flat one")
+    check(kg == kf == GRID_DIA_ITERS and rel <= GRID_DIA_RTOL,
+          f"grid_dia: k={kg} vs {kf}, x off by {rel}")
+    check(refused is not None and "wrap" in refused,
+          f"grid_dia: lap2d_reference(10000) was not refused ({refused})")
+    del grid, flat, rg, rf
+
+
+def phase_checkpoint(spec, mesh, tmp: Path) -> None:
+    """cg_solve_resumable on lap2d_fd(3200), fp64, source_term, segments
+    of 512: uninterrupted to maxiter 1024; interrupted (to 512, then a
+    second call to 1024 on the same file), equal k and x bit for bit;
+    sharded_cg_solve_resumable on the one-rank NCCL mesh, resumed from the
+    single-device 512-iteration file, equal k and x within 1e-13 relative
+    (bitwise where the one rank's dots are the single device's). The
+    seconds of each segment (its device work and the copies of x, r and p
+    to the host) and of each checkpoint write (3 x 82 MB)."""
+    dia = lap2d_fd(GRID)
+    n = dia.shape[0]
+    op = as_operator(dia, device=DEV)
+    b = torch.as_tensor(source_term(n), device=DEV)
+    events = []
+    real_save = CGCheckpoint.save
+
+    def timed_save(self, path):
+        t0 = time.perf_counter()
+        real_save(self, path)
+        events.append((t0, time.perf_counter()))
+
+    def segments(fn) -> tuple:
+        """(result, segment seconds, write seconds) of one resumable call."""
+        events.clear()
+        sync()
+        t0 = time.perf_counter()
+        res = fn()
+        int(res.iterations)
+        seg, prev = [], t0
+        for start, stop in events:
+            seg.append(start - prev)
+            prev = stop
+        return res, seg, [stop - start for start, stop in events]
+
+    CGCheckpoint.save = timed_save
+    try:
+        straight, seg_a, write_a = segments(lambda: cg_solve_resumable(
+            op, b, tmp / "straight.npz", maxiter=CKPT_MAXITER, segment=CKPT_SEGMENT, device=DEV))
+        first, seg_b1, write_b1 = segments(lambda: cg_solve_resumable(
+            op, b, tmp / "cut.npz", maxiter=CKPT_SEGMENT, segment=CKPT_SEGMENT, device=DEV))
+        shutil.copy(tmp / "cut.npz", tmp / "for_mesh.npz")
+        resumed, seg_b2, write_b2 = segments(lambda: cg_solve_resumable(
+            op, b, tmp / "cut.npz", maxiter=CKPT_MAXITER, segment=CKPT_SEGMENT, device=DEV))
+        sharded, seg_c, write_c = segments(lambda: sharded_cg_solve_resumable(
+            dia, source_term(n), tmp / "for_mesh.npz", mesh=mesh, maxiter=CKPT_MAXITER,
+            segment=CKPT_SEGMENT))
+    finally:
+        CGCheckpoint.save = real_save
+    ck = CGCheckpoint.load(tmp / "for_mesh.npz")
+    rel = float((sharded.x - straight.x).abs().max() / straight.x.abs().max())
+    k = int(straight.iterations)
+    rec = {"phase": "checkpoint", "problem": f"lap2d_fd({GRID})", "n": n, "dtype": "float64",
+           "segment": CKPT_SEGMENT, "maxiter": CKPT_MAXITER, "k": k,
+           "k_first": int(first.iterations), "k_resumed": int(resumed.iterations),
+           "k_sharded": int(sharded.iterations), "resumed_bitwise": same_x(resumed, straight),
+           "sharded_rel_diff": rel, "sharded_bitwise": same_x(sharded, straight),
+           "mesh_checkpoint_k": ck.k, "write_bytes": 3 * n * 8,
+           "segment_seconds": {"uninterrupted": seg_a, "first": seg_b1, "resumed": seg_b2,
+                               "sharded": seg_c},
+           "write_seconds": {"uninterrupted": write_a, "first": write_b1, "resumed": write_b2,
+                             "sharded": write_c},
+           "world": mesh.size, "backend": dist.get_backend(mesh.group)}
+    emit(rec)
+    for f in tmp.glob("*.npz"):
+        f.unlink()
+    check(k == CKPT_MAXITER and int(first.iterations) == CKPT_SEGMENT and ck.k == CKPT_MAXITER,
+          f"checkpoint: k {k}, first {int(first.iterations)}, the mesh's file {ck.k}")
+    check(int(resumed.iterations) == k and rec["resumed_bitwise"],
+          f"checkpoint: the resumed solve left the uninterrupted one (k {int(resumed.iterations)})")
+    check(int(sharded.iterations) == k and rel <= CKPT_RTOL,
+          f"checkpoint: the mesh's resume k {int(sharded.iterations)}, x off by {rel}")
+    check(len(seg_a) == 2 and len(seg_b1) == len(seg_b2) == len(seg_c) == 1,
+          f"checkpoint: segments {rec['segment_seconds']}")
+    del op, b, straight, first, resumed, sharded
+
+
 def main() -> int:
     spec = phase_device()
     phase_build()
@@ -5498,7 +5991,8 @@ def run_phases(spec, replay_tmp: Path, replay: subprocess.Popen) -> int:
                      if name in ("stream_iteration", "stream_iteration_stacked")})
     launches["stream_iteration_pcg"] = phase_stream_pcg(spec)["stream_iteration_pcg"]
     phase_stream_goldens()
-    records.update(phase_dense_kernels(spec))
+    dense_records, b3_fp32_ms = phase_dense_kernels(spec)
+    records.update(dense_records)
     with tempfile.TemporaryDirectory() as tmp:
         launches.update({name: n for name, n in phase_cli_reference(spec, Path(tmp)).items()
                          if name.startswith("dense_")})
@@ -5564,6 +6058,20 @@ def run_phases(spec, replay_tmp: Path, replay: subprocess.Popen) -> int:
     phase_cli_methods(spec, replay_tmp, replay)
     phase_block_main(spec, mg)
     phase_multi_rhs_paths()
+    # ROADMAP A13, A15 and the A2/A3 leftovers: the last modules of cgx
+    phase_slope(spec, b3_fp32_ms)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_autotune(spec, Path(tmp))
+    with tempfile.TemporaryDirectory() as probe_tmp:
+        trace_run = start_trace_probe(Path(probe_tmp))  # beside the phases after the timed ones
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_native(spec, Path(tmp))
+        phase_grid_dia(spec)
+        sync()
+        with nccl_mesh() as mesh, tempfile.TemporaryDirectory() as tmp:
+            phase_checkpoint(spec, mesh, Path(tmp))
+            phase_sweeps(spec, mesh)
+        phase_records_timer(spec, Path(probe_tmp), trace_run)
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         rec = records[name]

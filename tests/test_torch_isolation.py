@@ -1,6 +1,7 @@
 """cgx_torch stands alone: it imports neither JAX nor cgx, builds no
 kernel at import, and runs its solver loops at full float32."""
 
+import inspect
 import pathlib
 import re
 import subprocess
@@ -45,7 +46,12 @@ def test_import_pulls_in_neither_jax_nor_cgx():
                                     "cgx_torch.mats.device", "cgx_torch.solver.gvpipe",
                                     "cgx_torch.solver.batched", "cgx_torch.solver.blockcg",
                                     "cgx_torch.solver.deflated", "cgx_torch.solver.autodiff",
-                                    "cgx_torch.solver.api"])
+                                    "cgx_torch.solver.api", "cgx_torch.utils.checkpoint",
+                                    "cgx_torch.utils.records", "cgx_torch.utils.timer",
+                                    "cgx_torch.bench", "cgx_torch.bench.slope",
+                                    "cgx_torch.bench.autotune", "cgx_torch.bench.sweeps",
+                                    "cgx_torch.bench.tenancy", "cgx_torch.bench.analysis",
+                                    "cgx_torch.bench.report", "cgx_torch.io.native"])
 def test_module_import_pulls_in_neither_jax_nor_cgx_nor_a_build(module):
     code = (f"import {module}, sys, cgx_torch; "
             "assert 'jax' not in sys.modules and 'cgx' not in sys.modules, "
@@ -54,6 +60,77 @@ def test_module_import_pulls_in_neither_jax_nor_cgx_nor_a_build(module):
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+# cgx's public names with no counterpart in the port, each JAX- or TPU-only
+NOT_PORTED = {
+    "cgx.config.enable_x64": "JAX's x64 switch; torch has float64 without one",
+    "cgx.config.default_dtype": "the float JAX's x64 switch allows",
+    "cgx.config.VMEM_BUDGET_BYTES": "the TPU's VMEM budget (the port's: RESIDENT_BUDGET_BYTES)",
+    "cgx.ops._util.no_x64_trace": "a JAX trace without x64",
+    "cgx.ops._util.LANES": "the TPU's lane width",
+    "cgx.ops._util.sublanes": "the TPU's sublane tiling of a dtype",
+    "cgx.ops._util.flat_shift": "a lane-roll of the TPU's (rows, lanes) layout",
+    "cgx.ops._util.plane_shifts": "lane-roll shifts of the TPU's plane layout",
+    "cgx.ops._util.plane_matvec": "the banded product on the TPU's plane layout",
+    "cgx.ops.cg_kernel.LANES": "the TPU's lane width",
+    "cgx.ops.cg_kernel.VMEM_BUDGET_BYTES": "the TPU's VMEM budget",
+    "cgx.ops.cg_kernel.vmem2d_scoped_bytes": "the TPU kernel's scoped VMEM (the port's: "
+                                             "resident_state_bytes)",
+    "cgx.solver.api.VMEM_BUDGET_BYTES": "the TPU's VMEM budget",
+    "cgx.bench.sweeps.VMEM_BUDGET_BYTES": "the TPU's VMEM budget (the port asks dense_plan)",
+    "cgx.solver.operators.banded_matvec": "DiaOperator.matvec here (ops.dia_spmv.dia_matvec_ref)",
+    "cgx.solver.operators.banded_matvec_blocked": "blocks sized for the TPU's VMEM",
+    "cgx.parallel.mesh.row_sharding": "a JAX NamedSharding helper",
+    "cgx.parallel.mesh.col_sharding": "a JAX NamedSharding helper",
+    "cgx.parallel.mesh.band_sharding": "a JAX NamedSharding helper",
+    "cgx.parallel.mesh.replicated": "a JAX NamedSharding helper",
+    "cgx.utils.collectives.collective_signature": "walks a traced jaxpr (the port records "
+                                                  "what ran: capture)",
+    "cgx.utils.collectives.reduction_feeds_collective": "walks a traced jaxpr",
+    "cgx.utils.collectives.collective_critical_depth": "walks a traced jaxpr",
+    "cgx.utils.collectives.run_recorded": "records a jitted program and its arguments",
+    "cgx.utils.collectives.REDUCTIONS": "jaxpr primitive names",
+    "cgx.utils.collectives.OTHER_COLLECTIVES": "jaxpr primitive names",
+    "cgx.utils.collectives.COLLECTIVES": "jaxpr primitive names",
+}
+
+
+def _public_names(mod) -> list:
+    """The functions and classes a module defines, and its upper-case
+    constants (not classes, functions or modules it imports)."""
+    out = []
+    for name, obj in vars(mod).items():
+        if name.startswith("_"):
+            continue
+        if inspect.isfunction(obj) or inspect.isclass(obj):
+            if getattr(obj, "__module__", None) == mod.__name__:
+                out.append(name)
+        elif name.isupper() and not inspect.ismodule(obj):
+            out.append(name)
+    return out
+
+
+def test_every_public_name_of_cgx_has_a_counterpart():
+    """Module for module and name for name, cgx_torch has what cgx has,
+    but for NOT_PORTED's JAX- and TPU-only helpers."""
+    import importlib
+
+    missing, exempt_used = [], set()
+    for f in sorted((ROOT / "cgx").rglob("*.py")):
+        parts = list(f.relative_to(ROOT / "cgx").with_suffix("").parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        mod = importlib.import_module(".".join(["cgx", *parts]))
+        port = importlib.import_module(".".join(["cgx_torch", *parts]))
+        for name in _public_names(mod):
+            key = f"{mod.__name__}.{name}"
+            if key in NOT_PORTED:
+                exempt_used.add(key)
+            elif not hasattr(port, name):
+                missing.append(key)
+    assert not missing, missing
+    assert exempt_used == set(NOT_PORTED), set(NOT_PORTED) - exempt_used
 
 
 def test_sources_import_neither_jax_nor_cgx():
