@@ -90,6 +90,6 @@ from cgx_torch.utils.checkpoint import (
     sharded_cg_solve_resumable,
 )
 from cgx_torch.utils.records import SolveRecord
-from cgx_torch.utils.timer import PhaseTimer, trace
+from cgx_torch.utils.timer import PhaseTimer, clear_solve_records, solve_records, trace
 
 __version__ = "0.1.0"

@@ -57,6 +57,7 @@ from cgx_torch.ops._util import (
 )
 from cgx_torch.ops.dia_spmv import _check, _offsets_arg, dia_matvec, dia_matvec_ref
 from cgx_torch.solver.cg import CGResult, as_vector
+from cgx_torch.utils import timer
 
 LAYOUTS = ("1d", "2d")
 SITES = {"1d": "dia_cg_vmem", "2d": "dia_cg_vmem2d"}  # the cgx site each layout stands for
@@ -360,12 +361,16 @@ def _solve(bands, b, *, offsets, tol, nearzero, maxiter, chunk, precond, layout,
     pre_conv = (torch.sqrt(rr0) < tol) | (rr0 == 0)
     zero = torch.zeros((), dtype=torch.float64, device=b.device)
     scal = torch.stack([rsold0, pre_conv.to(torch.float64), zero, zero])
-    _, converged, k, _ = scal.tolist()  # the one host read per chunk
-    while converged == 0.0 and k < maxiter:
-        scal = dia_cg_chunk(bands, p, x, r, scal, offsets=offsets, tol=tol, nearzero=nearzero,
-                            maxiter=maxiter, chunk=chunk, precond=precond, layout=layout,
-                            plan=plan)
-        _, converged, k, _ = scal.tolist()
+    with timer.read():
+        _, converged, k, _ = scal.tolist()  # the one host read per chunk
+    with timer.loop():
+        while converged == 0.0 and k < maxiter:
+            with timer.enqueue(dia_cg_chunk):
+                scal = dia_cg_chunk(bands, p, x, r, scal, offsets=offsets, tol=tol,
+                                    nearzero=nearzero, maxiter=maxiter, chunk=chunk,
+                                    precond=precond, layout=layout, plan=plan)
+            with timer.read():
+                _, converged, k, _ = scal.tolist()
     return CGResult(
         x=x,
         iterations=scal[2].to(torch.int32),

@@ -75,6 +75,7 @@ from cgx_torch.ops._util import (
 from cgx_torch.ops.dia_spmv import _check as _check_bands
 from cgx_torch.ops.dia_spmv import _offsets_arg, dia_matvec_ref
 from cgx_torch.solver.cg import _CHUNK, CGResult, as_vector
+from cgx_torch.utils import timer
 
 LANES = 128  # cgx's TPU lane count: cols must stay a multiple of it
 LAYOUTS = ("split", "stacked")
@@ -353,9 +354,9 @@ def _iteration_ref(bands, p, x, u, r, w, s, scal, *, offsets, tol, nearzero, max
 
 
 def _count(fn, bands, x, launches: int = 1) -> None:
-    """Count the kernel launches one call stands for: one, or the PCG
-    plan's one or three (csrc/cg_stream.cu), in ``fn.launches`` and by
-    build in ``BUILD_LAUNCHES``."""
+    """Count ``launches`` kernel launches of site ``fn`` (a call stands
+    for one, or the PCG plan's one or three, csrc/cg_stream.cu), in
+    ``fn.launches`` and by build in ``BUILD_LAUNCHES``."""
     fn.launches += launches
     count_build(fn.__name__.removeprefix("_"), x.dtype, bands.dtype, launches)
     fn.bands_dtype = bands.dtype
@@ -364,11 +365,13 @@ def _count(fn, bands, x, launches: int = 1) -> None:
 def _launcher(fn, bands, p, x, u, r, w, s, scal, offsets, tol, nearzero, maxiter, work,
               plan=None):
     """A call that launches the kernel for site ``fn`` on these operands
-    (already checked) and counts it. Its C arguments are built once, so a
-    host loop on buffers that stay put pays only the call; it runs on
-    the stream that was current here, with x's device current. It runs
-    ``plan``: by default :func:`pcg_plan`'s for the PCG, else
-    :func:`stream_plan`'s."""
+    (already checked). Its C arguments are built once, so a host loop on
+    buffers that stay put pays only the call; it runs on the stream that
+    was current here, with x's device current. It runs ``plan``: by
+    default :func:`pcg_plan`'s for the PCG, else :func:`stream_plan`'s.
+    The call counts nothing: ``go.count(calls)`` records ``calls`` calls
+    made since the last count (the site's grid, design and plan, and its
+    launches in ``fn.launches`` and ``BUILD_LAUNCHES``)."""
     from cgx_torch import _build
 
     n = x.shape[0]
@@ -416,10 +419,13 @@ def _launcher(fn, bands, p, x, u, r, w, s, scal, offsets, tol, nearzero, maxiter
         rc = entry(*args)
         if rc != 0:
             raise RuntimeError(f"{entry.__name__}: the CUDA launch failed with cudaError {rc}")
+
+    def count(calls: int) -> None:
         fn.grid = grid.value
         fn.design, fn.plan = plan.design, plan
-        _count(fn, bands, x, launches)
+        _count(fn, bands, x, calls * launches)
 
+    go.count = count
     # the tensors whose addresses args holds live as long as the call
     go.operands = (bands, p, x, u, c, r, w, s, scal, work)
     return go
@@ -429,8 +435,10 @@ def _launch(fn, bands, p, x, u, r, w, s, scal, offsets, tol, nearzero, maxiter, 
             plan=None) -> None:
     """One launch of the kernel on the given halves of the pairs."""
     with torch.cuda.device(x.device):
-        _launcher(fn, bands, p, x, u, r, w, s, scal, offsets, tol, nearzero, maxiter, work,
-                  plan)()
+        go = _launcher(fn, bands, p, x, u, r, w, s, scal, offsets, tol, nearzero, maxiter, work,
+                       plan)
+        go()
+        go.count(1)
 
 
 def _stream_iteration(bands, p, x, r, w, s, scal, *, offsets: Sequence[int], tol: float,
@@ -571,30 +579,39 @@ def _run(bands, st: StreamState, *, offsets, tol: float, nearzero: float,
          maxiter: int) -> CGResult:
     """Chain iterations until stop or maxiter, reading the scalars once per
     ``_CHUNK`` iterations; those past the stop are frozen. On a card the
-    operands are checked once and each launch reuses its C arguments
-    (:func:`_launcher`): the host's cost of a launch bounds an iteration
-    at small N."""
+    operands are checked once, each launch reuses its C arguments
+    (:func:`_launcher`) and the launches are counted once a chunk: the
+    host's cost of a launch bounds an iteration at small N."""
     scal = st.scal
     kw = dict(offsets=offsets, tol=tol, nearzero=nearzero, maxiter=maxiter)
+    site = (_stream_iteration_pcg if st.u is not None
+            else _stream_iteration_stacked if st.rws is not None else _stream_iteration)
     if st.x.device.type == "cpu":
-        def go():
-            step(bands, st, **kw)
+        def launch(calls: int) -> None:
+            for _ in range(calls):
+                step(bands, st, **kw)  # each call counts itself
         device = contextlib.nullcontext()
     else:
-        site = (_stream_iteration_pcg if st.u is not None
-                else _stream_iteration_stacked if st.rws is not None else _stream_iteration)
         _check(site.__name__, bands, st.p, st.x, st.u, {"r": st.r, "w": st.w, "s": st.s}, scal,
                offsets)
         device = torch.cuda.device(st.x.device)
         with device:
             go = _launcher(site, bands, st.p, st.x, st.u, st.r, st.w, st.s, scal,
                            work=workspace(st.x.device, st.x.shape[0]), **kw)
-    with device:
-        stop, k = scal[[STOP, K]].tolist()
-        while stop == 0.0 and k < maxiter:
-            for _ in range(min(_CHUNK, maxiter - int(k))):
+
+        def launch(calls: int) -> None:
+            for _ in range(calls):
                 go()
+            go.count(calls)
+    with device:
+        with timer.read():
             stop, k = scal[[STOP, K]].tolist()
+        with timer.loop():
+            while stop == 0.0 and k < maxiter:
+                with timer.enqueue(site):
+                    launch(min(_CHUNK, maxiter - int(k)))
+                with timer.read():
+                    stop, k = scal[[STOP, K]].tolist()
     res = torch.sqrt(scal[RR])
     return CGResult(
         x=st.x,
@@ -702,6 +719,7 @@ def _resolve_bands_dtype(op, dtype, bands_dtype):
         if dtype != torch.float32:
             return None
         exact = bool(torch.equal(op.bands.to(torch.bfloat16).to(dtype), op.bands))
+        timer.host_reads()
         return torch.bfloat16 if exact else None
     return band_storage(dtype, bands_dtype)
 
@@ -743,6 +761,7 @@ def dia_cg_solve_stream(
     _check_pad_stride(offsets, int(cols), op.bands, pad_stride)
     n = b.shape[0]
     down, up = (float(v) for v in pow2_rhs_scale(b))
+    timer.host_reads(2)
     res = _dia_cg_stream(op.bands, b * down, float(tol) * down,
                          float(torch.tensor(nearzero, dtype=b.dtype)), offsets=offsets,
                          maxiter=n if maxiter is None else int(maxiter), layout=layout,

@@ -93,6 +93,7 @@ from cgx_torch.solver.pipelined import pipelined_cg_solve
 from cgx_torch.solver.precond import block_jacobi, chebyshev_poly, jacobi, neumann_banded
 from cgx_torch.solver.refine import iterative_refinement, refine_fixed_sweeps, refine_pcg_sweeps_tw
 from cgx_torch.solver.sstep import sstep_cg_solve
+from cgx_torch.utils import timer
 
 _DTYPES = {"fp64": torch.float64, "fp32": torch.float32, "bf16": torch.bfloat16}
 _MULTI_RHS_PRECISIONS = ("fp64", "fp32")
@@ -542,7 +543,17 @@ def solve(
     ``ELLMatrix``, ``CSRMatrix``, ``COOMatrix``), a scipy.sparse matrix,
     an ndarray, a 2-D tensor or a port operator; tensors must already be
     on ``device``. ``n_devices > 1`` or a ``mesh`` takes the sharded
-    route (:func:`_solve_sharded`), on every rank of the mesh."""
+    route (:func:`_solve_sharded`), on every rank of the mesh.
+
+    While a ``torch.profiler`` collects, the call keeps a record of its
+    route, spans and counters (:mod:`cgx_torch.utils.timer`)."""
+    with timer.recording(b, device):
+        return _solve(mat, b, config, n_devices=n_devices, mesh=mesh, strategy=strategy,
+                      method=method, x0=x0, device=device)
+
+
+def _solve(mat, b, config, *, n_devices, mesh, strategy, method, x0, device) -> CGResult:
+    """:func:`solve`'s routing; names each route to the solve's record."""
     cfg = config or SolveConfig()
     method = cfg.method if method is None else method
     dev = resolve_device(device)
@@ -552,19 +563,24 @@ def solve(
     sharded = (n_devices is not None and n_devices > 1) or mesh is not None
     if np.ndim(b) == 2:
         if cfg.multi_rhs == "batched":
+            timer.route("batched")
             return _solve_batched_rhs(mat, b, cfg, method, dev, x0, sharded=sharded,
                                       n_devices=n_devices, mesh=mesh)
         if cfg.multi_rhs != "block":
             raise ValueError(f"unknown multi_rhs {cfg.multi_rhs!r}")
+        timer.route("block")
         return _solve_block(mat, b, cfg, method, dev, x0, sharded=sharded, n_devices=n_devices,
                             mesh=mesh, strategy=strategy)
     if cfg.precision == "tw":
+        timer.route("tw")
         return _solve_tw(mat, b, cfg, method, dev, sharded=sharded, n_devices=n_devices,
                          mesh=mesh)
     if sharded:
+        timer.route("sharded")
         return _solve_sharded(mat, b, cfg, method, dev, n_devices=n_devices, mesh=mesh,
                               strategy=strategy, x0=x0)
     if cfg.precision == "mixed":
+        timer.route("mixed")
         return _solve_mixed(mat, b, cfg, method, dev)
     if cfg.precision not in _DTYPES:
         raise ValueError(f"unknown precision {cfg.precision!r}")
@@ -581,15 +597,18 @@ def solve(
     if method == "chebyshev":  # cgx api.py:280-288
         if cfg.precond is not None:
             raise ValueError("chebyshev_solve does not take a preconditioner")
+        timer.route("chebyshev")
         return chebyshev_solve(op, b_dev, x0, tol=cfg.tolerance, maxiter=maxiter,
                                check_every=cfg.check_every, device=dev)
     if method == "gvpipe":  # cgx api.py:310-318
+        timer.route("gvpipe")
         return gv_cg_solve(
             op, b_dev, x0, tol=cfg.tolerance, maxiter=maxiter, nearzero=cfg.nearzero,
             history=cfg.history, dot_precision=dot_precision,
             precond=_build_precond(cfg, op), replace_every=cfg.gv_replace_every, device=dev,
         )
     if method == "pipelined":  # cgx api.py:302-309
+        timer.route("pipelined")
         return pipelined_cg_solve(
             op, b_dev, x0, tol=cfg.tolerance, maxiter=maxiter, nearzero=cfg.nearzero,
             history=cfg.history, dot_precision=dot_precision,
@@ -599,6 +618,7 @@ def solve(
     if method == "sstep":  # cgx api.py:289-301
         if cfg.precond is not None:
             raise ValueError("sstep_cg_solve does not take a preconditioner")
+        timer.route("sstep")
         return sstep_cg_solve(
             op, b_dev, x0, tol=cfg.tolerance, maxiter=maxiter, nearzero=cfg.nearzero,
             s=cfg.sstep_s, basis=cfg.sstep_basis, replace_every=cfg.sstep_replace_every,
@@ -612,6 +632,7 @@ def solve(
                                      b_dev.element_size(), precond=neumann)
         if state <= settings.RESIDENT_BUDGET_BYTES:
             # whole-solve kernel; its in-kernel PCG is neumann_banded(sweeps=2)
+            timer.route("resident", spans=True)
             return dia_cg_solve_vmem(
                 op, b_dev, tol=cfg.tolerance, maxiter=maxiter, nearzero=cfg.nearzero,
                 precond=neumann, layout="2d", device=dev,
@@ -620,12 +641,15 @@ def solve(
         common = dict(tol=cfg.tolerance, maxiter=maxiter, nearzero=cfg.nearzero, device=dev)
         if cfg.large_banded == "stream" and not neumann:
             # bf16 band planes when, and only when, the round trip is exact
+            timer.route("stream", spans=True)
             return dia_cg_solve_stream(op, b_dev, bands_dtype="auto", **common)
         if cfg.large_banded == "stream":
             # the kernel's in-launch PCG is neumann_banded(sweeps=2)
+            timer.route("stream_pcg", spans=True)
             return dia_cg_solve_stream_pcg(op, b_dev, **common)
         if cfg.large_banded != "xla":
             raise ValueError(f"unknown large_banded {cfg.large_banded!r}")
+    timer.route("reference")
     return cg_solve(
         op, b_dev, x0,
         tol=cfg.tolerance, maxiter=maxiter, nearzero=cfg.nearzero, history=cfg.history,

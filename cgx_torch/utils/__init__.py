@@ -8,4 +8,4 @@ from cgx_torch.utils.checkpoint import (
     sharded_cg_solve_resumable,
 )
 from cgx_torch.utils.records import SolveRecord
-from cgx_torch.utils.timer import PhaseTimer, trace
+from cgx_torch.utils.timer import PhaseTimer, clear_solve_records, solve_records, trace
